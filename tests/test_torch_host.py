@@ -102,7 +102,7 @@ def test_jacobi_and_group_marshalling_match():
                           T_native.jacobi_batch(raw, pb))
     # the marshalled group enters the Fiat–Shamir global prefix
     assert j_hex(JG.named("test256"), "ModPGroup") == t_hex(
-        TG.named("test256"), "ModPGroup")
+        TG.named("test256", device="cpu"), "ModPGroup")
 
 
 def test_port_imports_neither_jax_nor_vmn_tpu():

@@ -41,7 +41,7 @@ def jx():
 def ctxs(jx):
     from vmn_tpu.arith.mont import MontCtx as JCtx
 
-    return JCtx(TEST256_P), TCtx(TEST256_P)
+    return JCtx(TEST256_P), TCtx(TEST256_P, device="cpu")
 
 
 def _mont(jc, tc, xs):
@@ -122,7 +122,7 @@ def test_interop_round_trips(ctxs):
     from vmn_tpu.arith.pgroup import ModPGroup as JG
     from vmn_tpu_torch.arith.pgroup import ModPGroup as TG, PPGroup
 
-    jg, tg = JG.named("test256"), TG.named("test256")
+    jg, tg = JG.named("test256"), TG.named("test256", device="cpu")
     rng = np.random.default_rng(12)
     xs = rand_ints(rng, 6, tg.p)
     j_elems = jg.from_ints(xs)

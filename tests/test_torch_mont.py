@@ -22,7 +22,7 @@ WIDTHS = ["test256", "modp2048"]
 @pytest.fixture(scope="module", params=WIDTHS)
 def ctxs(request):
     m = modulus(request.param)
-    return JCtx(m), TCtx(m)
+    return JCtx(m), TCtx(m, device="cpu")
 
 
 def _inputs(jc, tc, seed, n=12):

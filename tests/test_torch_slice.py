@@ -27,7 +27,7 @@ N = 5
 
 def _params():
     return ProtocolParams(sid="Golden", k=1, threshold=1,
-                          pgroup=ModPGroup.named("test256"))
+                          pgroup=ModPGroup.named("test256", device="cpu"))
 
 
 def _files(root: Path):

@@ -52,6 +52,35 @@ def as_np(t) -> np.ndarray:
     return np.asarray(t).astype(np.uint32)
 
 
+def host_ec_add(p: int, a: int, P, Q):
+    """Affine point addition on y^2 = x^3 + ax + b over Python ints;
+    None is the point at infinity."""
+    if P is None:
+        return Q
+    if Q is None:
+        return P
+    (x1, y1), (x2, y2) = P, Q
+    if x1 == x2 and (y1 + y2) % p == 0:
+        return None
+    if P == Q:
+        lam = (3 * x1 * x1 + a) * pow(2 * y1, -1, p) % p
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, p) % p
+    x3 = (lam * lam - x1 - x2) % p
+    return x3, (lam * (x1 - x3) - y1) % p
+
+
+def host_ec_mul(p: int, a: int, P, k: int):
+    """k·P by double-and-add over Python ints."""
+    acc, add = None, P
+    while k:
+        if k & 1:
+            acc = host_ec_add(p, a, acc, add)
+        add = host_ec_add(p, a, add, add)
+        k >>= 1
+    return acc
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test where there is none."""

@@ -1,8 +1,9 @@
 """Batched Montgomery arithmetic over multi-limb integers (port of
 `vmn_tpu.arith.mont`).
 
-`MontCtx(m, device)` holds the constants of one odd modulus on a device;
-every array handed to it lies on that device.  Elements are ``(..., L)``
+`MontCtx(m, device)` holds the constants of one odd modulus on a device
+(the card unless the caller asks for ``device="cpu"``); every array
+handed to it lies on that device.  Elements are ``(..., L)``
 int32 tensors of 16-bit limbs (arith/limbs.py).  Every Montgomery product
 goes through the `mont_mul` wrapper of `ops.mont_kernels`, and powers
 through its `mont_exp`, `mont_fb_exp` and `mont_expprod` wrappers: on a
@@ -63,7 +64,7 @@ class MontCtx:
     Group elements are kept in Montgomery form by the group layer;
     field/ring elements in standard form (they are exponents)."""
 
-    def __init__(self, m: int, device="cpu"):
+    def __init__(self, m: int, device="cuda"):
         if m <= 0 or m % 2 == 0:
             raise ValueError("modulus must be positive and odd")
         self.m = m

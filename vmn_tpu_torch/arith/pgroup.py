@@ -9,8 +9,8 @@
   (the El Gamal ciphertext is ``PPArray((u, v))``).
 
 The device is explicit: `ModPGroup.named(name, device=...)` builds the
-group's Montgomery constants on that device, and every array of the
-group lives there.  Byte-tree encodings follow `vmn_tpu` (fixed-size
+group's Montgomery constants on that device — the card unless the caller
+asks for ``device="cpu"`` — and every array of the group lives there.  Byte-tree encodings follow `vmn_tpu` (fixed-size
 unsigned big-endian leaves of ``p.bit_length()//8 + 1`` bytes).
 """
 
@@ -82,12 +82,16 @@ class deferred_membership:
         return False
 
 
-def _range_check_be(raw: np.ndarray, p: int, bytelen: int) -> bool:
-    """Vectorized check that every (bytelen,)-row satisfies 0 < x < p."""
+def _range_check_be(raw: np.ndarray, p: int, bytelen: int,
+                    allow_zero: bool = False) -> bool:
+    """Vectorized check that every (bytelen,)-row satisfies 0 < x < p
+    (0 <= x < p with allow_zero, for EC coordinates)."""
     pb = np.frombuffer(p.to_bytes(bytelen, "big"), np.uint8)
     diff = raw.astype(np.int16) - pb.astype(np.int16)
     first_nz = (diff != 0).argmax(axis=1)
     lt = diff[np.arange(raw.shape[0]), first_nz] < 0
+    if allow_zero:
+        return bool(lt.all())
     return bool((lt & raw.any(axis=1)).all())
 
 
@@ -164,7 +168,7 @@ class Permutation:
 class PField:
     """Prime field Z_q — the ring of exponents of a prime-order group."""
 
-    def __init__(self, q: int, device="cpu"):
+    def __init__(self, q: int, device="cuda"):
         self.q = q
         self.ctx = MontCtx(q, device)
         self.device = self.ctx.device
@@ -402,7 +406,7 @@ class ModPGroup:
     _QR_BITS = 400
 
     def __init__(self, p: int, q: int, g: int, encoding: int = 1,
-                 device="cpu"):
+                 device="cuda"):
         if (p - 1) % q != 0:
             raise ValueError("q must divide p-1")
         self.p = p
@@ -422,7 +426,7 @@ class ModPGroup:
     _NAMED = {}
 
     @classmethod
-    def named(cls, name: str, device="cpu") -> "ModPGroup":
+    def named(cls, name: str, device="cuda") -> "ModPGroup":
         key = (name, str(torch.device(device)))
         grp = cls._NAMED.get(key)
         if grp is None:
@@ -560,7 +564,7 @@ class ModPGroup:
         )
 
     @classmethod
-    def from_bytetree(cls, bt: ByteTree, device="cpu") -> "ModPGroup":
+    def from_bytetree(cls, bt: ByteTree, device="cuda") -> "ModPGroup":
         p = bt[0].to_int_signed()
         q = bt[1].to_int_signed()
         enc = bt[3].to_u32()

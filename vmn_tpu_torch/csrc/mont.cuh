@@ -34,7 +34,10 @@ __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a,
   uint32_t t[W + 2];
 #pragma unroll
   for (int j = 0; j < W + 2; ++j) t[j] = 0;
-#pragma unroll 1
+  // Unrolled at the curve widths, so that an operand held in registers
+  // (the EC kernels' coordinates) is never indexed by a loop variable
+  // and stays out of local memory; a rolled loop at the ModP widths.
+#pragma unroll (W <= 16 ? W : 1)
   for (int i = 0; i < W; ++i) {
     const uint64_t ai = a[i];
     uint64_t c = 0;

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vmn_tpu_torch.arith.ec import ECArray, ECqPGroup
 from vmn_tpu_torch.arith.mont import device_limbs
 from vmn_tpu_torch.arith.pgroup import (
     FArray, GArray, ModPGroup, PField, PPArray, PPGroup,
@@ -42,6 +43,14 @@ def garray_from_numpy(group: ModPGroup, limbs, mont: bool = True) -> GArray:
 def farray_from_numpy(ring: PField, limbs) -> FArray:
     """Field elements from `vmn_tpu` standard-form limbs."""
     return FArray(ring, limbs_from_numpy(limbs, ring.device))
+
+
+def ecarray_from_numpy(group: ECqPGroup, x, y, inf) -> ECArray:
+    """EC points from `vmn_tpu.arith.ec.ECArray`'s fields: Montgomery-form
+    coordinate limbs `x`, `y` and the bool infinity mask `inf`."""
+    inf = torch.from_numpy(np.asarray(inf, dtype=bool).copy())
+    return ECArray(group, limbs_from_numpy(x, group.device),
+                   limbs_from_numpy(y, group.device), inf.to(group.device))
 
 
 def pparray_from_numpy(parent: PPGroup, components, mont: bool = True

@@ -1,8 +1,9 @@
 """Batched Montgomery kernels: Hopper CUDA wrappers and plain PyTorch
 versions (port of `vmn_tpu.ops.mont_kernels`).
 
-Every group operation of the mix reduces to these five functions.  Each
-has three parts here:
+Every operation of a ModP group, and the field products and powers of an
+EC group, reduce to these five functions (point arithmetic is
+ops/ec_kernels.py).  Each has three parts here:
 
 * the wrapper (`mont_mul`, `mont_exp`, `mont_fb_exp`,
   `mont_expprod_positions`, plus `mont_expprod` on top of them).  A CPU
@@ -121,12 +122,16 @@ class Modulus:
 
 
 # ------------------------------------------------------ plain helpers
-# int64 limb arithmetic.  "Lazy" limbs are non-negative and below 2^47;
+# int64 limb arithmetic.  "Lazy" limbs are non-negative and below 2^63;
 # `_resolve` turns them into canonical 16-bit limbs: split passes (carry
-# the high part one limb up) until every limb is <= 2^16, then the
-# remaining 0/1 carries in one scan: the carry into limb k is the
+# the high part one limb up) until every limb is at most 2^16 + 2, then
+# the remaining 0/1 carries in one scan: the carry into limb k is the
 # generate bit of the nearest limb below k that does not propagate
-# (limb != 0xFFFF), found with a running maximum of indices.
+# (limb != 0xFFFF), found with a running maximum of indices.  Where a
+# result is reduced mod m, the value and the value minus m (offset by a
+# power of the radix) are resolved in one stacked call and the carry out
+# picks between them; these plain versions run on small batches, where
+# each torch call costs about the same whatever its size.
 
 
 def _shift_up(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -136,14 +141,15 @@ def _shift_up(x: torch.Tensor, d: int) -> torch.Tensor:
 
 def _resolve(t: torch.Tensor, width: int, passes: int = 3) -> torch.Tensor:
     """Lazy limbs -> canonical limbs of the value mod 2^(16·width).
-    Three split passes cover limbs < 2^47; one covers limbs <= 2^17."""
+    One split pass covers limbs < 2^17 + 2^16, three limbs < 2^40 and
+    four limbs < 2^63."""
     if t.shape[-1] < width:
         t = torch.constant_pad_nd(t, (0, width - t.shape[-1]))
     elif t.shape[-1] > width:
         t = t[..., :width]
     for _ in range(passes):
         t = (t & LIMB_MASK) + _shift_up(t >> LIMB_BITS, 1)
-    pos = torch.arange(width, device=t.device).expand(t.shape)
+    pos = torch.arange(width, device=t.device)
     stop = torch.where(t == LIMB_MASK, -1, pos)
     below = _shift_up(torch.cummax(stop, dim=-1).values + 1, 1) - 1
     cin = (t >> LIMB_BITS).gather(-1, below.clamp(min=0)) * (below >= 0)
@@ -164,16 +170,12 @@ def _mul_lazy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.constant_pad_nd(skew.sum(-2), (0, 1))
 
 
-def _cond_sub(x: torch.Tensor, m64: torch.Tensor) -> torch.Tensor:
-    """Canonical (..., L+1) x < 2m -> x mod m as (..., L), by the carry
-    out of x + (2^(16(L+1)) - m)."""
-    L = m64.shape[-1]
-    comp = torch.constant_pad_nd(LIMB_MASK - m64, (0, 1), LIMB_MASK)
-    s = x + comp
-    s[..., 0] += 1
-    s = _resolve(s, L + 2, passes=1)
-    ge = s[..., L + 1 : L + 2].bool()
-    return torch.where(ge, s[..., :L], x[..., :L])
+def _neg_m(m64: torch.Tensor, width: int) -> torch.Tensor:
+    """Limbs of 2^(16·width) - m (width > L), lazy (limb 0 may be 2^16)."""
+    comp = torch.constant_pad_nd(LIMB_MASK - m64, (0, width - m64.shape[-1]),
+                                 LIMB_MASK)
+    comp[0] += 1
+    return comp
 
 
 # Rows per plain-product chunk: bounds the (rows, L, 2L) int64 outer
@@ -183,7 +185,12 @@ _PLAIN_ELEMS = 1 << 26
 
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
                    ) -> torch.Tensor:
-    """a·b·R^-1 mod m by REDC with the full-width m' (exact integers)."""
+    """a·b·R^-1 mod m by REDC with the full-width m' (exact integers).
+
+    T = a·b stays lazy (limbs < L·2^32); q = T·m' mod R is resolved from
+    it (lazy limbs < L²·2^48 < 2^63 up to L = 128); U = T + q·m is
+    resolved together with U + (2^(16(L+1)) - m)·R, whose carry out says
+    whether U/R >= m."""
     L = mod.L
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
@@ -192,37 +199,47 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
     b = b.reshape(-1, L).to(torch.int64)
     m64 = mod.limbs.to(a.device, torch.int64)
     mp64 = mod.mprime_limbs.to(a.device, torch.int64)
+    sub_m = torch.constant_pad_nd(_neg_m(m64, L + 1), (L, 0))  # ·R
     rows = max(1, _PLAIN_ELEMS // (2 * L * L))
     outs = []
     for s in range(0, a.shape[0], rows):
-        T = _resolve(_mul_lazy(a[s : s + rows], b[s : s + rows]), 2 * L)
-        q = _resolve(_mul_lazy(T[:, :L], mp64)[:, :L], L)
-        U = _resolve(T + _mul_lazy(q, m64)[:, : 2 * L], 2 * L + 1)
-        outs.append(_cond_sub(U[:, L:], m64))
+        T = _mul_lazy(a[s : s + rows], b[s : s + rows])
+        q = _resolve(_mul_lazy(T[:, :L], mp64)[:, :L], L, passes=4)
+        U = torch.constant_pad_nd(T + _mul_lazy(q, m64)[:, : 2 * L], (0, 1))
+        V = _resolve(torch.stack([U, U + sub_m]), 2 * L + 2)
+        ge = V[1, :, 2 * L + 1 :] == 1
+        outs.append(torch.where(ge, V[1, :, L : 2 * L], V[0, :, L : 2 * L]))
     out = torch.cat(outs) if outs else a[:0]
     return out.to(torch.int32).reshape(shape)
 
 
 def add_mod(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor
             ) -> torch.Tensor:
-    """(a + b) mod m for canonical a, b < m (int32 limbs)."""
+    """(a + b) mod m for canonical a, b < m (int32 limbs): a + b and
+    a + b + 2^(16(L+1)) - m resolved together; the carry out of the
+    second says a + b >= m."""
     a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
-    m64 = m.to(a.device, torch.int64)
-    s = _resolve(a + b, a.shape[-1] + 1, passes=1)
-    return _cond_sub(s, m64).to(torch.int32)
+    L = a.shape[-1]
+    s = torch.constant_pad_nd(a + b, (0, 1))
+    v = _resolve(torch.stack([s, s + _neg_m(m.to(a.device, torch.int64),
+                                            L + 1)]), L + 2, passes=1)
+    return torch.where(v[1, ..., L + 1 :] == 1, v[1, ..., :L],
+                       v[0, ..., :L]).to(torch.int32)
 
 
 def sub_mod(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor
             ) -> torch.Tensor:
-    """(a - b) mod m for canonical a, b < m (int32 limbs)."""
+    """(a - b) mod m for canonical a, b < m (int32 limbs): a - b + R and
+    a - b + R + m resolved together; the top limb of the first says
+    a >= b."""
     a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
     L = a.shape[-1]
-    m64 = m.to(a.device, torch.int64)
     d = a + (LIMB_MASK - b)
     d[..., 0] += 1
-    d = _resolve(d, L + 1, passes=1)  # a - b + R: top limb 1 iff a >= b
-    wrapped = _resolve(d[..., :L] + m64, L, passes=1)
-    return torch.where(d[..., L:].bool(), d[..., :L], wrapped).to(torch.int32)
+    v = _resolve(torch.stack([d, d + m.to(a.device, torch.int64)]), L + 1,
+                 passes=1)
+    return torch.where(v[0, ..., L:] == 1, v[0, ..., :L],
+                       v[1, ..., :L]).to(torch.int32)
 
 
 def _digits(e: torch.Tensor, ndig: int, window: int) -> torch.Tensor:
@@ -311,8 +328,9 @@ def _lane_tree(P: torch.Tensor, mod: Modulus, mul) -> torch.Tensor:
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 _UNSUPPORTED_WIDTH = -1
 _WIDTHS = (8, 64)  # W = L/2 instantiated in mont_kernels.cu
 
@@ -327,8 +345,9 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> Path:
-    """Compile csrc/ with nvcc into _build/ (cached by a hash of the
-    sources and flags) and return the shared library's path.  Records the
+    """Compile csrc/ with nvcc into one shared library in _build/ (cached
+    by a hash of the sources and flags) and return its path: one `nvcc -c`
+    per `.cu` file, all started together, then one link.  Records the
     build seconds and ptxas's register/spill report in BUILD_INFO."""
     sources = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -341,14 +360,25 @@ def build_kernels() -> Path:
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sources if s.suffix == ".cu"]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        units = [s for s in sources if s.suffix == ".cu"]
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in units]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(units, objs)]
+        outs = [p.communicate() for p in procs]
+        log = "".join(out + err for out, err in outs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        res = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}"
             )
-        report.write_text(res.stdout + res.stderr)
+        for o in objs:
+            o.unlink()
+        report.write_text(log)
         os.replace(tmp, so)
     BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0,
                       ptxas=report.read_text() if report.exists() else "")

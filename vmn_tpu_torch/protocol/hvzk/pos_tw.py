@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from vmn_tpu_torch.arith.ec import ECArray
 from vmn_tpu_torch.arith.pgroup import FArray, GArray, Permutation
 from vmn_tpu_torch.eio.bytetree import ByteTree, ByteTreeError, leaf, node
 
@@ -386,6 +387,10 @@ def _flat_farrays(x):
 def _stack_elems(grp, elems):
     """Stack single base-group elements into one group array — the
     scalar sides of all verification equations ride ONE multi-exp."""
+    if isinstance(elems[0], ECArray):
+        return ECArray(grp, torch.stack([e.x for e in elems]),
+                       torch.stack([e.y for e in elems]),
+                       torch.stack([e.inf for e in elems]))
     return GArray(grp, torch.stack([e.limbs for e in elems]))
 
 
@@ -447,6 +452,9 @@ def _eq_device(a, b):
         for ca, cb in zip(a.components, b.components):
             out.extend(_eq_device(ca, cb))
         return out
+    if isinstance(a, ECArray):
+        return [(a.x == b.x).all(), (a.y == b.y).all(),
+                (a.inf == b.inf).all()]
     return [(a.limbs == b.limbs).all()]
 
 
