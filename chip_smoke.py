@@ -11,13 +11,12 @@ Phases (one line each; any failure raises and the exit code is not 0):
      PyTorch versions on the card (exact equality, a few rows against
      Python pow) and time both;
   4. check H5 ec_scalar_mul, H6 ec_multiexp_positions (with the combine of
-     `ec_multiexp`), H7 ec_fb_exp and H8 ec_point_add at P-256 on 4096
-     points the same way (exact equality of Jacobian limbs; after
+     `ec_multiexp`), H7 ec_fb_exp and H8 ec_point_add at P-256 the same
+     way (exact equality of Jacobian limbs on the whole batch; after
      `normalize`, a few rows against Python EC arithmetic), with infinity,
-     P == Q, P == -Q, scalar 0 and scalar n - 1 among the inputs; each
-     kernel is timed again at the EC path's batch (--ec-n), where the
-     plain versions would take minutes, and H7 against H5 on the same
-     fixed-base batch;
+     P == Q, P == -Q, scalar 0 and scalar n - 1 among the inputs, and H7
+     against H5 on the same fixed-base batch: once on 4096 points and once
+     on the EC path's batch (--ec-n);
   5. the test256 and P-256 golden mixes on the card: each transcript must
      equal tests/golden/nizkp_{test256,p256}_k1 byte for byte, and the
      port's verifier must accept it;
@@ -32,9 +31,10 @@ Each mix zeroes the wrappers' launch counters just before `session.mix`
 and reads them just after it.  H1-H4 must have launched in the modp2048
 mix, and H5, H6 and H8 in the P-256 mix (H7 is off that path, as in
 vmn_tpu, and reports 0); the `kernels` line reports each kernel's
-launches in its own path's mix, beside its check's error, its time, the
-plain version's time and its bound (the least time the card could take
-for the same work).  The last three lines are that JSON object, the
+launches in its own path's mix, beside the error, time, plain version's
+time and bound (the least time the card could take for the same work)
+of its check at that path's batch; the EC kernels' check at 4096 points
+stands under `at_4096`.  The last three lines are that JSON object, the
 card's name and power limit, and a JSON status object.
 """
 
@@ -79,20 +79,38 @@ MAIN_CHECK = {"mont_mul": "mont_mul", "mont_exp": "mont_exp",
 
 # Bounds: the larger of bytes moved (each input read once, each output
 # written once, int32 limbs as stored) over the card's memory rate, and
-# operations over its peak rate.  The operations are the 32-bit word
-# multiply-adds of the Montgomery products (2·W² + W per product, W = L/2
-# words), two operations each, over the card's non-tensor 32-bit rate;
-# field additions and selects are left out, so the true bound is higher
-# still.  Rates: NVIDIA's H100 SXM data sheet at the 700 W limit.
+# operations over its peak rate for their type.  The operations are the
+# 32-bit integer multiplies of the Montgomery products the function needs:
+# a W-word CIOS product (W = L/2) takes W² low and W² high halves of a·b,
+# W multiplies q = t·m' and 2·W² halves of q·m, 4·W² + W in all, each one
+# multiply-add instruction.  A digit of 0 multiplies or adds nothing, so
+# the digits of this run's exponents are counted.  Field additions and
+# selects are left out, so the true bound is higher still.  Rates, H100
+# SXM at its 700 W limit: 3.35 TB/s (NVIDIA's data sheet), and 32-bit
+# integer multiplies at 64 per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0; half the 128
+# FMA lanes behind the data sheet's 67 TFLOP/s fp32) on 132 SMs at the
+# 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-EC_ADD_PRODUCTS = 24  # a Jacobian addition, its doubling branch included
-EC_DOUBLE_PRODUCTS = 8
+INT_MUL_PER_S = 132 * 64 * 1.98e9
+# Montgomery products per point operation at a = -3, Jacobian coordinates
+# (products and squarings alike):
+EC_ADD_PRODUCTS = 16    # general addition, 12 + 4
+EC_MADD_PRODUCTS = 11   # mixed addition (the second point affine), 7 + 4
+EC_DOUBLE_PRODUCTS = 8  # doubling, 3 + 5
+# The 16-entry table of a point: 2·P one doubling, 3·P..15·P mixed adds.
+EC_TABLE_PRODUCTS = EC_DOUBLE_PRODUCTS + 13 * EC_MADD_PRODUCTS
+
+
+def nonzero_digits(e: torch.Tensor, ndig: int, window: int) -> int:
+    from vmn_tpu_torch.ops.mont_kernels import _digits
+
+    return int((_digits(e, ndig, window) != 0).sum())
 
 
 def bound(products: int, words: int, nbytes: int) -> dict:
-    ops = 2 * products * (2 * words * words + words)
-    t_ops, t_bytes = ops / OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    ops = products * (4 * words * words + words)
+    t_ops, t_bytes = ops / INT_MUL_PER_S, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
@@ -211,17 +229,23 @@ def check_kernels(n: int) -> dict:
         ),
     }
     W, L, nb = ctx.L // 2, ctx.L, 4 * n * ctx.L  # nb: one (n, L) array
-    ndig, ndig_pad = -(-2047 // 4), K._ndig_pad(256)
-    lanes = min(K.EP_MAX_LANES, 1 << ((n // K.EP_PER_LANE).bit_length() - 1))
+    ndig, ndig_s = -(-2047 // 4), 256 // 4
+    nz_short = nonzero_digits(e_short, ndig_s, 4)
     bounds = {
         "mont_mul": bound(n, W, 3 * nb),
-        "mont_exp": bound(n * (14 + 5 * ndig), W, 3 * nb),
-        "mont_fb_exp8": bound(n * tbl8.shape[0], W, 4 * tbl8.numel() + 2 * nb),
-        "mont_fb_exp4": bound(n * tbl4.shape[0], W,
+        # the table's 14 products, 4 squarings between digits, one product
+        # per digit that is not 0
+        "mont_exp": bound(n * (14 + 4 * (ndig - 1))
+                          + nonzero_digits(e_full, ndig, 4), W, 3 * nb),
+        "mont_fb_exp8": bound(nonzero_digits(e_full, tbl8.shape[0], 8), W,
+                              4 * tbl8.numel() + 2 * nb),
+        "mont_fb_exp4": bound(nz_short, W,
                               4 * tbl4.numel() + 4 * n * 16 + nb),
+        # each base's table, then per position one product per digit
+        # that is not 0, less the first
         "mont_expprod_positions": bound(
-            n * (14 + ndig_pad) + ndig_pad * (lanes - 1), W,
-            nb + 4 * n * 16 + 4 * ndig_pad * L),
+            n * 14 + max(nz_short - ndig_s, 0), W,
+            nb + 4 * n * 16 + 4 * K._ndig_pad(256) * L),
     }
     results = {}
     for name, (kern, plain, py) in cases.items():
@@ -240,8 +264,8 @@ def check_kernels(n: int) -> dict:
             if ctx.decode(combined[None]) != [want_int]:
                 raise AssertionError(f"{name}: multi-exp != Python pow")
         _, ms = timed(kern, reps=3)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         **bounds[name]}
+        results[name] = {"N": n, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, **bounds[name]}
         kernel_line(name, results[name])
     return results
 
@@ -259,7 +283,7 @@ def max_abs_err(got, want) -> int:
 
 
 def kernel_line(name: str, r: dict) -> None:
-    phase("kernel", name=name, tolerance="exact", equal=True,
+    phase("kernel", name=name, N=r["N"], tolerance="exact", equal=True,
           max_abs_err=r["max_abs_err"], ms=f"{r['ms']:.3f}",
           plain_ms=f"{r['plain_ms']:.3f}", bound_ms=f"{r['bound_ms']:.4f}",
           bound_by=r["bound_by"])
@@ -295,28 +319,38 @@ def host_ec_mul(p: int, a: int, P, k: int):
     return acc
 
 
-def ec_bounds(n: int, ndig: int, lanes: int, table_words: int) -> dict:
-    """Bounds of H5-H8 at P-256 on n points with ndig 4-bit digits."""
-    W, L, ndig_pad = 8, 16, -(-ndig // 16) * 16
+def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int) -> dict:
+    """Bounds of H5-H8 at P-256 on n points and exponents e of ndig 4-bit
+    digits (the fixed-base table of table_words words)."""
+    W, L = 8, 16
     nb = 4 * n * L  # one (n, L) int32 array
+    nz = nonzero_digits(e, ndig, 4)
     return {
+        # the table, 4 doublings between digits, one general addition per
+        # digit that is not 0
         "ec_scalar_mul": bound(
-            n * (EC_ADD_PRODUCTS * (14 + ndig) + EC_DOUBLE_PRODUCTS * 4 * ndig),
-            W, 2 * nb + n + nb + 3 * nb),
+            n * (EC_TABLE_PRODUCTS + 4 * (ndig - 1) * EC_DOUBLE_PRODUCTS)
+            + nz * EC_ADD_PRODUCTS, W, 2 * nb + n + nb + 3 * nb),
+        # each point's table, then per position one addition per digit
+        # that is not 0, less the first
         "ec_multiexp_positions": bound(
-            EC_ADD_PRODUCTS * (n * (14 + ndig_pad) + ndig_pad * (lanes - 1)),
-            W, 2 * nb + n + nb + 3 * 4 * ndig_pad * L),
-        "ec_fb_exp": bound(n * EC_ADD_PRODUCTS * ndig, W,
+            n * EC_TABLE_PRODUCTS + max(nz - ndig, 0) * EC_ADD_PRODUCTS,
+            W, 2 * nb + n + nb + 3 * 4 * ndig * L),
+        # one mixed addition of an affine table row per digit that is not 0
+        "ec_fb_exp": bound(nz * EC_MADD_PRODUCTS, W,
                            4 * table_words + nb + 3 * nb),
         "ec_point_add": bound(n * EC_ADD_PRODUCTS, W, 6 * nb + 3 * nb),
     }
 
 
-def check_ec_kernels(n: int, n_main: int) -> dict:
-    """H5-H8 at P-256 on n points: kernel == plain, a few rows against
-    Python EC arithmetic, times; H7 also against H5 on g.  Then each
-    kernel alone at the main path's batch n_main, on the same inputs
-    repeated (the kernels' schedule does not depend on the data)."""
+EC_CHECK_N = 4096  # the small EC check, beside the one at --ec-n
+
+
+def check_ec_kernels(n: int) -> dict:
+    """H5-H8 at P-256 on n points: kernel == plain on the whole batch, a
+    few rows against Python EC arithmetic, times; H7 also against H5 on
+    g.  Run at 4096 points and at the EC path's batch (--ec-n), where H6
+    splits the points into its widest lanes."""
     from vmn_tpu_torch.arith import ec as EC
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
@@ -356,9 +390,9 @@ def check_ec_kernels(n: int, n_main: int) -> dict:
         return grp.to_affine(EC.ECArray(grp, *grp.curve.normalize(*jac)))
 
     in_pts = [None] + pts.copy_of_range(1, n).to_affine()
-    rows = [0, 1, 2, 3, 4, n - 1]
+    rows = sorted({0, 1, 2, 3, 4, n // 3, n // 2, n - 1})
     G = (grp.gx, grp.gy)
-    bnds = ec_bounds(n, ndig, E._lanes(n), tbx.numel() + tby.numel())
+    bnds = ec_bounds(n, e, ndig, tbx.numel() + tby.numel())
     cases = {
         "ec_scalar_mul": (
             lambda: E.ec_scalar_mul(x, y, inf, e, mod, nbits),
@@ -408,30 +442,9 @@ def check_ec_kernels(n: int, n_main: int) -> dict:
                         for i in rows]):
                 raise AssertionError(f"{name}: kernel != Python EC")
         _, ms = timed(kern, reps=3)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         **bnds[name]}
+        results[name] = {"N": n, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, **bnds[name]}
         kernel_line(name, results[name])
-    # At the main path's batch: the check's inputs repeated.
-    reps = -(-n_main // n)
-    big = [t.repeat(reps, 1)[:n_main] for t in (x, y, e, *j1, *j2)]
-    xb, yb, eb, j1b, j2b = big[0], big[1], big[2], big[3:6], big[6:9]
-    infb = inf.repeat(reps)[:n_main]
-    bnds_main = ec_bounds(n_main, ndig, E._lanes(n_main),
-                          tbx.numel() + tby.numel())
-    mains = {
-        "ec_scalar_mul": lambda: E.ec_scalar_mul(xb, yb, infb, eb, mod, nbits),
-        "ec_multiexp_positions": lambda: E.ec_multiexp_positions(
-            xb, yb, infb, eb, mod, nbits),
-        "ec_fb_exp": lambda: E.ec_fb_exp(tbx, tby, eb, mod),
-        "ec_point_add": lambda: E.ec_point_add(*j1b, *j2b, mod),
-    }
-    for name, fn in mains.items():
-        timed(fn)
-        _, ms = timed(fn, reps=3)
-        results[name]["main_n"] = {"N": n_main, "ms": ms,
-                                   "bound_ms": bnds_main[name]["bound_ms"]}
-        phase("kernel", name=name, N=n_main, ms=f"{ms:.3f}",
-              bound_ms=f"{bnds_main[name]['bound_ms']:.4f}")
     # The routing fact for fixed-base powers: H7 against H5 on g.
     _, fb_ms = timed(lambda: E.ec_fb_exp(tbx, tby, e, mod), reps=3)
     _, sm_ms = timed(lambda: E.ec_scalar_mul(gx, gy, no_inf, e, mod, nbits),
@@ -718,7 +731,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     checks = check_kernels(args.n)
-    checks.update(check_ec_kernels(4096, args.ec_n))
+    ec_small = check_ec_kernels(EC_CHECK_N)
+    checks.update(check_ec_kernels(args.ec_n))
+    for name, r in ec_small.items():
+        checks[name][f"at_{EC_CHECK_N}"] = r
     phase("kernels", checked=len(checks),
           phase_s=f"{time.perf_counter() - t0:.1f}")
 

@@ -1,5 +1,6 @@
 """The port's `MontCtx` against `vmn_tpu.arith.mont.MontCtx` (its XLA path
-on the CPU) and Python `int`, at test256 and modp2048 widths.
+on the CPU) and Python `int`, at test256 and modp2048 widths; the plain
+product also at modp3072 and modp4096.
 
 Inputs are seeded numpy bytes handed to both packages.  At 2048 bits
 the exponents are short (<= 64 bits) except for `inv`, to keep the run
@@ -60,6 +61,26 @@ def test_mul_and_conversions(ctxs):
     # scalar operand broadcasts
     out_s = tc.mul(ta, tb[3])
     assert np.array_equal(as_np(out_s), as_np(jc.mul(ja, jb[3])))
+
+
+@pytest.mark.parametrize("name", ["modp3072", "modp4096"])
+def test_mul_plain_at_the_wide_named_groups(name):
+    """H1's plain version at L = 192 and L = 256 against Python ints.  At
+    L = 256 the lazy limbs of q could pass 2^63, so T's low half is
+    resolved first; edge values m - 1, m - 2 give T its largest limbs."""
+    from vmn_tpu_torch.arith.pgroup import _NAMED_GROUPS
+
+    m = _NAMED_GROUPS[name][0]
+    tc = TCtx(m, device="cpu")
+    xs = (edge_values(m) + rand_ints(np.random.default_rng(5), 4, m))
+    ys = xs[::-1]
+    a = device_limbs(limbs_np(xs, tc.L), "cpu")
+    b = device_limbs(limbs_np(ys, tc.L), "cpu")
+    r_inv = pow(1 << (16 * tc.L), -1, m)
+    got = K.mont_mul_plain(a, b, tc.mod)
+    assert np.array_equal(as_np(got),
+                          limbs_np([x * y * r_inv % m for x, y in zip(xs, ys)],
+                                   tc.L))
 
 
 def test_add_sub_neg(ctxs):

@@ -187,11 +187,13 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
                    ) -> torch.Tensor:
     """a·b·R^-1 mod m by REDC with the full-width m' (exact integers).
 
-    T = a·b stays lazy (limbs < L·2^32); q = T·m' mod R is resolved from
-    it (lazy limbs < L²·2^48 < 2^63 up to L = 128); U = T + q·m is
-    resolved together with U + (2^(16(L+1)) - m)·R, whose carry out says
-    whether U/R >= m."""
+    T = a·b stays lazy (limb i at most (i+1)·(2^16-1)^2); q = T·m' mod R
+    is resolved from it while q's lazy limbs, at most L(L+1)/2·(2^16-1)^3,
+    stay below 2^63 (L <= 255), and from T's low half resolved first at
+    wider L (modp4096: L = 256); U = T + q·m is resolved together with
+    U + (2^(16(L+1)) - m)·R, whose carry out says whether U/R >= m."""
     L = mod.L
+    lazy_q = L * (L + 1) // 2 * LIMB_MASK**3 < 1 << 63
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
     shape = a.shape
@@ -204,7 +206,8 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
     outs = []
     for s in range(0, a.shape[0], rows):
         T = _mul_lazy(a[s : s + rows], b[s : s + rows])
-        q = _resolve(_mul_lazy(T[:, :L], mp64)[:, :L], L, passes=4)
+        T_lo = T[:, :L] if lazy_q else _resolve(T[:, :L], L)
+        q = _resolve(_mul_lazy(T_lo, mp64)[:, :L], L, passes=4)
         U = torch.constant_pad_nd(T + _mul_lazy(q, m64)[:, : 2 * L], (0, 1))
         V = _resolve(torch.stack([U, U + sub_m]), 2 * L + 2)
         ge = V[1, :, 2 * L + 1 :] == 1
