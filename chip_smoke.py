@@ -1,15 +1,20 @@
 """Drive the vmn_tpu_torch mix paths once on one CUDA card.
 
-Usage:  python3 chip_smoke.py [--n N] [--ec-n N] [--profile PATH]
+Usage:  python3 chip_smoke.py [--n N] [--ec-n N] [--profile PATH ...]
 
 Phases (one line each; any failure raises and the exit code is not 0):
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build the Hopper kernels from vmn_tpu_torch/csrc with nvcc (one nvcc
      per source file, all started together);
-  3. check H1 mont_mul, H2 mont_exp, H3 mont_fb_exp (windows 4 and 8) and
-     H4 mont_expprod_positions at modp2048 width against their plain
-     PyTorch versions on the card (exact equality, a few rows against
-     Python pow) and time both;
+  3. check H1 mont_mul and H2 mont_exp at modp2048 width (W=64) on N
+     elements and at the P-256 field (W=8) on --ec-n and N, each also on a
+     batch of one (a product; a power as MontCtx.inv gives it), which
+     between them reach every TPI (lanes an element) the wrappers choose,
+     H3 mont_fb_exp (windows 4 and 8), H4 mont_expprod_positions and K7's
+     combine mont_expprod_combine (512 positions) at modp2048 width
+     against their plain PyTorch versions on the card (exact equality, a
+     few rows against Python pow), and time both (kernels on the device:
+     vmn_tpu_torch/kernel_timing.py's device_ms);
   4. check H5 ec_scalar_mul, H6 ec_multiexp_positions (with the combine of
      `ec_multiexp`), H7 ec_fb_exp and H8 ec_point_add at P-256 the same
      way (exact equality of Jacobian limbs on the whole batch; after
@@ -28,9 +33,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
      131072 = 2^17, from where `exp_prod` takes H6).
 
 Each mix zeroes the wrappers' launch counters just before `session.mix`
-and reads them just after it.  H1-H4 must have launched in the modp2048
-mix, and H5, H6 and H8 in the P-256 mix (H7 is off that path, as in
-vmn_tpu, and reports 0); the `kernels` line reports each kernel's
+and reads them just after it.  H1-H4 and the combine must have launched
+in the modp2048 mix, and H5, H6 and H8 in the P-256 mix (H7 is off that
+path, as in vmn_tpu, and reports 0); the `launches` line also counts H1's
+and H2's launches in each mix by batch size (1, 2-127, >=128); the
+`kernels` line reports each kernel's
 launches in its own path's mix, beside the error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
@@ -65,6 +72,7 @@ REPLACES = {
     "mont_exp": "vmn_tpu/ops/mont_kernels.py:754",
     "mont_fb_exp": "vmn_tpu/ops/mont_kernels.py:443",
     "mont_expprod_positions": "vmn_tpu/ops/mont_kernels.py:616",
+    "mont_expprod_combine": "vmn_tpu/ops/mont_kernels.py:731",
     "ec_scalar_mul": "vmn_tpu/ops/ec_kernels.py:278",
     "ec_multiexp_positions": "vmn_tpu/ops/ec_kernels.py:445",
     "ec_fb_exp": "vmn_tpu/ops/ec_kernels.py:668",
@@ -73,6 +81,7 @@ REPLACES = {
 MAIN_CHECK = {"mont_mul": "mont_mul", "mont_exp": "mont_exp",
               "mont_fb_exp": "mont_fb_exp8",
               "mont_expprod_positions": "mont_expprod_positions",
+              "mont_expprod_combine": "mont_expprod_combine",
               "ec_scalar_mul": "ec_scalar_mul",
               "ec_multiexp_positions": "ec_multiexp_positions",
               "ec_fb_exp": "ec_fb_exp", "ec_point_add": "ec_point_add"}
@@ -155,31 +164,40 @@ def ptxas_summary(text: str):
     return out
 
 
-def timed(fn, reps: int = 1):
-    """(last result, mean milliseconds per run) of `reps` runs of fn(),
-    timed with CUDA events on the current stream."""
+def timed(fn):
+    """(result, milliseconds) of one run of fn(), host launch work
+    included, timed with CUDA events on the current stream."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        out = fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return out, start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end)
 
 
 # ------------------------------------------------------------ phase 3
 
 
-def check_kernels(n: int) -> dict:
-    from vmn_tpu_torch.arith.limbs import ints_to_limbs
+COMBINE_POSITIONS = 512  # K7's ndig_pad at a 2047-bit exponent
+
+
+def check_kernels(n: int, ec_n: int) -> dict:
+    """H1-H4 and K7's combine against their plain versions on the card.
+    H1 and H2 at modp2048 (W=64) on n elements and at the P-256 field
+    (W=8) on ec_n, the paths' batches (W=8 on n too), and at batch 1 (a
+    product; a power
+    as MontCtx.inv gives it): between them every TPI the wrappers choose;
+    H3 and H4 at modp2048 and n; the combine on COMBINE_POSITIONS
+    random positions."""
+    from vmn_tpu_torch.arith.ec import _CURVES
+    from vmn_tpu_torch.arith.limbs import int_to_limbs, ints_to_limbs
     from vmn_tpu_torch.arith.mont import MontCtx, device_limbs
     from vmn_tpu_torch.arith.pgroup import _RFC3526_2048
+    from vmn_tpu_torch.kernel_timing import device_ms
     from vmn_tpu_torch.ops import mont_kernels as K
 
     dev = torch.device("cuda", 0)
-    ctx = MontCtx(_RFC3526_2048, dev)
-    m = ctx.m
     rng = np.random.default_rng(2048)
 
     def ints(count, bits):
@@ -187,86 +205,162 @@ def check_kernels(n: int) -> dict:
         return [int.from_bytes(rng.bytes(nb), "big") % (1 << bits)
                 for _ in range(count)]
 
-    a_int = [x % m for x in ints(n, 2048)]
-    a_int[:3] = [1, m - 1, 2]
-    b_int = [x % m for x in ints(n, 2048)]
-    a, b = ctx.encode(a_int), ctx.encode(b_int)
-    e_full_int = ints(n, 2047)  # field exponents: u^-x, g^r
-    e_full_int[0] = 0
+    rows = [0, 1, 2, n - 1]
+    # name: (kernel call, plain call, Python values of the rows checked,
+    # those rows, elements, products run where latency bounds the call)
+    cases, bounds = {}, {}
+
+    def nz_below_top(e, ndig):
+        # the top digit's entry starts the accumulator: no product
+        return nonzero_digits(e, ndig - 1, 4) if ndig > 1 else 0
+
+    def exp_products(count, e, ndig):
+        # the table's 14 products, 4 squarings and, for a digit that is
+        # not 0, one product per digit below the top
+        return count * (14 + 4 * (ndig - 1)) + nz_below_top(e, ndig)
+
+    def width_cases(ctx, tag, ebits, n, batch1=True):
+        """H1 and H2 at n, and at batch 1, on one modulus."""
+        m, W, L = ctx.m, ctx.L // 2, ctx.L
+        rows = [0, 1, 2, n - 1]
+        a_int = [x % m for x in ints(n, ctx.nbits)]
+        a_int[:3] = [1, m - 1, 2]
+        b_int = [x % m for x in ints(n, ctx.nbits)]
+        a, b = ctx.encode(a_int), ctx.encode(b_int)
+        e_int = ints(n, ebits)
+        e_int[0] = 0
+        e = device_limbs(ints_to_limbs(e_int, -(-ebits // 16)), dev)
+        x1 = a_int[3]  # a random row for the batch-1 cases
+        a1, b1 = ctx.encode([x1]), b[1:2].clone()
+        inv_bits = (m - 2).bit_length()  # MontCtx.inv's exponent, m - 2
+        e_inv = device_limbs(int_to_limbs(m - 2, -(-inv_bits // 16)),
+                             dev)[None]
+        nb = 4 * n * L  # one (n, L) int32 array
+        ndig, ndig_inv = -(-ebits // 4), -(-inv_bits // 4)
+        cases[f"mont_mul{tag}"] = (
+            lambda: K.mont_mul(a, b, ctx.mod),
+            lambda: K.mont_mul_plain(a, b, ctx.mod),
+            lambda: [a_int[i] * b_int[i] % m for i in rows], rows, n, None)
+        bounds[f"mont_mul{tag}"] = bound(n, W, 3 * nb)
+        cases[f"mont_exp{tag}"] = (
+            lambda: K.mont_exp(a, e, ctx.mod, ebits),
+            lambda: K.mont_exp_plain(a, e, ctx.mod, ebits),
+            lambda: [pow(a_int[i], e_int[i], m) for i in rows], rows, n,
+            None)
+        bounds[f"mont_exp{tag}"] = bound(exp_products(n, e, ndig), W,
+                                         2 * nb + 4 * n * e.shape[1])
+        if not batch1:
+            return
+        cases[f"mont_mul{tag}_b1"] = (
+            lambda: K.mont_mul(a1, b1, ctx.mod),
+            lambda: K.mont_mul_plain(a1, b1, ctx.mod),
+            lambda: [x1 * b_int[1] % m], [0], 1, 1)
+        bounds[f"mont_mul{tag}_b1"] = bound(1, W, 3 * 4 * L)
+        # the launch that ctx.inv(a1) makes, with its exponent built once
+        cases[f"mont_exp{tag}_b1"] = (
+            lambda: K.mont_exp(a1, e_inv, ctx.mod, inv_bits),
+            lambda: K.mont_exp_plain(a1, e_inv, ctx.mod, inv_bits),
+            lambda: [pow(x1, m - 2, m)], [0], 1,
+            14 + 5 * (ndig_inv - 1))  # the products the kernel runs
+        max_abs_err(ctx.inv(a1), K.mont_exp(a1, e_inv, ctx.mod, inv_bits))
+        bounds[f"mont_exp{tag}_b1"] = bound(
+            exp_products(1, e_inv, ndig_inv), W,
+            2 * 4 * L + 4 * e_inv.numel())
+        return a, a_int, e, e_int
+
+    ctx = MontCtx(_RFC3526_2048, dev)
+    m, W, L = ctx.m, ctx.L // 2, ctx.L
+    a, a_int, e_full, e_full_int = width_cases(ctx, "", 2047, n)
     e_short_int = ints(n, 256)  # batching-vector exponents
-    e_full = device_limbs(ints_to_limbs(e_full_int, ctx.L), dev)
     e_short = device_limbs(ints_to_limbs(e_short_int, 16), dev)
     g = 4
     tbl8 = ctx.fixed_base_table(g, 2047, 8)
     tbl4 = ctx.fixed_base_table(g, 256, 4)
-    rows = [0, 1, 2, n - 1]
-    cases = {
-        # name: (kernel call, plain call, Python check of a few rows)
-        "mont_mul": (
-            lambda: K.mont_mul(a, b, ctx.mod),
-            lambda: K.mont_mul_plain(a, b, ctx.mod),
-            lambda out: [a_int[i] * b_int[i] % m for i in rows],
-        ),
-        "mont_exp": (
-            lambda: K.mont_exp(a, e_full, ctx.mod, 2047),
-            lambda: K.mont_exp_plain(a, e_full, ctx.mod, 2047),
-            lambda out: [pow(a_int[i], e_full_int[i], m) for i in rows],
-        ),
-        "mont_fb_exp8": (
-            lambda: K.mont_fb_exp(tbl8, e_full, ctx.mod),
-            lambda: K.mont_fb_exp_plain(tbl8, e_full, ctx.mod),
-            lambda out: [pow(g, e_full_int[i], m) for i in rows],
-        ),
-        "mont_fb_exp4": (
-            lambda: K.mont_fb_exp(tbl4, e_short, ctx.mod),
-            lambda: K.mont_fb_exp_plain(tbl4, e_short, ctx.mod),
-            lambda out: [pow(g, e_short_int[i], m) for i in rows],
-        ),
-        "mont_expprod_positions": (
-            lambda: K.mont_expprod_positions(a, e_short, ctx.mod, 256),
-            lambda: K.mont_expprod_positions_plain(a, e_short, ctx.mod, 256),
-            None,
-        ),
-    }
-    W, L, nb = ctx.L // 2, ctx.L, 4 * n * ctx.L  # nb: one (n, L) array
-    ndig, ndig_s = -(-2047 // 4), 256 // 4
+    nb = 4 * n * L
+    ndig_s = 256 // 4
     nz_short = nonzero_digits(e_short, ndig_s, 4)
-    bounds = {
-        "mont_mul": bound(n, W, 3 * nb),
-        # the table's 14 products, 4 squarings between digits, one product
-        # per digit that is not 0
-        "mont_exp": bound(n * (14 + 4 * (ndig - 1))
-                          + nonzero_digits(e_full, ndig, 4), W, 3 * nb),
-        "mont_fb_exp8": bound(nonzero_digits(e_full, tbl8.shape[0], 8), W,
-                              4 * tbl8.numel() + 2 * nb),
-        "mont_fb_exp4": bound(nz_short, W,
-                              4 * tbl4.numel() + 4 * n * 16 + nb),
-        # each base's table, then per position one product per digit
-        # that is not 0, less the first
-        "mont_expprod_positions": bound(
-            n * 14 + max(nz_short - ndig_s, 0), W,
-            nb + 4 * n * 16 + 4 * K._ndig_pad(256) * L),
-    }
-    results = {}
-    for name, (kern, plain, py) in cases.items():
+    cases["mont_fb_exp8"] = (
+        lambda: K.mont_fb_exp(tbl8, e_full, ctx.mod),
+        lambda: K.mont_fb_exp_plain(tbl8, e_full, ctx.mod),
+        lambda: [pow(g, e_full_int[i], m) for i in rows], rows, n, None)
+    bounds["mont_fb_exp8"] = bound(nonzero_digits(e_full, tbl8.shape[0], 8),
+                                   W, 4 * tbl8.numel() + 2 * nb)
+    cases["mont_fb_exp4"] = (
+        lambda: K.mont_fb_exp(tbl4, e_short, ctx.mod),
+        lambda: K.mont_fb_exp_plain(tbl4, e_short, ctx.mod),
+        lambda: [pow(g, e_short_int[i], m) for i in rows], rows, n, None)
+    bounds["mont_fb_exp4"] = bound(nz_short, W,
+                                   4 * tbl4.numel() + 4 * n * 16 + nb)
+
+    def expprod_py():
+        want = 1
+        for x, k in zip(a_int, e_short_int):
+            want = want * pow(x, k, m) % m
+        return [want]
+
+    cases["mont_expprod_positions"] = (
+        lambda: K.mont_expprod_positions(a, e_short, ctx.mod, 256),
+        lambda: K.mont_expprod_positions_plain(a, e_short, ctx.mod, 256),
+        None, None, n, None)
+    # each base's table, then per position one product per digit that is
+    # not 0, less the first
+    bounds["mont_expprod_positions"] = bound(
+        n * 14 + max(nz_short - ndig_s, 0), W,
+        nb + 4 * n * 16 + 4 * K._ndig_pad(256) * L)
+    J = COMBINE_POSITIONS
+    P_int = [x % m for x in ints(J, 2048)]
+    P = ctx.encode(P_int)
+
+    def combine_py():
+        acc = 1
+        for x in reversed(P_int):
+            acc = pow(acc, 16, m) * x % m
+        return [acc]
+
+    cases["mont_expprod_combine"] = (
+        lambda: K.mont_expprod_combine(P, ctx.mod)[None],
+        lambda: K.mont_expprod_combine_plain(P, ctx.mod)[None],
+        combine_py, [0], J, 5 * (J - 1))
+    # 4 squarings and one product per position below the top
+    bounds["mont_expprod_combine"] = bound(5 * (J - 1), W, 4 * J * L + 4 * L)
+
+    ctx8 = MontCtx(_CURVES["P-256"][0], dev)
+    width_cases(ctx8, "_w8", 256, ec_n)
+    width_cases(ctx8, "_w8_n", 256, n, batch1=False)
+
+    results, tpis = {}, set()
+    for name, (kern, plain, py, py_rows, count, products) in cases.items():
+        cx = ctx8 if "_w8" in name else ctx
         got, _ = timed(kern)  # first launch: compare, then time warm
         want, plain_ms = timed(plain)
         err = max_abs_err(got, want)
-        if py is not None:
-            if ctx.decode(got[rows]) != py(got):
-                raise AssertionError(f"{name}: kernel != Python pow")
-        else:
+        if name == "mont_expprod_positions":
             # P_j = prod_i a_i^(d_ij): recombine and compare with pow
-            want_int = 1
-            for x, k in zip(a_int, e_short_int):
-                want_int = want_int * pow(x, k, m) % m
             combined = K.mont_expprod(a, e_short, ctx.mod, 256)
-            if ctx.decode(combined[None]) != [want_int]:
+            if ctx.decode(combined[None]) != expprod_py():
                 raise AssertionError(f"{name}: multi-exp != Python pow")
-        _, ms = timed(kern, reps=3)
-        results[name] = {"N": n, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms, **bounds[name]}
-        kernel_line(name, results[name])
+        elif cx.decode(got[py_rows]) != py():
+            raise AssertionError(f"{name}: kernel != Python pow")
+        ms = device_ms(kern)
+        r = {"N": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             **bounds[name]}
+        kernel = name.split("_w8")[0].removesuffix("_b1")
+        if kernel in ("mont_mul", "mont_exp"):
+            r["tpi"] = K.threads_per_element(kernel, cx.L // 2, count)
+            tpis.add((kernel, cx.L // 2, r["tpi"]))
+        if name.endswith("_b1") or name == "mont_expprod_combine":
+            # a chain of dependent products on one element: the bound that
+            # binds is one product's latency, not the card's throughput
+            r.update(products=products,
+                     us_per_product=1e3 * ms / products,
+                     bound_note="latency-bound: one element on one warp")
+        results[name] = r
+        kernel_line(name, r)
+    built = {(k, w, t) for (k, w), rule in K.COOP_TPI.items()
+             for _, t in rule}
+    if tpis != built:
+        raise AssertionError(f"H1/H2 instantiations not checked: "
+                             f"{sorted(built - tpis)}")
     return results
 
 
@@ -283,10 +377,17 @@ def max_abs_err(got, want) -> int:
 
 
 def kernel_line(name: str, r: dict) -> None:
+    extra = {}
+    if "us_per_product" in r:
+        extra = {"products": r["products"],
+                 "us_per_product": f"{r['us_per_product']:.3f}",
+                 "bound": f"'{r['bound_note']}'"}
+    if "tpi" in r:
+        extra["tpi"] = r["tpi"]
     phase("kernel", name=name, N=r["N"], tolerance="exact", equal=True,
           max_abs_err=r["max_abs_err"], ms=f"{r['ms']:.3f}",
           plain_ms=f"{r['plain_ms']:.3f}", bound_ms=f"{r['bound_ms']:.4f}",
-          bound_by=r["bound_by"])
+          bound_by=r["bound_by"], **extra)
 
 
 # ------------------------------------------------------------ phase 4
@@ -354,6 +455,7 @@ def check_ec_kernels(n: int) -> dict:
     from vmn_tpu_torch.arith import ec as EC
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
+    from vmn_tpu_torch.kernel_timing import device_ms
     from vmn_tpu_torch.ops import ec_kernels as E
 
     dev = torch.device("cuda", 0)
@@ -441,14 +543,13 @@ def check_ec_kernels(n: int) -> dict:
                     != [host_ec_add(p, a, smul_aff[i], second[i])
                         for i in rows]):
                 raise AssertionError(f"{name}: kernel != Python EC")
-        _, ms = timed(kern, reps=3)
+        ms = device_ms(kern)
         results[name] = {"N": n, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, **bnds[name]}
         kernel_line(name, results[name])
     # The routing fact for fixed-base powers: H7 against H5 on g.
-    _, fb_ms = timed(lambda: E.ec_fb_exp(tbx, tby, e, mod), reps=3)
-    _, sm_ms = timed(lambda: E.ec_scalar_mul(gx, gy, no_inf, e, mod, nbits),
-                     reps=3)
+    fb_ms = device_ms(lambda: E.ec_fb_exp(tbx, tby, e, mod))
+    sm_ms = device_ms(lambda: E.ec_scalar_mul(gx, gy, no_inf, e, mod, nbits))
     results["ec_fb_exp"]["vs_ec_scalar_mul_on_g"] = {"fb_ms": fb_ms,
                                                      "smul_ms": sm_ms}
     phase("fixed-base", base="g", N=n, bits=nbits, h7_ms=f"{fb_ms:.3f}",
@@ -462,8 +563,8 @@ def check_ec_kernels(n: int) -> dict:
 def run_mix(params, msgs, workdir: Path, party_seed: bytes,
             ciph_seed: bytes):
     """keygen -> encrypt the message array `msgs` -> mix; returns (nizkp
-    dir, plaintext array, mix seconds, kernel launches of the mix
-    alone)."""
+    dir, plaintext array, mix seconds, kernel launches of the mix alone,
+    H1/H2 launches of the mix by batch size)."""
     from vmn_tpu_torch.crypto.randomsource import SeededSource
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
@@ -487,7 +588,8 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
     torch.cuda.synchronize()
     mix_s = time.perf_counter() - t0
     launches = {**K.LAUNCHES, **E.LAUNCHES}
-    return session.nizkp, plain, mix_s, launches
+    sizes = {k: dict(v) for k, v in K.LAUNCH_SIZES.items()}
+    return session.nizkp, plain, mix_s, launches, sizes
 
 
 def _group(name: str):
@@ -542,7 +644,7 @@ def golden_phase(tmp: Path, name: str) -> None:
     golden = GOLDEN / f"nizkp_{name.replace('-', '').lower()}_k1"
     params = _params("Golden", group)
     msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
-    nizkp, plain, mix_s, launches = run_mix(
+    nizkp, plain, mix_s, launches, _ = run_mix(
         params, make(msgs), tmp / f"golden_{name}", b"golden-party",
         b"golden-ciphs")
     files = sorted(p.relative_to(golden) for p in golden.rglob("*")
@@ -566,9 +668,9 @@ def golden_phase(tmp: Path, name: str) -> None:
           phase_s=f"{time.perf_counter() - t0:.1f}")
 
 
-def slice_phase(name: str, n: int, tmp: Path) -> dict:
+def slice_phase(name: str, n: int, tmp: Path):
     """A mix path at N ciphertexts; returns each wrapper's launches in
-    its mix."""
+    its mix, and H1/H2's by batch size."""
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
 
@@ -583,7 +685,7 @@ def slice_phase(name: str, n: int, tmp: Path) -> dict:
     m = group.random_array(n, prg, params.rbitlen)
     msgs = _points(group, m)
     torch.cuda.reset_peak_memory_stats()
-    nizkp, plain, mix_s, launches = run_mix(
+    nizkp, plain, mix_s, launches, sizes = run_mix(
         params, m, tmp / f"slice_{name}", b"smoke-party",
         b"smoke-ciphs")
     if sorted(_points(group, plain)) != sorted(msgs):
@@ -600,7 +702,7 @@ def slice_phase(name: str, n: int, tmp: Path) -> dict:
           mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
           max_memory_allocated=peak,
           phase_s=f"{time.perf_counter() - t0:.1f}")
-    return launches
+    return launches, sizes
 
 
 SPANS = (  # (module, class, method) timed as host spans by --profile
@@ -656,8 +758,8 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
         m = group.random_array(n, prg, params.rbitlen)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            nizkp, _, mix_s, _ = run_mix(params, m, tmp / "prof",
-                                         b"smoke-party", b"smoke-ciphs")
+            nizkp, _, mix_s, _, _ = run_mix(params, m, tmp / f"prof_{name}",
+                                            b"smoke-party", b"smoke-ciphs")
             ok, verify_s = verify(params, nizkp)
     finally:
         for owner, meth, fn in saved:
@@ -707,9 +809,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ec-n", type=int, default=1 << 17,
                     help="ciphertexts in the P-256 mix (default 131072)")
     ap.add_argument("--profile", choices=["modp2048", "P-256"],
+                    action="append", default=[],
                     help="after the phases, profile one more mix + verify "
                          "of this path (host spans, device time by kernel, "
-                         "device idle share)")
+                         "device idle share); may be given twice")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -730,7 +833,7 @@ def main(argv=None) -> int:
         print("  ptxas " + line)
 
     t0 = time.perf_counter()
-    checks = check_kernels(args.n)
+    checks = check_kernels(args.n, args.ec_n)
     ec_small = check_ec_kernels(EC_CHECK_N)
     checks.update(check_ec_kernels(args.ec_n))
     for name, r in ec_small.items():
@@ -742,14 +845,16 @@ def main(argv=None) -> int:
         tmp = Path(tmpname)
         golden_phase(tmp, "test256")
         golden_phase(tmp, "P-256")
-        modp = slice_phase("modp2048", args.n, tmp)
-        ec = slice_phase("P-256", args.ec_n, tmp)
-        if args.profile:
-            profile_phase(args.profile,
-                          args.ec_n if args.profile == "P-256" else args.n,
+        modp, modp_sizes = slice_phase("modp2048", args.n, tmp)
+        ec, ec_sizes = slice_phase("P-256", args.ec_n, tmp)
+        for path in args.profile:
+            profile_phase(path, args.ec_n if path == "P-256" else args.n,
                           tmp)
-    phase("launches", modp2048_mix=json.dumps(modp, separators=(",", ":")),
-          p256_mix=json.dumps(ec, separators=(",", ":")))
+    compact = {"separators": (",", ":")}
+    phase("launches", modp2048_mix=json.dumps(modp, **compact),
+          p256_mix=json.dumps(ec, **compact),
+          modp2048_by_batch=json.dumps(modp_sizes, **compact),
+          p256_by_batch=json.dumps(ec_sizes, **compact))
     missing = [k for k in K.KERNELS if modp[k] == 0]
     missing += [k for k in E.EC_KERNELS if ec[k] == 0 and k != "ec_fb_exp"]
     if missing:
@@ -768,6 +873,13 @@ def main(argv=None) -> int:
             "launches": (ec if is_ec else modp)[name],
             "path": "P-256 mix" if is_ec else "modp2048 mix",
             **checks[MAIN_CHECK[name]]})
+    for name in ("mont_mul", "mont_exp"):
+        kernels[K.KERNELS.index(name)].update(
+            batch1=checks[f"{name}_b1"], w8=checks[f"{name}_w8"],
+            w8_at_n=checks[f"{name}_w8_n"],
+            w8_batch1=checks[f"{name}_w8_b1"],
+            launches_by_batch={"modp2048 mix": modp_sizes[name],
+                               "P-256 mix": ec_sizes[name]})
     kernels[K.KERNELS.index("mont_fb_exp")].update(
         window=8, window4={"replaces": "vmn_tpu/ops/mont_kernels.py:487",
                            "exponent_bits": 256, **checks["mont_fb_exp4"]})

@@ -1,7 +1,9 @@
 """Each kernel's plain PyTorch version against the JAX Pallas kernel it
-ports (run in interpret mode, as tests/test_kernels.py runs them), the
-interop conversions, and — on a CUDA device only — each Hopper kernel
-against its plain version at modp2048 width.
+ports (run in interpret mode, as tests/test_kernels.py runs them), K7's
+combine against Python integers, the cooperative kernels' launch shape,
+the interop conversions, and — on a CUDA device only — each Hopper kernel
+against its plain version (H1, H2 and the combine over batch sizes, widths
+and every TPI they are built for).
 
 JAX is imported only by the fixtures of the JAX-comparing tests, so the
 `cuda` tests also run where JAX is not installed:
@@ -19,7 +21,7 @@ import torch
 
 from torch_port_util import (  # noqa: F401 (cuda_device: fixture)
     TEST256_P, as_np, cuda_device, edge_values, limbs_np, modp2048_p,
-    rand_ints,
+    modulus, rand_ints,
 )
 from vmn_tpu_torch import interop
 from vmn_tpu_torch.arith.mont import MontCtx as TCtx, device_limbs
@@ -118,6 +120,75 @@ def test_mont_expprod_plain_matches_pallas(jx, ctxs, n, nbits):
     assert tc.decode(K.mont_expprod(tb, te, tc.mod, nbits)[None]) == [want]
 
 
+@pytest.mark.parametrize("group,npos", [("modp2048", 16), ("test256", 64)])
+def test_expprod_combine_plain_matches_python(group, npos):
+    """prod_j P_j^(2^(4j)) of K7's combine, against Python ints."""
+    tc = TCtx(modulus(group), device="cpu")
+    rng = np.random.default_rng(npos)
+    xs = rand_ints(rng, npos, tc.m)
+    xs[0], xs[-1] = tc.m - 1, 1
+    P = tc.encode(xs)
+    want = 1
+    for x in reversed(xs):
+        want = pow(want, 16, tc.m) * x % tc.m
+    got = K.mont_expprod_combine_plain(P, tc.mod)
+    assert tc.decode(got[None]) == [want]
+    assert torch.equal(K.mont_expprod_combine(P, tc.mod), got)
+
+
+_LAUNCH_NS = sorted({*range(1, 300), 10000, 131072, 5 * 10**6,
+                     *((1 << k) + d for k in range(8, 23) for d in (-1, 0, 1))})
+
+
+def _first_n(kernel, w, tpi):
+    """The fewest elements for which H1 or H2 runs at this TPI."""
+    return min(lo for lo, t in K.COOP_TPI[kernel, w] if t == tpi)
+
+
+@pytest.mark.parametrize("w", K._WIDTHS)
+def test_coop_launch_covers_every_element(w):
+    """The TPI the wrappers pick divides W, is built, and is reached by
+    some N; the launch's threads cover every element's lanes in whole
+    warps, with no block left idle."""
+    tpis = K.coop_tpis(w)
+    for kernel in ("mont_mul", "mont_exp"):
+        rule = K.COOP_TPI[kernel, w]
+        assert rule[-1][0] == 1  # every N >= 1 has a TPI
+        assert [lo for lo, _ in rule] == sorted(
+            {lo for lo, _ in rule}, reverse=True)
+        ns = sorted({*_LAUNCH_NS, *(lo + d for lo, _ in rule
+                                    for d in (-1, 0, 1) if lo + d >= 1)})
+        last, seen = None, set()
+        for n in ns:
+            tpi, threads, blocks = K.coop_launch(kernel, w, n)
+            assert tpi == K.threads_per_element(kernel, w, n) in tpis
+            assert w % tpi == 0 and 32 % tpi == 0
+            assert threads % 32 == 0 and threads % tpi == 0
+            assert 0 < threads <= K.COOP_BLOCK
+            assert (blocks - 1) * threads < n * tpi <= blocks * threads
+            assert last is None or tpi <= last  # fewer lanes as N grows
+            last = tpi
+            seen.add(tpi)
+        assert seen == {t for _, t in rule}
+        for _, tpi in rule:
+            n = _first_n(kernel, w, tpi)
+            assert K.threads_per_element(kernel, w, n) == tpi
+
+
+def test_launch_sizes_count_by_batch():
+    K.reset_launches()
+    for name, n in [("mont_mul", 1), ("mont_mul", 2), ("mont_mul", 127),
+                    ("mont_mul", 128), ("mont_exp", 1), ("mont_exp", 10000),
+                    ("mont_expprod_combine", 512)]:
+        K._launched(name, n)
+    assert K.LAUNCH_SIZES == {"mont_mul": {"1": 1, "2-127": 2, ">=128": 1},
+                              "mont_exp": {"1": 1, "2-127": 0, ">=128": 1}}
+    assert K.LAUNCHES["mont_expprod_combine"] == 1
+    K.reset_launches()
+    assert not any(K.LAUNCHES.values())
+    assert not any(v for d in K.LAUNCH_SIZES.values() for v in d.values())
+
+
 def test_interop_round_trips(ctxs):
     from vmn_tpu.arith.pgroup import ModPGroup as JG
     from vmn_tpu_torch.arith.pgroup import ModPGroup as TG, PPGroup
@@ -179,5 +250,76 @@ def _cuda_case(kernel, device):
                                     "mont_fb_exp8", "mont_expprod_positions"])
 def test_cuda_kernel_matches_plain(kernel, cuda_device):
     got, want = _cuda_case(kernel, cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+_COOP_NS = [1, 2, 31, 33, 129, 4096]
+
+
+def _coop_case(kernel, group, n, device):
+    """(kernel output, plain output) of H1 or H2 on n elements."""
+    tc = TCtx(modulus(group), device)
+    rng = np.random.default_rng(n)
+    xs = (edge_values(tc.m)[1:] + rand_ints(rng, n, tc.m))[:n]
+    base = tc.encode(xs)
+    if kernel == "mont_mul":
+        other = tc.encode(rand_ints(rng, n, tc.m)[::-1])
+        return (K.mont_mul(base, other, tc.mod),
+                K.mont_mul_plain(base, other, tc.mod))
+    # full-width exponents where the plain version stays quick
+    nbits = tc.nbits - 1 if n <= 129 else 256
+    es = rand_ints(rng, n, 1 << nbits)
+    es[0] = 0
+    e = device_limbs(limbs_np(es, -(-nbits // 16)), device)
+    return (K.mont_exp(base, e, tc.mod, nbits),
+            K.mont_exp_plain(base, e, tc.mod, nbits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["test256", "modp2048"])  # W = 8, 64
+@pytest.mark.parametrize("n", _COOP_NS)
+@pytest.mark.parametrize("kernel", ["mont_mul", "mont_exp"])
+def test_cuda_coop_matches_plain(kernel, n, group, cuda_device):
+    got, want = _coop_case(kernel, group, n, cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,group,tpi", [
+    (k, g, t) for k in ("mont_mul", "mont_exp")
+    for g, w in (("test256", 8), ("modp2048", 64))
+    for _, t in K.COOP_TPI[k, w]])
+def test_cuda_coop_every_tpi(kernel, group, tpi, cuda_device):
+    """Each TPI the wrapper picks, reached through N: at the fewest
+    elements for which it picks it."""
+    w = 8 if group == "test256" else 64
+    got, want = _coop_case(kernel, group, _first_n(kernel, w, tpi),
+                           cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,nbits", [
+    ("modp2048", 64), ("modp2048", 256), ("modp2048", 2047),
+    ("test256", 256)])
+def test_cuda_combine_matches_plain(group, nbits, cuda_device):
+    """K7's combine in one launch, alone and inside mont_expprod."""
+    tc = TCtx(modulus(group), cuda_device)
+    rng = np.random.default_rng(nbits)
+    npos = K._ndig_pad(nbits)
+    P = tc.encode(rand_ints(rng, npos, tc.m))
+    got = K.mont_expprod_combine(P, tc.mod)
+    assert torch.equal(got, K.mont_expprod_combine_plain(P, tc.mod))
+    bases = tc.encode(rand_ints(rng, 40, tc.m))
+    e = device_limbs(limbs_np(rand_ints(rng, 40, 1 << nbits),
+                              -(-nbits // 16)), cuda_device)
+    K.reset_launches()
+    got = K.mont_expprod(bases, e, tc.mod, nbits)
+    assert K.LAUNCHES["mont_expprod_combine"] == 1
+    want = K.mont_expprod_combine_plain(
+        K.mont_expprod_positions_plain(bases, e, tc.mod, nbits), tc.mod)
     torch.cuda.synchronize()
     assert torch.equal(got, want)

@@ -1,0 +1,210 @@
+// Cooperative Montgomery product: TPI threads of one warp share one
+// W-word element.  This is the design of NVlabs' CGBN ("CUDA Generic Big
+// Numbers"), written here from its published description.
+//
+// Why: the single-thread CIOS product of mont.cuh is 2·W² dependent
+// multiply-adds on one thread.  At W = 64 on an H100 a batch of one is then
+// ~60 µs of one thread on one SM, and a batch of 10000 is 79 blocks on 132
+// SMs with its operands spilled to local memory.  Spreading the element over TPI
+// lanes cuts the serial chain TPI times, multiplies the threads of a launch
+// by TPI, and leaves each thread W/TPI words, which fit in registers.
+//
+// Layout: lane k of a group (k = threadIdx.x mod TPI; the TPI lanes of a
+// group are consecutive lanes of one warp) owns words k·S .. k·S+S-1,
+// S = W/TPI, of every operand and of the running sum t.  Per outer word i:
+//   * the owner of a_i broadcasts it (__shfl_sync);
+//   * each lane adds a_i·b over its S words (`row_mac`);
+//   * lane 0 holds the lowest word of t exactly; every lane reads it and
+//     computes q = t_0·m' itself, then adds q·m over its S words;
+//   * t is divided by 2^32: lane k takes lane k+1's lowest word
+//     (__shfl_down_sync) as its top word.
+// A lane's carry out of its top word is not passed on at once: it is kept
+// in the lane's own word above its slice (at most 2 after each step) and
+// added into its top word at the next shift.  At the end the remaining carries between
+// lanes, and the borrow of the final subtraction of m, are settled for the
+// whole group at once from __ballot_sync generate/propagate masks.
+//
+// Every lane of the warp must call these functions together (full-warp
+// masks); the kernels keep idle lanes running on a clamped element and only
+// skip their stores.  The schedule is independent of the data
+// (docs/DEVIATIONS.md #5): no branch or index depends on an operand.
+#pragma once
+
+#include <cstdint>
+
+namespace vmn {
+
+constexpr unsigned kWarpAll = 0xffffffffu;
+
+template <int TPI>
+__device__ __forceinline__ int group_lane() {
+  return (int)(threadIdx.x & (TPI - 1));
+}
+
+// The group's bits of a warp-wide ballot: bit k for lane k of the group.
+template <int TPI>
+__device__ __forceinline__ uint64_t group_ballot(bool pred) {
+  const uint32_t all = __ballot_sync(kWarpAll, pred);
+  if constexpr (TPI == 32) {
+    return all;
+  } else {
+    const int base = (int)(threadIdx.x & 31) & ~(TPI - 1);
+    return (all >> base) & ((1u << TPI) - 1u);
+  }
+}
+
+// Carries between the lanes of a group.  g: this lane's slice carries out
+// by itself; p: it carries out exactly when a carry comes in (never both).
+// Read as the bits of one binary sum (G|P) + G, the carry into lane k is
+// bit k of that sum xor P, and the carry out of the top lane is bit TPI.
+// Returns this lane's carry in (0 or 1); *top gets the top lane's carry out.
+template <int TPI>
+__device__ __forceinline__ uint32_t group_carries(bool g, bool p,
+                                                  uint32_t* top) {
+  const uint64_t G = group_ballot<TPI>(g), P = group_ballot<TPI>(p);
+  const uint64_t s = (G | P) + G;
+  *top = (uint32_t)(s >> TPI) & 1u;
+  return (uint32_t)((s ^ P) >> group_lane<TPI>()) & 1u;
+}
+
+// t[0..S-1] += x·y[0..S-1], the carry out added into (hh:hl), the word
+// above the slice.  From S = 4 words up, PTX carry chains: ptxas turns each
+// mad{c}.{lo,hi}.cc into an independent IMAD / IMAD.HI and an IADD3.X on
+// a predicate carry, so the lo and hi chains interleave.  Below that,
+// 64-bit accumulators, which nvcc schedules better for one- and two-word
+// slices.  Both choices were timed against the other on the H100.
+template <int S>
+__device__ __forceinline__ void row_mac(uint32_t* t, uint32_t x,
+                                        const uint32_t* y, uint32_t& hl,
+                                        uint32_t& hh) {
+  if constexpr (S >= 4) {
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[0]) : "r"(x), "r"(y[0]));
+#pragma unroll
+    for (int j = 1; j < S; ++j) {
+      asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[j]) : "r"(x), "r"(y[j]));
+    }
+    asm volatile("addc.cc.u32 %0, %0, 0;" : "+r"(hl));
+    asm volatile("addc.u32 %0, %0, 0;" : "+r"(hh));
+    asm volatile("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(x), "r"(y[0]));
+#pragma unroll
+    for (int j = 1; j < S - 1; ++j) {
+      asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[j + 1]) : "r"(x), "r"(y[j]));
+    }
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(hl) : "r"(x), "r"(y[S - 1]));
+    asm volatile("addc.u32 %0, %0, 0;" : "+r"(hh));
+  } else {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const uint64_t s = t[j] + (uint64_t)x * y[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    const uint64_t h = ((uint64_t)hh << 32 | hl) + c;
+    hl = (uint32_t)h;
+    hh = (uint32_t)(h >> 32);
+  }
+}
+
+// r = a·b·R^-1 mod m, R = 2^(32·W), the same canonical result as
+// vmn::mont_mul<W>.  a, b, m, r: this lane's W/TPI words (registers);
+// a, b canonical (< m); r may alias a or b.  mp = -m^-1 mod 2^32.
+template <int W, int TPI>
+__device__ __forceinline__ void coop_mont_mul(uint32_t* r, const uint32_t* a,
+                                              const uint32_t* b,
+                                              const uint32_t* m, uint32_t mp) {
+  static_assert(TPI >= 1 && TPI <= 32 && (TPI & (TPI - 1)) == 0,
+                "TPI: a power of two within one warp");
+  static_assert(W % TPI == 0, "TPI must divide W");
+  constexpr int S = W / TPI;
+  const int lane = group_lane<TPI>();
+  uint32_t t[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) t[j] = 0;
+  uint32_t hl = 0, hh = 0;  // (hh:hl) belongs at word (lane + 1)·S of t
+#pragma unroll 1
+  for (int src = 0; src < TPI; ++src) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {  // outer word i = src·S + k
+      row_mac<S>(t, __shfl_sync(kWarpAll, a[k], src, TPI), b, hl, hh);
+      const uint32_t q = __shfl_sync(kWarpAll, t[0], 0, TPI) * mp;
+      row_mac<S>(t, q, m, hl, hh);
+      // t / 2^32: lane 0's word 0 is now zero and drops out.
+      uint32_t up = __shfl_down_sync(kWarpAll, t[0], 1, TPI);
+      if (lane == TPI - 1) up = 0;
+#pragma unroll
+      for (int j = 0; j + 1 < S; ++j) t[j] = t[j + 1];
+      const uint64_t s = (uint64_t)up + ((uint64_t)hh << 32 | hl);
+      t[S - 1] = (uint32_t)s;
+      hl = (uint32_t)(s >> 32);
+      hh = 0;
+    }
+  }
+  const uint32_t hi = hl;  // at most 2
+  // The lower lane's hi belongs at this lane's word 0.
+  uint32_t c = __shfl_up_sync(kWarpAll, hi, 1, TPI);
+  if (lane == 0) c = 0;
+  uint32_t ones = 0xffffffffu;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const uint64_t s = (uint64_t)t[j] + c;
+    t[j] = (uint32_t)s;
+    c = (uint32_t)(s >> 32);
+    ones &= t[j];
+  }
+  uint32_t top;  // word W of t: 0 or 1, since t < 2m < 2R
+  c = group_carries<TPI>(c != 0, ones == 0xffffffffu, &top);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const uint64_t s = (uint64_t)t[j] + c;
+    t[j] = (uint32_t)s;
+    c = (uint32_t)(s >> 32);
+  }
+  top += __shfl_sync(kWarpAll, hi, TPI - 1, TPI);
+  // t - m, borrows between lanes settled the same way.
+  uint32_t d[S], borrow = 0, any = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const uint64_t x = (uint64_t)t[j] - m[j] - borrow;
+    d[j] = (uint32_t)x;
+    borrow = (uint32_t)(x >> 63);
+    any |= d[j];
+  }
+  uint32_t borrow_out;
+  borrow = group_carries<TPI>(borrow != 0, any == 0, &borrow_out);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const uint64_t x = (uint64_t)d[j] - borrow;
+    d[j] = (uint32_t)x;
+    borrow = (uint32_t)(x >> 63);
+  }
+  // Keep t when t < m (no word W and a borrow out), else t - m.
+  const uint32_t keep = 0u - (uint32_t)((top == 0) & (borrow_out != 0));
+#pragma unroll
+  for (int j = 0; j < S; ++j) r[j] = (t[j] & keep) | (d[j] & ~keep);
+}
+
+// This lane's W/TPI words of one element stored as 2W row-major 16-bit
+// limbs in int32 (words lane·S .. lane·S+S-1; two limbs per 8-byte load).
+template <int W, int TPI>
+__device__ __forceinline__ void load_slice(uint32_t* x, const int32_t* row) {
+  constexpr int S = W / TPI;
+  const int2* p = reinterpret_cast<const int2*>(row) + group_lane<TPI>() * S;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int2 v = p[j];
+    x[j] = (uint32_t)v.x | ((uint32_t)v.y << 16);
+  }
+}
+
+template <int W, int TPI>
+__device__ __forceinline__ void store_slice(int32_t* row, const uint32_t* x) {
+  constexpr int S = W / TPI;
+  int2* p = reinterpret_cast<int2*>(row) + group_lane<TPI>() * S;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    p[j] = make_int2((int32_t)(x[j] & 0xFFFFu), (int32_t)(x[j] >> 16));
+  }
+}
+
+}  // namespace vmn

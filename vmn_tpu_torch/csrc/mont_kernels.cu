@@ -7,83 +7,184 @@
 //                                                          (:292-353, :361-527)
 //   H4 vmn_ep_table +   replace both pallas_calls of K6 mont_expprod_positions
 //      vmn_ep_acc                                          (:552-727)
+//   vmn_mont_chain      the combine of K7 mont_expprod_pallas (:730-750)
 //
-// Every kernel runs one element per thread with the CIOS product of
-// mont.cuh.  Each entry point launches on the caller's stream, does not
-// synchronise, allocates nothing and returns cudaGetLastError() (or
-// kUnsupportedWidth for a width with no instantiation).
+// H1, H2 and the chain spread one element over TPI lanes of a warp with
+// the cooperative product of mont_coop.cuh; the caller picks TPI from
+// (W, N) among the instantiated pairs (vmn_mont_mul, vmn_mont_exp) by the
+// crossovers measured on the card (COOP_TPI) and passes the launch shape
+// (threads per block, blocks).  Their operands are row-major (N, 2W)
+// 16-bit limbs, so that a group reads its element as one contiguous run.
+// H3 and H4 run one element per thread with the CIOS product of mont.cuh
+// on limb-major (2W, N) operands.  Each entry point launches on the
+// caller's stream, does not synchronise, allocates nothing and returns
+// cudaGetLastError() (or kUnsupportedWidth for a width, or a TPI, with no
+// instantiation, kBadShape for a launch shape the kernel cannot take).
+//
+// What bounds H1, H2 and the chain on the H100, and what the cooperative
+// design does about it: a W-word product is 2·W² dependent 32-bit
+// multiply-adds (4·W² + W multiplies counting low and high halves).  On
+// one thread that is ~60 µs at W = 64, the whole latency of a batch-1
+// launch (the K7 combine, the product trees' roots, the inversions), and
+// a large batch's operands spill.  TPI lanes share an element: the serial
+// chain a lane runs is W/TPI words a step, a small batch gets a whole
+// warp, a large one a few lanes so that the card stays full; operands
+// stay in registers, H2's table moves to shared memory.  A large batch is
+// then bound by multiply issue (each 32-bit half-product is one IMAD or
+// IMAD.HI plus an IADD3.X of its carry chain), a batch of one by the
+// latency of W steps of three shuffles and two row chains.
+//
+// ptxas (sm_90a, -O3, from chip_smoke.py's `ptxas` lines): registers,
+// with no stack frame and no spill at any instantiation --
+//   W = 64: mont_mul TPI 8/32: 48/28;       mont_exp 56/32;    chain 26.
+//   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 21.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "mont.cuh"
+#include "mont_coop.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnsupportedWidth = -1;
+constexpr int kBadShape = -2;
+constexpr int kExpEntries = 16;  // H2's 4-bit windows
+
+// The element of this thread's group, clamped into [0, n) so that every
+// lane of the warp takes part in the group's shuffles; `live` says whether
+// the group stores its result.
+template <int TPI>
+__device__ __forceinline__ int64_t group_element(int64_t n, bool* live) {
+  const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / TPI;
+  *live = e < n;
+  return *live ? e : n - 1;
+}
+
+// 4-bit digit j of one exponent stored as le row-major 16-bit limbs;
+// digits past the last limb read as zero.
+__device__ __forceinline__ uint32_t row_digit(const int32_t* e, int le,
+                                              int j) {
+  const int limb = j >> 2;
+  const uint32_t v = limb < le ? (uint32_t)e[limb] : 0u;
+  return (v >> ((j & 3) * 4)) & 0xFu;
+}
 
 // ------------------------------------------------------------- H1: product
-template <int W>
+// One element per group of TPI lanes: TPI = 32 for small batches (the
+// product's serial chain is then W/32 words a lane), fewer lanes from the
+// batch size where they measured faster (COOP_TPI, ops/mont_kernels.py).
+template <int W, int TPI>
 __global__ void __launch_bounds__(kThreads)
     mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                     int32_t* __restrict__ out, const int32_t* __restrict__ m,
                     uint32_t mp, int64_t n) {
-  __shared__ uint32_t sm[W];
-  vmn::load_vec_shared<W>(sm, m);
-  __syncthreads();
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  uint32_t x[W], y[W];
-  vmn::load_words<W>(x, a, n, e);
-  vmn::load_words<W>(y, b, n, e);
-  vmn::mont_mul<W>(x, x, y, sm, mp);
-  vmn::store_words<W>(out, x, n, e);
+  constexpr int S = W / TPI;
+  bool live;
+  const int64_t e = group_element<TPI>(n, &live);
+  uint32_t x[S], y[S], mm[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(x, a + e * 2 * W);
+  vmn::load_slice<W, TPI>(y, b + e * 2 * W);
+  vmn::coop_mont_mul<W, TPI>(x, x, y, mm, mp);
+  if (live) vmn::store_slice<W, TPI>(out + e * 2 * W, x);
 }
 
 // -------------------------------------------------- H2: windowed power
-// Per element: 16-entry table base^d (local memory), 4-bit fixed windows
-// from the top digit, 4 squarings and one product per digit, the factor
-// chosen by a masked select over all 16 entries (never an index by the
-// secret digit).
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+// Per element: the 16-entry table base^d in shared memory, 4-bit fixed
+// windows from the top digit, 4 squarings and one product per digit, the
+// factor chosen by a masked select over all 16 entries of the lane's own
+// slice (never an index by the secret digit).  The accumulator stays in
+// registers.  Shared layout [entry][word][thread of the block]: for one
+// (entry, word) the 32 lanes of a warp read 32 consecutive words, so no
+// bank conflicts, and each thread reads only what it wrote (no barrier).
+// A block of 128 threads holds 128/TPI elements at 16·4·W bytes each
+// (4 KB at W = 64): 64 KB at TPI = 8, 16 KB at TPI = 32; above 48 KB the
+// launcher opts in to the larger dynamic shared memory.  The table is
+// what bounds the elements resident on an SM (at most 56 at W = 64).
+template <int S>
+__device__ __forceinline__ void select_entry(uint32_t* out,
+                                             const uint32_t* mine, int stride,
+                                             uint32_t dig) {
+#pragma unroll
+  for (int j = 0; j < S; ++j) out[j] = 0;
+#pragma unroll 1  // unrolled, its 16·S loads are held in registers
+  for (int d = 0; d < kExpEntries; ++d) {
+    const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
+#pragma unroll
+    for (int j = 0; j < S; ++j) out[j] |= mine[(d * S + j) * stride] & mask;
+  }
+}
+
+// Three blocks an SM: at TPI = 8, W = 64 the shared table allows three
+// 64 KB blocks (12 warps, 48 elements), and the bound keeps registers at
+// or under 168 so that they allow three too.
+template <int W, int TPI>
+__global__ void __launch_bounds__(kThreads, 3)
     mont_exp_kernel(const int32_t* __restrict__ base, const int32_t* __restrict__ e,
                     int32_t* __restrict__ out, const int32_t* __restrict__ m,
                     const int32_t* __restrict__ one, uint32_t mp, int64_t n,
                     int le, int ndig) {
-  __shared__ uint32_t sm[W];
-  __shared__ uint32_t so[W];
-  vmn::load_vec_shared<W>(sm, m);
-  vmn::load_vec_shared<W>(so, one);
-  __syncthreads();
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  uint32_t tbl[16][W];
+  constexpr int S = W / TPI;
+  extern __shared__ uint32_t exp_tbl[];  // [kExpEntries][S][blockDim.x]
+  bool live;
+  const int64_t idx = group_element<TPI>(n, &live);
+  const int stride = (int)blockDim.x;
+  uint32_t* mine = exp_tbl + threadIdx.x;
+  uint32_t mm[S], x[S], cur[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(x, base + idx * 2 * W);
+  vmn::load_slice<W, TPI>(cur, one);
 #pragma unroll
-  for (int k = 0; k < W; ++k) tbl[0][k] = so[k];
-  vmn::load_words<W>(tbl[1], base, n, idx);
-#pragma unroll 1
-  for (int d = 2; d < 16; ++d) vmn::mont_mul<W>(tbl[d], tbl[d - 1], tbl[1], sm, mp);
-  uint32_t acc[W], fac[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) acc[k] = so[k];
-#pragma unroll 1
-  for (int j = ndig - 1; j >= 0; --j) {
-#pragma unroll 1
-    for (int s = 0; s < 4; ++s) vmn::mont_mul<W>(acc, acc, acc, sm, mp);
-    const uint32_t dig = vmn::digit<4>(e, le, n, idx, j);
-#pragma unroll
-    for (int k = 0; k < W; ++k) fac[k] = 0;
-#pragma unroll
-    for (int d = 0; d < 16; ++d) {
-      const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
-#pragma unroll
-      for (int k = 0; k < W; ++k) fac[k] |= tbl[d][k] & mask;
-    }
-    vmn::mont_mul<W>(acc, acc, fac, sm, mp);
+  for (int j = 0; j < S; ++j) {
+    mine[j * stride] = cur[j];
+    mine[(S + j) * stride] = x[j];
+    cur[j] = x[j];
   }
-  vmn::store_words<W>(out, acc, n, idx);
+#pragma unroll 1
+  for (int d = 2; d < kExpEntries; ++d) {
+    vmn::coop_mont_mul<W, TPI>(cur, cur, x, mm, mp);
+#pragma unroll
+    for (int j = 0; j < S; ++j) mine[(d * S + j) * stride] = cur[j];
+  }
+  const int32_t* ex = e + idx * le;
+  uint32_t acc[S], fac[S];
+  // The top digit's entry starts the accumulator (one^16 · T[d] = T[d]).
+  select_entry<S>(acc, mine, stride, row_digit(ex, le, ndig - 1));
+#pragma unroll 1
+  for (int j = ndig - 2; j >= 0; --j) {
+    const uint32_t dig = row_digit(ex, le, j);  // loaded under the squarings
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) vmn::coop_mont_mul<W, TPI>(acc, acc, acc, mm, mp);
+    select_entry<S>(fac, mine, stride, dig);
+    vmn::coop_mont_mul<W, TPI>(acc, acc, fac, mm, mp);
+  }
+  if (live) vmn::store_slice<W, TPI>(out + idx * 2 * W, acc);
+}
+
+// ------------------------------------------- K7's combine: one product chain
+// prod_j P_j^(2^(4j)) over npos positions (row-major (npos, 2W) limbs),
+// Horner from the top position: 4 squarings and one product each, 5·npos
+// products back to back on one warp.  The accumulator stays in registers;
+// P_j is read once, before its 4 squarings.  Launched as one warp: the
+// groups past the first (W < 32) compute the same chain and do not store.
+template <int W, int TPI>
+__global__ void __launch_bounds__(32)
+    mont_chain_kernel(const int32_t* __restrict__ P, int32_t* __restrict__ out,
+                      const int32_t* __restrict__ m, uint32_t mp, int npos) {
+  constexpr int S = W / TPI;
+  uint32_t mm[S], acc[S], fac[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(acc, P + (int64_t)(npos - 1) * 2 * W);
+#pragma unroll 1
+  for (int j = npos - 2; j >= 0; --j) {
+    vmn::load_slice<W, TPI>(fac, P + (int64_t)j * 2 * W);
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) vmn::coop_mont_mul<W, TPI>(acc, acc, acc, mm, mp);
+    vmn::coop_mont_mul<W, TPI>(acc, acc, fac, mm, mp);
+  }
+  if (threadIdx.x < TPI) vmn::store_slice<W, TPI>(out, acc);
 }
 
 // --------------------------------------------- H3: fixed-base power, 2^WB
@@ -233,12 +334,51 @@ int launch_fb(const int32_t* table, const int32_t* e, int32_t* out,
   return (int)cudaGetLastError();
 }
 
+// A cooperative launch: `threads` a block (whole warps, a multiple of
+// TPI, at most kThreads) over `blocks` blocks, as ops/mont_kernels.py's
+// coop_launch computes it.
+template <int TPI>
+bool coop_shape_ok(int threads, int64_t blocks) {
+  return threads > 0 && threads <= kThreads && threads % 32 == 0 &&
+         threads % TPI == 0 && blocks > 0 && blocks < (1ll << 31);
+}
+
+template <int W, int TPI>
+int launch_mul(const int32_t* a, const int32_t* b, int32_t* out,
+               const int32_t* m, uint32_t mp, int64_t n, int threads,
+               int64_t blocks, cudaStream_t s) {
+  if (!coop_shape_ok<TPI>(threads, blocks)) return kBadShape;
+  mont_mul_kernel<W, TPI><<<(unsigned)blocks, threads, 0, s>>>(a, b, out, m,
+                                                               mp, n);
+  return (int)cudaGetLastError();
+}
+
+template <int W, int TPI>
+int launch_exp(const int32_t* base, const int32_t* e, int32_t* out,
+               const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
+               int le, int ndig, int threads, int64_t blocks,
+               cudaStream_t s) {
+  if (!coop_shape_ok<TPI>(threads, blocks) || le < 1 || ndig < 1) {
+    return kBadShape;
+  }
+  const size_t smem = sizeof(uint32_t) * kExpEntries * (W / TPI) * threads;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mont_exp_kernel<W, TPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mont_exp_kernel<W, TPI><<<(unsigned)blocks, threads, smem, s>>>(
+      base, e, out, m, one, mp, n, le, ndig);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Instantiated widths (W = L/2): test256 (L=16) and modp2048 (L=128), the
-// widths that the tests and chip_smoke.py check against the plain versions.
-// A wider group (modp3072: W=96, modp4096: W=128) gets its case here with
-// the first cell or test that runs it.
+// Instantiated widths (W = L/2): test256 and P-256 (L=16) and modp2048
+// (L=128), the widths that the tests and chip_smoke.py check against the
+// plain versions.  A wider group (modp3072: W=96, modp4096: W=128) gets its
+// case here with the first cell or test that runs it.
 #define VMN_FOR_W(w, ...)                          \
   switch (w) {                                     \
     case 8: {                                      \
@@ -255,20 +395,46 @@ int launch_fb(const int32_t* table, const int32_t* e, int32_t* out,
 
 extern "C" {
 
-int vmn_mont_mul(int w, const int32_t* a, const int32_t* b, int32_t* out,
-                 const int32_t* m, uint32_t mp, int64_t n, void* stream) {
+// H1 and H2 are instantiated at the (W, TPI) pairs that COOP_TPI in
+// ops/mont_kernels.py chooses: H1 at (8, 8), (64, 8), (64, 32), H2 at
+// those and (8, 1).
+int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
+                 int32_t* out, const int32_t* m, uint32_t mp, int64_t n,
+                 int threads, int64_t blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VMN_FOR_W(w, mont_mul_kernel<W><<<blocks_for(n), kThreads, 0, s>>>(
-                   a, b, out, m, mp, n));
-  return (int)cudaGetLastError();
+#define VMN_MUL_ARGS a, b, out, m, mp, n, threads, blocks, s
+  switch (w << 8 | tpi) {
+    case 8 << 8 | 8: return launch_mul<8, 8>(VMN_MUL_ARGS);
+    case 64 << 8 | 8: return launch_mul<64, 8>(VMN_MUL_ARGS);
+    case 64 << 8 | 32: return launch_mul<64, 32>(VMN_MUL_ARGS);
+    default: return kUnsupportedWidth;
+  }
+#undef VMN_MUL_ARGS
 }
 
-int vmn_mont_exp(int w, const int32_t* base, const int32_t* e, int32_t* out,
-                 const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
-                 int le, int ndig, void* stream) {
+int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
+                 int32_t* out, const int32_t* m, const int32_t* one,
+                 uint32_t mp, int64_t n, int le, int ndig, int threads,
+                 int64_t blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VMN_FOR_W(w, mont_exp_kernel<W><<<blocks_for(n), kThreads, 0, s>>>(
-                   base, e, out, m, one, mp, n, le, ndig));
+#define VMN_EXP_ARGS base, e, out, m, one, mp, n, le, ndig, threads, blocks, s
+  switch (w << 8 | tpi) {
+    case 8 << 8 | 1: return launch_exp<8, 1>(VMN_EXP_ARGS);
+    case 8 << 8 | 8: return launch_exp<8, 8>(VMN_EXP_ARGS);
+    case 64 << 8 | 8: return launch_exp<64, 8>(VMN_EXP_ARGS);
+    case 64 << 8 | 32: return launch_exp<64, 32>(VMN_EXP_ARGS);
+    default: return kUnsupportedWidth;
+  }
+#undef VMN_EXP_ARGS
+}
+
+// One warp: TPI = 32 at W >= 32, TPI = W below.
+int vmn_mont_chain(int w, const int32_t* P, int32_t* out, const int32_t* m,
+                   uint32_t mp, int npos, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (npos < 1) return kBadShape;
+  VMN_FOR_W(w, mont_chain_kernel<W, (W < 32 ? W : 32)><<<1, 32, 0, s>>>(
+                   P, out, m, mp, npos));
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,255 @@
+"""Device times of the port's kernel wrappers on one CUDA card.
+
+Usage (from any directory, on a machine with a card):
+
+    python3 vmn_tpu_torch/kernel_timing.py [--tree DIR] [--n N] [--ec-n N]
+    python3 vmn_tpu_torch/kernel_timing.py --sweep
+
+Without --sweep it times, with `device_ms`, the wrappers of the
+`vmn_tpu_torch` package under DIR (default: the tree this file is in) on
+inputs made on the card from fixed seeds:
+
+* H1 `mont_mul` and H2 `mont_exp` at modp2048 (W = 64) on N elements
+  (2047-bit exponents) and on one (a product; a^(m-2) as `MontCtx.inv`
+  computes it), and the same at the P-256 field (W = 8) on --ec-n
+  elements and on one (256-bit exponents);
+* K7's combine over 512 positions: `mont_expprod_combine` where the tree
+  has it, else the loop of single-element H1 launches that `mont_expprod`
+  ran before it had its own launch;
+* H5 `ec_scalar_mul`, H6 `ec_multiexp_positions` and H8 `ec_point_add` at
+  P-256 on 4096 and on --ec-n points.
+
+Every tree of the port since the EC slice has these wrappers with these
+signatures, so a commit and its parent, unpacked side by side, are timed
+the same way on the same inputs, one process each.
+
+--sweep times H1 and H2 of this tree at every TPI (lanes an element) it is
+built for, over a range of N at both widths, forcing the TPI through
+`COOP_TPI`, the table the wrappers choose it from; it prints, per kernel
+and width, the fastest TPI at each N.
+
+Prints the card's name and power limit, then one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+if __name__ == "__main__":  # run as a file: its folder is no import root
+    sys.path.pop(0)
+
+import torch  # noqa: E402
+
+SPIN_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clock cycles
+COMBINE_POSITIONS = 512  # K7's ndig_pad at a 2047-bit exponent
+SWEEP_N = {64: (1, 4, 16, 64, 256, 1024, 2048, 4096, 6144, 8192, 10000,
+                16384),
+           8: (1, 16, 256, 1024, 4096, 8192, 16384, 32768, 65536, 131072,
+               262144)}
+
+
+def device_ms(fn, reps: int = 3) -> float:
+    """Mean device milliseconds per run of a kernel wrapper fn(): the runs
+    are queued behind a spin kernel (torch.cuda._sleep) as long as three
+    times their host time, so that they follow one another on the device
+    without host gaps, and are timed with CUDA events.  A wrapper's own
+    host work (argument checks, ctypes) is thus left out, which matters
+    for the batch-1 launches of a few microseconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0, 3 * reps * host_s) * SPIN_CYCLES_PER_S))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _elements(gen, n: int, L: int, dev) -> torch.Tensor:
+    """n random (n, L) int32 limb rows with the top limb 0: below the
+    moduli timed here, whose top limb is 0xFFFF."""
+    x = torch.randint(0, 1 << 16, (n, L), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x[:, -1] = 0
+    return x
+
+
+def _exponents(gen, n: int, nbits: int, dev) -> torch.Tensor:
+    le = -(-nbits // 16)
+    e = torch.randint(0, 1 << 16, (n, le), generator=gen, device=dev,
+                      dtype=torch.int32)
+    e[:, -1] &= (1 << (nbits - 16 * (le - 1))) - 1
+    return e
+
+
+def _limbs_of(x: int, dev) -> torch.Tensor:
+    le = -(-x.bit_length() // 16)
+    return torch.tensor([[(x >> (16 * i)) & 0xFFFF for i in range(le)]],
+                        dtype=torch.int32, device=dev)
+
+
+def _moduli(dev):
+    from vmn_tpu_torch.arith.ec import _CURVES
+    from vmn_tpu_torch.arith.mont import MontCtx
+    from vmn_tpu_torch.arith.pgroup import _RFC3526_2048
+
+    return {64: MontCtx(_RFC3526_2048, dev),
+            8: MontCtx(_CURVES["P-256"][0], dev)}
+
+
+def time_tree(n: int, ec_n: int) -> dict:
+    """{case: device ms} of the wrappers of the imported package."""
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2048)
+    out = {}
+    for w, ctx in _moduli(dev).items():
+        tag, count = ("", n) if w == 64 else ("_w8", ec_n)
+        ebits = 2047 if w == 64 else 256
+        a = _elements(gen, count, ctx.L, dev)
+        b = _elements(gen, count, ctx.L, dev)
+        e = _exponents(gen, count, ebits, dev)
+        inv_bits = (ctx.m - 2).bit_length()
+        e_inv = _limbs_of(ctx.m - 2, dev)
+        a1, b1 = a[:1].clone(), b[:1].clone()
+        out[f"mont_mul{tag}"] = device_ms(lambda: K.mont_mul(a, b, ctx.mod))
+        out[f"mont_exp{tag}"] = device_ms(
+            lambda: K.mont_exp(a, e, ctx.mod, ebits))
+        out[f"mont_mul{tag}_b1"] = device_ms(
+            lambda: K.mont_mul(a1, b1, ctx.mod), reps=20)
+        out[f"mont_exp{tag}_b1"] = device_ms(
+            lambda: K.mont_exp(a1, e_inv, ctx.mod, inv_bits))
+        if w == 64:
+            P = _elements(gen, COMBINE_POSITIONS, ctx.L, dev)
+            out["mont_expprod_combine"] = device_ms(
+                lambda: _combine(K, P, ctx.mod))
+    out.update(_time_ec(E, dev, 4096, "_4096"))
+    out.update(_time_ec(E, dev, ec_n, ""))
+    return out
+
+
+def _combine(K, P, mod):
+    if hasattr(K, "mont_expprod_combine"):
+        return K.mont_expprod_combine(P, mod)
+    acc = mod.one_mont.reshape(1, -1)
+    for j in range(P.shape[0] - 1, -1, -1):
+        for _ in range(4):
+            acc = K.mont_mul(acc, acc, mod)
+        acc = K.mont_mul(acc, P[j : j + 1], mod)
+    return acc[0]
+
+
+def _time_ec(E, dev, n: int, tag: str) -> dict:
+    import numpy as np
+
+    from vmn_tpu_torch.arith.ec import ECqPGroup
+    from vmn_tpu_torch.crypto.hash import SHA256
+    from vmn_tpu_torch.crypto.prg import PRGHeuristic
+
+    grp = ECqPGroup.named("P-256", device=dev)
+    mod = grp.ctx.mod
+    prg = PRGHeuristic(SHA256)
+    prg.set_seed(SHA256.hash(b"smoke-ec-points"))
+    pts = grp.random_array(n, prg, 8)
+    x, y, inf = pts.x, pts.y, pts.inf
+    rng = np.random.default_rng(256)
+    e = grp.ring.from_ints([int.from_bytes(rng.bytes(40), "big") % grp.n
+                            for _ in range(n)]).limbs
+    X, Y, Z = E.ec_scalar_mul(x, y, inf, e, mod, 256)
+    X2, Y2, Z2 = (t.flip(0).contiguous() for t in (X, Y, Z))
+    return {
+        f"ec_scalar_mul{tag}": device_ms(
+            lambda: E.ec_scalar_mul(x, y, inf, e, mod, 256)),
+        f"ec_multiexp_positions{tag}": device_ms(
+            lambda: E.ec_multiexp_positions(x, y, inf, e, mod, 256)),
+        f"ec_point_add{tag}": device_ms(
+            lambda: E.ec_point_add(X, Y, Z, X2, Y2, Z2, mod), reps=20),
+    }
+
+
+def sweep() -> dict:
+    """H1 and H2 at every instantiated TPI over SWEEP_N at both widths."""
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows, best = [], {}
+    for w, ctx in _moduli(dev).items():
+        tpis = K.coop_tpis(w)
+        ebits = 2047 if w == 64 else 256
+        top = max(SWEEP_N[w])
+        a = _elements(gen, top, ctx.L, dev)
+        b = _elements(gen, top, ctx.L, dev)
+        e = _exponents(gen, top, ebits, dev)
+        runs = {"mont_mul": lambda k: K.mont_mul(a[:k], b[:k], ctx.mod),
+                "mont_exp": lambda k: K.mont_exp(a[:k], e[:k], ctx.mod,
+                                                 ebits)}
+        for kernel, run in runs.items():
+            rule = K.COOP_TPI[kernel, w]
+            try:
+                for n in SWEEP_N[w]:
+                    times = {}
+                    for tpi in tpis:
+                        K.COOP_TPI[kernel, w] = ((1, tpi),)
+                        times[tpi] = device_ms(lambda: run(n), reps=10)
+                        rows.append({"kernel": kernel, "W": w, "N": n,
+                                     "tpi": tpi, "ms": times[tpi]})
+                    best.setdefault(f"{kernel} W={w}", {})[n] = min(
+                        times, key=times.get)
+                    print(f"[sweep] kernel={kernel} W={w} N={n} " + " ".join(
+                        f"tpi{t}_ms={ms:.4f}" for t, ms in times.items()),
+                        flush=True)
+            finally:
+                K.COOP_TPI[kernel, w] = rule
+    return {"sweep": rows, "fastest_tpi": best}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", type=Path,
+                    default=Path(__file__).resolve().parent.parent,
+                    help="root of the port's tree to time (default: this "
+                         "file's tree)")
+    ap.add_argument("--n", type=int, default=10000,
+                    help="elements at modp2048 (default 10000)")
+    ap.add_argument("--ec-n", type=int, default=1 << 17,
+                    help="elements and points at P-256 (default 131072)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time this tree's H1 and H2 at every TPI instead")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_timing: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(args.tree.resolve()))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    K.build_kernels()
+    res = sweep() if args.sweep else {
+        "tree": str(args.tree), "ms": time_tree(args.n, args.ec_n)}
+    print(card)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,36 +2,50 @@
 versions (port of `vmn_tpu.ops.mont_kernels`).
 
 Every operation of a ModP group, and the field products and powers of an
-EC group, reduce to these five functions (point arithmetic is
+EC group, reduce to these functions (point arithmetic is
 ops/ec_kernels.py).  Each has three parts here:
 
 * the wrapper (`mont_mul`, `mont_exp`, `mont_fb_exp`,
-  `mont_expprod_positions`, plus `mont_expprod` on top of them).  A CPU
+  `mont_expprod_positions`, `mont_expprod_combine`, and `mont_expprod`,
+  the last two in sequence).  A CPU
   tensor goes to the plain version; a CUDA tensor goes to the kernel in
   `csrc/mont_kernels.cu` or raises — there is no fallback;
 * the plain PyTorch version (`*_plain`): exact integer arithmetic on
   int64 tensors with log-depth carry resolution, any algorithm that
   gives the same canonical limbs;
 * a launch counter per wrapper (`LAUNCHES[name]`), bumped only where the
-  wrapper launches its kernel.
+  wrapper launches its kernel; H1 and H2 also count their launches by
+  batch size (`LAUNCH_SIZES`).
 
 Arrays at this boundary are ``(N, L)`` int32 tensors of 16-bit limbs
-(arith/limbs.py), Montgomery radix ``R = 2^(16·L)``.  The wrappers
-transpose to the limb-major ``(L, N)`` layout the kernels read.
+(arith/limbs.py), Montgomery radix ``R = 2^(16·L)``.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
 
 * H1 `mont_mul` replaces K2 `mont_mul_pallas`
-  (vmn_tpu/ops/mont_kernels.py:182-216).  One thread per element, CIOS
-  over 32-bit words with 64-bit accumulators.  Bound by integer
-  multiply-add issue (2·W² 32-bit multiply-adds per product, W = L/2) and,
-  at the slice's batch sizes, by launch count: the torch-level trees and
-  scans and the K7 combine call it many times on small batches.
-* H2 `mont_exp` replaces K3 `mont_exp_pallas` (:222-286, :753-795).
-  16-entry table per thread in local memory, 4-bit fixed windows,
-  constant-time masked select.  Bound by the ~5·nbits/4 products per
-  element; the table's local-memory traffic is second.
+  (vmn_tpu/ops/mont_kernels.py:182-216).  A W-word product (W = L/2) is
+  4·W² + W 32-bit multiplies, so a large batch is bound by integer
+  multiply issue; but most launches on the mix path are tiny batches (the
+  product trees and scans near their root, H4's lane tree), where one
+  thread's 2·W² dependent multiply-adds (~60 µs at W = 64 on an H100)
+  would be the latency.  The kernel spreads one element over TPI lanes of a warp
+  (csrc/mont_coop.cuh): TPI = 32 for small batches, so a batch-1 product
+  is W/32 words of work a lane, and fewer lanes from the batch size where
+  they measured faster (`COOP_TPI`).  ptxas: 48/28 registers at W = 64,
+  TPI 8/32, 21 at W = 8, TPI 8; no spills.
+* H2 `mont_exp` replaces K3 `mont_exp_pallas` (:222-286, :753-795): 4-bit
+  fixed windows, 14 products for the table and 5 per digit (2574 at 2047
+  bits), constant-time masked select.  Bound by those products.  One
+  thread per element would hold the 4 KB table and the product's operands
+  in local memory, fill 79 blocks of 132 SMs at N = 10000, and run a batch
+  of one (the inversions) as 2574 products on one thread.  Instead TPI
+  lanes share an element as in H1, the table lies in shared memory
+  ([entry][word][thread], conflict-free), the accumulator and each lane's
+  slice in registers.
+  ptxas: 56/32 registers at W = 64, TPI 8/32, 56/26 at W = 8, TPI 1/8;
+  no spills.  The table (4 KB an element at W = 64) caps an SM at 48
+  resident elements in 64 KB blocks.
 * H3 `mont_fb_exp` (window 4 or 8) replaces K5 `mont_fb_exp_pallas`
   (:292-353, :486-527) and K4 `mont_fb8_exp_pallas` (:361-483); routed by
   exponent bits as vmn_tpu/arith/mont.py:1055 does.  A block stages one
@@ -46,9 +60,15 @@ design does about it):
   elements inside the kernel (the TPU's sequential grid axis), then an H1
   product tree multiplies the lanes.  Bound by products (one per element
   and position) plus 16·W table words read per product.
-* K7 `mont_expprod_pallas` (:730-750) is `mont_expprod` here: H4, then the
-  combine prod_j P_j^(2^(4j)) as 5·ndig_pad single-element H1 launches in
-  sequence — a known launch-bound spot (PERF.md).
+* K7 `mont_expprod_pallas` (:730-750) is `mont_expprod` here: H4, then
+  `mont_expprod_combine`, prod_j P_j^(2^(4j)) in one launch: one warp runs
+  the 5·ndig_pad products back to back with H1's cooperative product,
+  where a loop over H1 would launch 5·ndig_pad single-element batches.  A
+  chain of dependent products: bound by the latency of one product, not
+  by the card's throughput.  ptxas: 26 registers at W = 64, 21 at W = 8.
+
+H1, H2 and the combine take row-major ``(N, L)`` operands as they are; H3
+and H4 read limb-major ``(L, N)``, which their wrappers transpose to.
 """
 
 from __future__ import annotations
@@ -78,13 +98,28 @@ EP_SUPER = 1 << 20
 EP_PER_LANE = 8
 EP_MAX_LANES = 2048
 
-KERNELS = ("mont_mul", "mont_exp", "mont_fb_exp", "mont_expprod_positions")
+KERNELS = ("mont_mul", "mont_exp", "mont_fb_exp", "mont_expprod_positions",
+           "mont_expprod_combine")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# H1 and H2 launches by batch size: 1, 2-127, >= 128 elements.
+SIZE_BUCKETS = ("1", "2-127", ">=128")
+LAUNCH_SIZES = {k: dict.fromkeys(SIZE_BUCKETS, 0)
+                for k in ("mont_mul", "mont_exp")}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for sizes in LAUNCH_SIZES.values():
+        for b in sizes:
+            sizes[b] = 0
+
+
+def _launched(name: str, n: int) -> None:
+    LAUNCHES[name] += 1
+    if name in LAUNCH_SIZES:
+        bucket = SIZE_BUCKETS[0 if n == 1 else 1 if n < 128 else 2]
+        LAUNCH_SIZES[name][bucket] += 1
 
 
 # ------------------------------------------------------------ constants
@@ -327,6 +362,17 @@ def _lane_tree(P: torch.Tensor, mod: Modulus, mul) -> torch.Tensor:
     return P[:, 0].contiguous()
 
 
+def mont_expprod_combine_plain(P: torch.Tensor, mod: Modulus) -> torch.Tensor:
+    """Plain version of the K7 combine: prod_j P_j^(2^(4j)) of (J, L)
+    Montgomery-form positions -> (L,), Horner from the top position."""
+    acc = mod.one_mont.reshape(1, -1)
+    for j in range(P.shape[0] - 1, -1, -1):
+        for _ in range(WINDOW):
+            acc = mont_mul_plain(acc, acc, mod)
+        acc = mont_mul_plain(acc, P[j : j + 1], mod)
+    return acc[0]
+
+
 # ---------------------------------------------------------- the kernels
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -335,7 +381,46 @@ _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 _UNSUPPORTED_WIDTH = -1
+_BAD_SHAPE = -2
 _WIDTHS = (8, 64)  # W = L/2 instantiated in mont_kernels.cu
+
+# Threads per element (TPI) of H1 and H2 for n elements of W words: TPI
+# lanes of one warp share an element.  Per (kernel, W), (from n elements,
+# TPI) pairs, largest n first.  Each n is the smallest N that
+# `kernel_timing.py --sweep` timed (N = 1, 4, 16, ..., 2048, 4096, 6144,
+# 8192, 10000, 16384 at W = 64; 1, 16, ..., 8192, 16384, ..., 262144 at
+# W = 8) from which the fewer lanes were faster at every N it timed; the
+# crossover lies between it and the N timed before it (PERF.md §6).  H1
+# at W = 8 was fastest at TPI 8 at every N.  Every pair has its case in
+# mont_kernels.cu.
+COOP_TPI = {
+    ("mont_mul", 8): ((1, 8),),
+    ("mont_mul", 64): ((4096, 8), (1, 32)),
+    ("mont_exp", 8): ((16384, 1), (1, 8)),
+    ("mont_exp", 64): ((2048, 8), (1, 32)),
+}
+COOP_BLOCK = 128  # threads a block at most (kThreads in mont_kernels.cu)
+
+
+def coop_tpis(w: int) -> tuple:
+    """The TPIs instantiated for W words, fewest first."""
+    return tuple(sorted({t for (_, cw), rule in COOP_TPI.items() if cw == w
+                         for _, t in rule}))
+
+
+def threads_per_element(kernel: str, w: int, n: int) -> int:
+    """H1's or H2's TPI for n >= 1 elements of W words (COOP_TPI)."""
+    return next(t for lo, t in COOP_TPI[kernel, w] if n >= lo)
+
+
+def coop_launch(kernel: str, w: int, n: int):
+    """(TPI, threads a block, blocks) of a cooperative launch over n >= 1
+    elements of W words: whole warps, at most COOP_BLOCK threads a block,
+    every element's TPI lanes in one block."""
+    tpi = threads_per_element(kernel, w, n)
+    need = n * tpi
+    threads = min(COOP_BLOCK, -(-need // 32) * 32)
+    return tpi, threads, -(-need // threads)
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -396,8 +481,11 @@ def _library() -> ctypes.CDLL:
             P, I64, I32, U32 = (ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.c_int, ctypes.c_uint32)
             sig = {
-                "vmn_mont_mul": [I32, P, P, P, P, U32, I64, P],
-                "vmn_mont_exp": [I32, P, P, P, P, P, U32, I64, I32, I32, P],
+                "vmn_mont_mul": [I32, I32, P, P, P, P, U32, I64, I32, I64,
+                                 P],
+                "vmn_mont_exp": [I32, I32, P, P, P, P, P, U32, I64, I32, I32,
+                                 I32, I64, P],
+                "vmn_mont_chain": [I32, P, P, P, U32, I32, P],
                 "vmn_mont_fb_exp": [I32, I32, P, P, P, P, P, U32, I64, I32,
                                     I32, P],
                 "vmn_ep_table": [I32, P, P, P, P, U32, I64, P],
@@ -415,6 +503,8 @@ def _library() -> ctypes.CDLL:
 def _check(fn: str, rc: int) -> None:
     if rc == _UNSUPPORTED_WIDTH:
         raise ValueError(f"{fn}: no kernel instantiated for this width")
+    if rc == _BAD_SHAPE:
+        raise ValueError(f"{fn}: launch shape refused by the kernel")
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
 
@@ -450,23 +540,40 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _rows(x: torch.Tensor, name: str, device, n: int, cols: int = 0
+          ) -> torch.Tensor:
+    """x as the row-major (n, cols) int32 operand of a cooperative kernel
+    (any cols >= 1 where cols is 0), 8-byte aligned for its paired-limb
+    loads."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if (x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != n
+            or x.shape[1] < 1 or (cols and x.shape[1] != cols)):
+        raise ValueError(
+            f"{name}: expected int32 (N={n}, {cols or 'limbs'}), got "
+            f"{x.dtype} {tuple(x.shape)}"
+        )
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 8 else x
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
     """H1: batched Montgomery product, (N, L) x (N, L) -> (N, L)."""
     if a.device.type == "cpu":
         return mont_mul_plain(a, b, mod)
     N, L = a.shape
     w = _words(mod)
-    aT = _limb_major(a, "a", mod.limbs.device, N)
-    bT = _limb_major(b, "b", mod.limbs.device, N)
-    if b.shape != a.shape:
-        raise ValueError(f"shape mismatch {tuple(a.shape)} {tuple(b.shape)}")
-    out = torch.empty((L, N), dtype=torch.int32, device=a.device)
+    dev = mod.limbs.device
+    a = _rows(a, "a", dev, N, L)
+    b = _rows(b, "b", dev, N, L)
+    out = torch.empty((N, L), dtype=torch.int32, device=dev)
     if N:
+        t, threads, blocks = coop_launch("mont_mul", w, N)
         _check("mont_mul", _library().vmn_mont_mul(
-            w, _ptr(aT), _ptr(bT), _ptr(out), _ptr(mod.limbs),
-            mod.mprime32, N, _stream(a.device)))
-        LAUNCHES["mont_mul"] += 1
-    return out.t().contiguous()
+            w, t, _ptr(a), _ptr(b), _ptr(out), _ptr(mod.limbs),
+            mod.mprime32, N, threads, blocks, _stream(dev)))
+        _launched("mont_mul", N)
+    return out
 
 
 def mont_exp(base: torch.Tensor, e: torch.Tensor, mod: Modulus, nbits: int
@@ -477,17 +584,19 @@ def mont_exp(base: torch.Tensor, e: torch.Tensor, mod: Modulus, nbits: int
         return mont_exp_plain(base, e, mod, nbits)
     N, L = base.shape
     w = _words(mod)
-    bT = _limb_major(base, "base", mod.limbs.device, N)
-    eT = _limb_major(e, "e", mod.limbs.device, N)
+    dev = mod.limbs.device
+    base = _rows(base, "base", dev, N, L)
+    e = _rows(e, "e", dev, N)
     ndig = max(1, -(-nbits // WINDOW))
-    out = torch.empty((L, N), dtype=torch.int32, device=base.device)
+    out = torch.empty((N, L), dtype=torch.int32, device=dev)
     if N:
+        t, threads, blocks = coop_launch("mont_exp", w, N)
         _check("mont_exp", _library().vmn_mont_exp(
-            w, _ptr(bT), _ptr(eT), _ptr(out), _ptr(mod.limbs),
-            _ptr(mod.one_mont), mod.mprime32, N, eT.shape[0], ndig,
-            _stream(base.device)))
-        LAUNCHES["mont_exp"] += 1
-    return out.t().contiguous()
+            w, t, _ptr(base), _ptr(e), _ptr(out), _ptr(mod.limbs),
+            _ptr(mod.one_mont), mod.mprime32, N, e.shape[1], ndig, threads,
+            blocks, _stream(dev)))
+        _launched("mont_exp", N)
+    return out
 
 
 def mont_fb_exp(table: torch.Tensor, e: torch.Tensor, mod: Modulus
@@ -554,14 +663,28 @@ def mont_expprod_positions(bases: torch.Tensor, e: torch.Tensor,
     return _lane_tree(torch.cat(partials, dim=1), mod, mont_mul)
 
 
+def mont_expprod_combine(P: torch.Tensor, mod: Modulus) -> torch.Tensor:
+    """K7's combine prod_j P_j^(2^(4j)) of (J, L) Montgomery-form
+    positions -> (L,), as one chain on one warp."""
+    if P.device.type == "cpu":
+        return mont_expprod_combine_plain(P, mod)
+    J, L = P.shape
+    w = _words(mod)
+    dev = mod.limbs.device
+    if J == 0:
+        return mod.one_mont.clone()
+    P = _rows(P, "P", dev, J, L)
+    out = torch.empty((1, L), dtype=torch.int32, device=dev)
+    _check("mont_expprod_combine", _library().vmn_mont_chain(
+        w, _ptr(P), _ptr(out), _ptr(mod.limbs), mod.mprime32, J,
+        _stream(dev)))
+    _launched("mont_expprod_combine", J)
+    return out[0]
+
+
 def mont_expprod(bases: torch.Tensor, e: torch.Tensor, mod: Modulus,
                  nbits: int) -> torch.Tensor:
     """prod_i bases_i^(e_i) -> (L,) Montgomery form (K7): H4's positions,
-    then prod_j P_j^(2^(4j)) through H1 one position at a time."""
-    P = mont_expprod_positions(bases, e, mod, nbits)
-    acc = mod.one_mont.reshape(1, -1)
-    for j in range(P.shape[0] - 1, -1, -1):
-        for _ in range(WINDOW):
-            acc = mont_mul(acc, acc, mod)
-        acc = mont_mul(acc, P[j : j + 1], mod)
-    return acc[0]
+    then their combine."""
+    return mont_expprod_combine(
+        mont_expprod_positions(bases, e, mod, nbits), mod)
