@@ -15,13 +15,16 @@ Phases (one line each; any failure raises and the exit code is not 0):
      against their plain PyTorch versions on the card (exact equality, a
      few rows against Python pow), and time both (kernels on the device:
      vmn_tpu_torch/kernel_timing.py's device_ms);
-  4. check H5 ec_scalar_mul, H6 ec_multiexp_positions (with the combine of
-     `ec_multiexp`), H7 ec_fb_exp and H8 ec_point_add at P-256 the same
-     way (exact equality of Jacobian limbs on the whole batch; after
-     `normalize`, a few rows against Python EC arithmetic), with infinity,
-     P == Q, P == -Q, scalar 0 and scalar n - 1 among the inputs, and H7
-     against H5 on the same fixed-base batch: once on 4096 points and once
-     on the EC path's batch (--ec-n);
+  4. check H5 ec_scalar_mul, H6 ec_multiexp_positions (with the rest of
+     `ec_multiexp`), the position combine ec_multiexp_combine (64
+     positions, a 256-bit multi-exponentiation), H7 ec_fb_exp and H8
+     ec_point_add at P-256 the same way (exact equality of Jacobian limbs
+     on the whole batch; after `normalize`, a few rows against Python EC
+     arithmetic), with infinity, P == Q, P == -Q, scalar 0 and scalar
+     n - 1 among the inputs, and H7 against H5 on the same fixed-base
+     batch: once on 4096 points and once on the EC path's batch (--ec-n);
+     H5 also at the first N of any TPI (lanes a point) that neither batch
+     reaches, so that every TPI its wrapper chooses is checked;
   5. the test256 and P-256 golden mixes on the card: each transcript must
      equal tests/golden/nizkp_{test256,p256}_k1 byte for byte, and the
      port's verifier must accept it;
@@ -34,10 +37,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
 
 Each mix zeroes the wrappers' launch counters just before `session.mix`
 and reads them just after it.  H1-H4 and the combine must have launched
-in the modp2048 mix, and H5, H6 and H8 in the P-256 mix (H7 is off that
-path, as in vmn_tpu, and reports 0); the `launches` line also counts H1's
-and H2's launches in each mix by batch size (1, 2-127, >=128); the
-`kernels` line reports each kernel's
+in the modp2048 mix, and H5, H6, the EC combine (once per H6 call) and H8
+in the P-256 mix (H7 is off that path, as in vmn_tpu, and reports 0); the
+`launches` line also counts H1's, H2's, H5's and H8's launches in each
+mix by batch size (1, 2-127, >=128); the `kernels` line reports each
+kernel's
 launches in its own path's mix, beside the error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
@@ -75,6 +79,7 @@ REPLACES = {
     "mont_expprod_combine": "vmn_tpu/ops/mont_kernels.py:731",
     "ec_scalar_mul": "vmn_tpu/ops/ec_kernels.py:278",
     "ec_multiexp_positions": "vmn_tpu/ops/ec_kernels.py:445",
+    "ec_multiexp_combine": "vmn_tpu/ops/ec_kernels.py:445",
     "ec_fb_exp": "vmn_tpu/ops/ec_kernels.py:668",
     "ec_point_add": "vmn_tpu/ops/ec_kernels.py:748",
 }
@@ -84,7 +89,9 @@ MAIN_CHECK = {"mont_mul": "mont_mul", "mont_exp": "mont_exp",
               "mont_expprod_combine": "mont_expprod_combine",
               "ec_scalar_mul": "ec_scalar_mul",
               "ec_multiexp_positions": "ec_multiexp_positions",
+              "ec_multiexp_combine": "ec_multiexp_combine",
               "ec_fb_exp": "ec_fb_exp", "ec_point_add": "ec_point_add"}
+COOP_MONT = ("mont_mul", "mont_exp")  # phase 3's cooperative kernels
 
 # Bounds: the larger of bytes moved (each input read once, each output
 # written once, int32 limbs as stored) over the card's memory rate, and
@@ -357,7 +364,7 @@ def check_kernels(n: int, ec_n: int) -> dict:
         results[name] = r
         kernel_line(name, r)
     built = {(k, w, t) for (k, w), rule in K.COOP_TPI.items()
-             for _, t in rule}
+             if k in COOP_MONT for _, t in rule}
     if tpis != built:
         raise AssertionError(f"H1/H2 instantiations not checked: "
                              f"{sorted(built - tpis)}")
@@ -381,6 +388,10 @@ def kernel_line(name: str, r: dict) -> None:
     if "us_per_product" in r:
         extra = {"products": r["products"],
                  "us_per_product": f"{r['us_per_product']:.3f}",
+                 "bound": f"'{r['bound_note']}'"}
+    if "us_per_point_op" in r:
+        extra = {"point_ops": r["point_ops"],
+                 "us_per_point_op": f"{r['us_per_point_op']:.3f}",
                  "bound": f"'{r['bound_note']}'"}
     if "tpi" in r:
         extra["tpi"] = r["tpi"]
@@ -420,9 +431,11 @@ def host_ec_mul(p: int, a: int, P, k: int):
     return acc
 
 
-def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int) -> dict:
+def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int,
+              npos: int) -> dict:
     """Bounds of H5-H8 at P-256 on n points and exponents e of ndig 4-bit
-    digits (the fixed-base table of table_words words)."""
+    digits (the fixed-base table of table_words words), and of the
+    combine over npos positions."""
     W, L = 8, 16
     nb = 4 * n * L  # one (n, L) int32 array
     nz = nonzero_digits(e, ndig, 4)
@@ -441,22 +454,29 @@ def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int) -> dict:
         "ec_fb_exp": bound(nz * EC_MADD_PRODUCTS, W,
                            4 * table_words + nb + 3 * nb),
         "ec_point_add": bound(n * EC_ADD_PRODUCTS, W, 6 * nb + 3 * nb),
+        # 4 doublings and one general addition per position
+        "ec_multiexp_combine": bound(
+            npos * (4 * EC_DOUBLE_PRODUCTS + EC_ADD_PRODUCTS), W,
+            3 * 4 * npos * L + 3 * 4 * L),
     }
 
 
 EC_CHECK_N = 4096  # the small EC check, beside the one at --ec-n
+EC_COMBINE_POSITIONS = 64  # K10's ndig_pad at a 256-bit scalar
 
 
 def check_ec_kernels(n: int) -> dict:
     """H5-H8 at P-256 on n points: kernel == plain on the whole batch, a
     few rows against Python EC arithmetic, times; H7 also against H5 on
-    g.  Run at 4096 points and at the EC path's batch (--ec-n), where H6
-    splits the points into its widest lanes."""
+    g; the combine on the first EC_COMBINE_POSITIONS of H5's Jacobian
+    outputs.  Run at 4096 points and at the EC path's batch (--ec-n),
+    where H6 splits the points into its widest lanes."""
     from vmn_tpu_torch.arith import ec as EC
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.kernel_timing import device_ms
     from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
 
     dev = torch.device("cuda", 0)
     grp = EC.ECqPGroup.named("P-256", device=dev)
@@ -494,7 +514,9 @@ def check_ec_kernels(n: int) -> dict:
     in_pts = [None] + pts.copy_of_range(1, n).to_affine()
     rows = sorted({0, 1, 2, 3, 4, n // 3, n // 2, n - 1})
     G = (grp.gx, grp.gy)
-    bnds = ec_bounds(n, e, ndig, tbx.numel() + tby.numel())
+    J = EC_COMBINE_POSITIONS
+    bnds = ec_bounds(n, e, ndig, tbx.numel() + tby.numel(), J)
+    Pj = [t[:J].contiguous() for t in (X, Y, Z)]
     cases = {
         "ec_scalar_mul": (
             lambda: E.ec_scalar_mul(x, y, inf, e, mod, nbits),
@@ -512,6 +534,11 @@ def check_ec_kernels(n: int) -> dict:
         "ec_point_add": (
             lambda: E.ec_point_add(*j1, *j2, mod),
             lambda: E.ec_point_add_plain(*j1, *j2, mod),
+            None),
+        "ec_multiexp_combine": (
+            lambda: tuple(t[None] for t in E.ec_multiexp_combine(*Pj, mod)),
+            lambda: tuple(t[None]
+                          for t in E.ec_multiexp_combine_plain(*Pj, mod)),
             None),
     }
     results = {}
@@ -534,6 +561,14 @@ def check_ec_kernels(n: int) -> dict:
         elif name == "ec_fb_exp":
             if [affine(got)[i] for i in rows] != py(got):
                 raise AssertionError(f"{name}: kernel != Python EC")
+        elif name == "ec_multiexp_combine":
+            acc = None  # sum_j 16^j·S_j, Horner from the top position
+            for pt in reversed(smul_aff[:J]):
+                for _ in range(4):
+                    acc = host_ec_add(p, a, acc, acc)
+                acc = host_ec_add(p, a, acc, pt)
+            if affine(got) != [acc]:
+                raise AssertionError(f"{name}: kernel != Python EC")
         else:
             second = [smul_aff[k] for k in idx.tolist()]
             s3 = smul_aff[3]
@@ -546,6 +581,14 @@ def check_ec_kernels(n: int) -> dict:
         ms = device_ms(kern)
         results[name] = {"N": n, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, **bnds[name]}
+        if name == "ec_scalar_mul":
+            results[name]["tpi"] = K.threads_per_element(name, 8, n)
+        elif name == "ec_multiexp_combine":
+            ops = 5 * J
+            results[name].update(
+                N=J, tpi=K.threads_per_element(name, 8, 1), point_ops=ops,
+                us_per_point_op=1e3 * ms / ops,
+                bound_note="latency-bound: one point on one warp")
         kernel_line(name, results[name])
     # The routing fact for fixed-base powers: H7 against H5 on g.
     fb_ms = device_ms(lambda: E.ec_fb_exp(tbx, tby, e, mod))
@@ -557,6 +600,55 @@ def check_ec_kernels(n: int) -> dict:
     return results
 
 
+def check_smul_tpis(checked: set) -> dict:
+    """H5 against its plain version at 37 points past the first N of each
+    TPI that its wrapper can choose and that `checked` (the TPIs of the
+    checks at 4096 and --ec-n) lacks; fails unless every TPI of H5 and of
+    the combine has been checked."""
+    from vmn_tpu_torch.arith import ec as EC
+    from vmn_tpu_torch.crypto.hash import SHA256
+    from vmn_tpu_torch.crypto.prg import PRGHeuristic
+    from vmn_tpu_torch.kernel_timing import device_ms
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    dev = torch.device("cuda", 0)
+    grp = EC.ECqPGroup.named("P-256", device=dev)
+    mod, q = grp.ctx.mod, grp.n
+    results = {}
+    for lo, tpi in K.COOP_TPI["ec_scalar_mul", 8]:
+        if tpi in checked:
+            continue
+        n = lo + 37
+        if K.threads_per_element("ec_scalar_mul", 8, n) != tpi:
+            n = lo
+        prg = PRGHeuristic(SHA256)
+        prg.set_seed(SHA256.hash(b"smoke-ec-tpi"))
+        pts = grp.random_array(n, prg, 8)
+        inf = pts.inf.clone()
+        inf[0] = True  # row 0: the point at infinity
+        rng = np.random.default_rng(tpi)
+        ks = [int.from_bytes(rng.bytes(40), "big") % q for _ in range(n)]
+        ks[1:4] = [0, 1, q - 1][: n - 1]
+        e = grp.ring.from_ints(ks).limbs
+        args = (pts.x, pts.y, inf, e, mod, 256)
+        got, _ = timed(lambda: E.ec_scalar_mul(*args))
+        want, plain_ms = timed(lambda: E.ec_scalar_mul_plain(*args))
+        err = max_abs_err(got, want)
+        name = f"ec_scalar_mul_tpi{tpi}"
+        results[name] = {
+            "N": n, "tpi": tpi, "max_abs_err": err, "plain_ms": plain_ms,
+            "ms": device_ms(lambda: E.ec_scalar_mul(*args)),
+            **ec_bounds(n, e, 64, 0, 0)["ec_scalar_mul"]}
+        kernel_line(name, results[name])
+        checked.add(tpi)
+    want = {t for _, t in K.COOP_TPI["ec_scalar_mul", 8]}
+    if checked != want:
+        raise AssertionError(f"H5 instantiations not checked: "
+                             f"{sorted(want - checked)}")
+    return results
+
+
 # ---------------------------------------------------------- phases 5-7
 
 
@@ -564,7 +656,7 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
             ciph_seed: bytes):
     """keygen -> encrypt the message array `msgs` -> mix; returns (nizkp
     dir, plaintext array, mix seconds, kernel launches of the mix alone,
-    H1/H2 launches of the mix by batch size)."""
+    H1/H2/H5/H8 launches of the mix by batch size)."""
     from vmn_tpu_torch.crypto.randomsource import SeededSource
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
@@ -588,7 +680,8 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
     torch.cuda.synchronize()
     mix_s = time.perf_counter() - t0
     launches = {**K.LAUNCHES, **E.LAUNCHES}
-    sizes = {k: dict(v) for k, v in K.LAUNCH_SIZES.items()}
+    sizes = {k: dict(v) for k, v in (*K.LAUNCH_SIZES.items(),
+                                     *E.LAUNCH_SIZES.items())}
     return session.nizkp, plain, mix_s, launches, sizes
 
 
@@ -670,7 +763,7 @@ def golden_phase(tmp: Path, name: str) -> None:
 
 def slice_phase(name: str, n: int, tmp: Path):
     """A mix path at N ciphertexts; returns each wrapper's launches in
-    its mix, and H1/H2's by batch size."""
+    its mix, and H1/H2/H5/H8's by batch size."""
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
 
@@ -838,6 +931,8 @@ def main(argv=None) -> int:
     checks.update(check_ec_kernels(args.ec_n))
     for name, r in ec_small.items():
         checks[name][f"at_{EC_CHECK_N}"] = r
+    checks.update(check_smul_tpis({ec_small["ec_scalar_mul"]["tpi"],
+                                   checks["ec_scalar_mul"]["tpi"]}))
     phase("kernels", checked=len(checks),
           phase_s=f"{time.perf_counter() - t0:.1f}")
 
@@ -859,6 +954,10 @@ def main(argv=None) -> int:
     missing += [k for k in E.EC_KERNELS if ec[k] == 0 and k != "ec_fb_exp"]
     if missing:
         raise AssertionError(f"not launched in their path's mix: {missing}")
+    if (args.ec_n <= E.EP_SUPER
+            and ec["ec_multiexp_combine"] != ec["ec_multiexp_positions"]):
+        # below EP_SUPER points H6 counts one launch a multi-exponentiation
+        raise AssertionError("P-256 mix: not one combine per H6 call")
     phase("done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     torch.cuda.synchronize()
@@ -880,10 +979,16 @@ def main(argv=None) -> int:
             w8_batch1=checks[f"{name}_w8_b1"],
             launches_by_batch={"modp2048 mix": modp_sizes[name],
                                "P-256 mix": ec_sizes[name]})
+    ec_at = {name: len(K.KERNELS) + i for i, name in enumerate(E.EC_KERNELS)}
+    for name in E.LAUNCH_SIZES:
+        kernels[ec_at[name]]["launches_by_batch"] = {
+            "P-256 mix": ec_sizes[name]}
+    kernels[ec_at["ec_scalar_mul"]]["at_first_n_of_tpi"] = [
+        r for k, r in checks.items() if k.startswith("ec_scalar_mul_tpi")]
     kernels[K.KERNELS.index("mont_fb_exp")].update(
         window=8, window4={"replaces": "vmn_tpu/ops/mont_kernels.py:487",
                            "exponent_bits": 256, **checks["mont_fb_exp4"]})
-    kernels[len(K.KERNELS) + E.EC_KERNELS.index("ec_fb_exp")].update(
+    kernels[ec_at["ec_fb_exp"]].update(
         note="off the mix path, as in vmn_tpu (arith/ec.py _exp_impl)")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,13 +3,16 @@
 * The plain versions of H5-H8 against the Pallas kernels K9-K12 they port,
   run in interpret mode as tests/test_kernels.py runs them: the exceptional
   cases of the addition (infinity, P == Q, P == -Q) and scalar 0 included.
-  H5, H7 and H8: Jacobian limbs equal.  H6: its Jacobian partials depend on
-  how the points are split into lanes, which differs from the TPU's tiles,
-  so the affine result after `normalize` is compared.
+  H5, H7 and H8: Jacobian limbs equal.  H6 with the position combine
+  (`ec_multiexp`): its Jacobian partials depend on how the points are
+  split into lanes, which differs from the TPU's tiles, so the affine
+  result after `normalize` is compared.  The combine's plain version also
+  against Python EC arithmetic.
 * `ECqPGroup` / `ECArray` against `vmn_tpu.arith.ec` (its XLA path on the
   CPU): affine Montgomery limbs, infinity masks and bytes equal.
 * The device default of the entry points (the card, never a silent CPU).
-* On a CUDA device only: H5-H8 against their plain versions.
+* On a CUDA device only: H5-H8 and the combine against their plain
+  versions, H5 at every TPI its wrapper can choose.
 
 JAX is imported only by the fixtures of the JAX-comparing tests, so the
 `cuda` tests also run where JAX is not installed:
@@ -177,6 +180,79 @@ def test_multiexp_plain_matches_pallas(jx, tg, interpret, monkeypatch):
         acc = host_ec_add(p, a, acc, None if q is None
                           else host_ec_mul(p, a, q, k))
     assert tg.to_affine(TEC.ECArray(tg, *got)) == [acc]
+
+
+def test_multiexp_combine_plain_matches_python(tg):
+    """The combine's plain version, sum_j 2^(4j)·S_j over 8 scaled
+    Jacobian positions, against Python EC arithmetic: the top position
+    and another at infinity, one equal to the running sum where it is
+    added (the addition's doubling branch) and one its negative (P + -P
+    gives infinity, and the chain goes on from there).  On the CPU the
+    wrapper is the plain version."""
+    p, a, G = _host(tg)
+    npos = 8
+    rng = np.random.default_rng(31)
+    pts = [host_ec_mul(p, a, G, int(rng.integers(2, 1 << 62)))
+           for _ in range(npos)]
+    pts[7] = pts[2] = None
+    acc = None
+    for j in range(npos - 1, -1, -1):
+        for _ in range(4):
+            acc = host_ec_add(p, a, acc, acc)
+        if j == 4:
+            pts[j] = acc
+        elif j == 3:
+            pts[j] = (acc[0], p - acc[1])
+        acc = host_ec_add(p, a, acc, pts[j])
+    assert pts[4] is not None and pts[3] is not None
+    lams = [int(rng.integers(2, 1 << 62)) for _ in range(npos)]
+    P = _jacobian(tg, pts, lams)
+    got = E.ec_multiexp_combine_plain(*P, tg.ctx.mod)
+    assert all(t.shape == (tg.L,) for t in got)
+    assert _affine(tg, tuple(t[None] for t in got)) == [acc]
+    _assert_limbs_equal(E.ec_multiexp_combine(*P, tg.ctx.mod), got)
+
+
+@pytest.mark.parametrize("kernel", ["ec_scalar_mul", "ec_multiexp_combine"])
+def test_ec_coop_rule_covers_every_batch(kernel):
+    """The TPI rule of H5 and of the combine: every N >= 1 has a TPI that
+    divides W = 8, fewer lanes as N grows, each TPI reached at its first
+    N; every launch covers its points' lanes in whole warps of at most
+    one block's threads.  The combine is one point (N = 1)."""
+    K = E.K
+    rule = K.COOP_TPI[kernel, 8]
+    assert rule[-1][0] == 1
+    assert [lo for lo, _ in rule] == sorted({lo for lo, _ in rule},
+                                            reverse=True)
+    if kernel == "ec_multiexp_combine":
+        assert len(rule) == 1
+    last = None
+    ns = sorted({1, 2, 31, 4095, 4096, 4097, 1 << 17, 5 * 10**6,
+                 *(lo + d for lo, _ in rule for d in (-1, 0, 1) if lo + d)})
+    for n in ns:
+        tpi, threads, blocks = K.coop_launch(kernel, 8, n)
+        assert 8 % tpi == 0 and threads % 32 == 0 and threads % tpi == 0
+        assert 0 < threads <= K.COOP_BLOCK
+        assert (blocks - 1) * threads < n * tpi <= blocks * threads
+        assert last is None or tpi <= last
+        last = tpi
+    for lo, tpi in rule:
+        assert K.threads_per_element(kernel, 8, lo) == tpi
+
+
+def test_ec_launch_sizes_count_by_batch():
+    E.reset_launches()
+    for name, n in [("ec_point_add", 1), ("ec_point_add", 64),
+                    ("ec_point_add", 4096), ("ec_scalar_mul", 1 << 17),
+                    ("ec_multiexp_combine", 1)]:
+        E._launched(name, n)
+    assert E.LAUNCH_SIZES == {
+        "ec_point_add": {"1": 1, "2-127": 1, ">=128": 1},
+        "ec_scalar_mul": {"1": 0, "2-127": 0, ">=128": 1}}
+    assert E.LAUNCHES["ec_multiexp_combine"] == 1
+    E.reset_launches()
+    assert not any(E.LAUNCHES.values())
+    assert not any(v for d in E.LAUNCH_SIZES.values() for v in d.values())
 
 
 def test_fb_exp_plain_matches_pallas(jx, tg, interpret, monkeypatch):
@@ -379,6 +455,12 @@ def _cuda_case(kernel, device):
         tbx, tby = TEC._ec_fb_table(tg.curve, *tg.g._jac(), 64)
         return (E.ec_fb_exp(tbx, tby, e, mod),
                 E.ec_fb_exp_plain(tbx, tby, e, mod))
+    if kernel == "ec_multiexp_combine":
+        # 64 positions with Z != 1 from H5, row 0 at infinity
+        P = [t[:64] for t in E.ec_scalar_mul(pts.x, pts.y, pts.inf, e, mod,
+                                             256)]
+        return (E.ec_multiexp_combine(*P, mod),
+                E.ec_multiexp_combine_plain(*P, mod))
     # rows 0-2 add a point to itself (row 0: infinity + infinity), row 3
     # adds its negative, the rest pair the batch with its reverse (the
     # last row: P + infinity)
@@ -395,6 +477,73 @@ def _cuda_case(kernel, device):
 @pytest.mark.parametrize("kernel", E.EC_KERNELS)
 def test_cuda_ec_kernel_matches_plain(kernel, cuda_device):
     got, want = _cuda_case(kernel, cuda_device)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _first_n(kernel, tpi):
+    return min(lo for lo, t in E.K.COOP_TPI[kernel, 8] if t == tpi)
+
+
+def _smul_batch(tg, n, device):
+    """n points and scalars at P-256: infinity, scalars 0, 1 and n - 1
+    among random ones (points g^k from a few distinct k)."""
+    rng = np.random.default_rng(n)
+    base = [0] + [int.from_bytes(rng.bytes(40), "big") % tg.n
+                  for _ in range(63)]
+    pts = tg.g.exp(tg.ring.from_ints(base))  # row 0: infinity
+    idx = torch.arange(n, device=device) % 64
+    ks = [0, 1, tg.n - 1] + [int.from_bytes(rng.bytes(40), "big") % tg.n
+                             for _ in range(n - 3)]
+    e = tg.ring.from_ints(ks[:n]).limbs
+    return pts.x[idx], pts.y[idx], pts.inf[idx], e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "tpi", sorted({t for _, t in E.K.COOP_TPI["ec_scalar_mul", 8]}))
+def test_cuda_smul_every_tpi(tpi, cuda_device):
+    """H5 at each TPI its wrapper picks, reached through N: 37 points past
+    the fewest for which it picks it, so that N is no multiple of a
+    block's points."""
+    tg = TGroup.named("P-256", device=cuda_device)
+    n = _first_n("ec_scalar_mul", tpi) + 37
+    assert E.K.threads_per_element("ec_scalar_mul", 8, n) == tpi
+    args = (*_smul_batch(tg, n, cuda_device), tg.ctx.mod, 256)
+    E.reset_launches()
+    got = E.ec_scalar_mul(*args)
+    assert E.LAUNCHES["ec_scalar_mul"] == 1
+    want = E.ec_scalar_mul_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npos", [16, 64])
+def test_cuda_multiexp_combine_matches_plain(npos, cuda_device):
+    """The combine in one launch, on positions with Z != 1 and some at
+    infinity, and inside `ec_multiexp`: one combine launch and no
+    single-point H8 launch."""
+    tg = TGroup.named("P-256", device=cuda_device)
+    mod = tg.ctx.mod
+    x, y, inf, e = _smul_batch(tg, npos, cuda_device)
+    P = E.ec_scalar_mul(x, y, inf, e, mod, 256)
+    E.reset_launches()
+    got = E.ec_multiexp_combine(*P, mod)
+    assert E.LAUNCHES["ec_multiexp_combine"] == 1
+    want = E.ec_multiexp_combine_plain(*P, mod)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    nbits = 4 * npos  # npos digit positions
+    e = e[:, : nbits // 16].contiguous()
+    E.reset_launches()
+    got = E.ec_multiexp(x, y, inf, e, mod, nbits)
+    assert E.LAUNCHES["ec_multiexp_combine"] == 1
+    assert E.LAUNCH_SIZES["ec_point_add"]["1"] == 0
+    want = E.ec_multiexp_combine_plain(
+        *E.ec_multiexp_positions_plain(x, y, inf, e, mod, nbits), mod)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)

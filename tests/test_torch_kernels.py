@@ -150,9 +150,9 @@ def test_coop_launch_covers_every_element(w):
     """The TPI the wrappers pick divides W, is built, and is reached by
     some N; the launch's threads cover every element's lanes in whole
     warps, with no block left idle."""
-    tpis = K.coop_tpis(w)
     for kernel in ("mont_mul", "mont_exp"):
         rule = K.COOP_TPI[kernel, w]
+        tpis = {t for _, t in rule}
         assert rule[-1][0] == 1  # every N >= 1 has a TPI
         assert [lo for lo, _ in rule] == sorted(
             {lo for lo, _ in rule}, reverse=True)
@@ -199,7 +199,7 @@ def test_interop_round_trips(ctxs):
     j_elems = jg.from_ints(xs)
     raw = np.asarray(j_elems.limbs)
     assert np.array_equal(interop.limbs_to_numpy(
-        interop.limbs_from_numpy(raw)), raw)
+        interop.limbs_from_numpy(raw, device="cpu")), raw)
     ga = interop.garray_from_numpy(tg, raw)
     assert ga.to_ints() == [x % tg.p for x in xs]
     std = interop.garray_from_numpy(tg, limbs_np(xs, tg.L), mont=False)
@@ -208,6 +208,23 @@ def test_interop_round_trips(ctxs):
     assert fa.to_ints() == xs
     pp = interop.pparray_from_numpy(PPGroup(tg, 2), (raw, raw))
     assert pp.to_bytetree().to_bytes() == _jax_pair_bytes(jg, j_elems)
+
+
+def test_interop_limbs_default_to_the_card():
+    """`limbs_from_numpy`, the state carrier of the other helpers, puts
+    limbs on the card unless the caller names a device; without a card it
+    raises instead of running on the CPU."""
+    import inspect
+
+    fn = interop.limbs_from_numpy
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    raw = np.arange(8, dtype=np.uint32).reshape(2, 4)
+    if torch.cuda.is_available():
+        assert fn(raw).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            fn(raw)
+    assert fn(raw, device="cpu").device.type == "cpu"
 
 
 def _jax_pair_bytes(jg, elems):

@@ -15,10 +15,13 @@
 // a branch on data.  Infinity is Z == 0.  All values stay canonical, so
 // the outputs equal the TPU kernel's limb for limb.
 //
-// Register use: a Jacobian addition at W = 8 keeps its six input
-// coordinates, three outputs and the doubling's temporaries live (about
-// 150 words); everything is inlined and indexed by unrolled constants so
-// that the coordinates stay in registers.
+// The point formulas are written once, over a field type F that holds
+// F::kWords words of each value in a thread: Field<W> here (one thread,
+// the whole value), CoopField<W, TPI> in ec_coop.cuh (W/TPI words in each
+// of TPI lanes).  Register use: a Jacobian addition at W = 8 keeps its six
+// input coordinates, three outputs and the doubling's temporaries live
+// (about 150 words on one thread); everything is inlined and indexed by
+// unrolled constants so that the coordinates stay in registers.
 #pragma once
 
 #include <cstdint>
@@ -104,9 +107,11 @@ __device__ __forceinline__ void fsub(uint32_t* r, const uint32_t* a,
   }
 }
 
-// The field of one curve: modulus words (shared memory) and m'.
+// The field of one curve on one thread: modulus words (shared memory)
+// and m'.
 template <int W>
 struct Field {
+  static constexpr int kWords = W;
   const uint32_t* m;
   uint32_t mp;
 
@@ -116,6 +121,17 @@ struct Field {
   }
   __device__ __forceinline__ void sq(uint32_t* r, const uint32_t* a) const {
     mont_mul<W>(r, a, a, m, mp);
+  }
+  // Two independent products; each r may alias any operand.  One thread
+  // runs them in turn (the compiler interleaves the unrolled rows).
+  __device__ __forceinline__ void mul2(uint32_t* r1, const uint32_t* a1,
+                                       const uint32_t* b1, uint32_t* r2,
+                                       const uint32_t* a2,
+                                       const uint32_t* b2) const {
+    uint32_t t[W];
+    mont_mul<W>(t, a1, b1, m, mp);
+    mont_mul<W>(r2, a2, b2, m, mp);
+    copy<W>(r1, t);
   }
   __device__ __forceinline__ void add(uint32_t* r, const uint32_t* a,
                                       const uint32_t* b) const {
@@ -128,47 +144,49 @@ struct Field {
   __device__ __forceinline__ void dbl(uint32_t* r, const uint32_t* a) const {
     fadd<W>(r, a, a, m);
   }
+  __device__ __forceinline__ uint32_t is_zero(const uint32_t* a) const {
+    return is_zero_mask<W>(a);
+  }
 };
 
 // (X3, Y3, Z3) = 2·(X, Y, Z), a = -3 (vmn_tpu/ops/ec_kernels.py:138-152).
-// The outputs may alias the inputs.
-template <int W>
-__device__ __forceinline__ void point_double(const Field<W>& F, uint32_t* X3,
+// The outputs may alias the inputs.  The 8 products run as 4 pairs of
+// independent ones (F.mul2); every value is the reference's.
+template <class Fld>
+__device__ __forceinline__ void point_double(const Fld& F, uint32_t* X3,
                                              uint32_t* Y3, uint32_t* Z3,
                                              const uint32_t* X,
                                              const uint32_t* Y,
                                              const uint32_t* Z) {
-  uint32_t delta[W], gamma[W], beta[W], alpha[W], t[W], u[W];
-  F.sq(delta, Z);
-  F.sq(gamma, Y);
-  F.mul(beta, X, gamma);
+  constexpr int W = Fld::kWords;
+  uint32_t delta[W], gamma[W], beta[W], alpha[W], t[W], u[W], v[W];
+  F.add(v, Y, Z);
+  F.mul2(delta, Z, Z, gamma, Y, Y);
   F.sub(t, X, delta);  // xmd
   F.dbl(u, t);
   F.add(u, u, t);      // 3·xmd
   F.add(t, X, delta);  // xpd
-  F.mul(alpha, u, t);
+  F.mul2(beta, X, gamma, alpha, u, t);  // X is dead from here
+  F.mul2(v, v, v, t, alpha, alpha);     // (Y + Z)^2, alpha^2
   F.dbl(beta, beta);
   F.dbl(beta, beta);   // beta4
-  F.add(t, Y, Z);
-  F.sq(t, t);
-  F.sub(t, t, gamma);
-  F.sub(Z3, t, delta);  // Z is dead from here
-  F.dbl(u, beta);       // beta8
-  F.sq(t, alpha);
-  F.sub(X3, t, u);      // X is dead from here
-  F.sq(gamma, gamma);   // g2
+  F.dbl(u, beta);      // beta8
+  F.sub(X3, t, u);
+  F.sub(v, v, gamma);
+  F.sub(Z3, v, delta);
+  F.sub(t, beta, X3);
+  F.mul2(gamma, gamma, gamma, t, alpha, t);  // g2, alpha·(beta4 - X3)
   F.dbl(gamma, gamma);
   F.dbl(gamma, gamma);
   F.dbl(gamma, gamma);  // g8
-  F.sub(t, beta, X3);
-  F.mul(t, alpha, t);
   F.sub(Y3, t, gamma);
 }
 
 // (X3, Y3, Z3) = (X1, Y1, Z1) + (X2, Y2, Z2), branchless
 // (vmn_tpu/ops/ec_kernels.py:155-192).  The outputs may alias either input.
-template <int W>
-__device__ __forceinline__ void point_add(const Field<W>& F, uint32_t* X3,
+// The 16 products of the addition run as 8 pairs of independent ones.
+template <class Fld>
+__device__ __forceinline__ void point_add(const Fld& F, uint32_t* X3,
                                           uint32_t* Y3, uint32_t* Z3,
                                           const uint32_t* X1,
                                           const uint32_t* Y1,
@@ -176,40 +194,33 @@ __device__ __forceinline__ void point_add(const Field<W>& F, uint32_t* X3,
                                           const uint32_t* X2,
                                           const uint32_t* Y2,
                                           const uint32_t* Z2) {
-  uint32_t z1z1[W], z2z2[W], u1[W], s1[W], h[W], r[W], t[W], v[W];
+  constexpr int W = Fld::kWords;
+  uint32_t z1z1[W], z2z2[W], u1[W], s1[W], s2[W], h[W], r[W], t[W], v[W];
   uint32_t rx[W], ry[W], rz[W];
-  F.sq(z1z1, Z1);
-  F.sq(z2z2, Z2);
-  F.mul(u1, X1, z2z2);
-  F.mul(t, X2, z1z1);         // U2
-  F.sub(h, t, u1);            // H = U2 - U1
-  F.mul(s1, Y1, Z2);
-  F.mul(s1, s1, z2z2);        // S1
-  F.mul(t, Y2, Z1);
-  F.mul(t, t, z1z1);          // S2
-  F.sub(r, t, s1);            // R = S2 - S1
-  F.mul(rz, Z1, Z2);
-  F.mul(rz, rz, h);           // Z3 = Z1·Z2·H
-  F.sq(t, h);                 // HH
-  F.mul(v, u1, t);            // V = U1·HH
-  F.mul(t, h, t);             // HHH
-  F.sq(rx, r);
+  F.mul2(z1z1, Z1, Z1, z2z2, Z2, Z2);
+  F.mul2(s1, Y1, Z2, s2, Y2, Z1);
+  F.mul2(u1, X1, z2z2, t, X2, z1z1);  // U1, U2
+  F.sub(h, t, u1);                    // H = U2 - U1
+  F.mul2(s1, s1, z2z2, s2, s2, z1z1); // S1, S2
+  F.sub(r, s2, s1);                   // R = S2 - S1
+  F.mul2(rz, Z1, Z2, t, h, h);        // Z1·Z2, HH
+  F.mul2(rz, rz, h, rx, r, r);        // Z3 = Z1·Z2·H, R^2
+  F.mul2(v, u1, t, t, h, t);          // V = U1·HH, HHH
   F.sub(rx, rx, t);
   F.dbl(z1z1, v);
-  F.sub(rx, rx, z1z1);        // X3 = R^2 - HHH - 2V
-  F.mul(s1, s1, t);           // S1·HHH
-  F.sub(v, v, rx);
-  F.mul(ry, r, v);
-  F.sub(ry, ry, s1);          // Y3 = R(V - X3) - S1·HHH
+  F.sub(rx, rx, z1z1);                // X3 = R^2 - HHH - 2V
+  F.sub(s2, v, rx);
+  F.mul2(s1, s1, t, ry, r, s2);       // S1·HHH, R(V - X3)
+  F.sub(ry, ry, s1);                  // Y3 = R(V - X3) - S1·HHH
 
-  const uint32_t p1_inf = is_zero_mask<W>(Z1);
-  const uint32_t p2_inf = is_zero_mask<W>(Z2);
-  const uint32_t h_zero = is_zero_mask<W>(h);
-  const uint32_t r_zero = is_zero_mask<W>(r);
+  const uint32_t p1_inf = F.is_zero(Z1);
+  const uint32_t p2_inf = F.is_zero(Z2);
+  const uint32_t h_zero = F.is_zero(h);
+  const uint32_t r_zero = F.is_zero(r);
   const uint32_t same = h_zero & r_zero;   // P == Q: take the double
   const uint32_t opp = h_zero & ~r_zero;   // P == -Q: infinity
 
-  point_double<W>(F, u1, s1, t, X1, Y1, Z1);
+  point_double(F, u1, s1, t, X1, Y1, Z1);
   msel<W>(rx, same, u1, rx);
   msel<W>(ry, same, s1, ry);
   msel<W>(rz, same, t, rz);

@@ -36,9 +36,41 @@ namespace vmn {
 
 constexpr unsigned kWarpAll = 0xffffffffu;
 
+// Threads a block of a cooperative launch at most (COOP_BLOCK in
+// ops/mont_kernels.py).
+constexpr int kCoopBlock = 128;
+
 template <int TPI>
 __device__ __forceinline__ int group_lane() {
   return (int)(threadIdx.x & (TPI - 1));
+}
+
+// The element of this thread's group, clamped into [0, n) so that every
+// lane of the warp takes part in the group's shuffles; `live` says whether
+// the group stores its result.
+template <int TPI>
+__device__ __forceinline__ int64_t group_element(int64_t n, bool* live) {
+  const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / TPI;
+  *live = e < n;
+  return *live ? e : n - 1;
+}
+
+// 4-bit digit j of one exponent stored as le row-major 16-bit limbs;
+// digits past the last limb read as zero.
+__device__ __forceinline__ uint32_t row_digit(const int32_t* e, int le,
+                                              int j) {
+  const int limb = j >> 2;
+  const uint32_t v = limb < le ? (uint32_t)e[limb] : 0u;
+  return (v >> ((j & 3) * 4)) & 0xFu;
+}
+
+// A cooperative launch: `threads` a block (whole warps, a multiple of
+// TPI, at most kCoopBlock) over `blocks` blocks, as ops/mont_kernels.py's
+// coop_launch computes it.
+template <int TPI>
+inline bool coop_shape_ok(int threads, int64_t blocks) {
+  return threads > 0 && threads <= kCoopBlock && threads % 32 == 0 &&
+         threads % TPI == 0 && blocks > 0 && blocks < (1ll << 31);
 }
 
 // The group's bits of a warp-wide ballot: bit k for lane k of the group.
@@ -106,6 +138,94 @@ __device__ __forceinline__ void row_mac(uint32_t* t, uint32_t x,
   }
 }
 
+// One running CIOS sum t of the cooperative product: this lane's S = W/TPI
+// words, and the carry (hh:hl) out of its top word, which belongs at word
+// (lane + 1)·S.  `step` adds one outer word of a (already broadcast) and
+// divides by 2^32; `finish` settles the carries between lanes and the
+// final subtraction.  coop_mont_mul runs one sum, coop_mont_mul2 two
+// independent ones step by step, so that the shuffles and carry chains of
+// the one hide the latency of the other's.
+template <int W, int TPI>
+struct CoopMontSum {
+  static_assert(TPI >= 1 && TPI <= 32 && (TPI & (TPI - 1)) == 0,
+                "TPI: a power of two within one warp");
+  static_assert(W % TPI == 0, "TPI must divide W");
+  static constexpr int S = W / TPI;
+  uint32_t t[S];
+  uint32_t hl, hh;
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int j = 0; j < S; ++j) t[j] = 0;
+    hl = hh = 0;
+  }
+
+  // t = (t + x·b + q·m) / 2^32 for this step's outer word x.
+  __device__ __forceinline__ void step(uint32_t x, const uint32_t* b,
+                                       const uint32_t* m, uint32_t mp,
+                                       int lane) {
+    row_mac<S>(t, x, b, hl, hh);
+    const uint32_t q = __shfl_sync(kWarpAll, t[0], 0, TPI) * mp;
+    row_mac<S>(t, q, m, hl, hh);
+    // t / 2^32: lane 0's word 0 is now zero and drops out.
+    uint32_t up = __shfl_down_sync(kWarpAll, t[0], 1, TPI);
+    if (lane == TPI - 1) up = 0;
+#pragma unroll
+    for (int j = 0; j + 1 < S; ++j) t[j] = t[j + 1];
+    const uint64_t s = (uint64_t)up + ((uint64_t)hh << 32 | hl);
+    t[S - 1] = (uint32_t)s;
+    hl = (uint32_t)(s >> 32);
+    hh = 0;
+  }
+
+  // r = t mod m, canonical: t < 2m after the last step.
+  __device__ __forceinline__ void finish(uint32_t* r, const uint32_t* m,
+                                         int lane) {
+    const uint32_t hi = hl;  // at most 2
+    // The lower lane's hi belongs at this lane's word 0.
+    uint32_t c = __shfl_up_sync(kWarpAll, hi, 1, TPI);
+    if (lane == 0) c = 0;
+    uint32_t ones = 0xffffffffu;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const uint64_t s = (uint64_t)t[j] + c;
+      t[j] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+      ones &= t[j];
+    }
+    uint32_t top;  // word W of t: 0 or 1, since t < 2m < 2R
+    c = group_carries<TPI>(c != 0, ones == 0xffffffffu, &top);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const uint64_t s = (uint64_t)t[j] + c;
+      t[j] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+    }
+    top += __shfl_sync(kWarpAll, hi, TPI - 1, TPI);
+    // t - m, borrows between lanes settled the same way.
+    uint32_t d[S], borrow = 0, any = 0;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const uint64_t x = (uint64_t)t[j] - m[j] - borrow;
+      d[j] = (uint32_t)x;
+      borrow = (uint32_t)(x >> 63);
+      any |= d[j];
+    }
+    uint32_t borrow_out;
+    borrow = group_carries<TPI>(borrow != 0, any == 0, &borrow_out);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const uint64_t x = (uint64_t)d[j] - borrow;
+      d[j] = (uint32_t)x;
+      borrow = (uint32_t)(x >> 63);
+    }
+    // Keep t when t < m (no word W and a borrow out), else t - m.
+    const uint32_t keep = 0u - (uint32_t)((top == 0) & (borrow_out != 0));
+#pragma unroll
+    for (int j = 0; j < S; ++j) r[j] = (t[j] & keep) | (d[j] & ~keep);
+  }
+};
+
 // r = a·b·R^-1 mod m, R = 2^(32·W), the same canonical result as
 // vmn::mont_mul<W>.  a, b, m, r: this lane's W/TPI words (registers);
 // a, b canonical (< m); r may alias a or b.  mp = -m^-1 mod 2^32.
@@ -113,75 +233,44 @@ template <int W, int TPI>
 __device__ __forceinline__ void coop_mont_mul(uint32_t* r, const uint32_t* a,
                                               const uint32_t* b,
                                               const uint32_t* m, uint32_t mp) {
-  static_assert(TPI >= 1 && TPI <= 32 && (TPI & (TPI - 1)) == 0,
-                "TPI: a power of two within one warp");
-  static_assert(W % TPI == 0, "TPI must divide W");
   constexpr int S = W / TPI;
   const int lane = group_lane<TPI>();
-  uint32_t t[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) t[j] = 0;
-  uint32_t hl = 0, hh = 0;  // (hh:hl) belongs at word (lane + 1)·S of t
+  CoopMontSum<W, TPI> acc;
+  acc.init();
 #pragma unroll 1
   for (int src = 0; src < TPI; ++src) {
 #pragma unroll
     for (int k = 0; k < S; ++k) {  // outer word i = src·S + k
-      row_mac<S>(t, __shfl_sync(kWarpAll, a[k], src, TPI), b, hl, hh);
-      const uint32_t q = __shfl_sync(kWarpAll, t[0], 0, TPI) * mp;
-      row_mac<S>(t, q, m, hl, hh);
-      // t / 2^32: lane 0's word 0 is now zero and drops out.
-      uint32_t up = __shfl_down_sync(kWarpAll, t[0], 1, TPI);
-      if (lane == TPI - 1) up = 0;
-#pragma unroll
-      for (int j = 0; j + 1 < S; ++j) t[j] = t[j + 1];
-      const uint64_t s = (uint64_t)up + ((uint64_t)hh << 32 | hl);
-      t[S - 1] = (uint32_t)s;
-      hl = (uint32_t)(s >> 32);
-      hh = 0;
+      acc.step(__shfl_sync(kWarpAll, a[k], src, TPI), b, m, mp, lane);
     }
   }
-  const uint32_t hi = hl;  // at most 2
-  // The lower lane's hi belongs at this lane's word 0.
-  uint32_t c = __shfl_up_sync(kWarpAll, hi, 1, TPI);
-  if (lane == 0) c = 0;
-  uint32_t ones = 0xffffffffu;
+  acc.finish(r, m, lane);
+}
+
+// r1 = a1·b1·R^-1 and r2 = a2·b2·R^-1 mod m, two independent products run
+// step by step together.  Each r may alias any operand: both are written
+// after every step has read them.
+template <int W, int TPI>
+__device__ __forceinline__ void coop_mont_mul2(
+    uint32_t* r1, const uint32_t* a1, const uint32_t* b1, uint32_t* r2,
+    const uint32_t* a2, const uint32_t* b2, const uint32_t* m, uint32_t mp) {
+  constexpr int S = W / TPI;
+  const int lane = group_lane<TPI>();
+  CoopMontSum<W, TPI> acc1, acc2;
+  acc1.init();
+  acc2.init();
+#pragma unroll 1
+  for (int src = 0; src < TPI; ++src) {
 #pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const uint64_t s = (uint64_t)t[j] + c;
-    t[j] = (uint32_t)s;
-    c = (uint32_t)(s >> 32);
-    ones &= t[j];
+    for (int k = 0; k < S; ++k) {
+      const uint32_t x1 = __shfl_sync(kWarpAll, a1[k], src, TPI);
+      const uint32_t x2 = __shfl_sync(kWarpAll, a2[k], src, TPI);
+      acc1.step(x1, b1, m, mp, lane);
+      acc2.step(x2, b2, m, mp, lane);
+    }
   }
-  uint32_t top;  // word W of t: 0 or 1, since t < 2m < 2R
-  c = group_carries<TPI>(c != 0, ones == 0xffffffffu, &top);
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const uint64_t s = (uint64_t)t[j] + c;
-    t[j] = (uint32_t)s;
-    c = (uint32_t)(s >> 32);
-  }
-  top += __shfl_sync(kWarpAll, hi, TPI - 1, TPI);
-  // t - m, borrows between lanes settled the same way.
-  uint32_t d[S], borrow = 0, any = 0;
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const uint64_t x = (uint64_t)t[j] - m[j] - borrow;
-    d[j] = (uint32_t)x;
-    borrow = (uint32_t)(x >> 63);
-    any |= d[j];
-  }
-  uint32_t borrow_out;
-  borrow = group_carries<TPI>(borrow != 0, any == 0, &borrow_out);
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const uint64_t x = (uint64_t)d[j] - borrow;
-    d[j] = (uint32_t)x;
-    borrow = (uint32_t)(x >> 63);
-  }
-  // Keep t when t < m (no word W and a borrow out), else t - m.
-  const uint32_t keep = 0u - (uint32_t)((top == 0) & (borrow_out != 0));
-#pragma unroll
-  for (int j = 0; j < S; ++j) r[j] = (t[j] & keep) | (d[j] & ~keep);
+  acc1.finish(r1, m, lane);
+  acc2.finish(r2, m, lane);
 }
 
 // This lane's W/TPI words of one element stored as 2W row-major 16-bit

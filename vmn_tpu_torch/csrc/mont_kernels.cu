@@ -37,7 +37,7 @@
 // ptxas (sm_90a, -O3, from chip_smoke.py's `ptxas` lines): registers,
 // with no stack frame and no spill at any instantiation --
 //   W = 64: mont_mul TPI 8/32: 48/28;       mont_exp 56/32;    chain 26.
-//   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 21.
+//   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 22.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -52,25 +52,6 @@ constexpr int kUnsupportedWidth = -1;
 constexpr int kBadShape = -2;
 constexpr int kExpEntries = 16;  // H2's 4-bit windows
 
-// The element of this thread's group, clamped into [0, n) so that every
-// lane of the warp takes part in the group's shuffles; `live` says whether
-// the group stores its result.
-template <int TPI>
-__device__ __forceinline__ int64_t group_element(int64_t n, bool* live) {
-  const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / TPI;
-  *live = e < n;
-  return *live ? e : n - 1;
-}
-
-// 4-bit digit j of one exponent stored as le row-major 16-bit limbs;
-// digits past the last limb read as zero.
-__device__ __forceinline__ uint32_t row_digit(const int32_t* e, int le,
-                                              int j) {
-  const int limb = j >> 2;
-  const uint32_t v = limb < le ? (uint32_t)e[limb] : 0u;
-  return (v >> ((j & 3) * 4)) & 0xFu;
-}
-
 // ------------------------------------------------------------- H1: product
 // One element per group of TPI lanes: TPI = 32 for small batches (the
 // product's serial chain is then W/32 words a lane), fewer lanes from the
@@ -82,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
                     uint32_t mp, int64_t n) {
   constexpr int S = W / TPI;
   bool live;
-  const int64_t e = group_element<TPI>(n, &live);
+  const int64_t e = vmn::group_element<TPI>(n, &live);
   uint32_t x[S], y[S], mm[S];
   vmn::load_slice<W, TPI>(mm, m);
   vmn::load_slice<W, TPI>(x, a + e * 2 * W);
@@ -129,7 +110,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   constexpr int S = W / TPI;
   extern __shared__ uint32_t exp_tbl[];  // [kExpEntries][S][blockDim.x]
   bool live;
-  const int64_t idx = group_element<TPI>(n, &live);
+  const int64_t idx = vmn::group_element<TPI>(n, &live);
   const int stride = (int)blockDim.x;
   uint32_t* mine = exp_tbl + threadIdx.x;
   uint32_t mm[S], x[S], cur[S];
@@ -151,10 +132,11 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int32_t* ex = e + idx * le;
   uint32_t acc[S], fac[S];
   // The top digit's entry starts the accumulator (one^16 · T[d] = T[d]).
-  select_entry<S>(acc, mine, stride, row_digit(ex, le, ndig - 1));
+  select_entry<S>(acc, mine, stride, vmn::row_digit(ex, le, ndig - 1));
 #pragma unroll 1
   for (int j = ndig - 2; j >= 0; --j) {
-    const uint32_t dig = row_digit(ex, le, j);  // loaded under the squarings
+    // loaded under the squarings
+    const uint32_t dig = vmn::row_digit(ex, le, j);
 #pragma unroll 1
     for (int s = 0; s < 4; ++s) vmn::coop_mont_mul<W, TPI>(acc, acc, acc, mm, mp);
     select_entry<S>(fac, mine, stride, dig);
@@ -334,20 +316,11 @@ int launch_fb(const int32_t* table, const int32_t* e, int32_t* out,
   return (int)cudaGetLastError();
 }
 
-// A cooperative launch: `threads` a block (whole warps, a multiple of
-// TPI, at most kThreads) over `blocks` blocks, as ops/mont_kernels.py's
-// coop_launch computes it.
-template <int TPI>
-bool coop_shape_ok(int threads, int64_t blocks) {
-  return threads > 0 && threads <= kThreads && threads % 32 == 0 &&
-         threads % TPI == 0 && blocks > 0 && blocks < (1ll << 31);
-}
-
 template <int W, int TPI>
 int launch_mul(const int32_t* a, const int32_t* b, int32_t* out,
                const int32_t* m, uint32_t mp, int64_t n, int threads,
                int64_t blocks, cudaStream_t s) {
-  if (!coop_shape_ok<TPI>(threads, blocks)) return kBadShape;
+  if (!vmn::coop_shape_ok<TPI>(threads, blocks)) return kBadShape;
   mont_mul_kernel<W, TPI><<<(unsigned)blocks, threads, 0, s>>>(a, b, out, m,
                                                                mp, n);
   return (int)cudaGetLastError();
@@ -358,7 +331,7 @@ int launch_exp(const int32_t* base, const int32_t* e, int32_t* out,
                const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
                int le, int ndig, int threads, int64_t blocks,
                cudaStream_t s) {
-  if (!coop_shape_ok<TPI>(threads, blocks) || le < 1 || ndig < 1) {
+  if (!vmn::coop_shape_ok<TPI>(threads, blocks) || le < 1 || ndig < 1) {
     return kBadShape;
   }
   const size_t smem = sizeof(uint32_t) * kExpEntries * (W / TPI) * threads;

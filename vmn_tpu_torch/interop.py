@@ -19,8 +19,10 @@ from vmn_tpu_torch.arith.pgroup import (
 )
 
 
-def limbs_from_numpy(arr, device="cpu") -> torch.Tensor:
-    """uint32 (or any unsigned) 16-bit limb array -> port limb tensor."""
+def limbs_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """uint32 (or any unsigned) 16-bit limb array -> port limb tensor, on
+    the card unless the caller names another device (raises without
+    one)."""
     arr = np.asarray(arr)
     if arr.size and int(arr.max()) >> 16:
         raise ValueError("limb values must be below 2^16")

@@ -17,16 +17,22 @@ inputs made on the card from fixed seeds:
   has it, else the loop of single-element H1 launches that `mont_expprod`
   ran before it had its own launch;
 * H5 `ec_scalar_mul`, H6 `ec_multiexp_positions` and H8 `ec_point_add` at
-  P-256 on 4096 and on --ec-n points.
+  P-256 on 4096 and on --ec-n points;
+* the EC position combine over 64 positions (a 256-bit
+  multi-exponentiation): `ec_multiexp_combine` where the tree has it,
+  else the loop of single-point H8 launches that `ec_multiexp` ran
+  before it had its own launch.
 
 Every tree of the port since the EC slice has these wrappers with these
 signatures, so a commit and its parent, unpacked side by side, are timed
 the same way on the same inputs, one process each.
 
---sweep times H1 and H2 of this tree at every TPI (lanes an element) it is
-built for, over a range of N at both widths, forcing the TPI through
-`COOP_TPI`, the table the wrappers choose it from; it prints, per kernel
-and width, the fastest TPI at each N.
+--sweep times the cooperative kernels of this tree at every TPI (lanes an
+element or point) they are built for: H1 and H2 over a range of N at both
+widths, H5 over a range of points at P-256, and the EC combine over 16
+and 64 positions, forcing the TPI through `COOP_TPI`, the table the
+wrappers choose it from (a TPI with no kernel is skipped); it prints, per
+kernel and width, the fastest TPI at each N.
 
 Prints the card's name and power limit, then one JSON object.
 """
@@ -47,10 +53,14 @@ import torch  # noqa: E402
 
 SPIN_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clock cycles
 COMBINE_POSITIONS = 512  # K7's ndig_pad at a 2047-bit exponent
+EC_COMBINE_POSITIONS = 64  # K10's ndig_pad at a 256-bit scalar
 SWEEP_N = {64: (1, 4, 16, 64, 256, 1024, 2048, 4096, 6144, 8192, 10000,
                 16384),
            8: (1, 16, 256, 1024, 4096, 8192, 16384, 32768, 65536, 131072,
                262144)}
+SWEEP_SMUL_N = (256, 1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
+SWEEP_COMBINE_POSITIONS = (16, 64)
+TPI_CANDIDATES = (1, 2, 4, 8, 16, 32)
 
 
 def device_ms(fn, reps: int = 3) -> float:
@@ -153,6 +163,18 @@ def _combine(K, P, mod):
     return acc[0]
 
 
+def _ec_combine(E, P, mod):
+    if hasattr(E, "ec_multiexp_combine"):
+        return E.ec_multiexp_combine(*P, mod)
+    zero = torch.zeros((1, mod.L), dtype=torch.int32, device=P[0].device)
+    acc = (zero, mod.one_mont.reshape(1, -1), zero)
+    for j in range(P[0].shape[0] - 1, -1, -1):
+        for _ in range(4):
+            acc = E.ec_point_add(*acc, *acc, mod)
+        acc = E.ec_point_add(*acc, *(t[j : j + 1] for t in P), mod)
+    return tuple(t[0] for t in acc)
+
+
 def _time_ec(E, dev, n: int, tag: str) -> dict:
     import numpy as np
 
@@ -171,7 +193,13 @@ def _time_ec(E, dev, n: int, tag: str) -> dict:
                             for _ in range(n)]).limbs
     X, Y, Z = E.ec_scalar_mul(x, y, inf, e, mod, 256)
     X2, Y2, Z2 = (t.flip(0).contiguous() for t in (X, Y, Z))
+    extra = {}
+    if not tag:
+        P = [t[:EC_COMBINE_POSITIONS].contiguous() for t in (X, Y, Z)]
+        extra["ec_multiexp_combine"] = device_ms(
+            lambda: _ec_combine(E, P, mod))
     return {
+        **extra,
         f"ec_scalar_mul{tag}": device_ms(
             lambda: E.ec_scalar_mul(x, y, inf, e, mod, 256)),
         f"ec_multiexp_positions{tag}": device_ms(
@@ -181,8 +209,40 @@ def _time_ec(E, dev, n: int, tag: str) -> dict:
     }
 
 
+def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
+                  best: dict) -> None:
+    """Time run(n) at every TPI that divides W and has a kernel, forcing it
+    through COOP_TPI[kernel, w]; the rule is restored after."""
+    rule = K.COOP_TPI[kernel, w]
+    tpis = []
+    try:
+        for tpi in (t for t in TPI_CANDIDATES if w % t == 0):
+            K.COOP_TPI[kernel, w] = ((1, tpi),)
+            try:
+                run(ns[0])
+            except ValueError:  # no kernel instantiated at this TPI
+                continue
+            tpis.append(tpi)
+        for n in ns:
+            times = {}
+            for tpi in tpis:
+                K.COOP_TPI[kernel, w] = ((1, tpi),)
+                times[tpi] = device_ms(lambda: run(n), reps=10)
+                rows.append({"kernel": kernel, "W": w, "N": n, "tpi": tpi,
+                             "ms": times[tpi]})
+            best.setdefault(f"{kernel} W={w}", {})[n] = min(times,
+                                                            key=times.get)
+            print(f"[sweep] kernel={kernel} W={w} N={n} " + " ".join(
+                f"tpi{t}_ms={ms:.4f}" for t, ms in times.items()), flush=True)
+    finally:
+        K.COOP_TPI[kernel, w] = rule
+
+
 def sweep() -> dict:
-    """H1 and H2 at every instantiated TPI over SWEEP_N at both widths."""
+    """H1 and H2 at every instantiated TPI over SWEEP_N at both widths; H5
+    over SWEEP_SMUL_N points and the EC combine over
+    SWEEP_COMBINE_POSITIONS at P-256."""
+    from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
     dev = torch.device("cuda", 0)
@@ -190,7 +250,6 @@ def sweep() -> dict:
     gen.manual_seed(1)
     rows, best = [], {}
     for w, ctx in _moduli(dev).items():
-        tpis = K.coop_tpis(w)
         ebits = 2047 if w == 64 else 256
         top = max(SWEEP_N[w])
         a = _elements(gen, top, ctx.L, dev)
@@ -200,22 +259,22 @@ def sweep() -> dict:
                 "mont_exp": lambda k: K.mont_exp(a[:k], e[:k], ctx.mod,
                                                  ebits)}
         for kernel, run in runs.items():
-            rule = K.COOP_TPI[kernel, w]
-            try:
-                for n in SWEEP_N[w]:
-                    times = {}
-                    for tpi in tpis:
-                        K.COOP_TPI[kernel, w] = ((1, tpi),)
-                        times[tpi] = device_ms(lambda: run(n), reps=10)
-                        rows.append({"kernel": kernel, "W": w, "N": n,
-                                     "tpi": tpi, "ms": times[tpi]})
-                    best.setdefault(f"{kernel} W={w}", {})[n] = min(
-                        times, key=times.get)
-                    print(f"[sweep] kernel={kernel} W={w} N={n} " + " ".join(
-                        f"tpi{t}_ms={ms:.4f}" for t, ms in times.items()),
-                        flush=True)
-            finally:
-                K.COOP_TPI[kernel, w] = rule
+            _sweep_kernel(K, kernel, w, SWEEP_N[w], run, rows, best)
+    # The EC kernels' work does not depend on their inputs (constant time,
+    # docs/DEVIATIONS.md #5), so field elements below p stand in for points.
+    ctx = _moduli(dev)[8]
+    top = max(SWEEP_SMUL_N)
+    x, y = (_elements(gen, top, ctx.L, dev) for _ in range(2))
+    inf = torch.zeros(top, dtype=torch.bool, device=dev)
+    e = _exponents(gen, top, 256, dev)
+    _sweep_kernel(K, "ec_scalar_mul", 8, SWEEP_SMUL_N,
+                  lambda k: E.ec_scalar_mul(x[:k], y[:k], inf[:k], e[:k],
+                                            ctx.mod, 256), rows, best)
+    P = [_elements(gen, max(SWEEP_COMBINE_POSITIONS), ctx.L, dev)
+         for _ in range(3)]
+    _sweep_kernel(K, "ec_multiexp_combine", 8, SWEEP_COMBINE_POSITIONS,
+                  lambda k: E.ec_multiexp_combine(*(t[:k] for t in P),
+                                                  ctx.mod), rows, best)
     return {"sweep": rows, "fastest_tpi": best}
 
 
@@ -230,7 +289,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ec-n", type=int, default=1 << 17,
                     help="elements and points at P-256 (default 131072)")
     ap.add_argument("--sweep", action="store_true",
-                    help="time this tree's H1 and H2 at every TPI instead")
+                    help="time this tree's cooperative kernels at every "
+                         "TPI instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_timing: no CUDA device", file=sys.stderr)

@@ -1,55 +1,72 @@
 """Batched elliptic-curve kernels: Hopper CUDA wrappers and plain PyTorch
 versions (port of `vmn_tpu.ops.ec_kernels`).
 
-Every point operation of an EC group (arith/ec.py) reduces to these four
+Every point operation of an EC group (arith/ec.py) reduces to these five
 functions.  Each has three parts here, as in ops/mont_kernels.py:
 
-* the wrapper (`ec_scalar_mul`, `ec_multiexp_positions`, `ec_fb_exp`,
-  `ec_point_add`, plus `ec_multiexp` on top of them).  A CPU tensor goes
-  to the plain version; a CUDA tensor goes to the kernel in
-  `csrc/ec_kernels.cu` or raises — there is no fallback;
+* the wrapper (`ec_scalar_mul`, `ec_multiexp_positions`,
+  `ec_multiexp_combine`, `ec_fb_exp`, `ec_point_add`, plus `ec_multiexp`
+  on top of them).  A CPU tensor goes to the plain version; a CUDA tensor
+  goes to the kernel in `csrc/ec_kernels.cu` or raises — there is no
+  fallback;
 * the plain PyTorch version (`*_plain`): exact integer arithmetic through
   `mont_mul_plain`, `add_mod` and `sub_mod`, the same formulas as the
   kernels, so that both give the same canonical limbs;
 * a launch counter per wrapper (`LAUNCHES[name]`), bumped only where the
-  wrapper launches its kernel.
+  wrapper launches its kernel; H5 and H8 also count their launches by
+  batch size (`LAUNCH_SIZES`, the buckets of ops/mont_kernels.py).
 
 Points at this boundary are Jacobian ``(X, Y, Z)`` triples of ``(N, L)``
 int32 16-bit limb tensors in Montgomery form (infinity: Z == 0), or
 affine ``(x, y)`` with an ``(N,)`` bool infinity mask; exponents are
-``(N, Le)`` standard-form limbs.  The wrappers transpose to the
-limb-major ``(L, N)`` layout the kernels read.
+``(N, Le)`` standard-form limbs.  H5 and the combine read these row-major
+operands as they are; the wrappers of H6-H8 transpose to the limb-major
+``(L, N)`` layout those kernels read.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
 
 * K8 (the TPU kernels' field and point device functions) is
   `csrc/ec.cuh`: word carry chains instead of Kogge–Stone scans, the
-  branchless a = -3 formulas with masks for the exceptional cases.
+  branchless a = -3 formulas with masks for the exceptional cases,
+  written once over a field type; `csrc/ec_coop.cuh` gives them a field
+  spread over TPI lanes of a warp (carries between lanes from ballots,
+  products through `mont_coop.cuh`).
 * H5 `ec_scalar_mul` replaces K9 `ec_scalar_mul_pallas`
-  (vmn_tpu/ops/ec_kernels.py:277-331).  One thread per point: 14
-  additions build 16 Jacobian multiples (1.5 KB of local memory at
-  W = 8), then per 4-bit digit 4 doublings, a masked select over all 16
-  entries and one addition.  Bound by the ~3,000 Montgomery products
-  per 256-bit scalar (integer multiply-add issue); the table's local
-  traffic is second.
+  (vmn_tpu/ops/ec_kernels.py:277-331).  TPI lanes of a warp per point
+  (TPI from the point count, `COOP_TPI`: 4 up to 8192 points, 2 from
+  16384): 14 additions build 16 Jacobian multiples in shared memory, then
+  per 4-bit digit 4 doublings, a masked select over all 16 entries and one
+  addition; the formulas run their independent products in pairs.  The
+  branchless addition also computes a doubling, 24 products where the
+  bound counts 16.  A small batch is bound by one point's chain of
+  ~3,900 products; a full card by the integer pipe, where the product
+  spread over lanes issues about twice the one-thread product's
+  instructions, so at 2^17 points H5 is slower than the one-thread kernel
+  it replaced, whose 1.5 KB table a point lived in local memory (PERF.md
+  §6).  At 4096 points that kernel filled 32 of the 132 SMs.
 * H6 `ec_multiexp_positions` replaces both `pallas_call`s of K10
-  `ec_multiexp_pallas` (:444-584): launch 1 writes each point's 16
+  `ec_multiexp_pallas` (:444-570): launch 1 writes each point's 16
   multiples to device memory, launch 2 gives each thread one (lane,
   digit position) and folds its lane's points in order; an H8 tree
-  joins the lanes.  `ec_multiexp` then combines the positions,
-  sum_j 2^(4j)·S_j, as 4 doublings + 1 addition per position in
-  single-element H8 launches — a known latency-bound spot, as K7's
-  combine is for ModP.
+  joins the lanes.
+* `ec_multiexp_combine` is K10's position combine (:571-584),
+  sum_j 2^(4j)·S_j, in one launch: one warp runs the 5·ndig_pad point
+  operations back to back on the cooperative field, where a loop over
+  H8 would launch 5·ndig_pad single-point batches (320 at 256 bits).
+  Its doubling is `point_double` with an infinity input kept as it is,
+  which gives the limbs of P + P (the plain version's doubling) at a
+  third of the products.  A chain of dependent point operations: bound
+  by their latency, not by the card's throughput; TPI 8.
 * H7 `ec_fb_exp` replaces K11 `ec_fb_exp_pallas` (:667-719): the block
   stages digit j's 16 affine rows in shared memory and every thread
   masked-selects its row (a warp broadcast) for one addition per digit.
   The TPU's one-hot f32 MXU gather is not carried over.  Off the mix
   path, as in vmn_tpu (arith/ec.py `_exp_impl`).
 * H8 `ec_point_add` replaces K12 `ec_point_add_pallas` (:747-773): one
-  thread per pair.  Also every single-element addition and doubling of
-  the EC path (a doubling is P + P: the addition takes its doubling
-  branch exactly when H = R = 0).
+  thread per pair.  Also the EC path's other single-point additions and
+  doublings (a doubling is P + P: the addition takes its doubling branch
+  exactly when H = R = 0).
 """
 
 from __future__ import annotations
@@ -78,14 +95,26 @@ ENTRIES = 1 << WINDOW
 EP_SUPER = 1 << 20
 _WIDTHS = (8,)  # W = L/2 instantiated in ec_kernels.cu (P-256)
 
-EC_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions", "ec_fb_exp",
-              "ec_point_add")
+EC_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
+              "ec_multiexp_combine", "ec_fb_exp", "ec_point_add")
 LAUNCHES = dict.fromkeys(EC_KERNELS, 0)
+# H5 and H8 launches by batch size: 1, 2-127, >= 128 points.
+LAUNCH_SIZES = {k: dict.fromkeys(K.SIZE_BUCKETS, 0)
+                for k in ("ec_point_add", "ec_scalar_mul")}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for sizes in LAUNCH_SIZES.values():
+        for b in sizes:
+            sizes[b] = 0
+
+
+def _launched(name: str, n: int) -> None:
+    LAUNCHES[name] += 1
+    if name in LAUNCH_SIZES:
+        LAUNCH_SIZES[name][K.size_bucket(n)] += 1
 
 
 # --------------------------------------------------------- plain versions
@@ -272,6 +301,22 @@ def ec_multiexp_positions_plain(x, y, inf, e, mod: Modulus, nbits: int):
     return _lane_tree(*P, mod, ec_point_add_plain)
 
 
+def ec_multiexp_combine_plain(PX, PY, PZ, mod: Modulus):
+    """Plain version of the combine: sum_j 2^(4j)·S_j of (J, L) Jacobian
+    positions -> one Jacobian point, (L,) x3.  Horner from the top
+    position, from infinity (X = 0, Y = one, Z = 0): 4 doublings as
+    P + P, then one addition, per position."""
+    F = _PlainField(mod)
+    zero = torch.zeros((1, mod.L), dtype=PX.dtype, device=PX.device)
+    acc = (zero, mod.one_mont.reshape(1, -1), zero)
+    for j in range(PX.shape[0] - 1, -1, -1):
+        for _ in range(WINDOW):
+            acc = _point_add(F, *acc, *acc)
+        acc = _point_add(F, *acc, PX[j : j + 1], PY[j : j + 1],
+                         PZ[j : j + 1])
+    return tuple(t[0].contiguous() for t in acc)
+
+
 def ec_fb_exp_plain(table_x, table_y, e, mod: Modulus):
     """Plain version of H7: sum_j T[j][digit_j(e)] for the affine table
     T (ndig, 16, L) of d·2^(4j)·P; digit 0 adds infinity.  Returns
@@ -307,7 +352,9 @@ def _library() -> ctypes.CDLL:
                                 ctypes.c_int, ctypes.c_uint32)
             sig = {
                 "vmn_ec_add": [I32] + [P] * 10 + [U32, I64, P],
-                "vmn_ec_smul": [I32] + [P] * 9 + [U32, I64, I32, I32, P],
+                "vmn_ec_smul": [I32, I32] + [P] * 9 + [U32, I64, I32, I32,
+                                                       I32, I64, P],
+                "vmn_ec_chain": [I32, I32] + [P] * 8 + [U32, I32, P],
                 "vmn_ec_mexp_tbl": [I32] + [P] * 6 + [U32, I64, P],
                 "vmn_ec_mexp_acc": [I32] + [P] * 5 + [U32, I64, I32, I32,
                                                       I32, P],
@@ -377,7 +424,7 @@ def ec_point_add(x1, y1, z1, x2, y2, z2, mod: Modulus):
         K._check("ec_point_add", _library().vmn_ec_add(
             w, *map(K._ptr, ins), *map(K._ptr, out), K._ptr(mod.limbs),
             mod.mprime32, N, K._stream(x1.device)))
-        LAUNCHES["ec_point_add"] += 1
+        _launched("ec_point_add", N)
     return _rows(out)
 
 
@@ -390,17 +437,21 @@ def ec_scalar_mul(x, y, inf, e, mod: Modulus, nbits: int):
     w = _words(mod)
     dev = mod.limbs.device
     ndig = max(1, -(-nbits // WINDOW))
-    xT, yT = _coords((x, y), ("x", "y"), mod, N)
-    eT = K._limb_major(_pad_exponent(e, ndig), "e", dev, N)
+    x = K._rows(x, "x", dev, N, L)
+    y = K._rows(y, "y", dev, N, L)
+    e = K._rows(e, "e", dev, N)  # digits past its limbs read as zero
     im = _mask(inf, dev, N)
-    out = _out(L, N, x.device)
+    out = [torch.empty((N, L), dtype=torch.int32, device=dev)
+           for _ in range(3)]
     if N:
+        t, threads, blocks = K.coop_launch("ec_scalar_mul", w, N)
         K._check("ec_scalar_mul", _library().vmn_ec_smul(
-            w, K._ptr(xT), K._ptr(yT), K._ptr(im), K._ptr(eT),
+            w, t, K._ptr(x), K._ptr(y), K._ptr(im), K._ptr(e),
             *map(K._ptr, out), K._ptr(mod.limbs), K._ptr(mod.one_mont),
-            mod.mprime32, N, eT.shape[0], ndig, K._stream(x.device)))
-        LAUNCHES["ec_scalar_mul"] += 1
-    return _rows(out)
+            mod.mprime32, N, e.shape[1], ndig, threads, blocks,
+            K._stream(dev)))
+        _launched("ec_scalar_mul", N)
+    return tuple(out)
 
 
 def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
@@ -445,19 +496,35 @@ def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
     return _lane_tree(P[0], P[1], P[2], mod, ec_point_add)
 
 
+def ec_multiexp_combine(PX, PY, PZ, mod: Modulus):
+    """sum_j 2^(4j)·S_j of (J, L) Jacobian positions -> one Jacobian
+    point, (L,) x3, as one chain on one warp (see
+    ec_multiexp_combine_plain)."""
+    if PX.device.type == "cpu":
+        return ec_multiexp_combine_plain(PX, PY, PZ, mod)
+    J, L = PX.shape
+    w = _words(mod)
+    dev = mod.limbs.device
+    if J == 0:
+        zero = torch.zeros(L, dtype=torch.int32, device=dev)
+        return zero, mod.one_mont.clone(), zero.clone()
+    ins = [K._rows(t, name, dev, J, L)
+           for t, name in zip((PX, PY, PZ), ("PX", "PY", "PZ"))]
+    out = [torch.empty((1, L), dtype=torch.int32, device=dev)
+           for _ in range(3)]
+    K._check("ec_multiexp_combine", _library().vmn_ec_chain(
+        w, K.threads_per_element("ec_multiexp_combine", w, 1),
+        *map(K._ptr, ins), *map(K._ptr, out), K._ptr(mod.limbs),
+        K._ptr(mod.one_mont), mod.mprime32, J, K._stream(dev)))
+    _launched("ec_multiexp_combine", 1)
+    return tuple(o[0] for o in out)
+
+
 def ec_multiexp(x, y, inf, e, mod: Modulus, nbits: int):
     """sum_i e_i·P_i -> one Jacobian point, (L,) x3 (K10): H6's
-    positions, then sum_j 2^(4j)·S_j through H8, one position at a time
-    (4 doublings as P + P, then one addition)."""
-    PX, PY, PZ = ec_multiexp_positions(x, y, inf, e, mod, nbits)
-    zero = torch.zeros((1, mod.L), dtype=torch.int32, device=PX.device)
-    acc = (zero, mod.one_mont.reshape(1, -1), zero)
-    for j in range(PX.shape[0] - 1, -1, -1):
-        for _ in range(WINDOW):
-            acc = ec_point_add(*acc, *acc, mod)
-        acc = ec_point_add(*acc, PX[j : j + 1], PY[j : j + 1],
-                           PZ[j : j + 1], mod)
-    return tuple(t[0] for t in acc)
+    positions, then their combine."""
+    return ec_multiexp_combine(
+        *ec_multiexp_positions(x, y, inf, e, mod, nbits), mod)
 
 
 def ec_fb_exp(table_x, table_y, e, mod: Modulus):

@@ -65,7 +65,7 @@ design does about it):
   the 5·ndig_pad products back to back with H1's cooperative product,
   where a loop over H1 would launch 5·ndig_pad single-element batches.  A
   chain of dependent products: bound by the latency of one product, not
-  by the card's throughput.  ptxas: 26 registers at W = 64, 21 at W = 8.
+  by the card's throughput.  ptxas: 26 registers at W = 64, 22 at W = 8.
 
 H1, H2 and the combine take row-major ``(N, L)`` operands as they are; H3
 and H4 read limb-major ``(L, N)``, which their wrappers transpose to.
@@ -115,11 +115,15 @@ def reset_launches() -> None:
             sizes[b] = 0
 
 
+def size_bucket(n: int) -> str:
+    """The SIZE_BUCKETS entry of a launch over n >= 1 elements."""
+    return SIZE_BUCKETS[0 if n == 1 else 1 if n < 128 else 2]
+
+
 def _launched(name: str, n: int) -> None:
     LAUNCHES[name] += 1
     if name in LAUNCH_SIZES:
-        bucket = SIZE_BUCKETS[0 if n == 1 else 1 if n < 128 else 2]
-        LAUNCH_SIZES[name][bucket] += 1
+        LAUNCH_SIZES[name][size_bucket(n)] += 1
 
 
 # ------------------------------------------------------------ constants
@@ -384,32 +388,32 @@ _UNSUPPORTED_WIDTH = -1
 _BAD_SHAPE = -2
 _WIDTHS = (8, 64)  # W = L/2 instantiated in mont_kernels.cu
 
-# Threads per element (TPI) of H1 and H2 for n elements of W words: TPI
-# lanes of one warp share an element.  Per (kernel, W), (from n elements,
-# TPI) pairs, largest n first.  Each n is the smallest N that
-# `kernel_timing.py --sweep` timed (N = 1, 4, 16, ..., 2048, 4096, 6144,
-# 8192, 10000, 16384 at W = 64; 1, 16, ..., 8192, 16384, ..., 262144 at
-# W = 8) from which the fewer lanes were faster at every N it timed; the
-# crossover lies between it and the N timed before it (PERF.md §6).  H1
-# at W = 8 was fastest at TPI 8 at every N.  Every pair has its case in
-# mont_kernels.cu.
+# Threads per element (TPI) of the cooperative kernels for n elements of W
+# words: TPI lanes of one warp share an element (H1, H2) or a point (H5,
+# the EC combine).  Per (kernel, W), (from n elements, TPI) pairs, largest
+# n first.  Each n is the smallest N that `kernel_timing.py --sweep` timed
+# (N = 1, 4, 16, ..., 2048, 4096, 6144, 8192, 10000, 16384 at W = 64; 1,
+# 16, ..., 8192, 16384, ..., 262144 at W = 8; H5 256, 1024, 4096, 8192,
+# 16384, ..., 262144 points) from which the fewer lanes were faster at
+# every N it timed; the crossover lies between it and the N timed before
+# it (PERF.md §6).  H1 at W = 8 was fastest at TPI 8 at every N, H5 at
+# TPI 8 at none.  The EC combine is one point (n = 1) on one warp, TPI 8
+# the fastest at 16 and 64 positions.  Every pair has its case in
+# mont_kernels.cu or ec_kernels.cu.
 COOP_TPI = {
     ("mont_mul", 8): ((1, 8),),
     ("mont_mul", 64): ((4096, 8), (1, 32)),
     ("mont_exp", 8): ((16384, 1), (1, 8)),
     ("mont_exp", 64): ((2048, 8), (1, 32)),
+    ("ec_scalar_mul", 8): ((16384, 2), (1, 4)),
+    ("ec_multiexp_combine", 8): ((1, 8),),
 }
 COOP_BLOCK = 128  # threads a block at most (kThreads in mont_kernels.cu)
 
 
-def coop_tpis(w: int) -> tuple:
-    """The TPIs instantiated for W words, fewest first."""
-    return tuple(sorted({t for (_, cw), rule in COOP_TPI.items() if cw == w
-                         for _, t in rule}))
-
-
 def threads_per_element(kernel: str, w: int, n: int) -> int:
-    """H1's or H2's TPI for n >= 1 elements of W words (COOP_TPI)."""
+    """A cooperative kernel's TPI for n >= 1 elements of W words
+    (COOP_TPI)."""
     return next(t for lo, t in COOP_TPI[kernel, w] if n >= lo)
 
 
