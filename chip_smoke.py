@@ -8,13 +8,16 @@ Phases (one line each; any failure raises and the exit code is not 0):
      per source file, all started together);
   3. check H1 mont_mul and H2 mont_exp at modp2048 width (W=64) on N
      elements and at the P-256 field (W=8) on --ec-n and N, each also on a
-     batch of one (a product; a power as MontCtx.inv gives it), which
-     between them reach every TPI (lanes an element) the wrappers choose,
-     H3 mont_fb_exp (windows 4 and 8), H4 mont_expprod_positions and K7's
-     combine mont_expprod_combine (512 positions) at modp2048 width
-     against their plain PyTorch versions on the card (exact equality, a
-     few rows against Python pow), and time both (kernels on the device:
-     vmn_tpu_torch/kernel_timing.py's device_ms);
+     batch of one (a product; a power as MontCtx.inv gives it), H3
+     mont_fb_exp at modp2048 width (window 8 on N and on one, window 4 on
+     N) and at W=8 (window 4 on N and on one), and at the first N of any
+     TPI of H3's rule that those miss, so that every TPI (lanes an
+     element) the wrappers choose is checked (it fails otherwise), H4
+     mont_expprod_positions and K7's combine mont_expprod_combine (512
+     positions) at modp2048 width against their plain PyTorch versions on
+     the card (exact equality, a few rows against Python pow), and time
+     both (kernels on the device: vmn_tpu_torch/kernel_timing.py's
+     device_ms);
   4. check H5 ec_scalar_mul, H6 ec_multiexp_positions (with the rest of
      `ec_multiexp`), the position combine ec_multiexp_combine (64
      positions, a 256-bit multi-exponentiation), H7 ec_fb_exp and H8
@@ -31,7 +34,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
-     the same transcript with one flipped byte rejected;
+     the same transcript with one flipped byte rejected; then each
+     (N, exponent bits) at which the mix and the verify called H4 (H6 on
+     the EC path), with its calls and its time on random inputs of that
+     shape (`multiexp` lines);
   7. the EC path: the same at P-256 with --ec-n ciphertexts (default
      131072 = 2^17, from where `exp_prod` takes H6).
 
@@ -39,8 +45,8 @@ Each mix zeroes the wrappers' launch counters just before `session.mix`
 and reads them just after it.  H1-H4 and the combine must have launched
 in the modp2048 mix, and H5, H6, the EC combine (once per H6 call) and H8
 in the P-256 mix (H7 is off that path, as in vmn_tpu, and reports 0); the
-`launches` line also counts H1's, H2's, H5's and H8's launches in each
-mix by batch size (1, 2-127, >=128); the `kernels` line reports each
+`launches` line also counts H1's, H2's, H3's, H5's and H8's launches in
+each mix by batch size (1, 2-127, >=128); the `kernels` line reports each
 kernel's
 launches in its own path's mix, beside the error, time, plain version's
 time and bound (the least time the card could take for the same work)
@@ -52,6 +58,7 @@ card's name and power limit, and a JSON status object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import shutil
@@ -91,7 +98,8 @@ MAIN_CHECK = {"mont_mul": "mont_mul", "mont_exp": "mont_exp",
               "ec_multiexp_positions": "ec_multiexp_positions",
               "ec_multiexp_combine": "ec_multiexp_combine",
               "ec_fb_exp": "ec_fb_exp", "ec_point_add": "ec_point_add"}
-COOP_MONT = ("mont_mul", "mont_exp")  # phase 3's cooperative kernels
+# phase 3's cooperative kernels
+COOP_MONT = ("mont_mul", "mont_exp", "mont_fb_exp")
 
 # Bounds: the larger of bytes moved (each input read once, each output
 # written once, int32 limbs as stored) over the card's memory rate, and
@@ -286,18 +294,24 @@ def check_kernels(n: int, ec_n: int) -> dict:
     nb = 4 * n * L
     ndig_s = 256 // 4
     nz_short = nonzero_digits(e_short, ndig_s, 4)
-    cases["mont_fb_exp8"] = (
-        lambda: K.mont_fb_exp(tbl8, e_full, ctx.mod),
-        lambda: K.mont_fb_exp_plain(tbl8, e_full, ctx.mod),
-        lambda: [pow(g, e_full_int[i], m) for i in rows], rows, n, None)
-    bounds["mont_fb_exp8"] = bound(nonzero_digits(e_full, tbl8.shape[0], 8),
-                                   W, 4 * tbl8.numel() + 2 * nb)
-    cases["mont_fb_exp4"] = (
-        lambda: K.mont_fb_exp(tbl4, e_short, ctx.mod),
-        lambda: K.mont_fb_exp_plain(tbl4, e_short, ctx.mod),
-        lambda: [pow(g, e_short_int[i], m) for i in rows], rows, n, None)
-    bounds["mont_fb_exp4"] = bound(nz_short, W,
-                                   4 * tbl4.numel() + 4 * n * 16 + nb)
+    def fb_case(name, cx, tbl, e, e_int, count):
+        """H3 on the first `count` elements of e: a product per digit that
+        is not 0 (the bound); rows against Python pow."""
+        e = e[:count].contiguous()
+        r = sorted({0, 1, count - 1} & set(range(count)))
+        cases[name] = (
+            lambda: K.mont_fb_exp(tbl, e, cx.mod),
+            lambda: K.mont_fb_exp_plain(tbl, e, cx.mod),
+            lambda: [pow(g, e_int[i], cx.m) for i in r], r, count,
+            tbl.shape[0] if count == 1 else None)  # one product a digit
+        window = tbl.shape[1].bit_length() - 1
+        bounds[name] = bound(nonzero_digits(e, tbl.shape[0], window),
+                             cx.L // 2, 4 * tbl.numel() + 4 * e.numel()
+                             + 4 * count * cx.L)
+
+    fb_case("mont_fb_exp8", ctx, tbl8, e_full, e_full_int, n)
+    fb_case("mont_fb_exp8_b1", ctx, tbl8, e_full, e_full_int, 1)
+    fb_case("mont_fb_exp4", ctx, tbl4, e_short, e_short_int, n)
 
     def expprod_py():
         want = 1
@@ -334,6 +348,18 @@ def check_kernels(n: int, ec_n: int) -> dict:
     ctx8 = MontCtx(_CURVES["P-256"][0], dev)
     width_cases(ctx8, "_w8", 256, ec_n)
     width_cases(ctx8, "_w8_n", 256, n, batch1=False)
+    # H3 at W = 8, window 4 (the test256 golden's width): on n and on one
+    tbl4_w8 = ctx8.fixed_base_table(g, 256, 4)
+    fb_case("mont_fb_exp4_w8", ctx8, tbl4_w8, e_short, e_short_int, n)
+    fb_case("mont_fb_exp4_w8_b1", ctx8, tbl4_w8, e_short, e_short_int, 1)
+    # and at the first N of any TPI its rule has that these do not reach
+    for w, cx, name, tbl, e, e_int in (
+            (64, ctx, "mont_fb_exp8", tbl8, e_full, e_full_int),
+            (8, ctx8, "mont_fb_exp4_w8", tbl4_w8, e_short, e_short_int)):
+        reached = {K.threads_per_element("mont_fb_exp", w, c) for c in (1, n)}
+        for lo, tpi in K.COOP_TPI["mont_fb_exp", w]:
+            if tpi not in reached and lo + 37 <= n:
+                fb_case(f"{name}_tpi{tpi}", cx, tbl, e, e_int, lo + 37)
 
     results, tpis = {}, set()
     for name, (kern, plain, py, py_rows, count, products) in cases.items():
@@ -351,8 +377,8 @@ def check_kernels(n: int, ec_n: int) -> dict:
         ms = device_ms(kern)
         r = {"N": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              **bounds[name]}
-        kernel = name.split("_w8")[0].removesuffix("_b1")
-        if kernel in ("mont_mul", "mont_exp"):
+        kernel = max((k for k in K.KERNELS if name.startswith(k)), key=len)
+        if kernel in COOP_MONT:
             r["tpi"] = K.threads_per_element(kernel, cx.L // 2, count)
             tpis.add((kernel, cx.L // 2, r["tpi"]))
         if name.endswith("_b1") or name == "mont_expprod_combine":
@@ -366,7 +392,7 @@ def check_kernels(n: int, ec_n: int) -> dict:
     built = {(k, w, t) for (k, w), rule in K.COOP_TPI.items()
              if k in COOP_MONT for _, t in rule}
     if tpis != built:
-        raise AssertionError(f"H1/H2 instantiations not checked: "
+        raise AssertionError(f"H1-H3 instantiations not checked: "
                              f"{sorted(built - tpis)}")
     return results
 
@@ -395,6 +421,8 @@ def kernel_line(name: str, r: dict) -> None:
                  "bound": f"'{r['bound_note']}'"}
     if "tpi" in r:
         extra["tpi"] = r["tpi"]
+    if "shape" in r:
+        extra["shape"] = json.dumps(r["shape"], separators=(",", ":"))
     phase("kernel", name=name, N=r["N"], tolerance="exact", equal=True,
           max_abs_err=r["max_abs_err"], ms=f"{r['ms']:.3f}",
           plain_ms=f"{r['plain_ms']:.3f}", bound_ms=f"{r['bound_ms']:.4f}",
@@ -583,6 +611,12 @@ def check_ec_kernels(n: int) -> dict:
                          "plain_ms": plain_ms, **bnds[name]}
         if name == "ec_scalar_mul":
             results[name]["tpi"] = K.threads_per_element(name, 8, n)
+        elif name == "ec_multiexp_positions":
+            blocks, subs = E.mexp_shape(n, ndig)
+            results[name]["shape"] = {
+                "chunk": E.MEXP_CHUNK, "folders": E.MEXP_FOLDERS,
+                "blocks": blocks, "subs": subs,
+                "partials_a_position": blocks * subs}
         elif name == "ec_multiexp_combine":
             ops = 5 * J
             results[name].update(
@@ -656,7 +690,7 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
             ciph_seed: bytes):
     """keygen -> encrypt the message array `msgs` -> mix; returns (nizkp
     dir, plaintext array, mix seconds, kernel launches of the mix alone,
-    H1/H2/H5/H8 launches of the mix by batch size)."""
+    H1/H2/H3/H5/H8 launches of the mix by batch size)."""
     from vmn_tpu_torch.crypto.randomsource import SeededSource
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
@@ -761,11 +795,64 @@ def golden_phase(tmp: Path, name: str) -> None:
           phase_s=f"{time.perf_counter() - t0:.1f}")
 
 
+@contextlib.contextmanager
+def calls_of(module, name: str, log: dict):
+    """Counts the calls of wrapper module.name (whose first argument holds
+    the batch and whose last the exponent bits) by (N, bits) into log,
+    through every loaded module that holds the wrapper under that name."""
+    fn = getattr(module, name)
+    owners = [m for m in list(sys.modules.values())
+              if getattr(m, name, None) is fn]
+
+    def counted(*args):
+        key = (int(args[0].shape[0]), int(args[-1]))
+        log[key] = log.get(key, 0) + 1
+        return fn(*args)
+
+    for m in owners:
+        setattr(m, name, counted)
+    try:
+        yield log
+    finally:
+        for m in owners:
+            setattr(m, name, fn)
+
+
+def multiexp_widths(group, mix: dict, ver: dict) -> list:
+    """The (N, exponent bits) at which the path called its
+    multi-exponentiation's positions (H4 or H6) in the mix and in the
+    verify, each timed on the card on random inputs of that shape."""
+    from vmn_tpu_torch.kernel_timing import _elements, _exponents, device_ms
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    mod = group.ctx.mod
+    out = []
+    for N, bits in sorted({*mix, *ver}):
+        e = _exponents(gen, N, bits, "cuda")
+        a = _elements(gen, N, mod.L, "cuda")
+        if hasattr(group, "curve"):  # field elements stand in for points
+            b = _elements(gen, N, mod.L, "cuda")
+            inf = torch.zeros(N, dtype=torch.bool, device="cuda")
+            run = lambda: E.ec_multiexp_positions(a, b, inf, e, mod, bits)
+        else:
+            run = lambda: K.mont_expprod_positions(a, e, mod, bits)
+        out.append({"N": N, "bits": bits, "mix_calls": mix.get((N, bits), 0),
+                    "verify_calls": ver.get((N, bits), 0),
+                    "ms": device_ms(run)})
+    return out
+
+
 def slice_phase(name: str, n: int, tmp: Path):
     """A mix path at N ciphertexts; returns each wrapper's launches in
-    its mix, and H1/H2/H5/H8's by batch size."""
+    its mix, H1/H2/H3/H5/H8's by batch size, and the shapes at which the
+    mix and the verify called H4 (modp2048) or H6 (P-256), each timed."""
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
 
     t0 = time.perf_counter()
     group = _group(name)
@@ -778,12 +865,16 @@ def slice_phase(name: str, n: int, tmp: Path):
     m = group.random_array(n, prg, params.rbitlen)
     msgs = _points(group, m)
     torch.cuda.reset_peak_memory_stats()
-    nizkp, plain, mix_s, launches, sizes = run_mix(
-        params, m, tmp / f"slice_{name}", b"smoke-party",
-        b"smoke-ciphs")
+    owner, wrapper = ((E, "ec_multiexp_positions") if name.startswith("P-")
+                      else (K, "mont_expprod_positions"))
+    with calls_of(owner, wrapper, {}) as mix_calls:
+        nizkp, plain, mix_s, launches, sizes = run_mix(
+            params, m, tmp / f"slice_{name}", b"smoke-party",
+            b"smoke-ciphs")
     if sorted(_points(group, plain)) != sorted(msgs):
         raise AssertionError("plaintext multiset not preserved")
-    ok, verify_s = verify(params, nizkp)
+    with calls_of(owner, wrapper, {}) as verify_calls:
+        ok, verify_s = verify(params, nizkp)
     if not ok:
         raise AssertionError("port verifier rejected the mix transcript")
     peak = torch.cuda.max_memory_allocated()
@@ -795,7 +886,11 @@ def slice_phase(name: str, n: int, tmp: Path):
           mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
           max_memory_allocated=peak,
           phase_s=f"{time.perf_counter() - t0:.1f}")
-    return launches, sizes
+    widths = multiexp_widths(group, mix_calls, verify_calls)
+    for r in widths:
+        phase("multiexp", group=name, wrapper=wrapper,
+              **{k: (f"{v:.3f}" if k == "ms" else v) for k, v in r.items()})
+    return launches, sizes, widths
 
 
 SPANS = (  # (module, class, method) timed as host spans by --profile
@@ -940,8 +1035,8 @@ def main(argv=None) -> int:
         tmp = Path(tmpname)
         golden_phase(tmp, "test256")
         golden_phase(tmp, "P-256")
-        modp, modp_sizes = slice_phase("modp2048", args.n, tmp)
-        ec, ec_sizes = slice_phase("P-256", args.ec_n, tmp)
+        modp, modp_sizes, modp_widths = slice_phase("modp2048", args.n, tmp)
+        ec, ec_sizes, ec_widths = slice_phase("P-256", args.ec_n, tmp)
         for path in args.profile:
             profile_phase(path, args.ec_n if path == "P-256" else args.n,
                           tmp)
@@ -983,11 +1078,19 @@ def main(argv=None) -> int:
     for name in E.LAUNCH_SIZES:
         kernels[ec_at[name]]["launches_by_batch"] = {
             "P-256 mix": ec_sizes[name]}
+    kernels[K.KERNELS.index("mont_expprod_positions")]["path_calls"] = (
+        modp_widths)
+    kernels[ec_at["ec_multiexp_positions"]]["path_calls"] = ec_widths
     kernels[ec_at["ec_scalar_mul"]]["at_first_n_of_tpi"] = [
         r for k, r in checks.items() if k.startswith("ec_scalar_mul_tpi")]
     kernels[K.KERNELS.index("mont_fb_exp")].update(
-        window=8, window4={"replaces": "vmn_tpu/ops/mont_kernels.py:487",
-                           "exponent_bits": 256, **checks["mont_fb_exp4"]})
+        window=8, batch1=checks["mont_fb_exp8_b1"],
+        window4={"replaces": "vmn_tpu/ops/mont_kernels.py:487",
+                 "exponent_bits": 256, **checks["mont_fb_exp4"]},
+        w8_window4=checks["mont_fb_exp4_w8"],
+        w8_window4_batch1=checks["mont_fb_exp4_w8_b1"],
+        at_first_n_of_tpi=[r for k, r in checks.items()
+                           if k.startswith("mont_fb_exp") and "_tpi" in k])
     kernels[ec_at["ec_fb_exp"]].update(
         note="off the mix path, as in vmn_tpu (arith/ec.py _exp_impl)")
     print(json.dumps({"kernels": kernels}))

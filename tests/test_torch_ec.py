@@ -148,16 +148,24 @@ def test_scalar_mul_plain_matches_pallas(jx, tg, interpret):
         for q, k in zip(pts, scalars)]
 
 
-def test_multiexp_plain_matches_pallas(jx, tg, interpret, monkeypatch):
+@pytest.mark.parametrize("N,super_chunk,blocks", [
+    (70, 32, E.MEXP_BLOCKS),  # three launches, none a whole chunk
+    (120, 1 << 20, 1),        # one block walks three chunks, the last short
+])
+def test_multiexp_plain_matches_pallas(jx, tg, interpret, monkeypatch, N,
+                                       super_chunk, blocks):
     """H6's plain version and the position combine (`ec_multiexp`)
     against K10 `ec_multiexp_pallas`, compared after `normalize`.  The
     batch holds a point at infinity, a pair P, -P, a repeated point and
-    scalar 0; a small EP_SUPER splits it into three super-chunks."""
+    scalar 0; N is no multiple of H6's chunk.  A small EP_SUPER splits it
+    into three launches; MEXP_BLOCKS = 1 makes one block fold every
+    chunk.  (Both N pad to one TILE_N, so K10 compiles once.)"""
     monkeypatch.setattr(jx.JK, "_EP_JB", 4)  # small interpret-mode graphs
     monkeypatch.setattr(jx.JK, "TILE_N", 128)
-    monkeypatch.setattr(E, "EP_SUPER", 32)
+    monkeypatch.setattr(E, "EP_SUPER", super_chunk)
+    monkeypatch.setattr(E, "MEXP_BLOCKS", blocks)
     p, a, G = _host(tg)
-    N, nbits = 70, 32
+    nbits = 32
     pts = [host_ec_mul(p, a, G, i + 2) for i in range(N)]
     pts[1] = None
     pts[3] = (pts[2][0], p - pts[2][1])
@@ -180,6 +188,45 @@ def test_multiexp_plain_matches_pallas(jx, tg, interpret, monkeypatch):
         acc = host_ec_add(p, a, acc, None if q is None
                           else host_ec_mul(p, a, q, k))
     assert tg.to_affine(TEC.ECArray(tg, *got)) == [acc]
+
+
+def _kernel_order(n, npos, blocks, subs):
+    """The points each H6 fold thread adds, in its order, as the kernel's
+    loops visit them (csrc/ec_kernels.cu, ec_mexp_kernel)."""
+    C = E.MEXP_CHUNK
+    order = {}
+    for b in range(blocks):
+        for s in range(subs):
+            order[b * subs + s] = [k * C + c
+                                   for k in range(b, -(-n // C), blocks)
+                                   for c in range(s, min(C, n - k * C), subs)]
+    return order
+
+
+@pytest.mark.parametrize("n,npos", [(1, 64), (63, 64), (64, 16), (4096, 64),
+                                    (5000, 48), (9000, 16), (1 << 17, 64),
+                                    (20000, 320), (300, 1)])
+def test_mexp_order_is_the_kernels(n, npos):
+    """H6's launch shape and the plain version's fold order against the
+    kernel's loops: every point once in each position, at most
+    EP_MAX_LANES partials a position, no block without a chunk."""
+    blocks, subs = E.mexp_shape(n, npos)
+    assert 1 <= blocks <= min(E.MEXP_BLOCKS, -(-n // E.MEXP_CHUNK))
+    assert npos * subs <= E.MEXP_FOLDERS and blocks * subs <= E.EP_MAX_LANES
+    order = E._mexp_order(n, blocks, subs, "cpu")
+    want = _kernel_order(n, npos, blocks, subs)
+    assert order.shape[0] == blocks * subs
+    for q, pts in want.items():
+        row = order[q].tolist()
+        assert row[: len(pts)] == pts and set(row[len(pts):]) <= {-1}
+    assert sorted(i for pts in want.values() for i in pts) == list(range(n))
+    if (n, npos) == (1 << 17, 64):
+        assert (blocks, subs) == (132, 5)
+
+
+def test_mexp_shape_refuses_too_many_positions():
+    with pytest.raises(ValueError, match="digit positions"):
+        E.mexp_shape(1000, E.MEXP_FOLDERS + 16)
 
 
 def test_multiexp_combine_plain_matches_python(tg):
@@ -547,3 +594,33 @@ def test_cuda_multiexp_combine_matches_plain(npos, cuda_device):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,super_chunk,blocks", [
+    (1000, 1 << 20, 132),  # 17 whole chunks and one of 48 points
+    (1000, 640, 3),        # two launches; blocks walk several chunks
+])
+def test_cuda_multiexp_positions_edges(n, super_chunk, blocks, cuda_device,
+                                       monkeypatch):
+    """H6 against its plain version (the same Jacobian partials, so equal
+    limbs) with a point at infinity, P and -P, a repeated point and scalar
+    0, on a batch that is no multiple of the chunk; then split into two
+    EP_SUPER launches with blocks that fold several chunks each."""
+    monkeypatch.setattr(E, "EP_SUPER", super_chunk)
+    monkeypatch.setattr(E, "MEXP_BLOCKS", blocks)
+    tg = TGroup.named("P-256", device=cuda_device)
+    mod = tg.ctx.mod
+    x, y, inf, e = _smul_batch(tg, n, cuda_device)  # row 0: infinity
+    x, y, inf = x.clone(), y.clone(), inf.clone()
+    y[5] = tg.ctx.neg(y[4])  # -P beside P
+    x[6], y[6] = x[4], y[4]  # a repeated point
+    args = (x, y, inf, e, mod, 256)
+    E.reset_launches()
+    got = E.ec_multiexp_positions(*args)
+    assert E.LAUNCHES["ec_multiexp_positions"] == -(-n // super_chunk)
+    want = E.ec_multiexp_positions_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+

@@ -175,14 +175,65 @@ def test_coop_launch_covers_every_element(w):
             assert K.threads_per_element(kernel, w, n) == tpi
 
 
+_FB_SHAPES = [(w, window, t) for w, window in ((64, 8), (64, 4), (8, 4))
+              for t in sorted({t for _, t in K.COOP_TPI["mont_fb_exp", w]})]
+
+
+@pytest.mark.parametrize("w,window,tpi", _FB_SHAPES)
+def test_fb_pack_gives_each_lane_its_slice(w, window, tpi):
+    """H3's packed table read as its kernel reads it: lane r of a group
+    takes vector kk of entry d at d·W + kk·TPI·V + r·V, which must hold
+    words r·S + kk·V .. + V - 1 of entry d (S = W/TPI, V = min(4, S))."""
+    rng = np.random.default_rng(w + window + tpi)
+    ndig, entries, L = 3, 1 << window, 2 * w
+    table = torch.from_numpy(rng.integers(0, 1 << 16, (ndig, entries, L),
+                                          dtype=np.int64).astype(np.int32))
+    packed = K.fb_pack(table, tpi).reshape(ndig, -1).numpy().view(np.uint32)
+    words = (table[..., 0::2].numpy().astype(np.uint32)
+             | (table[..., 1::2].numpy().astype(np.uint32) << 16))
+    S = w // tpi
+    V = min(4, S)
+    for j in range(ndig):
+        for d in (0, 1, entries - 1):
+            for r in range(tpi):
+                got = [packed[j, d * w + kk * tpi * V + r * V + v]
+                       for kk in range(S // V) for v in range(V)]
+                assert got == list(words[j, d, r * S : (r + 1) * S])
+
+
+@pytest.mark.parametrize("w", K._WIDTHS)
+def test_fb_launch_fills_the_card(w):
+    """H3's launch shape on 132 SMs: whole warps of at most FB_BLOCK
+    threads cover every element's lanes; up to 132·FB_BLOCK lanes the
+    blocks fill every SM once (N = 10000 at W = 64: 132 blocks) and from
+    32 elements an SM no fewer than 90 % of the SMs get a block."""
+    rule = K.COOP_TPI["mont_fb_exp", w]
+    assert rule[-1][0] == 1
+    for n in sorted({1, 2, 5, 31, 33, 131, 132, 133, 4224, 5000, 10000,
+                     65536, 1 << 20, *(lo + d for lo, _ in rule
+                                       for d in (-1, 0, 1) if lo + d)}):
+        tpi, threads, blocks = K.fb_launch(w, n, 132)
+        assert tpi == K.threads_per_element("mont_fb_exp", w, n)
+        assert w % tpi == 0 and 32 % tpi == 0
+        assert threads % 32 == 0 and 0 < threads <= K.FB_BLOCK
+        assert (blocks - 1) * threads < n * tpi <= blocks * threads
+        if -(-n // 132) * tpi <= K.FB_BLOCK:
+            assert blocks <= 132
+        if n >= 32 * 132:
+            assert blocks >= 0.9 * 132
+    if w == 64:
+        assert K.fb_launch(64, 10000, 132)[2] == 132
+
+
 def test_launch_sizes_count_by_batch():
     K.reset_launches()
     for name, n in [("mont_mul", 1), ("mont_mul", 2), ("mont_mul", 127),
                     ("mont_mul", 128), ("mont_exp", 1), ("mont_exp", 10000),
-                    ("mont_expprod_combine", 512)]:
+                    ("mont_fb_exp", 10000), ("mont_expprod_combine", 512)]:
         K._launched(name, n)
     assert K.LAUNCH_SIZES == {"mont_mul": {"1": 1, "2-127": 2, ">=128": 1},
-                              "mont_exp": {"1": 1, "2-127": 0, ">=128": 1}}
+                              "mont_exp": {"1": 1, "2-127": 0, ">=128": 1},
+                              "mont_fb_exp": {"1": 0, "2-127": 0, ">=128": 1}}
     assert K.LAUNCHES["mont_expprod_combine"] == 1
     K.reset_launches()
     assert not any(K.LAUNCHES.values())
@@ -340,3 +391,27 @@ def test_cuda_combine_matches_plain(group, nbits, cuda_device):
         K.mont_expprod_positions_plain(bases, e, tc.mod, nbits), tc.mod)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 1000])
+@pytest.mark.parametrize("w,window,tpi", _FB_SHAPES)
+def test_cuda_fb_exp_every_tpi(w, window, tpi, n, cuda_device, monkeypatch):
+    """H3 at each (W, window, TPI) it is built for, the TPI forced through
+    its rule: one element, and batches that are no multiple of a block;
+    exponents all ones and 0 among random ones."""
+    monkeypatch.setitem(K.COOP_TPI, ("mont_fb_exp", w), ((1, tpi),))
+    tc = TCtx(modulus("modp2048" if w == 64 else "test256"), cuda_device)
+    nbits = 2047 if window == 8 else 256
+    table = tc.fixed_base_table(5, nbits, window)
+    rng = np.random.default_rng(n + tpi)
+    es = [(1 << nbits) - 1, 0] + rand_ints(rng, n, 1 << nbits)
+    e = device_limbs(limbs_np(es[:n], -(-nbits // 16)), cuda_device)
+    K.reset_launches()
+    got = K.mont_fb_exp(table, e, tc.mod)
+    assert K.LAUNCHES["mont_fb_exp"] == 1
+    want = K.mont_fb_exp_plain(table, e, tc.mod)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tc.decode(got[:2]) == [pow(5, x, tc.m) for x in es[:min(n, 2)]]
+

@@ -108,18 +108,32 @@ __device__ __forceinline__ void fsub(uint32_t* r, const uint32_t* a,
 }
 
 // The field of one curve on one thread: modulus words (shared memory)
-// and m'.
-template <int W>
+// and m'.  With kFence, each product starts behind a fence (a compiler
+// fence and __syncwarp, over the lanes that run it), and mul2 runs its
+// two products one after the other: values kept in shared memory (the
+// modulus; H6's tables, sums and factors) are then read again where a
+// product uses them instead of being held in registers from one product
+// to the next, and the two products' temporaries are not live together,
+// so that the formulas fit a register budget (H6's) without spilling.
+template <int W, bool kFence = false>
 struct Field {
   static constexpr int kWords = W;
   const uint32_t* m;
   uint32_t mp;
 
+  __device__ __forceinline__ static void fence() {
+    if constexpr (kFence) {
+      asm volatile("" ::: "memory");
+      __syncwarp(__activemask());
+    }
+  }
   __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
                                       const uint32_t* b) const {
+    fence();
     mont_mul<W>(r, a, b, m, mp);
   }
   __device__ __forceinline__ void sq(uint32_t* r, const uint32_t* a) const {
+    fence();
     mont_mul<W>(r, a, a, m, mp);
   }
   // Two independent products; each r may alias any operand.  One thread
@@ -128,8 +142,10 @@ struct Field {
                                        const uint32_t* b1, uint32_t* r2,
                                        const uint32_t* a2,
                                        const uint32_t* b2) const {
+    fence();
     uint32_t t[W];
     mont_mul<W>(t, a1, b1, m, mp);
+    fence();
     mont_mul<W>(r2, a2, b2, m, mp);
     copy<W>(r1, t);
   }

@@ -3,8 +3,8 @@
 // ops/ec_kernels.py).
 //
 //   H5 vmn_ec_smul      replaces K9  ec_scalar_mul_pallas  (ec_kernels.py:277-331)
-//   H6 vmn_ec_mexp_tbl  replace both pallas_calls of K10 ec_multiexp_pallas
-//      vmn_ec_mexp_acc                                      (:444-570)
+//   H6 vmn_ec_mexp      replaces both pallas_calls of K10 ec_multiexp_pallas
+//                                                           (:444-570)
 //   vmn_ec_chain        the position combine of K10        (:571-584)
 //   H7 vmn_ec_fb        replaces K11 ec_fb_exp_pallas      (:667-719)
 //   H8 vmn_ec_add       replaces K12 ec_point_add_pallas   (:747-773)
@@ -14,13 +14,14 @@
 // instantiated pairs by the crossovers measured on the card (COOP_TPI in
 // ops/mont_kernels.py) and passes the launch shape.  Their operands are
 // row-major (n, 2W) 16-bit limbs, so that a group reads its point as one
-// contiguous run.  H6-H8 run one point per thread (H6's second launch:
-// per lane and digit position), 128 threads a block, on limb-major (L, n)
-// int32 16-bit limbs as H3 and H4 read them, with ec.cuh's one-thread
-// field.  Each entry point launches on the caller's stream, does not
-// synchronise, allocates nothing and returns cudaGetLastError() (or
-// kUnsupportedWidth for a width, or a TPI, with no instantiation,
-// kBadShape for a launch shape the kernel cannot take).
+// contiguous run.  H6 runs one point, or one (digit position, sub-chunk),
+// per thread on the same row-major operands, with ec.cuh's one-thread
+// field (its design below).  H7 and H8 run one point per thread, 128
+// threads a block, on limb-major (L, n) int32 16-bit limbs as H4 reads
+// them, with the one-thread field.  Each entry point launches on the
+// caller's stream, does not synchronise, allocates nothing and returns
+// cudaGetLastError() (or kUnsupportedWidth for a width, or a TPI, with
+// no instantiation, kBadShape for a launch shape the kernel cannot take).
 //
 // Constant time (docs/DEVIATIONS.md #5): no kernel indexes a table with a
 // secret digit or branches on one; every table entry is read and masked.
@@ -233,98 +234,206 @@ __global__ void __launch_bounds__(32)
 }
 
 // ------------------------------------------- H6: multi-exponentiation
-// Launch 1: each point's 16 Jacobian multiples to device memory, packed
-// words, layout (16, 3, W, n): neighbouring points are neighbours.
+// S_j = sum_i d_ij·P_i for every 4-bit digit position j < npos, as
+// partial sums that the caller joins (H8 lane tree) and combines
+// (ec_multiexp_combine).  One launch; no point's table goes through
+// device memory.  A block of kMexpThreads threads walks the chunks of
+// kMexpChunk points b, b + G, b + 2G, ... (G blocks): its first two warps
+// (the builders) build the next chunk's tables while the other ten (the
+// folders) fold the current chunk from the other buffer; one barrier a
+// chunk.
+//
+// * Builder c < kMexpChunk of chunk k takes point kC + c: its multiples
+//   d·P, d = 1..15, entry d = entry d-1 + P by point_add, the plain
+//   version's formula sequence (entry 0, infinity, is not stored).  Shared
+//   layout [buffer][point][entry][coord][word], 45·W + 4 words a point:
+//   the 4 words of padding make the builders' 16-byte stores
+//   conflict-free.
+// * Folder f takes digit position j = f mod npos and sub-chunk s =
+//   f / npos (subs = max(1, kMexpFolders / npos) of them; 5 at 64
+//   positions): it folds points s, s + subs, ... of each chunk into its
+//   Jacobian partial, reading the point's 4-bit digit j once and
+//   masked-selecting its factor over all 16 entries (never an index by
+//   the secret digit).  The folders of a warp share s, so they read the
+//   same words at the same time: a broadcast.
+// * Partial q = b·subs + s of position j goes to out (3, npos, G·subs, L),
+//   row-major.  The plain version folds in exactly this order.
+//
+// What bounds it: a point's 14 table additions and, per position, one
+// addition (24 products each in the branchless form, where the bound
+// counts 16).  The one-thread field (ec.cuh) issues about half the
+// instructions of the cooperative one (H5, PERF.md §6), so each thread
+// owns a point or a (position, sub-chunk).  A point's 1.5 KB table stays
+// in shared memory: in device memory it would be 201 MB at 2^17 points,
+// read again for each of the 64 positions.
+//
+// Registers: __launch_bounds__(384, 1) holds them at 168, so that an SM
+// keeps 12 warps; the addition's temporaries and two products fill that
+// budget.  So every operand that outlives a product lives in shared
+// memory: a builder reads entry d-1 and P back from its table, a folder
+// keeps its running sum and factor there (6·W + 1 words, an odd stride:
+// no bank conflict), and the field (Field<W, true>) runs its two
+// products one after the other, each behind a fence (a compiler fence
+// and __syncwarp), so that nothing is held across them.  That costs
+// time: 14.0 ms at 2^17 points against 12.1 ms for the running sum in
+// registers, which spilled 144 B (H100, PERF.md §6).  The tables and the
+// slots fill 221 KB of the SM's 227 KB, which sets the chunk at 56 points.
+constexpr int kMexpChunk = 56;
+constexpr int kMexpBuilders = 64;
+constexpr int kMexpFolders = 320;
+constexpr int kMexpThreads = kMexpBuilders + kMexpFolders;
+
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-    ec_mexp_tbl_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                       const uint8_t* __restrict__ inf, uint32_t* __restrict__ tbl,
-                       const int32_t* __restrict__ m,
-                       const int32_t* __restrict__ one, uint32_t mp, int64_t n) {
-  __shared__ uint32_t sm[W];
-  vmn::load_vec_shared<W>(sm, m);
-  __syncthreads();
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const vmn::Field<W> F{sm, mp};
-  uint32_t o[W], X1[W], Y1[W], Z1[W], aX[W], aY[W], aZ[W];
-  load_one<W>(o, one);
-  vmn::load_words<W>(X1, x, n, idx);
-  vmn::load_words<W>(Y1, y, n, idx);
-  const uint32_t pinf = 0u - (uint32_t)(inf[idx] != 0);
+__host__ __device__ constexpr int mexp_point_words() {
+  return 45 * W + 4;
+}
+
+template <int W>
+__host__ __device__ constexpr int mexp_slot_words() {
+  return 6 * W + 1;  // a folder's running sum and factor
+}
+
+template <int W>
+__host__ __device__ constexpr size_t mexp_shared_bytes() {
+  return sizeof(uint32_t) * (2 * kMexpChunk * mexp_point_words<W>() +
+                             kMexpFolders * mexp_slot_words<W>());
+}
+
+// dst[0..W) = src, as 16-byte stores (dst 16-byte aligned, W % 4 == 0).
+template <int W>
+__device__ __forceinline__ void put_words(uint32_t* dst, const uint32_t* src) {
 #pragma unroll
-  for (int k = 0; k < W; ++k) {
-    Z1[k] = o[k] & ~pinf;
-    tbl[(int64_t)(0 * W + k) * n + idx] = 0;
-    tbl[(int64_t)(1 * W + k) * n + idx] = o[k];
-    tbl[(int64_t)(2 * W + k) * n + idx] = 0;
-    tbl[(int64_t)(3 * W + k) * n + idx] = X1[k];
-    tbl[(int64_t)(4 * W + k) * n + idx] = Y1[k];
-    tbl[(int64_t)(5 * W + k) * n + idx] = Z1[k];
-  }
-  vmn::copy<W>(aX, X1);
-  vmn::copy<W>(aY, Y1);
-  vmn::copy<W>(aZ, Z1);
-#pragma unroll 1
-  for (int d = 2; d < kEntries; ++d) {
-    vmn::point_add(F, aX, aY, aZ, aX, aY, aZ, X1, Y1, Z1);
-    uint32_t* row = tbl + (int64_t)d * 3 * W * n + idx;
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      row[(int64_t)k * n] = aX[k];
-      row[(int64_t)(W + k) * n] = aY[k];
-      row[(int64_t)(2 * W + k) * n] = aZ[k];
-    }
+  for (int k = 0; k < W; k += 4) {
+    *reinterpret_cast<uint4*>(dst + k) =
+        make_uint4(src[k], src[k + 1], src[k + 2], src[k + 3]);
   }
 }
 
-// Launch 2: thread (lane t, digit position j) folds points t, t+lanes, ...
-// into one Jacobian partial sum of d_ij·P_i.  The loop inside the thread
-// takes the place of the TPU's sequential chunk axis; the caller joins
-// the lanes (H8 tree) and combines the positions.  Output (3, L, cols)
-// with cols = ndig_pad·lanes, column j·lanes + t.
+// r |= src & mask over W words read as 16-byte loads.
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-    ec_mexp_acc_kernel(const uint32_t* __restrict__ tbl, const int32_t* __restrict__ e,
-                       int32_t* __restrict__ out, const int32_t* __restrict__ m,
-                       const int32_t* __restrict__ one, uint32_t mp, int64_t n,
-                       int le, int lanes) {
-  __shared__ uint32_t sm[W];
-  vmn::load_vec_shared<W>(sm, m);
-  __syncthreads();
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= lanes) return;
-  const int j = blockIdx.y;
-  const int64_t cols = (int64_t)gridDim.y * lanes;
-  const vmn::Field<W> F{sm, mp};
-  uint32_t aX[W], aY[W], aZ[W], fX[W], fY[W], fZ[W];
-  vmn::set_zero<W>(aX);
-  load_one<W>(aY, one);
-  vmn::set_zero<W>(aZ);
-#pragma unroll 1
-  for (int64_t i = t; i < n; i += lanes) {
-    const uint32_t dig = vmn::digit<4>(e, le, n, i, j);
-    vmn::set_zero<W>(fX);
-    vmn::set_zero<W>(fY);
-    vmn::set_zero<W>(fZ);
-#pragma unroll 1
-    for (int d = 0; d < kEntries; ++d) {
-      const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
-      const uint32_t* row = tbl + (int64_t)d * 3 * W * n + i;
+__device__ __forceinline__ void or_masked(uint32_t* r, const uint32_t* src,
+                                          uint32_t mask) {
 #pragma unroll
-      for (int k = 0; k < W; ++k) {
-        fX[k] |= row[(int64_t)k * n] & mask;
-        fY[k] |= row[(int64_t)(W + k) * n] & mask;
-        fZ[k] |= row[(int64_t)(2 * W + k) * n] & mask;
-      }
-    }
-    vmn::point_add(F, aX, aY, aZ, aX, aY, aZ, fX, fY, fZ);
+  for (int k = 0; k < W; k += 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src + k);
+    r[k] |= v.x & mask;
+    r[k + 1] |= v.y & mask;
+    r[k + 2] |= v.z & mask;
+    r[k + 3] |= v.w & mask;
   }
-  const int64_t col = (int64_t)j * lanes + t;
-  const int64_t plane = (int64_t)2 * W * cols;
-  vmn::store_words<W>(out, aX, cols, col);
-  vmn::store_words<W>(out + plane, aY, cols, col);
-  vmn::store_words<W>(out + 2 * plane, aZ, cols, col);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kMexpThreads, 1)
+    ec_mexp_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                   const uint8_t* __restrict__ inf, const int32_t* __restrict__ e,
+                   int32_t* __restrict__ out, const int32_t* __restrict__ m,
+                   const int32_t* __restrict__ one, uint32_t mp, int64_t n,
+                   int le, int npos, int subs) {
+  constexpr int kPW = mexp_point_words<W>();
+  constexpr int kBuf = kMexpChunk * kPW;
+  constexpr int kCW = 3 * W;  // words of one entry
+  // [2][kBuf] tables, then the folders' slots
+  extern __shared__ __align__(16) uint32_t mexp_tbl[];
+  __shared__ uint32_t sm[W], so[W];
+  vmn::load_vec_shared<W>(sm, m);
+  vmn::load_vec_shared<W>(so, one);
+  __syncthreads();
+  const vmn::Field<W, true> F{sm, mp};
+  const int64_t nchunks = (n + kMexpChunk - 1) / kMexpChunk;
+  const int G = (int)gridDim.x;
+  const int tid = (int)threadIdx.x;
+  const bool builder = tid < kMexpBuilders;  // whole warps
+  const int f = tid - kMexpBuilders;
+  const bool folder = !builder && f < npos * subs;
+  const int j = folder ? f % npos : 0;
+  const int s = folder ? f / npos : 0;
+
+  // Builder: the 15 stored multiples of point k·C + tid into buffer buf.
+  auto build = [&](int64_t k, uint32_t* buf) {
+    const int64_t i = k * kMexpChunk + tid;
+    if (tid >= kMexpChunk || i >= n) return;
+    uint32_t X1[W], Y1[W], Z1[W], aX[W], aY[W], aZ[W];
+    vmn::load_slice<W, 1>(X1, x + i * 2 * W);
+    vmn::load_slice<W, 1>(Y1, y + i * 2 * W);
+    const uint32_t pinf = 0u - (uint32_t)(inf[i] != 0);
+#pragma unroll
+    for (int k2 = 0; k2 < W; ++k2) Z1[k2] = so[k2] & ~pinf;
+    uint32_t* row = buf + tid * kPW;
+    put_words<W>(row, X1);
+    put_words<W>(row + W, Y1);
+    put_words<W>(row + 2 * W, Z1);
+#pragma unroll 1
+    for (int d = 2; d < kEntries; ++d) {
+      const uint32_t* prev = row + (d - 2) * kCW;
+      vmn::point_add(F, aX, aY, aZ, prev, prev + W, prev + 2 * W, row,
+                     row + W, row + 2 * W);
+      uint32_t* r = row + (d - 1) * kCW;
+      put_words<W>(r, aX);
+      put_words<W>(r + W, aY);
+      put_words<W>(r + 2 * W, aZ);
+    }
+  };
+
+  // Folder: its running sum A and factor Q in its slot.
+  uint32_t* Q = mexp_tbl + 2 * kBuf + (folder ? f : 0) * mexp_slot_words<W>();
+  uint32_t* A = Q + kCW;
+  if (folder) {
+    vmn::set_zero<W>(A);
+    vmn::copy<W>(A + W, so);
+    vmn::set_zero<W>(A + 2 * W);
+  }
+  // Folder: points s, s + subs, ... of chunk k (buffer buf) into A.
+  auto fold = [&](int64_t k, const uint32_t* buf) {
+    const int64_t base = k * kMexpChunk;
+    const int cnt = n - base < kMexpChunk ? (int)(n - base) : kMexpChunk;
+#pragma unroll 1
+    for (int c = s; c < cnt; c += subs) {
+      const uint32_t dig = vmn::row_digit(e + (base + c) * le, le, j);
+      uint32_t fX[W], fY[W], fZ[W];
+      const uint32_t at0 = 0u - (uint32_t)(dig == 0u);  // entry 0: infinity
+      vmn::set_zero<W>(fX);
+#pragma unroll
+      for (int k2 = 0; k2 < W; ++k2) fY[k2] = so[k2] & at0;
+      vmn::set_zero<W>(fZ);
+      const uint32_t* row = buf + c * kPW;
+#pragma unroll 1
+      for (int d = 1; d < kEntries; ++d) {
+        const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
+        const uint32_t* r = row + (d - 1) * kCW;
+        or_masked<W>(fX, r, mask);
+        or_masked<W>(fY, r + W, mask);
+        or_masked<W>(fZ, r + 2 * W, mask);
+      }
+      vmn::copy<W>(Q, fX);
+      vmn::copy<W>(Q + W, fY);
+      vmn::copy<W>(Q + 2 * W, fZ);
+      vmn::point_add(F, A, A + W, A + 2 * W, A, A + W, A + 2 * W, Q, Q + W,
+                     Q + 2 * W);
+    }
+  };
+
+  // Round `it` folds chunk k from buffer it mod 2 while chunk k + G is
+  // built into the other; round -1 only builds the block's first chunk.
+  int it = -1;
+#pragma unroll 1
+  for (int64_t k = (int64_t)blockIdx.x - G; k < nchunks; k += G, ++it) {
+    if (builder) {
+      if (k + G < nchunks) build(k + G, mexp_tbl + ((it + 1) & 1) * kBuf);
+    } else if (folder && k >= 0) {
+      fold(k, mexp_tbl + (it & 1) * kBuf);
+    }
+    __syncthreads();
+  }
+  if (folder) {
+    const int64_t parts = (int64_t)G * subs;
+    const int64_t q = (int64_t)blockIdx.x * subs + s;
+    const int64_t plane = (int64_t)npos * parts * 2 * W;
+    int32_t* o = out + ((int64_t)j * parts + q) * 2 * W;
+    vmn::store_slice<W, 1>(o, A);
+    vmn::store_slice<W, 1>(o + plane, A + W);
+    vmn::store_slice<W, 1>(o + 2 * plane, A + 2 * W);
+  }
 }
 
 // --------------------------------------------------- H7: fixed base
@@ -470,22 +579,26 @@ int vmn_ec_chain(int w, int tpi, const int32_t* px, const int32_t* py,
   return (int)cudaGetLastError();
 }
 
-int vmn_ec_mexp_tbl(int w, const int32_t* x, const int32_t* y,
-                    const uint8_t* inf, uint32_t* tbl, const int32_t* m,
-                    const int32_t* one, uint32_t mp, int64_t n, void* stream) {
+// H6 over G = `blocks` blocks of kMexpThreads threads; `subs` folders a
+// digit position (ec_multiexp_positions' mexp_shape).
+int vmn_ec_mexp(int w, const int32_t* x, const int32_t* y, const uint8_t* inf,
+                const int32_t* e, int32_t* out, const int32_t* m,
+                const int32_t* one, uint32_t mp, int64_t n, int le, int npos,
+                int subs, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VMN_EC_FOR_W(w, ec_mexp_tbl_kernel<W><<<blocks_for(n), kThreads, 0, s>>>(
-                      x, y, inf, tbl, m, one, mp, n));
-  return (int)cudaGetLastError();
-}
-
-int vmn_ec_mexp_acc(int w, const uint32_t* tbl, const int32_t* e, int32_t* out,
-                    const int32_t* m, const int32_t* one, uint32_t mp,
-                    int64_t n, int le, int ndig_pad, int lanes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks_for(lanes), (unsigned)ndig_pad);
-  VMN_EC_FOR_W(w, ec_mexp_acc_kernel<W><<<grid, kThreads, 0, s>>>(
-                      tbl, e, out, m, one, mp, n, le, lanes));
+  if (n < 1 || le < 1 || npos < 1 || subs < 1 || npos * subs > kMexpFolders ||
+      blocks < 1 || (int64_t)blocks * kMexpChunk >= n + kMexpChunk) {
+    return kBadShape;
+  }
+  if (w != 8) return kUnsupportedWidth;
+  constexpr int W = 8;
+  const size_t smem = mexp_shared_bytes<W>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ec_mexp_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ec_mexp_kernel<W><<<(unsigned)blocks, kMexpThreads, smem, s>>>(
+      x, y, inf, e, out, m, one, mp, n, le, npos, subs);
   return (int)cudaGetLastError();
 }
 

@@ -37,8 +37,10 @@ namespace vmn {
 constexpr unsigned kWarpAll = 0xffffffffu;
 
 // Threads a block of a cooperative launch at most (COOP_BLOCK in
-// ops/mont_kernels.py).
+// ops/mont_kernels.py), and of H3's (FB_BLOCK), whose block holds the
+// SM's shared memory alone.
 constexpr int kCoopBlock = 128;
+constexpr int kFbBlock = 1024;
 
 template <int TPI>
 __device__ __forceinline__ int group_lane() {
@@ -55,21 +57,24 @@ __device__ __forceinline__ int64_t group_element(int64_t n, bool* live) {
   return *live ? e : n - 1;
 }
 
-// 4-bit digit j of one exponent stored as le row-major 16-bit limbs;
-// digits past the last limb read as zero.
+// WB-bit digit j (WB = 4 or 8) of one exponent stored as le row-major
+// 16-bit limbs; digits past the last limb read as zero.
+template <int WB = 4>
 __device__ __forceinline__ uint32_t row_digit(const int32_t* e, int le,
                                               int j) {
-  const int limb = j >> 2;
+  constexpr int kPerLimb = 16 / WB;
+  const int limb = j / kPerLimb;
   const uint32_t v = limb < le ? (uint32_t)e[limb] : 0u;
-  return (v >> ((j & 3) * 4)) & 0xFu;
+  return (v >> ((j % kPerLimb) * WB)) & ((1u << WB) - 1u);
 }
 
 // A cooperative launch: `threads` a block (whole warps, a multiple of
-// TPI, at most kCoopBlock) over `blocks` blocks, as ops/mont_kernels.py's
-// coop_launch computes it.
+// TPI, at most `most`) over `blocks` blocks, as ops/mont_kernels.py's
+// coop_launch (fb_launch for H3) computes it.
 template <int TPI>
-inline bool coop_shape_ok(int threads, int64_t blocks) {
-  return threads > 0 && threads <= kCoopBlock && threads % 32 == 0 &&
+inline bool coop_shape_ok(int threads, int64_t blocks,
+                          int most = kCoopBlock) {
+  return threads > 0 && threads <= most && threads % 32 == 0 &&
          threads % TPI == 0 && blocks > 0 && blocks < (1ll << 31);
 }
 

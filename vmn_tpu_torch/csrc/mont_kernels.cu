@@ -9,17 +9,18 @@
 //      vmn_ep_acc                                          (:552-727)
 //   vmn_mont_chain      the combine of K7 mont_expprod_pallas (:730-750)
 //
-// H1, H2 and the chain spread one element over TPI lanes of a warp with
-// the cooperative product of mont_coop.cuh; the caller picks TPI from
-// (W, N) among the instantiated pairs (vmn_mont_mul, vmn_mont_exp) by the
-// crossovers measured on the card (COOP_TPI) and passes the launch shape
-// (threads per block, blocks).  Their operands are row-major (N, 2W)
-// 16-bit limbs, so that a group reads its element as one contiguous run.
-// H3 and H4 run one element per thread with the CIOS product of mont.cuh
-// on limb-major (2W, N) operands.  Each entry point launches on the
-// caller's stream, does not synchronise, allocates nothing and returns
-// cudaGetLastError() (or kUnsupportedWidth for a width, or a TPI, with no
-// instantiation, kBadShape for a launch shape the kernel cannot take).
+// H1, H2, H3 and the chain spread one element over TPI lanes of a warp
+// with the cooperative product of mont_coop.cuh; the caller picks TPI
+// from (W, N) among the instantiated pairs (vmn_mont_mul, vmn_mont_exp,
+// vmn_mont_fb_exp) by the crossovers measured on the card (COOP_TPI) and
+// passes the launch shape (threads per block, blocks).  Their operands
+// are row-major (N, 2W) 16-bit limbs, so that a group reads its element
+// as one contiguous run.  H4 runs one element per thread with the CIOS
+// product of mont.cuh on limb-major (2W, N) operands.  Each entry point
+// launches on the caller's stream, does not synchronise, allocates
+// nothing and returns cudaGetLastError() (or kUnsupportedWidth for a
+// width, or a TPI, with no instantiation, kBadShape for a launch shape
+// the kernel cannot take).
 //
 // What bounds H1, H2 and the chain on the H100, and what the cooperative
 // design does about it: a W-word product is 2·W² dependent 32-bit
@@ -170,60 +171,115 @@ __global__ void __launch_bounds__(32)
 }
 
 // --------------------------------------------- H3: fixed-base power, 2^WB
-// out = prod_j T[j][digit_j(e)] for a table T (ndig, 2^WB, L) shared by the
-// batch.  The threads of a block stage digit j's 2^WB entries into shared
-// memory (packed words), then each thread takes its factor by a masked
-// select over every entry: all lanes of a warp read the same address, a
-// broadcast.  This replaces the TPU's one-hot f32 MXU gather.
-template <int W, int WB>
-__global__ void __launch_bounds__(kThreads)
-    mont_fb_exp_kernel(const int32_t* __restrict__ table,
+// out = prod_j T[j][digit_j(e)] for a table T (ndig, 2^WB entries, W words)
+// shared by the batch.  TPI lanes of a warp share an element, as in H1
+// and H2 (the cooperative product of mont_coop.cuh).  Per digit the block
+// stages the digit's 2^WB entries in shared memory, then each lane takes
+// its S = W/TPI words of the factor by a masked select over every entry
+// (never an index by the secret digit) and the group multiplies it into
+// the accumulator, which stays in registers.
+//
+// The staged table is the wrapper's packed copy of T (fb_pack in
+// ops/mont_kernels.py): word lane·S + k of an entry (k < S) lies at
+// [k / V][lane][k % V] of the entry, V = min(4, S):
+// one vector load gives a lane V words of its slice, the TPI lanes of a
+// group read TPI·V consecutive words, and every group of the warp reads
+// the same ones (a broadcast), so no bank conflict.  Two buffers: the
+// copy of digit j + 1 (cp.async, 16 bytes a thread at a time) runs under
+// digit j's select and product, as K4 overlapped its two VMEM buffers;
+// one barrier a digit.  At window 8 and W = 64 a buffer is 64 KB, so a
+// block holds the SM's shared memory alone: the launch shape (fb_launch)
+// gives a block about N/132 elements, so that N = 10000 is one wave of
+// 132 blocks of 19 warps (TPI 8), where blocks of 128 threads would leave
+// 53 SMs idle.  TPI by the crossovers of COOP_TPI["mont_fb_exp", W].
+//
+// What bounds it: the products (one a digit, 4·W² + W multiplies) and the
+// select, which reads 2^WB·W words an element a digit, one AND-OR each:
+// at window 8 about as many integer instructions as the product it feeds,
+// and about half of the kernel's time on the H100 (PERF.md §6).  ptxas
+// (sm_90a): 56 / 38 / 26 registers at W = 64, TPI 8 / 16 / 32 (either
+// window), 26 at W = 8, TPI 4; no stack frame, no spill.
+__device__ __forceinline__ void cp_async16(uint32_t* dst,
+                                           const uint32_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// V consecutive words from shared memory (16-, 8- or 4-byte aligned).
+template <int V>
+__device__ __forceinline__ void load_vec(uint32_t* w, const uint32_t* p) {
+  if constexpr (V == 4) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else if constexpr (V == 2) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x, w[1] = x.y;
+  } else {
+    w[0] = p[0];
+  }
+}
+
+template <int W, int WB, int TPI>
+__global__ void __launch_bounds__(vmn::kFbBlock, 1)
+    mont_fb_exp_kernel(const uint32_t* __restrict__ table,
                        const int32_t* __restrict__ e, int32_t* __restrict__ out,
                        const int32_t* __restrict__ m,
                        const int32_t* __restrict__ one, uint32_t mp, int64_t n,
                        int le, int ndig) {
+  constexpr int S = W / TPI;
+  constexpr int V = S < 4 ? S : 4;
   constexpr int kEntries = 1 << WB;
-  constexpr int kL = 2 * W;
-  extern __shared__ __align__(16) uint32_t stbl[];  // kEntries * W words
-  __shared__ uint32_t sm[W];
-  vmn::load_vec_shared<W>(sm, m);
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = idx < n;
-  uint32_t acc[W], fac[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    acc[k] = (uint32_t)one[2 * k] | ((uint32_t)one[2 * k + 1] << 16);
-  }
+  constexpr int kBlk = kEntries * W;  // words of one digit's entries
+  extern __shared__ __align__(16) uint32_t fb_stage[];  // [2][kBlk]
+  bool live;
+  const int64_t idx = vmn::group_element<TPI>(n, &live);
+  const int lane = vmn::group_lane<TPI>();
+  uint32_t mm[S], acc[S], fac[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(acc, one);
+  const int32_t* ex = e + idx * le;
+  auto stage = [&](int j) {
+    uint32_t* dst = fb_stage + (j & 1) * kBlk;
+    const uint32_t* src = table + (int64_t)j * kBlk;
+    for (int c = 4 * threadIdx.x; c < kBlk; c += 4 * blockDim.x) {
+      cp_async16(dst + c, src + c);
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  uint32_t dig = vmn::row_digit<WB>(ex, le, 0);
 #pragma unroll 1
   for (int j = 0; j < ndig; ++j) {
-    __syncthreads();  // every reader of the previous block is done
-    const int32_t* blk = table + (int64_t)j * kEntries * kL;
-    for (int x = threadIdx.x; x < kEntries * W; x += blockDim.x) {
-      const int2 v = *reinterpret_cast<const int2*>(blk + 2 * x);
-      stbl[x] = (uint32_t)v.x | ((uint32_t)v.y << 16);
-    }
-    __syncthreads();
-    if (live) {
-      const uint32_t dig = vmn::digit<WB>(e, le, n, idx, j);
+    cp_async_wait_all();  // this thread's copies of digit j have landed
+    __syncthreads();      // everyone's, and digit j - 1's buffer is read
+    if (j + 1 < ndig) stage(j + 1);
+    const uint32_t* row = fb_stage + (j & 1) * kBlk + lane * V;
 #pragma unroll
-      for (int k = 0; k < W; ++k) fac[k] = 0;
-#pragma unroll 4
-      for (int d = 0; d < kEntries; ++d) {
-        const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
-        const uint4* row = reinterpret_cast<const uint4*>(stbl + d * W);
+    for (int k = 0; k < S; ++k) fac[k] = 0;
+#pragma unroll 2
+    for (int d = 0; d < kEntries; ++d) {
+      const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
 #pragma unroll
-        for (int k = 0; k < W / 4; ++k) {
-          const uint4 v = row[k];
-          fac[4 * k] |= v.x & mask;
-          fac[4 * k + 1] |= v.y & mask;
-          fac[4 * k + 2] |= v.z & mask;
-          fac[4 * k + 3] |= v.w & mask;
-        }
+      for (int kk = 0; kk < S / V; ++kk) {
+        uint32_t w[V];
+        load_vec<V>(w, row + d * W + kk * TPI * V);
+#pragma unroll
+        for (int v = 0; v < V; ++v) fac[kk * V + v] |= w[v] & mask;
       }
-      vmn::mont_mul<W>(acc, acc, fac, sm, mp);
     }
+    dig = vmn::row_digit<WB>(ex, le, j + 1);  // loaded under the product
+    vmn::coop_mont_mul<W, TPI>(acc, acc, fac, mm, mp);
   }
-  if (live) vmn::store_words<W>(out, acc, n, idx);
+  if (live) vmn::store_slice<W, TPI>(out + idx * 2 * W, acc);
 }
 
 // ----------------------------------- H4: per-digit-position products (Yao)
@@ -300,18 +356,24 @@ inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-template <int W, int WB>
-int launch_fb(const int32_t* table, const int32_t* e, int32_t* out,
-                     const int32_t* m, const int32_t* one, uint32_t mp,
-                     int64_t n, int le, int ndig, cudaStream_t s) {
-  const size_t smem = sizeof(uint32_t) * (size_t)(1 << WB) * W;
-  // Above 48 KB (window 8 at 2048 bits: 64 KB) a launch is refused
+template <int W, int WB, int TPI>
+int launch_fb(const uint32_t* table, const int32_t* e, int32_t* out,
+              const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
+              int le, int ndig, int threads, int64_t blocks, cudaStream_t s) {
+  if (!vmn::coop_shape_ok<TPI>(threads, blocks, vmn::kFbBlock) || le < 1 ||
+      ndig < 1) {
+    return kBadShape;
+  }
+  const size_t smem = sizeof(uint32_t) * 2 * (size_t)(1 << WB) * W;
+  // Above 48 KB (window 8 at 2048 bits: 128 KB) a launch is refused
   // unless the kernel opts in to the larger dynamic shared memory.
-  cudaError_t err = cudaFuncSetAttribute(
-      mont_fb_exp_kernel<W, WB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mont_fb_exp_kernel<W, WB><<<blocks_for(n), kThreads, smem, s>>>(
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mont_fb_exp_kernel<W, WB, TPI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mont_fb_exp_kernel<W, WB, TPI><<<(unsigned)blocks, threads, smem, s>>>(
       table, e, out, m, one, mp, n, le, ndig);
   return (int)cudaGetLastError();
 }
@@ -411,19 +473,26 @@ int vmn_mont_chain(int w, const int32_t* P, int32_t* out, const int32_t* m,
   return (int)cudaGetLastError();
 }
 
-int vmn_mont_fb_exp(int w, int wb, const int32_t* table, const int32_t* e,
-                    int32_t* out, const int32_t* m, const int32_t* one,
-                    uint32_t mp, int64_t n, int le, int ndig, void* stream) {
+// H3 at (W, window, TPI): (64, 8), (64, 4) and (8, 4) -- the modp2048
+// path, 256-bit exponents at modp2048 and the test256 golden -- at the
+// TPIs that COOP_TPI["mont_fb_exp", W] can choose.
+int vmn_mont_fb_exp(int w, int wb, int tpi, const uint32_t* table,
+                    const int32_t* e, int32_t* out, const int32_t* m,
+                    const int32_t* one, uint32_t mp, int64_t n, int le,
+                    int ndig, int threads, int64_t blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wb == 4) {
-    VMN_FOR_W(w, return launch_fb<W, 4>(table, e, out, m, one, mp, n, le,
-                                        ndig, s));
+#define VMN_FB_ARGS table, e, out, m, one, mp, n, le, ndig, threads, blocks, s
+  switch (w << 16 | wb << 8 | tpi) {
+    case 64 << 16 | 8 << 8 | 8: return launch_fb<64, 8, 8>(VMN_FB_ARGS);
+    case 64 << 16 | 8 << 8 | 16: return launch_fb<64, 8, 16>(VMN_FB_ARGS);
+    case 64 << 16 | 8 << 8 | 32: return launch_fb<64, 8, 32>(VMN_FB_ARGS);
+    case 64 << 16 | 4 << 8 | 8: return launch_fb<64, 4, 8>(VMN_FB_ARGS);
+    case 64 << 16 | 4 << 8 | 16: return launch_fb<64, 4, 16>(VMN_FB_ARGS);
+    case 64 << 16 | 4 << 8 | 32: return launch_fb<64, 4, 32>(VMN_FB_ARGS);
+    case 8 << 16 | 4 << 8 | 4: return launch_fb<8, 4, 4>(VMN_FB_ARGS);
+    default: return kUnsupportedWidth;
   }
-  if (wb == 8) {
-    VMN_FOR_W(w, return launch_fb<W, 8>(table, e, out, m, one, mp, n, le,
-                                        ndig, s));
-  }
-  return kUnsupportedWidth;
+#undef VMN_FB_ARGS
 }
 
 int vmn_ep_table(int w, const int32_t* bases, uint32_t* tbl, const int32_t* m,

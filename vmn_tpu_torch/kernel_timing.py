@@ -13,6 +13,12 @@ inputs made on the card from fixed seeds:
   (2047-bit exponents) and on one (a product; a^(m-2) as `MontCtx.inv`
   computes it), and the same at the P-256 field (W = 8) on --ec-n
   elements and on one (256-bit exponents);
+* H3 `mont_fb_exp` at modp2048 on N elements: window 8 on 2047-bit
+  exponents (the modp2048 path) and window 4 on 256-bit ones; at the
+  P-256 field (W = 8) window 4 on 256-bit exponents (the width of the
+  test256 golden) on N elements;
+* H4 `mont_expprod_positions` at modp2048 on N elements, 256-bit
+  exponents;
 * K7's combine over 512 positions: `mont_expprod_combine` where the tree
   has it, else the loop of single-element H1 launches that `mont_expprod`
   ran before it had its own launch;
@@ -28,11 +34,13 @@ signatures, so a commit and its parent, unpacked side by side, are timed
 the same way on the same inputs, one process each.
 
 --sweep times the cooperative kernels of this tree at every TPI (lanes an
-element or point) they are built for: H1 and H2 over a range of N at both
-widths, H5 over a range of points at P-256, and the EC combine over 16
-and 64 positions, forcing the TPI through `COOP_TPI`, the table the
-wrappers choose it from (a TPI with no kernel is skipped); it prints, per
-kernel and width, the fastest TPI at each N.
+element or point) they are built for: H1, H2 and H3 over a range of N at
+both widths (H3 at both windows of W = 64), H5 over a range of points at
+P-256, and the EC combine over 16 and 64 positions, forcing the TPI
+through `COOP_TPI`, the table the wrappers choose it from (a TPI with no
+kernel is skipped); it prints, per kernel and width, the fastest TPI at
+each N.  It also times H6 (one chunk shape is built) over a range of
+points.
 
 Prints the card's name and power limit, then one JSON object.
 """
@@ -59,6 +67,9 @@ SWEEP_N = {64: (1, 4, 16, 64, 256, 1024, 2048, 4096, 6144, 8192, 10000,
            8: (1, 16, 256, 1024, 4096, 8192, 16384, 32768, 65536, 131072,
                262144)}
 SWEEP_SMUL_N = (256, 1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
+SWEEP_FB_N = {64: (1, 16, 256, 1024, 2048, 4096, 8192, 10000, 16384),
+              8: (1, 4, 16, 64, 256, 1024, 4096)}
+SWEEP_MEXP_N = (4096, 16384, 65536, 131072, 262144)
 SWEEP_COMBINE_POSITIONS = (16, 64)
 TPI_CANDIDATES = (1, 2, 4, 8, 16, 32)
 
@@ -143,10 +154,23 @@ def time_tree(n: int, ec_n: int) -> dict:
             lambda: K.mont_mul(a1, b1, ctx.mod), reps=20)
         out[f"mont_exp{tag}_b1"] = device_ms(
             lambda: K.mont_exp(a1, e_inv, ctx.mod, inv_bits))
+        e256 = _exponents(gen, n, 256, dev)
+        tbl4 = ctx.fixed_base_table(5, 256, 4)
+        a_n = a[:n]
         if w == 64:
+            tbl8 = ctx.fixed_base_table(5, ebits, 8)
+            out["mont_fb_exp8"] = device_ms(
+                lambda: K.mont_fb_exp(tbl8, e, ctx.mod))
+            out["mont_fb_exp4"] = device_ms(
+                lambda: K.mont_fb_exp(tbl4, e256, ctx.mod))
+            out["mont_expprod_positions"] = device_ms(
+                lambda: K.mont_expprod_positions(a_n, e256, ctx.mod, 256))
             P = _elements(gen, COMBINE_POSITIONS, ctx.L, dev)
             out["mont_expprod_combine"] = device_ms(
                 lambda: _combine(K, P, ctx.mod))
+        else:
+            out["mont_fb_exp4_w8"] = device_ms(
+                lambda: K.mont_fb_exp(tbl4, e256, ctx.mod))
     out.update(_time_ec(E, dev, 4096, "_4096"))
     out.update(_time_ec(E, dev, ec_n, ""))
     return out
@@ -210,7 +234,7 @@ def _time_ec(E, dev, n: int, tag: str) -> dict:
 
 
 def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
-                  best: dict) -> None:
+                  best: dict, tag: str = "") -> None:
     """Time run(n) at every TPI that divides W and has a kernel, forcing it
     through COOP_TPI[kernel, w]; the rule is restored after."""
     rule = K.COOP_TPI[kernel, w]
@@ -228,20 +252,20 @@ def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
             for tpi in tpis:
                 K.COOP_TPI[kernel, w] = ((1, tpi),)
                 times[tpi] = device_ms(lambda: run(n), reps=10)
-                rows.append({"kernel": kernel, "W": w, "N": n, "tpi": tpi,
-                             "ms": times[tpi]})
-            best.setdefault(f"{kernel} W={w}", {})[n] = min(times,
-                                                            key=times.get)
-            print(f"[sweep] kernel={kernel} W={w} N={n} " + " ".join(
+                rows.append({"kernel": kernel + tag, "W": w, "N": n,
+                             "tpi": tpi, "ms": times[tpi]})
+            best.setdefault(f"{kernel}{tag} W={w}", {})[n] = min(
+                times, key=times.get)
+            print(f"[sweep] kernel={kernel}{tag} W={w} N={n} " + " ".join(
                 f"tpi{t}_ms={ms:.4f}" for t, ms in times.items()), flush=True)
     finally:
         K.COOP_TPI[kernel, w] = rule
 
 
 def sweep() -> dict:
-    """H1 and H2 at every instantiated TPI over SWEEP_N at both widths; H5
-    over SWEEP_SMUL_N points and the EC combine over
-    SWEEP_COMBINE_POSITIONS at P-256."""
+    """H1 and H2 at every instantiated TPI over SWEEP_N at both widths, H3
+    over SWEEP_FB_N; H5 over SWEEP_SMUL_N points and the EC combine over
+    SWEEP_COMBINE_POSITIONS at P-256; H6 over SWEEP_MEXP_N points."""
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
@@ -260,6 +284,14 @@ def sweep() -> dict:
                                                  ebits)}
         for kernel, run in runs.items():
             _sweep_kernel(K, kernel, w, SWEEP_N[w], run, rows, best)
+        fb_n = max(SWEEP_FB_N[w])
+        a = _elements(gen, fb_n, ctx.L, dev)
+        for window, bits in ((8, 2047), (4, 256)) if w == 64 else ((4, 256),):
+            tbl = ctx.fixed_base_table(5, bits, window)
+            e = _exponents(gen, fb_n, bits, dev)
+            _sweep_kernel(K, "mont_fb_exp", w, SWEEP_FB_N[w],
+                          lambda k: K.mont_fb_exp(tbl, e[:k], ctx.mod), rows,
+                          best, tag=f" window={window}")
     # The EC kernels' work does not depend on their inputs (constant time,
     # docs/DEVIATIONS.md #5), so field elements below p stand in for points.
     ctx = _moduli(dev)[8]
@@ -275,7 +307,21 @@ def sweep() -> dict:
     _sweep_kernel(K, "ec_multiexp_combine", 8, SWEEP_COMBINE_POSITIONS,
                   lambda k: E.ec_multiexp_combine(*(t[:k] for t in P),
                                                   ctx.mod), rows, best)
+    for n in SWEEP_MEXP_N:
+        ms = device_ms(lambda: E.ec_multiexp_positions(
+            x[:n], y[:n], inf[:n], e[:n], ctx.mod, 256), reps=5)
+        rows.append({"kernel": "ec_multiexp_positions", "W": 8, "N": n,
+                     "shape": _mexp_shape(E, n), "ms": ms})
+        print(f"[sweep] kernel=ec_multiexp_positions W=8 N={n} "
+              f"shape={rows[-1]['shape']} ms={ms:.4f}", flush=True)
     return {"sweep": rows, "fastest_tpi": best}
+
+
+def _mexp_shape(E, n: int) -> dict:
+    """H6's launch shape for n points at 256-bit scalars (64 positions)."""
+    blocks, subs = E.mexp_shape(n, 64)
+    return {"chunk": E.MEXP_CHUNK, "folders": E.MEXP_FOLDERS,
+            "blocks": blocks, "subs": subs}
 
 
 def main(argv=None) -> int:

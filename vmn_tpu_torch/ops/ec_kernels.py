@@ -46,10 +46,15 @@ design does about it):
   it replaced, whose 1.5 KB table a point lived in local memory (PERF.md
   §6).  At 4096 points that kernel filled 32 of the 132 SMs.
 * H6 `ec_multiexp_positions` replaces both `pallas_call`s of K10
-  `ec_multiexp_pallas` (:444-570): launch 1 writes each point's 16
-  multiples to device memory, launch 2 gives each thread one (lane,
-  digit position) and folds its lane's points in order; an H8 tree
-  joins the lanes.
+  `ec_multiexp_pallas` (:444-570) with one launch in which no point's
+  table goes through device memory: a block walks chunks of MEXP_CHUNK
+  points; two warps build the next chunk's 16 multiples a point into
+  shared memory while ten fold the current one, each fold thread one
+  digit position and every subs-th point (`mexp_shape`), with a masked
+  select over all 16 entries; one-thread field, 12 warps an SM.  Bound
+  by its products (14 table additions a point and one addition a point
+  and position, 24 products each).  An H8 tree joins the partials
+  (`_lane_tree`).
 * `ec_multiexp_combine` is K10's position combine (:571-584),
   sum_j 2^(4j)·S_j, in one launch: one warp runs the 5·ndig_pad point
   operations back to back on the cooperative field, where a loop over
@@ -79,7 +84,6 @@ import torch
 from vmn_tpu_torch.ops import mont_kernels as K
 from vmn_tpu_torch.ops.mont_kernels import (
     EP_MAX_LANES,
-    EP_PER_LANE,
     WINDOW,
     Modulus,
     _digits,
@@ -90,9 +94,15 @@ from vmn_tpu_torch.ops.mont_kernels import (
 )
 
 ENTRIES = 1 << WINDOW
-# Points per H6 table build: the (16, 3, W, n) word table is 1.5 KB per
-# point at W = 8, so 2^20 points cap it at 1.5 GiB of the 80 GB card.
+# Points per H6 launch; the partials of the launches are joined together.
 EP_SUPER = 1 << 20
+# H6's partition (csrc/ec_kernels.cu): chunks of MEXP_CHUNK points, one
+# builder thread a point; MEXP_FOLDERS fold threads a block; at most
+# MEXP_BLOCKS blocks (one an SM of the H100 SXM), at most EP_MAX_LANES
+# partials a digit position.
+MEXP_CHUNK = 56
+MEXP_FOLDERS = 320
+MEXP_BLOCKS = 132
 _WIDTHS = (8,)  # W = L/2 instantiated in ec_kernels.cu (P-256)
 
 EC_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
@@ -242,9 +252,33 @@ def ec_scalar_mul_plain(x, y, inf, e, mod: Modulus, nbits: int):
     return tuple(t.contiguous() for t in acc)
 
 
-def _lanes(n: int) -> int:
-    lanes = 1 << max(0, (max(1, n // EP_PER_LANE)).bit_length() - 1)
-    return min(lanes, EP_MAX_LANES)
+def mexp_shape(n: int, npos: int):
+    """(blocks, subs) of an H6 launch over n >= 1 points and npos digit
+    positions: `subs` fold threads a position, each folding every subs-th
+    point of a chunk; blocks walk the chunks b, b + blocks, ...; partial
+    q = b·subs + s of each position."""
+    if npos > MEXP_FOLDERS:
+        raise ValueError(f"H6 folds at most {MEXP_FOLDERS} digit positions, "
+                         f"got {npos}")
+    subs = max(1, MEXP_FOLDERS // npos)
+    chunks = -(-n // MEXP_CHUNK)
+    return max(1, min(MEXP_BLOCKS, chunks, EP_MAX_LANES // subs)), subs
+
+
+def _mexp_order(n: int, blocks: int, subs: int, device):
+    """(blocks·subs, steps) point indices of each H6 partial, in the
+    order its fold thread adds them (-1: nothing more)."""
+    i = torch.arange(n, device=device)
+    k, c = i // MEXP_CHUNK, i % MEXP_CHUNK
+    sub = c % subs
+    per_chunk = (MEXP_CHUNK - sub + subs - 1) // subs  # a full chunk's
+    # every chunk before the last is full, and the last is its block's last
+    step = (k // blocks) * per_chunk + c // subs
+    q = (k % blocks) * subs + sub
+    order = torch.full((blocks * subs, int(step.max()) + 1), -1,
+                       dtype=torch.int64, device=device)
+    order[q, step] = i
+    return order
 
 
 def _lane_tree(PX, PY, PZ, mod: Modulus, add):
@@ -266,9 +300,9 @@ def _lane_tree(PX, PY, PZ, mod: Modulus, add):
 def ec_multiexp_positions_plain(x, y, inf, e, mod: Modulus, nbits: int):
     """Plain version of H6: S_j = sum_i d_ij·P_i for every 4-bit digit
     position j < ndig_pad, as Jacobian (ndig_pad, L) x3.  The points are
-    folded in the kernel's order (super-chunks of EP_SUPER points, lane t
-    folding points t, t+lanes, ...; then the same lane tree), so the
-    Jacobian limbs equal the kernel's."""
+    folded in the kernel's order (launches of EP_SUPER points; in each,
+    the partials of `mexp_shape` and `_mexp_order`; then the same lane
+    tree), so the Jacobian limbs equal the kernel's."""
     F = _PlainField(mod)
     N, L = x.shape
     ndig_pad = _ndig_pad(nbits)
@@ -276,24 +310,24 @@ def ec_multiexp_positions_plain(x, y, inf, e, mod: Modulus, nbits: int):
     parts = []
     for s0 in range(0, N, EP_SUPER):
         n = min(EP_SUPER, N - s0)
-        lanes = _lanes(n)
+        blocks, subs = mexp_shape(n, ndig_pad)
         sl = slice(s0, s0 + n)
         tX, tY, tZ = _multiples_plain(F, x[sl], y[sl], inf[sl], mod)
         digits = _digits(e[sl], ndig_pad, WINDOW)  # (ndig_pad, n)
-        shape = (ndig_pad * lanes, L)
+        order = _mexp_order(n, blocks, subs, x.device)
+        shape = (ndig_pad * order.shape[0], L)
         aX = torch.zeros(shape, dtype=x.dtype, device=x.device)
         aY = one.expand(shape)
         aZ = aX
-        lane = torch.arange(lanes, device=x.device)
-        for c0 in range(0, n, lanes):
-            i = (c0 + lane).clamp(max=n - 1)
-            d = digits[:, i]  # (ndig_pad, lanes)
+        for i in order.T:  # one point a partial at a time
+            live = (i >= 0).expand(ndig_pad, -1).reshape(-1, 1)
+            i = i.clamp(min=0)
+            d = digits[:, i]  # (ndig_pad, partials)
             f = [t[d, i].reshape(shape) for t in (tX, tY, tZ)]
             new = _point_add(F, aX, aY, aZ, *f)
-            live = (c0 + lane < n).repeat(ndig_pad)[:, None]
             aX, aY, aZ = (torch.where(live, a, b)
                           for a, b in zip(new, (aX, aY, aZ)))
-        parts.append([t.reshape(ndig_pad, lanes, L) for t in (aX, aY, aZ)])
+        parts.append([t.reshape(ndig_pad, -1, L) for t in (aX, aY, aZ)])
     if not parts:
         zero = torch.zeros((ndig_pad, L), dtype=x.dtype, device=x.device)
         return zero, one.expand(ndig_pad, L).contiguous(), zero
@@ -355,9 +389,8 @@ def _library() -> ctypes.CDLL:
                 "vmn_ec_smul": [I32, I32] + [P] * 9 + [U32, I64, I32, I32,
                                                        I32, I64, P],
                 "vmn_ec_chain": [I32, I32] + [P] * 8 + [U32, I32, P],
-                "vmn_ec_mexp_tbl": [I32] + [P] * 6 + [U32, I64, P],
-                "vmn_ec_mexp_acc": [I32] + [P] * 5 + [U32, I64, I32, I32,
-                                                      I32, P],
+                "vmn_ec_mexp": [I32] + [P] * 7 + [U32, I64, I32, I32, I32,
+                                                  I32, P],
                 "vmn_ec_fb": [I32] + [P] * 8 + [U32, I64, I32, I32, P],
             }
             for name, args in sig.items():
@@ -463,32 +496,24 @@ def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
     w = _words(mod)
     dev = mod.limbs.device
     ndig_pad = _ndig_pad(nbits)
-    xT, yT = _coords((x, y), ("x", "y"), mod, N)
-    eT = K._limb_major(_pad_exponent(e, ndig_pad), "e", dev, N)
+    x = K._rows(x, "x", dev, N, L)
+    y = K._rows(y, "y", dev, N, L)
+    e = K._rows(e, "e", dev, N)  # digits past its limbs read as zero
     im = _mask(inf, dev, N)
     lib = _library()
-    stream = K._stream(x.device)
     parts = []
     for s0 in range(0, N, EP_SUPER):
-        xs, ys, es = (t[:, s0 : s0 + EP_SUPER].contiguous()
-                      for t in (xT, yT, eT))
-        ms = im[s0 : s0 + EP_SUPER].contiguous()
-        n = xs.shape[1]
-        lanes = _lanes(n)
-        tbl = torch.empty((ENTRIES * 3 * w, n), dtype=torch.int32, device=dev)
-        out = torch.empty((3, L, ndig_pad * lanes), dtype=torch.int32,
+        n = min(EP_SUPER, N - s0)
+        blocks, subs = mexp_shape(n, ndig_pad)
+        out = torch.empty((3, ndig_pad, blocks * subs, L), dtype=torch.int32,
                           device=dev)
-        K._check("ec_multiexp_positions", lib.vmn_ec_mexp_tbl(
-            w, K._ptr(xs), K._ptr(ys), K._ptr(ms), K._ptr(tbl),
-            K._ptr(mod.limbs), K._ptr(mod.one_mont), mod.mprime32, n,
-            stream))
-        K._check("ec_multiexp_positions", lib.vmn_ec_mexp_acc(
-            w, K._ptr(tbl), K._ptr(es), K._ptr(out), K._ptr(mod.limbs),
-            K._ptr(mod.one_mont), mod.mprime32, n, es.shape[0], ndig_pad,
-            lanes, stream))
+        K._check("ec_multiexp_positions", lib.vmn_ec_mexp(
+            w, K._ptr(x[s0:]), K._ptr(y[s0:]), K._ptr(im[s0:]),
+            K._ptr(e[s0:]), K._ptr(out), K._ptr(mod.limbs),
+            K._ptr(mod.one_mont), mod.mprime32, n, e.shape[1], ndig_pad,
+            subs, blocks, K._stream(dev)))
         LAUNCHES["ec_multiexp_positions"] += 1
-        # (3, L, ndig_pad·lanes) limb-major -> (3, ndig_pad, lanes, L)
-        parts.append(out.reshape(3, L, ndig_pad, lanes).permute(0, 2, 3, 1))
+        parts.append(out)
     if not parts:
         zero = torch.zeros((ndig_pad, L), dtype=torch.int32, device=dev)
         return zero, mod.one_mont.expand(ndig_pad, L).contiguous(), zero

@@ -48,12 +48,18 @@ design does about it):
   resident elements in 64 KB blocks.
 * H3 `mont_fb_exp` (window 4 or 8) replaces K5 `mont_fb_exp_pallas`
   (:292-353, :486-527) and K4 `mont_fb8_exp_pallas` (:361-483); routed by
-  exponent bits as vmn_tpu/arith/mont.py:1055 does.  A block stages one
-  digit's table rows in shared memory (64 KB at window 8, 2048 bits, above
-  the 48 KB default: the launcher raises the limit) and every thread
-  masked-selects its factor.  The TPU's one-hot f32 MXU gather is not
-  carried over.  At window 8 the masked select (2^8 · W words per digit)
-  costs about as much as the product it feeds.
+  exponent bits as vmn_tpu/arith/mont.py:1055 does.  TPI lanes of a warp
+  share an element as in H1 (TPI from `COOP_TPI`); per digit the block
+  stages the digit's entries in shared memory, the copy of the next digit
+  (`cp.async`, two buffers) under this digit's work, and each lane
+  masked-selects its slice of the factor from every entry (`fb_pack`
+  lays the table out so that the reads are broadcasts without bank
+  conflicts).  A window-8 digit's entries are 64 KB at 2048 bits, so a
+  block holds an SM's shared memory alone; `fb_launch` sizes the blocks
+  so that N = 10000 fills the 132 SMs once.  Bound by the products (one
+  a digit) and, at window 8, by the select, which costs about as much
+  as the product it feeds.  The TPU's one-hot f32 MXU gather is not
+  carried over.
 * H4 `mont_expprod_positions` replaces both `pallas_call`s of K6 (:552-727):
   launch 1 writes a 16-entry table per element to device memory, launch 2
   gives each thread one (lane, digit position) and loops over the lane's
@@ -67,8 +73,8 @@ design does about it):
   chain of dependent products: bound by the latency of one product, not
   by the card's throughput.  ptxas: 26 registers at W = 64, 22 at W = 8.
 
-H1, H2 and the combine take row-major ``(N, L)`` operands as they are; H3
-and H4 read limb-major ``(L, N)``, which their wrappers transpose to.
+H1, H2, H3 and the combine take row-major ``(N, L)`` operands as they
+are; H4 reads limb-major ``(L, N)``, which its wrapper transposes to.
 """
 
 from __future__ import annotations
@@ -101,10 +107,10 @@ EP_MAX_LANES = 2048
 KERNELS = ("mont_mul", "mont_exp", "mont_fb_exp", "mont_expprod_positions",
            "mont_expprod_combine")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-# H1 and H2 launches by batch size: 1, 2-127, >= 128 elements.
+# H1, H2 and H3 launches by batch size: 1, 2-127, >= 128 elements.
 SIZE_BUCKETS = ("1", "2-127", ">=128")
 LAUNCH_SIZES = {k: dict.fromkeys(SIZE_BUCKETS, 0)
-                for k in ("mont_mul", "mont_exp")}
+                for k in ("mont_mul", "mont_exp", "mont_fb_exp")}
 
 
 def reset_launches() -> None:
@@ -393,11 +399,12 @@ _WIDTHS = (8, 64)  # W = L/2 instantiated in mont_kernels.cu
 # the EC combine).  Per (kernel, W), (from n elements, TPI) pairs, largest
 # n first.  Each n is the smallest N that `kernel_timing.py --sweep` timed
 # (N = 1, 4, 16, ..., 2048, 4096, 6144, 8192, 10000, 16384 at W = 64; 1,
-# 16, ..., 8192, 16384, ..., 262144 at W = 8; H5 256, 1024, 4096, 8192,
-# 16384, ..., 262144 points) from which the fewer lanes were faster at
-# every N it timed; the crossover lies between it and the N timed before
-# it (PERF.md §6).  H1 at W = 8 was fastest at TPI 8 at every N, H5 at
-# TPI 8 at none.  The EC combine is one point (n = 1) on one warp, TPI 8
+# 16, ..., 8192, 16384, ..., 262144 at W = 8; H3 1, 16, 256, 1024, 2048,
+# 4096, 8192, 10000, 16384 at W = 64 (both windows) and 1, 4, ..., 4096 at
+# W = 8; H5 256, 1024, 4096, 8192, 16384, ..., 262144 points) from which
+# the fewer lanes were faster at every N it timed; the crossover lies
+# between it and the N timed before it (PERF.md §6).  H1 at W = 8 was
+# fastest at TPI 8 at every N, H3 at W = 8 at TPI 4, H5 at TPI 8 at none.  The EC combine is one point (n = 1) on one warp, TPI 8
 # the fastest at 16 and 64 positions.  Every pair has its case in
 # mont_kernels.cu or ec_kernels.cu.
 COOP_TPI = {
@@ -405,6 +412,8 @@ COOP_TPI = {
     ("mont_mul", 64): ((4096, 8), (1, 32)),
     ("mont_exp", 8): ((16384, 1), (1, 8)),
     ("mont_exp", 64): ((2048, 8), (1, 32)),
+    ("mont_fb_exp", 8): ((1, 4),),
+    ("mont_fb_exp", 64): ((4096, 8), (1024, 16), (1, 32)),
     ("ec_scalar_mul", 8): ((16384, 2), (1, 4)),
     ("ec_multiexp_combine", 8): ((1, 8),),
 }
@@ -425,6 +434,39 @@ def coop_launch(kernel: str, w: int, n: int):
     need = n * tpi
     threads = min(COOP_BLOCK, -(-need // 32) * 32)
     return tpi, threads, -(-need // threads)
+
+
+FB_BLOCK = 1024  # H3's threads a block at most (kFbBlock in mont_coop.cuh)
+
+
+def fb_launch(w: int, n: int, sms: int):
+    """(TPI, threads a block, blocks) of H3 over n >= 1 elements of W
+    words on a card of `sms` SMs.  H3's block holds one digit's staged
+    entries twice (128 KB at window 8, W = 64), so one block fills an SM:
+    a block takes about n/sms elements (whole warps, at most FB_BLOCK
+    threads), so that the blocks fill every SM once, as far as FB_BLOCK
+    allows, and no last wave is thin."""
+    tpi = threads_per_element("mont_fb_exp", w, n)
+    per_block = -(-n // sms)
+    threads = min(FB_BLOCK, -(-per_block * tpi // 32) * 32)
+    return tpi, threads, -(-n * tpi // threads)
+
+
+def fb_pack(table: torch.Tensor, tpi: int) -> torch.Tensor:
+    """H3's copy of a fixed-base table (ndig, 2^w, L) int32 limbs: per
+    entry W packed 32-bit words, word k of lane r's slice (S = W/TPI
+    words) at [k // V][r][k % V], V = min(4, S), so that a group's lanes
+    read their slices as vectors of consecutive words (csrc/
+    mont_kernels.cu, H3)."""
+    ndig, entries, L = table.shape
+    w = L // 2
+    s = w // tpi
+    v = min(4, s)
+    t = table.to(torch.int64)
+    words = t[..., 0::2] | (t[..., 1::2] << LIMB_BITS)  # below 2^32
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    words = words.to(torch.int32).reshape(ndig, entries, tpi, s // v, v)
+    return words.transpose(2, 3).contiguous()
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -490,8 +532,8 @@ def _library() -> ctypes.CDLL:
                 "vmn_mont_exp": [I32, I32, P, P, P, P, P, U32, I64, I32, I32,
                                  I32, I64, P],
                 "vmn_mont_chain": [I32, P, P, P, U32, I32, P],
-                "vmn_mont_fb_exp": [I32, I32, P, P, P, P, P, U32, I64, I32,
-                                    I32, P],
+                "vmn_mont_fb_exp": [I32, I32, I32, P, P, P, P, P, U32, I64,
+                                    I32, I32, I32, I64, P],
                 "vmn_ep_table": [I32, P, P, P, P, U32, I64, P],
                 "vmn_ep_acc": [I32, P, P, P, P, P, U32, I64, I32, I32, I32,
                                P],
@@ -603,6 +645,10 @@ def mont_exp(base: torch.Tensor, e: torch.Tensor, mod: Modulus, nbits: int
     return out
 
 
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def mont_fb_exp(table: torch.Tensor, e: torch.Tensor, mod: Modulus
                 ) -> torch.Tensor:
     """H3: prod_j table[j][digit_j(e)]; table (ndig, 2^w, L) Montgomery
@@ -613,21 +659,24 @@ def mont_fb_exp(table: torch.Tensor, e: torch.Tensor, mod: Modulus
     window = entries.bit_length() - 1
     if entries != 1 << window or window not in (4, 8) or L != mod.L:
         raise ValueError(f"bad fixed-base table shape {tuple(table.shape)}")
-    if table.dtype != torch.int32 or not table.is_contiguous():
-        raise ValueError("table must be contiguous int32")
-    if table.device != mod.limbs.device:
+    if table.dtype != torch.int32:
+        raise ValueError("table must be int32")
+    dev = mod.limbs.device
+    if table.device != dev:
         raise ValueError(f"table is on {table.device}")
     w = _words(mod)
     N = e.shape[0]
-    eT = _limb_major(e, "e", mod.limbs.device, N)
-    out = torch.empty((L, N), dtype=torch.int32, device=e.device)
+    e = _rows(e, "e", dev, N)
+    out = torch.empty((N, L), dtype=torch.int32, device=dev)
     if N:
+        t, threads, blocks = fb_launch(w, N, _sms(dev))
+        packed = fb_pack(table, t)
         _check("mont_fb_exp", _library().vmn_mont_fb_exp(
-            w, window, _ptr(table), _ptr(eT), _ptr(out), _ptr(mod.limbs),
-            _ptr(mod.one_mont), mod.mprime32, N, eT.shape[0], ndig,
-            _stream(e.device)))
-        LAUNCHES["mont_fb_exp"] += 1
-    return out.t().contiguous()
+            w, window, t, _ptr(packed), _ptr(e), _ptr(out), _ptr(mod.limbs),
+            _ptr(mod.one_mont), mod.mprime32, N, e.shape[1], ndig, threads,
+            blocks, _stream(dev)))
+        _launched("mont_fb_exp", N)
+    return out
 
 
 def mont_expprod_positions(bases: torch.Tensor, e: torch.Tensor,
