@@ -11,13 +11,15 @@ Phases (one line each; any failure raises and the exit code is not 0):
      batch of one (a product; a power as MontCtx.inv gives it), H3
      mont_fb_exp at modp2048 width (window 8 on N and on one, window 4 on
      N) and at W=8 (window 4 on N and on one), and at the first N of any
-     TPI of H3's rule that those miss, so that every TPI (lanes an
-     element) the wrappers choose is checked (it fails otherwise), H4
-     mont_expprod_positions and K7's combine mont_expprod_combine (512
-     positions) at modp2048 width against their plain PyTorch versions on
-     the card (exact equality, a few rows against Python pow), and time
-     both (kernels on the device: vmn_tpu_torch/kernel_timing.py's
-     device_ms);
+     TPI of H3's rule that those miss, H4 mont_expprod_positions at
+     modp2048 width on N elements (256-bit exponents) and on one (2047
+     bits), at W=8 on N, and at the first N of any TPI of its rule that
+     those miss, so that every TPI (lanes an element) the wrappers choose
+     is checked (it fails otherwise), and K7's combine
+     mont_expprod_combine (512 positions) against their plain PyTorch
+     versions on the card (exact equality, a few rows, or H4's positions
+     combined, against Python pow), and time them (kernels on the device:
+     vmn_tpu_torch/kernel_timing.py's device_ms);
   4. check H5 ec_scalar_mul, H6 ec_multiexp_positions (with the rest of
      `ec_multiexp`), the position combine ec_multiexp_combine (64
      positions, a 256-bit multi-exponentiation), H7 ec_fb_exp and H8
@@ -25,9 +27,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
      on the whole batch; after `normalize`, a few rows against Python EC
      arithmetic), with infinity, P == Q, P == -Q, scalar 0 and scalar
      n - 1 among the inputs, and H7 against H5 on the same fixed-base
-     batch: once on 4096 points and once on the EC path's batch (--ec-n);
-     H5 also at the first N of any TPI (lanes a point) that neither batch
-     reaches, so that every TPI its wrapper chooses is checked;
+     batch: once on 4096 points and once on the EC path's batch (--ec-n),
+     H8 also on one pair; H5 and H8 also at the first N of any TPI (lanes
+     a point) that those batches do not reach, so that every TPI their
+     wrappers choose is checked;
   5. the test256 and P-256 golden mixes on the card: each transcript must
      equal tests/golden/nizkp_{test256,p256}_k1 byte for byte, and the
      port's verifier must accept it;
@@ -99,7 +102,7 @@ MAIN_CHECK = {"mont_mul": "mont_mul", "mont_exp": "mont_exp",
               "ec_multiexp_combine": "ec_multiexp_combine",
               "ec_fb_exp": "ec_fb_exp", "ec_point_add": "ec_point_add"}
 # phase 3's cooperative kernels
-COOP_MONT = ("mont_mul", "mont_exp", "mont_fb_exp")
+COOP_MONT = ("mont_mul", "mont_exp", "mont_fb_exp", "mont_expprod_positions")
 
 # Bounds: the larger of bytes moved (each input read once, each output
 # written once, int32 limbs as stored) over the card's memory rate, and
@@ -265,7 +268,7 @@ def check_kernels(n: int, ec_n: int) -> dict:
         bounds[f"mont_exp{tag}"] = bound(exp_products(n, e, ndig), W,
                                          2 * nb + 4 * n * e.shape[1])
         if not batch1:
-            return
+            return a, a_int, e, e_int
         cases[f"mont_mul{tag}_b1"] = (
             lambda: K.mont_mul(a1, b1, ctx.mod),
             lambda: K.mont_mul_plain(a1, b1, ctx.mod),
@@ -313,21 +316,37 @@ def check_kernels(n: int, ec_n: int) -> dict:
     fb_case("mont_fb_exp8_b1", ctx, tbl8, e_full, e_full_int, 1)
     fb_case("mont_fb_exp4", ctx, tbl4, e_short, e_short_int, n)
 
-    def expprod_py():
-        want = 1
-        for x, k in zip(a_int, e_short_int):
-            want = want * pow(x, k, m) % m
-        return [want]
+    def expprod_case(name, cx, a, a_int, e, e_int, nbits, count):
+        """H4 on the first `count` elements; its positions combined (K7's
+        combine) against Python pow."""
+        a, e = a[:count].contiguous(), e[:count].contiguous()
+        ndig = -(-nbits // 4)
 
-    cases["mont_expprod_positions"] = (
-        lambda: K.mont_expprod_positions(a, e_short, ctx.mod, 256),
-        lambda: K.mont_expprod_positions_plain(a, e_short, ctx.mod, 256),
-        None, None, n, None)
-    # each base's table, then per position one product per digit that is
-    # not 0, less the first
-    bounds["mont_expprod_positions"] = bound(
-        n * 14 + max(nz_short - ndig_s, 0), W,
-        nb + 4 * n * 16 + 4 * K._ndig_pad(256) * L)
+        def py():
+            want = 1
+            for x, k in zip(a_int[:count], e_int[:count]):
+                want = want * pow(x, k, cx.m) % cx.m
+            return [want]
+
+        # a batch of one runs the table's four levels and one fold
+        # product back to back
+        cases[name] = (
+            lambda: K.mont_expprod_positions(a, e, cx.mod, nbits),
+            lambda: K.mont_expprod_positions_plain(a, e, cx.mod, nbits),
+            py, None, count, 5 if count == 1 else None)
+        # each base's table, then per position one product per digit that
+        # is not 0, less the first
+        nz = nonzero_digits(e, ndig, 4)
+        bounds[name] = bound(count * 14 + max(nz - ndig, 0), cx.L // 2,
+                             4 * count * cx.L + 4 * e.numel()
+                             + 4 * K._ndig_pad(nbits) * cx.L)
+
+    expprod_case("mont_expprod_positions", ctx, a, a_int, e_short,
+                 e_short_int, 256, n)
+    # the path's smallest call: one element, 2047-bit exponent, on row 3
+    # (rows 0-2 hold the edge bases and exponent 0)
+    expprod_case("mont_expprod_positions_b1", ctx, a[3:], a_int[3:],
+                 e_full[3:], e_full_int[3:], 2047, 1)
     J = COMBINE_POSITIONS
     P_int = [x % m for x in ints(J, 2048)]
     P = ctx.encode(P_int)
@@ -347,19 +366,34 @@ def check_kernels(n: int, ec_n: int) -> dict:
 
     ctx8 = MontCtx(_CURVES["P-256"][0], dev)
     width_cases(ctx8, "_w8", 256, ec_n)
-    width_cases(ctx8, "_w8_n", 256, n, batch1=False)
+    a8, a8_int, e8, e8_int = width_cases(ctx8, "_w8_n", 256, n, batch1=False)
+    # H4 at W = 8 (the test256 golden's width) on n
+    expprod_case("mont_expprod_positions_w8", ctx8, a8, a8_int, e8, e8_int,
+                 256, n)
+    def at_other_tpis(kernel, w, counts, case):
+        """case(tpi, count) at 37 past the first N of each TPI of the rule
+        of `kernel` at W that the checks on `counts` elements miss."""
+        reached = {K.threads_per_element(kernel, w, c) for c in counts}
+        for lo, tpi in K.COOP_TPI[kernel, w]:
+            if tpi not in reached and lo + 37 <= n:
+                case(tpi, lo + 37)
+
+    # and at the first N of any TPI of its rule that these do not reach
+    at_other_tpis("mont_expprod_positions", 64, (1, n), lambda t, c: (
+        expprod_case(f"mont_expprod_positions_tpi{t}", ctx, a, a_int,
+                     e_short, e_short_int, 256, c)))
+    at_other_tpis("mont_expprod_positions", 8, (n,), lambda t, c: (
+        expprod_case(f"mont_expprod_positions_w8_tpi{t}", ctx8, a8, a8_int,
+                     e8, e8_int, 256, c)))
     # H3 at W = 8, window 4 (the test256 golden's width): on n and on one
     tbl4_w8 = ctx8.fixed_base_table(g, 256, 4)
     fb_case("mont_fb_exp4_w8", ctx8, tbl4_w8, e_short, e_short_int, n)
     fb_case("mont_fb_exp4_w8_b1", ctx8, tbl4_w8, e_short, e_short_int, 1)
     # and at the first N of any TPI its rule has that these do not reach
-    for w, cx, name, tbl, e, e_int in (
-            (64, ctx, "mont_fb_exp8", tbl8, e_full, e_full_int),
-            (8, ctx8, "mont_fb_exp4_w8", tbl4_w8, e_short, e_short_int)):
-        reached = {K.threads_per_element("mont_fb_exp", w, c) for c in (1, n)}
-        for lo, tpi in K.COOP_TPI["mont_fb_exp", w]:
-            if tpi not in reached and lo + 37 <= n:
-                fb_case(f"{name}_tpi{tpi}", cx, tbl, e, e_int, lo + 37)
+    at_other_tpis("mont_fb_exp", 64, (1, n), lambda t, c: fb_case(
+        f"mont_fb_exp8_tpi{t}", ctx, tbl8, e_full, e_full_int, c))
+    at_other_tpis("mont_fb_exp", 8, (1, n), lambda t, c: fb_case(
+        f"mont_fb_exp4_w8_tpi{t}", ctx8, tbl4_w8, e_short, e_short_int, c))
 
     results, tpis = {}, set()
     for name, (kern, plain, py, py_rows, count, products) in cases.items():
@@ -367,10 +401,10 @@ def check_kernels(n: int, ec_n: int) -> dict:
         got, _ = timed(kern)  # first launch: compare, then time warm
         want, plain_ms = timed(plain)
         err = max_abs_err(got, want)
-        if name == "mont_expprod_positions":
+        if name.startswith("mont_expprod_positions"):
             # P_j = prod_i a_i^(d_ij): recombine and compare with pow
-            combined = K.mont_expprod(a, e_short, ctx.mod, 256)
-            if ctx.decode(combined[None]) != expprod_py():
+            combined = K.mont_expprod_combine(got, cx.mod)
+            if cx.decode(combined[None]) != py():
                 raise AssertionError(f"{name}: multi-exp != Python pow")
         elif cx.decode(got[py_rows]) != py():
             raise AssertionError(f"{name}: kernel != Python pow")
@@ -386,13 +420,15 @@ def check_kernels(n: int, ec_n: int) -> dict:
             # binds is one product's latency, not the card's throughput
             r.update(products=products,
                      us_per_product=1e3 * ms / products,
-                     bound_note="latency-bound: one element on one warp")
+                     bound_note="latency-bound: one element on one warp"
+                     if kernel != "mont_expprod_positions" else
+                     "latency-bound: four table levels and one product")
         results[name] = r
         kernel_line(name, r)
     built = {(k, w, t) for (k, w), rule in K.COOP_TPI.items()
              if k in COOP_MONT for _, t in rule}
     if tpis != built:
-        raise AssertionError(f"H1-H3 instantiations not checked: "
+        raise AssertionError(f"H1-H4 instantiations not checked: "
                              f"{sorted(built - tpis)}")
     return results
 
@@ -609,7 +645,7 @@ def check_ec_kernels(n: int) -> dict:
         ms = device_ms(kern)
         results[name] = {"N": n, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, **bnds[name]}
-        if name == "ec_scalar_mul":
+        if name in ("ec_scalar_mul", "ec_point_add"):
             results[name]["tpi"] = K.threads_per_element(name, 8, n)
         elif name == "ec_multiexp_positions":
             blocks, subs = E.mexp_shape(n, ndig)
@@ -624,6 +660,23 @@ def check_ec_kernels(n: int) -> dict:
                 us_per_point_op=1e3 * ms / ops,
                 bound_note="latency-bound: one point on one warp")
         kernel_line(name, results[name])
+    # H8 on one pair (row 4: two random points), as the EC path's
+    # single-point additions and doublings call it
+    one = [t[4:5].contiguous() for t in (*j1, *j2)]
+    got, _ = timed(lambda: E.ec_point_add(*one, mod))
+    want, plain_ms = timed(lambda: E.ec_point_add_plain(*one, mod))
+    err = max_abs_err(got, want)
+    s3 = smul_aff[idx[4].item()]
+    if affine(got) != [host_ec_add(p, a, smul_aff[4], s3)]:
+        raise AssertionError("ec_point_add_b1: kernel != Python EC")
+    ms = device_ms(lambda: E.ec_point_add(*one, mod))
+    results["ec_point_add_b1"] = {
+        "N": 1, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "tpi": K.threads_per_element("ec_point_add", 8, 1),
+        **ec_bounds(1, e[:1], ndig, 0, 0)["ec_point_add"],
+        "products": 24, "us_per_product": 1e3 * ms / 24,
+        "bound_note": "latency-bound: the 24 products of one pair"}
+    kernel_line("ec_point_add_b1", results["ec_point_add_b1"])
     # The routing fact for fixed-base powers: H7 against H5 on g.
     fb_ms = device_ms(lambda: E.ec_fb_exp(tbx, tby, e, mod))
     sm_ms = device_ms(lambda: E.ec_scalar_mul(gx, gy, no_inf, e, mod, nbits))
@@ -634,53 +687,71 @@ def check_ec_kernels(n: int) -> dict:
     return results
 
 
-def check_smul_tpis(checked: set) -> dict:
-    """H5 against its plain version at 37 points past the first N of each
-    TPI that its wrapper can choose and that `checked` (the TPIs of the
-    checks at 4096 and --ec-n) lacks; fails unless every TPI of H5 and of
-    the combine has been checked."""
+def check_ec_tpis(kernel: str, checked: set, seed: bytes, case) -> dict:
+    """H5 or H8 (`kernel`) against its plain version at 37 points past the
+    first N of each TPI that its rule can choose and that `checked` (the
+    TPIs of the checks already made) lacks; fails unless every TPI of the
+    rule has been checked.  case(grp, pts, tpi) -> (kernel call, plain
+    call, bound) on n random P-256 points `pts` drawn from `seed`."""
     from vmn_tpu_torch.arith import ec as EC
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.kernel_timing import device_ms
-    from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
-    dev = torch.device("cuda", 0)
-    grp = EC.ECqPGroup.named("P-256", device=dev)
-    mod, q = grp.ctx.mod, grp.n
+    grp = EC.ECqPGroup.named("P-256", device=torch.device("cuda", 0))
     results = {}
-    for lo, tpi in K.COOP_TPI["ec_scalar_mul", 8]:
+    for lo, tpi in K.COOP_TPI[kernel, 8]:
         if tpi in checked:
             continue
         n = lo + 37
-        if K.threads_per_element("ec_scalar_mul", 8, n) != tpi:
+        if K.threads_per_element(kernel, 8, n) != tpi:
             n = lo
         prg = PRGHeuristic(SHA256)
-        prg.set_seed(SHA256.hash(b"smoke-ec-tpi"))
-        pts = grp.random_array(n, prg, 8)
-        inf = pts.inf.clone()
-        inf[0] = True  # row 0: the point at infinity
-        rng = np.random.default_rng(tpi)
-        ks = [int.from_bytes(rng.bytes(40), "big") % q for _ in range(n)]
-        ks[1:4] = [0, 1, q - 1][: n - 1]
-        e = grp.ring.from_ints(ks).limbs
-        args = (pts.x, pts.y, inf, e, mod, 256)
-        got, _ = timed(lambda: E.ec_scalar_mul(*args))
-        want, plain_ms = timed(lambda: E.ec_scalar_mul_plain(*args))
-        err = max_abs_err(got, want)
-        name = f"ec_scalar_mul_tpi{tpi}"
+        prg.set_seed(SHA256.hash(seed))
+        kern, plain, bnd = case(grp, grp.random_array(n, prg, 8), tpi)
+        got, _ = timed(kern)
+        want, plain_ms = timed(plain)
+        name = f"{kernel}_tpi{tpi}"
         results[name] = {
-            "N": n, "tpi": tpi, "max_abs_err": err, "plain_ms": plain_ms,
-            "ms": device_ms(lambda: E.ec_scalar_mul(*args)),
-            **ec_bounds(n, e, 64, 0, 0)["ec_scalar_mul"]}
+            "N": n, "tpi": tpi, "max_abs_err": max_abs_err(got, want),
+            "plain_ms": plain_ms, "ms": device_ms(kern), **bnd}
         kernel_line(name, results[name])
         checked.add(tpi)
-    want = {t for _, t in K.COOP_TPI["ec_scalar_mul", 8]}
+    want = {t for _, t in K.COOP_TPI[kernel, 8]}
     if checked != want:
-        raise AssertionError(f"H5 instantiations not checked: "
+        raise AssertionError(f"{kernel} instantiations not checked: "
                              f"{sorted(want - checked)}")
     return results
+
+
+def smul_case(grp, pts, tpi):
+    """H5 on pts (row 0 at infinity) with random scalars and 0, 1, q - 1."""
+    from vmn_tpu_torch.ops import ec_kernels as E
+
+    n, q = len(pts.inf), grp.n
+    inf = pts.inf.clone()
+    inf[0] = True  # row 0: the point at infinity
+    rng = np.random.default_rng(tpi)
+    ks = [int.from_bytes(rng.bytes(40), "big") % q for _ in range(n)]
+    ks[1:4] = [0, 1, q - 1][: n - 1]
+    e = grp.ring.from_ints(ks).limbs
+    args = (pts.x, pts.y, inf, e, grp.ctx.mod, 256)
+    return (lambda: E.ec_scalar_mul(*args),
+            lambda: E.ec_scalar_mul_plain(*args),
+            ec_bounds(n, e, 64, 0, 0)["ec_scalar_mul"])
+
+
+def add_case(grp, pts, tpi):
+    """H8 on pts against their reversal (the middle row: P + P)."""
+    from vmn_tpu_torch.ops import ec_kernels as E
+
+    n, mod = len(pts.inf), grp.ctx.mod
+    j1 = pts._jac()
+    j2 = [t.flip(0).contiguous() for t in j1]
+    return (lambda: E.ec_point_add(*j1, *j2, mod),
+            lambda: E.ec_point_add_plain(*j1, *j2, mod),
+            bound(n * EC_ADD_PRODUCTS, 8, 9 * 4 * n * 16))
 
 
 # ---------------------------------------------------------- phases 5-7
@@ -985,9 +1056,13 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
           device_events=len(ivals))
     for name, us in sorted(spans.items(), key=lambda kv: -kv[1]):
         print(f"  span {name} s={us / 1e6:.3f}")
-    for name, (us, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  device {name[:60]} s={us / 1e6:.3f} "
-              f"share={us / busy:.3f} launches={cnt}")
+    # the 12 longest, and below them every kernel in an anonymous
+    # namespace (the port's own, and some of torch's)
+    for i, (name, (us, cnt)) in enumerate(
+            sorted(kernels.items(), key=lambda kv: -kv[1][0])):
+        if i < 12 or "(anonymous namespace)::" in name:
+            print(f"  device {name[:60]} s={us / 1e6:.4f} "
+                  f"share={us / busy:.4f} launches={cnt}")
 
 
 def main(argv=None) -> int:
@@ -1026,8 +1101,15 @@ def main(argv=None) -> int:
     checks.update(check_ec_kernels(args.ec_n))
     for name, r in ec_small.items():
         checks[name][f"at_{EC_CHECK_N}"] = r
-    checks.update(check_smul_tpis({ec_small["ec_scalar_mul"]["tpi"],
-                                   checks["ec_scalar_mul"]["tpi"]}))
+    checks.update(check_ec_tpis(
+        "ec_scalar_mul", {ec_small["ec_scalar_mul"]["tpi"],
+                          checks["ec_scalar_mul"]["tpi"]},
+        b"smoke-ec-tpi", smul_case))
+    checks.update(check_ec_tpis(
+        "ec_point_add", {ec_small["ec_point_add"]["tpi"],
+                         checks["ec_point_add"]["tpi"],
+                         checks["ec_point_add_b1"]["tpi"]},
+        b"smoke-ec-add-tpi", add_case))
     phase("kernels", checked=len(checks),
           phase_s=f"{time.perf_counter() - t0:.1f}")
 
@@ -1078,8 +1160,16 @@ def main(argv=None) -> int:
     for name in E.LAUNCH_SIZES:
         kernels[ec_at[name]]["launches_by_batch"] = {
             "P-256 mix": ec_sizes[name]}
-    kernels[K.KERNELS.index("mont_expprod_positions")]["path_calls"] = (
-        modp_widths)
+    kernels[K.KERNELS.index("mont_expprod_positions")].update(
+        path_calls=modp_widths, batch1=checks["mont_expprod_positions_b1"],
+        w8=checks["mont_expprod_positions_w8"],
+        at_first_n_of_tpi=[r for k, r in checks.items()
+                           if k.startswith("mont_expprod_positions")
+                           and "_tpi" in k])
+    kernels[ec_at["ec_point_add"]].update(
+        batch1=checks["ec_point_add_b1"],
+        at_first_n_of_tpi=[r for k, r in checks.items()
+                           if k.startswith("ec_point_add_tpi")])
     kernels[ec_at["ec_multiexp_positions"]]["path_calls"] = ec_widths
     kernels[ec_at["ec_scalar_mul"]]["at_first_n_of_tpi"] = [
         r for k, r in checks.items() if k.startswith("ec_scalar_mul_tpi")]

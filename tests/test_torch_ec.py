@@ -260,9 +260,10 @@ def test_multiexp_combine_plain_matches_python(tg):
     _assert_limbs_equal(E.ec_multiexp_combine(*P, tg.ctx.mod), got)
 
 
-@pytest.mark.parametrize("kernel", ["ec_scalar_mul", "ec_multiexp_combine"])
+@pytest.mark.parametrize("kernel", ["ec_scalar_mul", "ec_multiexp_combine",
+                                    "ec_point_add"])
 def test_ec_coop_rule_covers_every_batch(kernel):
-    """The TPI rule of H5 and of the combine: every N >= 1 has a TPI that
+    """The TPI rule of H5, H8 and of the combine: every N >= 1 has a TPI that
     divides W = 8, fewer lanes as N grows, each TPI reached at its first
     N; every launch covers its points' lanes in whole warps of at most
     one block's threads.  The combine is one point (N = 1)."""
@@ -285,6 +286,31 @@ def test_ec_coop_rule_covers_every_batch(kernel):
         last = tpi
     for lo, tpi in rule:
         assert K.threads_per_element(kernel, 8, lo) == tpi
+
+
+
+@pytest.mark.parametrize("kernel", ["ec_point_add", "ec_scalar_mul",
+                                    "ec_multiexp_positions",
+                                    "ec_multiexp_combine"])
+def test_ec_wrapper_refuses_a_wrong_width(kernel):
+    """Off the CPU a wrapper hands its operands to a kernel that reads and
+    writes mod.L limbs a row, so operands of another width (here all of
+    them 8 limbs against P-256's 16) raise before anything is built or
+    launched.  The meta device stands in for the card."""
+    mod = E.K.Modulus.of(P256[0], 16, "meta")
+    bad = torch.zeros((5, 8), dtype=torch.int32, device="meta")
+    inf = torch.zeros(5, dtype=torch.bool, device="meta")
+    call = {
+        "ec_point_add": lambda: E.ec_point_add(*[bad] * 6, mod),
+        "ec_scalar_mul": lambda: E.ec_scalar_mul(bad, bad, inf, bad, mod,
+                                                 128),
+        "ec_multiexp_positions": lambda: E.ec_multiexp_positions(
+            bad, bad, inf, bad, mod, 128),
+        "ec_multiexp_combine": lambda: E.ec_multiexp_combine(bad, bad, bad,
+                                                             mod),
+    }[kernel]
+    with pytest.raises(ValueError, match=r"expected int32 \(N=5, 16\)"):
+        call()
 
 
 def test_ec_launch_sizes_count_by_batch():
@@ -624,3 +650,38 @@ def test_cuda_multiexp_positions_edges(n, super_chunk, blocks, cuda_device,
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 128, 4096])
+@pytest.mark.parametrize(
+    "tpi", sorted({t for _, t in E.K.COOP_TPI["ec_point_add", 8]}))
+def test_cuda_point_add_every_tpi(tpi, n, cuda_device, monkeypatch):
+    """H8 at each TPI its rule picks, forced through the rule: infinity
+    on either side and on both, P + P (its doubling branch), P + (-P),
+    the rest random pairs with Z != 1; against the plain version and
+    Python EC arithmetic."""
+    monkeypatch.setitem(E.K.COOP_TPI, ("ec_point_add", 8), ((1, tpi),))
+    tg = TGroup.named("P-256", device=cuda_device)
+    mod = tg.ctx.mod
+    p, a, _ = _host(tg)
+    x, y, inf, e = _smul_batch(tg, max(n, 8), cuda_device)
+    inf[1] = True  # row 1: infinity (row 0 already is)
+    P = [t[:n] for t in E.ec_scalar_mul(x, y, inf, e, mod, 256)]
+    idx = torch.arange(n - 1, -1, -1, device=cuda_device)
+    if n >= 8:
+        idx[:6] = torch.tensor([0, 2, 1, 3, 4, 5], device=cuda_device)
+    Q = [t[idx] for t in P]
+    if n >= 8:
+        Q[1][3] = tg.ctx.neg(P[1][3])  # P + (-P)
+    # rows: 0 inf + inf, 1 inf + P, 2 P + inf, 3 P + (-P), 4-5 P + P
+    E.reset_launches()
+    got = E.ec_point_add(*P, *Q, mod)
+    assert E.LAUNCHES["ec_point_add"] == 1
+    want = E.ec_point_add_plain(*P, *Q, mod)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    aff_p, aff_q, aff_r = (_affine(tg, t) for t in (P, Q, got))
+    rows = sorted({0, 1, 2, 3, 4, 5, n - 1} & set(range(n)))
+    assert [aff_r[i] for i in rows] == [host_ec_add(p, a, aff_p[i], aff_q[i])
+                                        for i in rows]

@@ -149,8 +149,9 @@ def _first_n(kernel, w, tpi):
 def test_coop_launch_covers_every_element(w):
     """The TPI the wrappers pick divides W, is built, and is reached by
     some N; the launch's threads cover every element's lanes in whole
-    warps, with no block left idle."""
-    for kernel in ("mont_mul", "mont_exp"):
+    warps, with no block left idle (H4's launch, `ep_launch`, takes the
+    TPI of its rule and whole warps of at most EP_BLOCK threads)."""
+    for kernel in ("mont_mul", "mont_exp", "mont_expprod_positions"):
         rule = K.COOP_TPI[kernel, w]
         tpis = {t for _, t in rule}
         assert rule[-1][0] == 1  # every N >= 1 has a TPI
@@ -160,12 +161,17 @@ def test_coop_launch_covers_every_element(w):
                                     for d in (-1, 0, 1) if lo + d >= 1)})
         last, seen = None, set()
         for n in ns:
-            tpi, threads, blocks = K.coop_launch(kernel, w, n)
+            if kernel == "mont_expprod_positions":
+                sh = K.ep_launch(w, n, 64, 132)
+                tpi, threads = sh.tpi, sh.threads
+                assert 0 < threads <= K.EP_BLOCK
+            else:
+                tpi, threads, blocks = K.coop_launch(kernel, w, n)
+                assert 0 < threads <= K.COOP_BLOCK
+                assert (blocks - 1) * threads < n * tpi <= blocks * threads
             assert tpi == K.threads_per_element(kernel, w, n) in tpis
             assert w % tpi == 0 and 32 % tpi == 0
             assert threads % 32 == 0 and threads % tpi == 0
-            assert 0 < threads <= K.COOP_BLOCK
-            assert (blocks - 1) * threads < n * tpi <= blocks * threads
             assert last is None or tpi <= last  # fewer lanes as N grows
             last = tpi
             seen.add(tpi)
@@ -225,6 +231,86 @@ def test_fb_launch_fills_the_card(w):
         assert K.fb_launch(64, 10000, 132)[2] == 132
 
 
+def _ep_visits(w, n, npos, sh):
+    """(n, npos) counts of the (element, position) pairs that H4's fold
+    multiplies in, and the partial each lands in, walking the launch as
+    mont_expprod_kernel does: blocks (element block b, position block),
+    chunks, rounds of items over G groups (clamped items do not count),
+    steps of each share; also checks the build's four levels on each
+    chunk (every entry 2..15 made once, from entries made before it)."""
+    G = sh.threads // sh.tpi
+    items = sh.jb * sh.subs
+    count = np.zeros((n, npos), dtype=np.int64)
+    part = np.full((n, npos), -1, dtype=np.int64)
+    for b in range(sh.eblocks):
+        e0, e1 = b * sh.per_block, min(n, (b + 1) * sh.per_block)
+        assert e0 < e1  # no block without elements
+        for pb in range(sh.pblocks):
+            j0 = pb * sh.jb
+            for c0 in range(e0, e1, sh.chunk):
+                cnt = min(sh.chunk, e1 - c0)
+                made = {0, 1}
+                for h in (1, 2, 4, 8):
+                    per = min(2 * h, 15) - h
+                    work = cnt * per
+                    w_ = np.arange(0, work, G)[:, None] + np.arange(G)
+                    live = w_ < work
+                    k = 1 + w_[live] % per
+                    assert {h} | set(k.tolist()) <= made
+                    assert np.array_equal(np.sort(w_[live]), np.arange(work))
+                    made |= set((h + k).tolist())
+                assert made == set(range(16))
+                it = (np.arange(0, items, G)[:, None] + np.arange(G)).ravel()
+                it = it[it < items]
+                assert np.array_equal(np.sort(it), np.arange(items))
+                s, p = it // sh.jb, it % sh.jb
+                steps = -(-cnt // sh.subs)
+                c = s[:, None] + sh.subs * np.arange(steps)[None, :]
+                pos = np.broadcast_to((j0 + p)[:, None], c.shape)
+                q = np.broadcast_to((b * sh.subs + s)[:, None], c.shape)
+                m = c < cnt
+                np.add.at(count, (c0 + c[m], pos[m]), 1)
+                part[c0 + c[m], pos[m]] = q[m]
+    return count, part
+
+
+# (W, TPI given where COOP_TPI has no rule): W = 96 and 128 are the
+# widths of modp3072 and modp4096, not built yet.
+@pytest.mark.parametrize("w,tpi", [(8, None), (64, None), (96, 16),
+                                   (128, 16)])
+def test_ep_launch_covers_every_pair(w, tpi, monkeypatch):
+    """H4's launch shape at each width: whole warps of at most EP_BLOCK
+    threads, position blocks that tile the positions, the chunk's tables
+    and the accumulators within the shared memory a block may use, at
+    most EP_ACC_BYTES of accumulators; every (element, position) pair
+    folded exactly once into a partial below `parts`; with few elements
+    and many positions, the positions spread over the SMs."""
+    cases = [(1, 512), (6, 512), (16, 512), (37, 112), (300, 64),
+             (1000, 512), (10000, 32), (10000, 64), (10000, 112),
+             (10000, 160), (1 << 17, 16)]
+    if w >= 96:
+        cases += [(1, 1024), (1000, 1024), (10000, 768)]
+    if tpi is not None:
+        monkeypatch.setitem(K.COOP_TPI, ("mont_expprod_positions", w),
+                            ((1, tpi),))
+    for n, npos in cases:
+        sh = K.ep_launch(w, n, npos, 132)
+        assert tpi is None or sh.tpi == tpi
+        assert w % sh.tpi == 0 and sh.threads % 32 == 0
+        assert 0 < sh.threads <= K.EP_BLOCK and sh.threads % sh.tpi == 0
+        assert sh.jb % K.EP_JB == 0 and sh.jb * sh.pblocks == npos
+        assert sh.pblocks <= 65535 and sh.chunk >= 1
+        assert 4 * w * sh.jb * sh.subs <= K.EP_ACC_BYTES
+        assert sh.shared_bytes(w) <= K.EP_SHARED
+        assert (sh.eblocks - 1) * sh.per_block < n <= sh.eblocks * sh.per_block
+        if n * npos <= 1 << 21:
+            count, part = _ep_visits(w, n, npos, sh)
+            assert (count == 1).all()
+            assert part.min() >= 0 and part.max() < sh.parts
+        if n < 132:
+            assert sh.pblocks * sh.eblocks >= min(132, npos // K.EP_JB)
+
+
 def test_launch_sizes_count_by_batch():
     K.reset_launches()
     for name, n in [("mont_mul", 1), ("mont_mul", 2), ("mont_mul", 127),
@@ -238,6 +324,28 @@ def test_launch_sizes_count_by_batch():
     K.reset_launches()
     assert not any(K.LAUNCHES.values())
     assert not any(v for d in K.LAUNCH_SIZES.values() for v in d.values())
+
+
+
+@pytest.mark.parametrize("kernel", ["mont_mul", "mont_exp",
+                                    "mont_expprod_positions",
+                                    "mont_expprod_combine"])
+def test_wrapper_refuses_a_wrong_width(kernel):
+    """Off the CPU a wrapper hands its operands to a kernel that reads and
+    writes mod.L limbs a row, so operands of another width (here 8 limbs
+    against test256's 16) raise before anything is built or launched.
+    The meta device stands in for the card."""
+    mod = K.Modulus.of(TEST256_P, 16, "meta")
+    bad = torch.zeros((5, 8), dtype=torch.int32, device="meta")
+    call = {
+        "mont_mul": lambda: K.mont_mul(bad, bad, mod),
+        "mont_exp": lambda: K.mont_exp(bad, bad, mod, 128),
+        "mont_expprod_positions": lambda: K.mont_expprod_positions(
+            bad, bad, mod, 128),
+        "mont_expprod_combine": lambda: K.mont_expprod_combine(bad, mod),
+    }[kernel]
+    with pytest.raises(ValueError, match=r"expected int32 \(N=5, 16\)"):
+        call()
 
 
 def test_interop_round_trips(ctxs):
@@ -415,3 +523,40 @@ def test_cuda_fb_exp_every_tpi(w, window, tpi, n, cuda_device, monkeypatch):
     assert torch.equal(got, want)
     assert tc.decode(got[:2]) == [pow(5, x, tc.m) for x in es[:min(n, 2)]]
 
+
+
+_EP_PAIRS = [(w, t) for w in K._WIDTHS
+             for t in sorted({t for _, t in K.COOP_TPI[
+                 "mont_expprod_positions", w]})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [100, 256, 2047])
+@pytest.mark.parametrize("n", [1, 6, 37, 1000, 10000])
+@pytest.mark.parametrize("w,tpi", _EP_PAIRS)
+def test_cuda_expprod_every_tpi(w, tpi, n, nbits, cuda_device, monkeypatch):
+    """H4 at each (W, TPI) it is built for, the TPI forced through its
+    rule: batches that are no multiple of a chunk or of a block's
+    elements, exponents all ones and 0 among random ones; against the
+    plain version's positions and, combined, Python pow."""
+    monkeypatch.setitem(K.COOP_TPI, ("mont_expprod_positions", w),
+                        ((1, tpi),))
+    tc = TCtx(modulus("modp2048" if w == 64 else "test256"), cuda_device)
+    nbits = min(nbits, tc.nbits - 1)
+    rng = np.random.default_rng(n + tpi + nbits)
+    xs = rand_ints(rng, n, tc.m)
+    es = ([(1 << nbits) - 1, 0] + rand_ints(rng, n, 1 << nbits))[:n]
+    bases = tc.encode(xs)
+    e = device_limbs(limbs_np(es, -(-nbits // 16)), cuda_device)
+    K.reset_launches()
+    got = K.mont_expprod_positions(bases, e, tc.mod, nbits)
+    assert K.LAUNCHES["mont_expprod_positions"] == 1
+    want = K.mont_expprod_positions_plain(bases, e, tc.mod, nbits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if n <= 37:
+        prod = 1
+        for x, k in zip(xs, es):
+            prod = prod * pow(x, k, tc.m) % tc.m
+        combined = K.mont_expprod_combine(got, tc.mod)
+        assert tc.decode(combined[None]) == [prod]

@@ -9,19 +9,19 @@
 //   H7 vmn_ec_fb        replaces K11 ec_fb_exp_pallas      (:667-719)
 //   H8 vmn_ec_add       replaces K12 ec_point_add_pallas   (:747-773)
 //
-// H5 and the chain spread one point over TPI lanes of a warp with the
+// H5, H8 and the chain spread one point over TPI lanes of a warp with the
 // cooperative field of ec_coop.cuh; the caller picks TPI among the
 // instantiated pairs by the crossovers measured on the card (COOP_TPI in
 // ops/mont_kernels.py) and passes the launch shape.  Their operands are
 // row-major (n, 2W) 16-bit limbs, so that a group reads its point as one
 // contiguous run.  H6 runs one point, or one (digit position, sub-chunk),
 // per thread on the same row-major operands, with ec.cuh's one-thread
-// field (its design below).  H7 and H8 run one point per thread, 128
-// threads a block, on limb-major (L, n) int32 16-bit limbs as H4 reads
-// them, with the one-thread field.  Each entry point launches on the
-// caller's stream, does not synchronise, allocates nothing and returns
-// cudaGetLastError() (or kUnsupportedWidth for a width, or a TPI, with
-// no instantiation, kBadShape for a launch shape the kernel cannot take).
+// field (its design below).  H7 runs one point per thread, 128 threads a
+// block, on limb-major (L, n) int32 16-bit limbs, with the one-thread
+// field.  Each entry point launches on the caller's stream, does not
+// synchronise, allocates nothing and returns cudaGetLastError() (or
+// kUnsupportedWidth for a width, or a TPI, with no instantiation,
+// kBadShape for a launch shape the kernel cannot take).
 //
 // Constant time (docs/DEVIATIONS.md #5): no kernel indexes a table with a
 // secret digit or branches on one; every table entry is read and masked.
@@ -52,31 +52,64 @@ __device__ __forceinline__ void load_one(uint32_t* dst, const int32_t* one) {
 }
 
 // ------------------------------------------------------------ H8: add
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+// One Jacobian addition per pair (ec.cuh's branchless point_add: its
+// doubling branch is taken exactly when H = R = 0, so P + P is a
+// doubling) on TPI lanes of a warp with the cooperative field of
+// ec_coop.cuh, every coordinate's slice in registers, as H5 runs its
+// additions.  Operands are row-major (n, 2W) limbs, as H5 reads them: a
+// group reads a point's coordinate as one contiguous run, and no operand
+// is copied to another layout.  TPI by the batch size (COOP_TPI): 8 lanes
+// for a small batch, whose latency is one pair's 24 dependent products
+// (the formulas run them in pairs, F.mul2), 2 for a full card.
+//
+// What bounds it: 24 products a pair (16 of the addition, 8 of the
+// doubling branch that the constant-time form always computes), where the
+// bound counts 16; at 2^17 pairs the integer pipe, at the rate of H6's
+// one-thread product (PERF.md §6).  Tried on the H100 and dropped: one
+// thread a pair with its operands in shared memory (H6's discipline),
+// which spilled at 128 and at 168 registers and ran 27 % slower at 2^17
+// pairs and three times slower on one; TPI 2 held to 96 or 80 registers
+// (20 or 24 warps an SM), slower at 2^17.  ptxas
+// (sm_90a): TPI 2 / 4 / 8 107 / 68 / 47 registers, no stack frame, no
+// spill.
+template <int W, int TPI>
+__global__ void __launch_bounds__(kThreads, 4)
     ec_add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
                   const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
                   const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
                   int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                   int32_t* __restrict__ oz, const int32_t* __restrict__ m,
                   uint32_t mp, int64_t n) {
-  __shared__ uint32_t sm[W];
-  vmn::load_vec_shared<W>(sm, m);
-  __syncthreads();
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const vmn::Field<W> F{sm, mp};
-  uint32_t X1[W], Y1[W], Z1[W], X2[W], Y2[W], Z2[W];
-  vmn::load_words<W>(X1, x1, n, e);
-  vmn::load_words<W>(Y1, y1, n, e);
-  vmn::load_words<W>(Z1, z1, n, e);
-  vmn::load_words<W>(X2, x2, n, e);
-  vmn::load_words<W>(Y2, y2, n, e);
-  vmn::load_words<W>(Z2, z2, n, e);
+  constexpr int S = W / TPI;
+  bool live;
+  const int64_t e = vmn::group_element<TPI>(n, &live);
+  uint32_t mm[S], X1[S], Y1[S], Z1[S], X2[S], Y2[S], Z2[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(X1, x1 + e * 2 * W);
+  vmn::load_slice<W, TPI>(Y1, y1 + e * 2 * W);
+  vmn::load_slice<W, TPI>(Z1, z1 + e * 2 * W);
+  vmn::load_slice<W, TPI>(X2, x2 + e * 2 * W);
+  vmn::load_slice<W, TPI>(Y2, y2 + e * 2 * W);
+  vmn::load_slice<W, TPI>(Z2, z2 + e * 2 * W);
+  const vmn::CoopField<W, TPI> F{mm, mp};
   vmn::point_add(F, X1, Y1, Z1, X1, Y1, Z1, X2, Y2, Z2);
-  vmn::store_words<W>(ox, X1, n, e);
-  vmn::store_words<W>(oy, Y1, n, e);
-  vmn::store_words<W>(oz, Z1, n, e);
+  if (live) {
+    vmn::store_slice<W, TPI>(ox + e * 2 * W, X1);
+    vmn::store_slice<W, TPI>(oy + e * 2 * W, Y1);
+    vmn::store_slice<W, TPI>(oz + e * 2 * W, Z1);
+  }
+}
+
+template <int TPI>
+int launch_add(const int32_t* x1, const int32_t* y1, const int32_t* z1,
+               const int32_t* x2, const int32_t* y2, const int32_t* z2,
+               int32_t* ox, int32_t* oy, int32_t* oz, const int32_t* m,
+               uint32_t mp, int64_t n, int threads, int64_t blocks,
+               cudaStream_t s) {
+  if (!vmn::coop_shape_ok<TPI>(threads, blocks)) return kBadShape;
+  ec_add_kernel<8, TPI><<<(unsigned)blocks, threads, 0, s>>>(
+      x1, y1, z1, x2, y2, z2, ox, oy, oz, m, mp, n);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------- H5: scalar multiple
@@ -537,14 +570,23 @@ int launch_smul(const int32_t* x, const int32_t* y, const uint8_t* inf,
 
 extern "C" {
 
-int vmn_ec_add(int w, const int32_t* x1, const int32_t* y1, const int32_t* z1,
-               const int32_t* x2, const int32_t* y2, const int32_t* z2,
-               int32_t* ox, int32_t* oy, int32_t* oz, const int32_t* m,
-               uint32_t mp, int64_t n, void* stream) {
+// H8 at (W, TPI) = (8, 2), (8, 4), (8, 8): the pairs that
+// COOP_TPI["ec_point_add", 8] in ops/mont_kernels.py can choose.
+int vmn_ec_add(int w, int tpi, const int32_t* x1, const int32_t* y1,
+               const int32_t* z1, const int32_t* x2, const int32_t* y2,
+               const int32_t* z2, int32_t* ox, int32_t* oy, int32_t* oz,
+               const int32_t* m, uint32_t mp, int64_t n, int threads,
+               int64_t blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VMN_EC_FOR_W(w, ec_add_kernel<W><<<blocks_for(n), kThreads, 0, s>>>(
-                      x1, y1, z1, x2, y2, z2, ox, oy, oz, m, mp, n));
-  return (int)cudaGetLastError();
+#define VMN_ADD_ARGS x1, y1, z1, x2, y2, z2, ox, oy, oz, m, mp, n, threads, \
+                     blocks, s
+  switch (w << 8 | tpi) {
+    case 8 << 8 | 2: return launch_add<2>(VMN_ADD_ARGS);
+    case 8 << 8 | 4: return launch_add<4>(VMN_ADD_ARGS);
+    case 8 << 8 | 8: return launch_add<8>(VMN_ADD_ARGS);
+    default: return kUnsupportedWidth;
+  }
+#undef VMN_ADD_ARGS
 }
 
 // H5 at (W, TPI) = (8, 2), (8, 4): the pairs that COOP_TPI in

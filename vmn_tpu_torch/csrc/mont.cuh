@@ -8,12 +8,14 @@
 // with 64-bit accumulators (nvcc emits mul.wide/add.cc/addc chains), so
 // no carry scan exists.
 //
-// Format at the kernel boundary: 16-bit limbs held in int32, limb-major
-// (L, N) so that a warp reads limb i of 32 neighbouring elements in one
-// coalesced load.  Inside a thread two limbs pack into one 32-bit word,
-// W = L/2 words.  The radix stays R = 2^(16·L) = 2^(32·W); the word-level
-// m' = -m^-1 mod 2^32 replaces vmn_tpu's 16-bit one.  Odd L has no such
-// packing and is refused by the Python wrappers.
+// Format at the kernel boundary: 16-bit limbs held in int32, row-major
+// (N, L) for the cooperative kernels (mont_coop.cuh's load_slice) and
+// limb-major (L, N) for H7, so that a warp reads limb i of 32 neighbouring
+// elements in one coalesced access (store_words, digit here).  Inside a
+// thread two limbs pack into one 32-bit word, W = L/2 words.  The radix
+// stays R = 2^(16·L) = 2^(32·W); the word-level m' = -m^-1 mod 2^32
+// replaces vmn_tpu's 16-bit one.  Odd L has no such packing and is
+// refused by the Python wrappers.
 #pragma once
 
 #include <cstdint>
@@ -77,17 +79,7 @@ __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a,
   for (int j = 0; j < W; ++j) r[j] = (t[j] & keep) | (d[j] & ~keep);
 }
 
-// Word k of element e from limb-major 16-bit limbs (L = 2W rows of n).
-template <int W>
-__device__ __forceinline__ void load_words(uint32_t* x, const int32_t* src,
-                                           int64_t n, int64_t e) {
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    x[k] = (uint32_t)src[(2 * k) * n + e] |
-           ((uint32_t)src[(2 * k + 1) * n + e] << 16);
-  }
-}
-
+// Word k of element e into limb-major 16-bit limbs (L = 2W rows of n).
 template <int W>
 __device__ __forceinline__ void store_words(int32_t* dst, const uint32_t* x,
                                             int64_t n, int64_t e) {

@@ -5,18 +5,17 @@
 //   H2 vmn_mont_exp     replaces K3 mont_exp_pallas        (:222-286, :753-795)
 //   H3 vmn_mont_fb_exp  replaces K4 mont_fb8_exp_pallas and K5 mont_fb_exp_pallas
 //                                                          (:292-353, :361-527)
-//   H4 vmn_ep_table +   replace both pallas_calls of K6 mont_expprod_positions
-//      vmn_ep_acc                                          (:552-727)
+//   H4 vmn_mont_expprod replaces both pallas_calls of K6 mont_expprod_positions
+//                                                          (:552-727)
 //   vmn_mont_chain      the combine of K7 mont_expprod_pallas (:730-750)
 //
-// H1, H2, H3 and the chain spread one element over TPI lanes of a warp
-// with the cooperative product of mont_coop.cuh; the caller picks TPI
-// from (W, N) among the instantiated pairs (vmn_mont_mul, vmn_mont_exp,
-// vmn_mont_fb_exp) by the crossovers measured on the card (COOP_TPI) and
-// passes the launch shape (threads per block, blocks).  Their operands
-// are row-major (N, 2W) 16-bit limbs, so that a group reads its element
-// as one contiguous run.  H4 runs one element per thread with the CIOS
-// product of mont.cuh on limb-major (2W, N) operands.  Each entry point
+// Every kernel here spreads one element over TPI lanes of a warp with
+// the cooperative product of mont_coop.cuh; the caller picks TPI from
+// (W, N) among the instantiated pairs (vmn_mont_mul, vmn_mont_exp,
+// vmn_mont_fb_exp, vmn_mont_expprod) by the crossovers measured on the
+// card (COOP_TPI) and passes the launch shape (threads per block,
+// blocks).  Their operands are row-major (N, 2W) 16-bit limbs, so that a
+// group reads its element as one contiguous run.  Each entry point
 // launches on the caller's stream, does not synchronise, allocates
 // nothing and returns cudaGetLastError() (or kUnsupportedWidth for a
 // width, or a TPI, with no instantiation, kBadShape for a launch shape
@@ -37,8 +36,10 @@
 //
 // ptxas (sm_90a, -O3, from chip_smoke.py's `ptxas` lines): registers,
 // with no stack frame and no spill at any instantiation --
-//   W = 64: mont_mul TPI 8/32: 48/28;       mont_exp 56/32;    chain 26.
-//   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 22.
+//   W = 64: mont_mul TPI 8/32: 48/28;       mont_exp 56/32;    chain 26;
+//           mont_expprod TPI 8/16: 64/53.
+//   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 22;
+//           mont_expprod TPI 1/4: 64/42.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -283,77 +284,195 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
 }
 
 // ----------------------------------- H4: per-digit-position products (Yao)
-// Launch 1: per-element 16-entry power table in device memory, packed
-// words, layout (16, W, n) so that neighbouring elements are neighbours.
+// P_j = prod_i b_i^(d_ij) over the 4-bit digit positions j, as partial
+// products that the caller multiplies together (the H1 lane tree).  One
+// launch, and no table goes through device memory.  A block of G groups of
+// TPI lanes (the cooperative product of mont_coop.cuh) takes `per_block`
+// elements and `jb` digit positions (grid: element blocks x position
+// blocks) and walks its elements in chunks of at most `chunk`:
+//
+// * Build.  Each element's 16 entries b^d go to shared memory: entries 0
+//   (one) and 1 (b) are copied, entries 2..15 are built in four levels of
+//   independent products, level h = 1, 2, 4, 8 making b^(h+k) = b^h·b^k
+//   for k = 1 .. min(h, 15 - h): 1, 2, 4 and 7 products an element.  A
+//   level's (element, entry) products go round all G groups, one barrier
+//   a level: four product latencies where the chain takes fourteen.
+// * Fold.  Item (s, p), p < jb a position and s < subs a share of the
+//   chunk's elements, folds elements s, s + subs, ... into its
+//   accumulator: the position's digit of the element, the factor by a
+//   masked select over all 16 entries (never an index by the secret digit:
+//   docs/DEVIATIONS.md #5), one product.  The items go round the groups;
+//   an item's accumulator stays in shared memory between chunks and in
+//   registers along one.  Neighbouring groups hold neighbouring positions
+//   of one share, so a warp's groups select from the same element at
+//   once: the same words, a broadcast.
+// * Partials.  Item (s, p) of element block b writes partial b·subs + s of
+//   position j0 + p: out (npos, gridDim.x·subs, 2W) row-major limbs.  The
+//   products commute and Montgomery products are exact, so any grouping
+//   gives the plain version's limbs.
+//
+// Shared layout: an entry or accumulator is W words, lane r's slice
+// (S = W/TPI words) at [k / V][r][k % V], V the widest of 4, 2, 1 that
+// divides S (fb_pack's layout): a lane moves its slice as S/V vectors and
+// the TPI lanes of a group touch TPI·V consecutive words, so no bank
+// conflict; an element's table is 16W + 4 words (ep_stride).  Bytes:
+// 4·(chunk·(16W + 4) + jb·subs·W): the launch rule (ep_launch in
+// ops/mont_kernels.py) keeps the accumulators within 64 KB, splitting the
+// positions into blocks of jb (256 at W = 64, 128 at W = 128), and sizes
+// `chunk` to what is left of the 227 KB a block may use (4 KB an element
+// at W = 64, 8 KB at W = 128).  Lanes past the work of a round run on a
+// clamped item and do not store, so that every lane of a warp takes part
+// in the product's shuffles.
+//
+// What bounds it: the products, one a (element, position) and 14 an
+// element for each block of positions; the select reads 16 entries a
+// product from shared memory, 32·S loads and masks a lane against the
+// product's 4·W·S multiply-adds (an eighth at W = 64).  One block of up to 1024 threads an SM (the table fills
+// the shared memory), registers held at 64 by __launch_bounds__ (used in
+// full at W = 64, TPI 8, with no stack frame and no spill).  TPI by N
+// (COOP_TPI): 16 for a few elements, 8 from 1024 at W = 64; at every N
+// 32 lanes were slower, their groups too few for the positions.
+constexpr int kEpBlock = 1024;  // EP_BLOCK in ops/mont_kernels.py
+constexpr int kEpShared = 232448;  // the 227 KB a block may opt in to
+// Words between two elements' tables: 16 entries and 4 words of padding,
+// so that groups reading the same entry of neighbouring elements (the
+// build's first levels) start 4 banks apart.
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-    ep_table_kernel(const int32_t* __restrict__ bases, uint32_t* __restrict__ tbl,
-                    const int32_t* __restrict__ m, const int32_t* __restrict__ one,
-                    uint32_t mp, int64_t n) {
-  __shared__ uint32_t sm[W];
-  vmn::load_vec_shared<W>(sm, m);
-  __syncthreads();
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  uint32_t b[W], cur[W];
-  vmn::load_words<W>(b, bases, n, idx);
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    cur[k] = (uint32_t)one[2 * k] | ((uint32_t)one[2 * k + 1] << 16);
-    tbl[(int64_t)k * n + idx] = cur[k];
-    tbl[(int64_t)(W + k) * n + idx] = b[k];
-  }
-#pragma unroll
-  for (int k = 0; k < W; ++k) cur[k] = b[k];
-#pragma unroll 1
-  for (int d = 2; d < 16; ++d) {
-    vmn::mont_mul<W>(cur, cur, b, sm, mp);
-#pragma unroll
-    for (int k = 0; k < W; ++k) tbl[((int64_t)d * W + k) * n + idx] = cur[k];
+__host__ __device__ constexpr int ep_stride() {
+  return 16 * W + 4;
+}
+
+template <int S>
+__host__ __device__ constexpr int slice_vec() {
+  return S % 4 == 0 ? 4 : S % 2 == 0 ? 2 : 1;
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(uint32_t* p, const uint32_t* w) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    p[0] = w[0];
   }
 }
 
-// Launch 2: thread (lane t, position j) folds elements t, t+lanes, ... of
-// digit position j into one partial product.  The loop over chunks inside
-// the thread takes the place of the TPU's sequential grid axis; the
-// caller multiplies the lanes together (H1 product tree).
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-    ep_acc_kernel(const uint32_t* __restrict__ tbl, const int32_t* __restrict__ e,
-                  int32_t* __restrict__ out, const int32_t* __restrict__ m,
-                  const int32_t* __restrict__ one, uint32_t mp, int64_t n, int le,
-                  int lanes) {
-  __shared__ uint32_t sm[W];
-  vmn::load_vec_shared<W>(sm, m);
-  __syncthreads();
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= lanes) return;
-  const int j = blockIdx.y;
-  const int64_t cols = (int64_t)gridDim.y * lanes;
-  uint32_t acc[W], fac[W];
+// This lane's S words of a W-word value in the shared layout above.
+template <int W, int TPI>
+__device__ __forceinline__ void get_slice(uint32_t* x, const uint32_t* v) {
+  constexpr int S = W / TPI, V = slice_vec<S>();
+  const uint32_t* p = v + vmn::group_lane<TPI>() * V;
 #pragma unroll
-  for (int k = 0; k < W; ++k) {
-    acc[k] = (uint32_t)one[2 * k] | ((uint32_t)one[2 * k + 1] << 16);
-  }
-#pragma unroll 1
-  for (int64_t i = t; i < n; i += lanes) {
-    const uint32_t dig = vmn::digit<4>(e, le, n, i, j);
+  for (int kk = 0; kk < S / V; ++kk) load_vec<V>(x + kk * V, p + kk * TPI * V);
+}
+
+template <int W, int TPI>
+__device__ __forceinline__ void put_slice(uint32_t* v, const uint32_t* x) {
+  constexpr int S = W / TPI, V = slice_vec<S>();
+  uint32_t* p = v + vmn::group_lane<TPI>() * V;
 #pragma unroll
-    for (int k = 0; k < W; ++k) fac[k] = 0;
-#pragma unroll 1
-    for (int d = 0; d < 16; ++d) {
-      const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
-      const uint32_t* row = tbl + (int64_t)d * W * n + i;
+  for (int kk = 0; kk < S / V; ++kk) store_vec<V>(p + kk * TPI * V, x + kk * V);
+}
+
+// fac = entry dig of an element's 16, by a masked select over all of them.
+template <int W, int TPI>
+__device__ __forceinline__ void select_slice(uint32_t* fac,
+                                             const uint32_t* entries,
+                                             uint32_t dig) {
+  constexpr int S = W / TPI, V = slice_vec<S>();
+  const uint32_t* p = entries + vmn::group_lane<TPI>() * V;
 #pragma unroll
-      for (int k = 0; k < W; ++k) fac[k] |= row[(int64_t)k * n] & mask;
+  for (int k = 0; k < S; ++k) fac[k] = 0;
+#pragma unroll 2
+  for (int d = 0; d < 16; ++d) {
+    const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
+#pragma unroll
+    for (int kk = 0; kk < S / V; ++kk) {
+      uint32_t w[V];
+      load_vec<V>(w, p + d * W + kk * TPI * V);
+#pragma unroll
+      for (int v = 0; v < V; ++v) fac[kk * V + v] |= w[v] & mask;
     }
-    vmn::mont_mul<W>(acc, acc, fac, sm, mp);
   }
-  vmn::store_words<W>(out, acc, cols, (int64_t)j * lanes + t);
 }
 
-inline unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+template <int W, int TPI>
+__global__ void __launch_bounds__(kEpBlock, 1)
+    mont_expprod_kernel(const int32_t* __restrict__ bases,
+                        const int32_t* __restrict__ e,
+                        int32_t* __restrict__ out,
+                        const int32_t* __restrict__ m,
+                        const int32_t* __restrict__ one, uint32_t mp,
+                        int64_t n, int le, int jb, int subs,
+                        int64_t per_block, int chunk) {
+  constexpr int S = W / TPI;
+  extern __shared__ __align__(16) uint32_t ep_smem[];
+  uint32_t* tbl = ep_smem;  // [chunk][ep_stride]: 16 entries of W words
+  uint32_t* accs = ep_smem + (size_t)chunk * ep_stride<W>();  // [jb·subs][W]
+  const int G = (int)blockDim.x / TPI;
+  const int g = (int)threadIdx.x / TPI;
+  const int items = jb * subs;
+  const int j0 = (int)blockIdx.y * jb;
+  const int64_t e0 = (int64_t)blockIdx.x * per_block;
+  const int64_t e1 = n < e0 + per_block ? n : e0 + per_block;
+  uint32_t mm[S], x[S], y[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(x, one);
+  for (int it = g; it < items; it += G) put_slice<W, TPI>(accs + it * W, x);
+#pragma unroll 1
+  for (int64_t c0 = e0; c0 < e1; c0 += chunk) {
+    const int cnt = e1 - c0 < chunk ? (int)(e1 - c0) : chunk;
+    __syncthreads();  // the previous chunk's fold has read the table
+    for (int c = g; c < cnt; c += G) {
+      vmn::load_slice<W, TPI>(x, one);
+      vmn::load_slice<W, TPI>(y, bases + (c0 + c) * 2 * W);
+      put_slice<W, TPI>(tbl + c * ep_stride<W>(), x);
+      put_slice<W, TPI>(tbl + c * ep_stride<W>() + W, y);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int h = 1; h < 16; h *= 2) {
+      const int per = (2 * h < 15 ? 2 * h : 15) - h;  // entries h+1 ..
+      const int work = cnt * per;
+#pragma unroll 1
+      for (int w0 = 0; w0 < work; w0 += G) {
+        const int w = w0 + g < work ? w0 + g : work - 1;
+        const int k = 1 + w % per;
+        uint32_t* ent = tbl + (w / per) * ep_stride<W>();
+        get_slice<W, TPI>(x, ent + h * W);
+        get_slice<W, TPI>(y, ent + k * W);
+        vmn::coop_mont_mul<W, TPI>(x, x, y, mm, mp);
+        if (w0 + g < work) put_slice<W, TPI>(ent + (h + k) * W, x);
+      }
+      __syncthreads();
+    }
+    const int steps = (cnt + subs - 1) / subs;
+#pragma unroll 1
+    for (int i0 = 0; i0 < items; i0 += G) {
+      const int it = i0 + g < items ? i0 + g : items - 1;
+      const int s = it / jb, j = j0 + it % jb;
+      get_slice<W, TPI>(x, accs + it * W);
+#pragma unroll 1
+      for (int k = 0; k < steps; ++k) {
+        // an element past the chunk selects entry 0, one
+        const int c = s + k * subs;
+        const int cc = c < cnt ? c : 0;
+        uint32_t dig = vmn::row_digit(e + (c0 + cc) * le, le, j);
+        dig = c < cnt ? dig : 0u;
+        select_slice<W, TPI>(y, tbl + cc * ep_stride<W>(), dig);
+        vmn::coop_mont_mul<W, TPI>(x, x, y, mm, mp);
+      }
+      if (i0 + g < items) put_slice<W, TPI>(accs + it * W, x);
+    }
+  }
+  // Each group reads back only the accumulators it wrote.
+  const int64_t parts = (int64_t)gridDim.x * subs;
+  for (int it = g; it < items; it += G) {
+    get_slice<W, TPI>(x, accs + it * W);
+    const int64_t q = (int64_t)blockIdx.x * subs + it / jb;
+    vmn::store_slice<W, TPI>(out + ((j0 + it % jb) * parts + q) * 2 * W, x);
+  }
 }
 
 template <int W, int WB, int TPI>
@@ -405,6 +524,30 @@ int launch_exp(const int32_t* base, const int32_t* e, int32_t* out,
   }
   mont_exp_kernel<W, TPI><<<(unsigned)blocks, threads, smem, s>>>(
       base, e, out, m, one, mp, n, le, ndig);
+  return (int)cudaGetLastError();
+}
+
+template <int W, int TPI>
+int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
+              const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
+              int le, int jb, int subs, int64_t per_block, int chunk,
+              int threads, int eblocks, int pblocks, cudaStream_t s) {
+  const size_t smem = sizeof(uint32_t) * ((size_t)chunk * ep_stride<W>() +
+                                          (size_t)jb * subs * W);
+  if (!vmn::coop_shape_ok<TPI>(threads, eblocks, kEpBlock) || n < 1 ||
+      le < 1 || jb < 1 || subs < 1 || chunk < 1 || per_block < 1 ||
+      pblocks < 1 || pblocks > 65535 || smem > (size_t)kEpShared) {
+    return kBadShape;
+  }
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mont_expprod_kernel<W, TPI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mont_expprod_kernel<W, TPI>
+      <<<dim3((unsigned)eblocks, (unsigned)pblocks), threads, smem, s>>>(
+          bases, e, out, m, one, mp, n, le, jb, subs, per_block, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -495,22 +638,24 @@ int vmn_mont_fb_exp(int w, int wb, int tpi, const uint32_t* table,
 #undef VMN_FB_ARGS
 }
 
-int vmn_ep_table(int w, const int32_t* bases, uint32_t* tbl, const int32_t* m,
-                 const int32_t* one, uint32_t mp, int64_t n, void* stream) {
+// H4 at the (W, TPI) pairs that COOP_TPI["mont_expprod_positions", W]
+// can choose, in the launch shape of ep_launch (ops/mont_kernels.py).
+int vmn_mont_expprod(int w, int tpi, const int32_t* bases, const int32_t* e,
+                     int32_t* out, const int32_t* m, const int32_t* one,
+                     uint32_t mp, int64_t n, int le, int jb, int subs,
+                     int64_t per_block, int chunk, int threads, int eblocks,
+                     int pblocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VMN_FOR_W(w, ep_table_kernel<W><<<blocks_for(n), kThreads, 0, s>>>(
-                   bases, tbl, m, one, mp, n));
-  return (int)cudaGetLastError();
-}
-
-int vmn_ep_acc(int w, const uint32_t* tbl, const int32_t* e, int32_t* out,
-               const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
-               int le, int ndig_pad, int lanes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks_for(lanes), (unsigned)ndig_pad);
-  VMN_FOR_W(w, ep_acc_kernel<W><<<grid, kThreads, 0, s>>>(
-                   tbl, e, out, m, one, mp, n, le, lanes));
-  return (int)cudaGetLastError();
+#define VMN_EP_ARGS bases, e, out, m, one, mp, n, le, jb, subs, per_block, \
+                    chunk, threads, eblocks, pblocks, s
+  switch (w << 8 | tpi) {
+    case 8 << 8 | 1: return launch_ep<8, 1>(VMN_EP_ARGS);
+    case 8 << 8 | 4: return launch_ep<8, 4>(VMN_EP_ARGS);
+    case 64 << 8 | 8: return launch_ep<64, 8>(VMN_EP_ARGS);
+    case 64 << 8 | 16: return launch_ep<64, 16>(VMN_EP_ARGS);
+    default: return kUnsupportedWidth;
+  }
+#undef VMN_EP_ARGS
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@
 Usage (from any directory, on a machine with a card):
 
     python3 vmn_tpu_torch/kernel_timing.py [--tree DIR] [--n N] [--ec-n N]
-    python3 vmn_tpu_torch/kernel_timing.py --sweep
+    python3 vmn_tpu_torch/kernel_timing.py --sweep [--only WRAPPER ...]
 
 Without --sweep it times, with `device_ms`, the wrappers of the
 `vmn_tpu_torch` package under DIR (default: the tree this file is in) on
@@ -17,13 +17,18 @@ inputs made on the card from fixed seeds:
   exponents (the modp2048 path) and window 4 on 256-bit ones; at the
   P-256 field (W = 8) window 4 on 256-bit exponents (the width of the
   test256 golden) on N elements;
-* H4 `mont_expprod_positions` at modp2048 on N elements, 256-bit
-  exponents;
+* H4 `mont_expprod_positions` at modp2048 at each (elements, exponent
+  bits) the modp2048 path calls it with (`EP_WIDTHS`; N elements for
+  its 10000), and at the P-256 field (W = 8, the test256 golden's width)
+  on N elements, 256-bit exponents;
 * K7's combine over 512 positions: `mont_expprod_combine` where the tree
   has it, else the loop of single-element H1 launches that `mont_expprod`
   ran before it had its own launch;
-* H5 `ec_scalar_mul`, H6 `ec_multiexp_positions` and H8 `ec_point_add` at
-  P-256 on 4096 and on --ec-n points;
+* H5 `ec_scalar_mul`, H6 `ec_multiexp_positions`, H7 `ec_fb_exp` (on g)
+  and H8 `ec_point_add` at P-256 on 4096 and on --ec-n points, H8 also
+  on one pair and, at --ec-n, H8's and H6's kernels alone (without H6's
+  H8 lane tree): the device time of the launches whose name holds
+  `ec_add_kernel` or `ec_mexp_kernel`, from torch.profiler;
 * the EC position combine over 64 positions (a 256-bit
   multi-exponentiation): `ec_multiexp_combine` where the tree has it,
   else the loop of single-point H8 launches that `ec_multiexp` ran
@@ -35,12 +40,16 @@ the same way on the same inputs, one process each.
 
 --sweep times the cooperative kernels of this tree at every TPI (lanes an
 element or point) they are built for: H1, H2 and H3 over a range of N at
-both widths (H3 at both windows of W = 64), H5 over a range of points at
-P-256, and the EC combine over 16 and 64 positions, forcing the TPI
+both widths (H3 at both windows of W = 64), H4 over a range of N at 2047-
+and 256-bit exponents (W = 64) and 256-bit ones (W = 8), H5 over a range
+of points and H8 over 1 to 2^17 pairs at P-256, and the EC combine over
+16 and 64 positions, forcing the TPI
 through `COOP_TPI`, the table the wrappers choose it from (a TPI with no
 kernel is skipped); it prints, per kernel and width, the fastest TPI at
 each N.  It also times H6 (one chunk shape is built) over a range of
-points.
+points, and H4 at modp2048 at each (elements, exponent bits) of the path
+under every pair of its launch-shape constants EP_MIN_ELEMENTS and
+EP_ACC_BYTES (`--only ep_shape` for that alone).
 
 Prints the card's name and power limit, then one JSON object.
 """
@@ -70,7 +79,18 @@ SWEEP_SMUL_N = (256, 1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
 SWEEP_FB_N = {64: (1, 16, 256, 1024, 2048, 4096, 8192, 10000, 16384),
               8: (1, 4, 16, 64, 256, 1024, 4096)}
 SWEEP_MEXP_N = (4096, 16384, 65536, 131072, 262144)
+SWEEP_EP_N = {64: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
+              8: (1, 16, 256, 1024, 4096, 10000)}
+SWEEP_ADD_N = (1, 128, 1024, 4096, 16384, 131072)
+# H4's (elements, exponent bits) on the modp2048 path (PERF.md §6):
+# the element count 10000 stands for --n.
+EP_WIDTHS = ((1, 2047), (6, 2047), (16, 2047), (10000, 100), (10000, 256),
+             (10000, 400), (10000, 612), (10000, 2047))
+EP_CALLS = (2, 2, 1, 2, 7, 9, 3, 1)  # mix + verify calls at each width
 SWEEP_COMBINE_POSITIONS = (16, 64)
+# H4's launch-shape constants (ops/mont_kernels.py), swept at EP_WIDTHS.
+SWEEP_EP_MIN_ELEMENTS = (4, 8, 16, 32, 64)
+SWEEP_EP_ACC_BYTES = (32 * 1024, 64 * 1024, 128 * 1024)
 TPI_CANDIDATES = (1, 2, 4, 8, 16, 32)
 
 
@@ -95,6 +115,26 @@ def device_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean device milliseconds per run of fn() of the CUDA kernels whose
+    name holds `name`, from torch.profiler (the wrapper's other launches,
+    copies and allocations left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    if not us:
+        raise RuntimeError(f"profiler saw no device time of {name}")
+    return us / 1e3 / reps
 
 
 def _elements(gen, n: int, L: int, dev) -> torch.Tensor:
@@ -163,14 +203,22 @@ def time_tree(n: int, ec_n: int) -> dict:
                 lambda: K.mont_fb_exp(tbl8, e, ctx.mod))
             out["mont_fb_exp4"] = device_ms(
                 lambda: K.mont_fb_exp(tbl4, e256, ctx.mod))
-            out["mont_expprod_positions"] = device_ms(
-                lambda: K.mont_expprod_positions(a_n, e256, ctx.mod, 256))
+            for count, bits in EP_WIDTHS:
+                count = n if count == 10000 else count
+                eb = _exponents(gen, count, bits, dev)
+                ab = a[:count]
+                key = ("mont_expprod_positions" if (count, bits) == (n, 256)
+                       else f"mont_expprod_positions_{count}x{bits}")
+                out[key] = device_ms(
+                    lambda: K.mont_expprod_positions(ab, eb, ctx.mod, bits))
             P = _elements(gen, COMBINE_POSITIONS, ctx.L, dev)
             out["mont_expprod_combine"] = device_ms(
                 lambda: _combine(K, P, ctx.mod))
         else:
             out["mont_fb_exp4_w8"] = device_ms(
                 lambda: K.mont_fb_exp(tbl4, e256, ctx.mod))
+            out["mont_expprod_positions_w8"] = device_ms(
+                lambda: K.mont_expprod_positions(a_n, e256, ctx.mod, 256))
     out.update(_time_ec(E, dev, 4096, "_4096"))
     out.update(_time_ec(E, dev, ec_n, ""))
     return out
@@ -202,7 +250,7 @@ def _ec_combine(E, P, mod):
 def _time_ec(E, dev, n: int, tag: str) -> dict:
     import numpy as np
 
-    from vmn_tpu_torch.arith.ec import ECqPGroup
+    from vmn_tpu_torch.arith.ec import ECqPGroup, _ec_fb_table
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
 
@@ -222,6 +270,15 @@ def _time_ec(E, dev, n: int, tag: str) -> dict:
         P = [t[:EC_COMBINE_POSITIONS].contiguous() for t in (X, Y, Z)]
         extra["ec_multiexp_combine"] = device_ms(
             lambda: _ec_combine(E, P, mod))
+        one = [t[1:2].clone() for t in (X, Y, Z, X2, Y2, Z2)]
+        extra["ec_point_add_b1"] = device_ms(
+            lambda: E.ec_point_add(*one, mod), reps=20)
+        extra["ec_point_add_kernel_only"] = kernel_ms(
+            lambda: E.ec_point_add(X, Y, Z, X2, Y2, Z2, mod), "ec_add_kernel")
+        extra["ec_multiexp_positions_kernel_only"] = kernel_ms(
+            lambda: E.ec_multiexp_positions(x, y, inf, e, mod, 256),
+            "ec_mexp_kernel", reps=3)
+    tbx, tby = _ec_fb_table(grp.curve, *grp.g._jac(), 64)
     return {
         **extra,
         f"ec_scalar_mul{tag}": device_ms(
@@ -230,13 +287,17 @@ def _time_ec(E, dev, n: int, tag: str) -> dict:
             lambda: E.ec_multiexp_positions(x, y, inf, e, mod, 256)),
         f"ec_point_add{tag}": device_ms(
             lambda: E.ec_point_add(X, Y, Z, X2, Y2, Z2, mod), reps=20),
+        f"ec_fb_exp{tag}": device_ms(lambda: E.ec_fb_exp(tbx, tby, e, mod)),
     }
 
 
 def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
-                  best: dict, tag: str = "") -> None:
+                  best: dict, tag: str = "", only=()) -> None:
     """Time run(n) at every TPI that divides W and has a kernel, forcing it
-    through COOP_TPI[kernel, w]; the rule is restored after."""
+    through COOP_TPI[kernel, w]; the rule is restored after.  Nothing
+    where `only` names other kernels."""
+    if only and kernel not in only:
+        return
     rule = K.COOP_TPI[kernel, w]
     tpis = []
     try:
@@ -262,10 +323,12 @@ def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
         K.COOP_TPI[kernel, w] = rule
 
 
-def sweep() -> dict:
-    """H1 and H2 at every instantiated TPI over SWEEP_N at both widths, H3
-    over SWEEP_FB_N; H5 over SWEEP_SMUL_N points and the EC combine over
-    SWEEP_COMBINE_POSITIONS at P-256; H6 over SWEEP_MEXP_N points."""
+def sweep(only=()) -> dict:
+    """H1 and H2 at every instantiated TPI over SWEEP_N at both widths, H4
+    over SWEEP_EP_N, H3 over SWEEP_FB_N; H5 over SWEEP_SMUL_N points, H8
+    over SWEEP_ADD_N pairs and the EC combine over
+    SWEEP_COMBINE_POSITIONS at P-256; H6 over SWEEP_MEXP_N points.  Only
+    the kernels (wrapper names) in `only`, where it names any."""
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
@@ -283,7 +346,16 @@ def sweep() -> dict:
                 "mont_exp": lambda k: K.mont_exp(a[:k], e[:k], ctx.mod,
                                                  ebits)}
         for kernel, run in runs.items():
-            _sweep_kernel(K, kernel, w, SWEEP_N[w], run, rows, best)
+            _sweep_kernel(K, kernel, w, SWEEP_N[w], run, rows, best,
+                          only=only)
+        ep_top = max(SWEEP_EP_N[w])
+        a = _elements(gen, ep_top, ctx.L, dev)
+        for bits in (2047, 256) if w == 64 else (256,):
+            e = _exponents(gen, ep_top, bits, dev)
+            _sweep_kernel(K, "mont_expprod_positions", w, SWEEP_EP_N[w],
+                          lambda k: K.mont_expprod_positions(
+                              a[:k], e[:k], ctx.mod, bits), rows, best,
+                          tag=f" bits={bits}", only=only)
         fb_n = max(SWEEP_FB_N[w])
         a = _elements(gen, fb_n, ctx.L, dev)
         for window, bits in ((8, 2047), (4, 256)) if w == 64 else ((4, 256),):
@@ -291,7 +363,7 @@ def sweep() -> dict:
             e = _exponents(gen, fb_n, bits, dev)
             _sweep_kernel(K, "mont_fb_exp", w, SWEEP_FB_N[w],
                           lambda k: K.mont_fb_exp(tbl, e[:k], ctx.mod), rows,
-                          best, tag=f" window={window}")
+                          best, tag=f" window={window}", only=only)
     # The EC kernels' work does not depend on their inputs (constant time,
     # docs/DEVIATIONS.md #5), so field elements below p stand in for points.
     ctx = _moduli(dev)[8]
@@ -301,20 +373,70 @@ def sweep() -> dict:
     e = _exponents(gen, top, 256, dev)
     _sweep_kernel(K, "ec_scalar_mul", 8, SWEEP_SMUL_N,
                   lambda k: E.ec_scalar_mul(x[:k], y[:k], inf[:k], e[:k],
-                                            ctx.mod, 256), rows, best)
+                                            ctx.mod, 256), rows, best,
+                  only=only)
     P = [_elements(gen, max(SWEEP_COMBINE_POSITIONS), ctx.L, dev)
          for _ in range(3)]
     _sweep_kernel(K, "ec_multiexp_combine", 8, SWEEP_COMBINE_POSITIONS,
                   lambda k: E.ec_multiexp_combine(*(t[:k] for t in P),
-                                                  ctx.mod), rows, best)
-    for n in SWEEP_MEXP_N:
+                                                  ctx.mod), rows, best,
+                  only=only)
+    Z1, X2, Y2, Z2 = (_elements(gen, top, ctx.L, dev) for _ in range(4))
+    _sweep_kernel(K, "ec_point_add", 8, SWEEP_ADD_N,
+                  lambda k: E.ec_point_add(x[:k], y[:k], Z1[:k], X2[:k],
+                                           Y2[:k], Z2[:k], ctx.mod),
+                  rows, best, only=only)
+    mexp = not only or "ec_multiexp_positions" in only
+    for n in SWEEP_MEXP_N if mexp else ():
         ms = device_ms(lambda: E.ec_multiexp_positions(
             x[:n], y[:n], inf[:n], e[:n], ctx.mod, 256), reps=5)
         rows.append({"kernel": "ec_multiexp_positions", "W": 8, "N": n,
                      "shape": _mexp_shape(E, n), "ms": ms})
         print(f"[sweep] kernel=ec_multiexp_positions W=8 N={n} "
               f"shape={rows[-1]['shape']} ms={ms:.4f}", flush=True)
+    if not only or "ep_shape" in only:
+        _sweep_ep_shape(K, _moduli(dev)[64], gen, dev, rows)
     return {"sweep": rows, "fastest_tpi": best}
+
+
+def _sweep_ep_shape(K, ctx, gen, dev, rows: list) -> None:
+    """H4 at W = 64 at each of EP_WIDTHS under every (EP_MIN_ELEMENTS,
+    EP_ACC_BYTES) of the sweep, the TPI from its rule; the constants are
+    restored after.  One row per (constants, width) with its launch shape
+    and a `path_ms` row per constants: the widths' times weighted by the
+    path's calls (EP_CALLS)."""
+    a = _elements(gen, 10000, ctx.L, dev)
+    es = {bits: _exponents(gen, 10000, bits, dev)
+          for bits in {b for _, b in EP_WIDTHS}}
+    saved = K.EP_MIN_ELEMENTS, K.EP_ACC_BYTES
+    try:
+        for K.EP_MIN_ELEMENTS in SWEEP_EP_MIN_ELEMENTS:
+            for K.EP_ACC_BYTES in SWEEP_EP_ACC_BYTES:
+                path = 0.0
+                for (n, bits), calls in zip(EP_WIDTHS, EP_CALLS):
+                    ab, eb = a[:n], es[bits][:n]
+                    ms = device_ms(lambda: K.mont_expprod_positions(
+                        ab, eb, ctx.mod, bits), reps=10)
+                    path += calls * ms
+                    sh = K.ep_launch(64, n, K._ndig_pad(bits), K._sms(dev))
+                    rows.append({
+                        "kernel": "ep_shape", "N": n, "bits": bits,
+                        "min_elements": K.EP_MIN_ELEMENTS,
+                        "acc_bytes": K.EP_ACC_BYTES, "ms": ms,
+                        "shape": {f: getattr(sh, f) for f in (
+                            "tpi", "threads", "jb", "subs", "chunk",
+                            "eblocks", "pblocks")}})
+                rows.append({"kernel": "ep_shape",
+                             "min_elements": K.EP_MIN_ELEMENTS,
+                             "acc_bytes": K.EP_ACC_BYTES, "path_ms": path})
+                print(f"[sweep] kernel=ep_shape min_elements="
+                      f"{K.EP_MIN_ELEMENTS} acc_bytes={K.EP_ACC_BYTES} "
+                      f"path_ms={path:.4f} " + " ".join(
+                          f"{r['N']}x{r['bits']}={r['ms']:.4f}"
+                          for r in rows[-1 - len(EP_WIDTHS):-1]),
+                      flush=True)
+    finally:
+        K.EP_MIN_ELEMENTS, K.EP_ACC_BYTES = saved
 
 
 def _mexp_shape(E, n: int) -> dict:
@@ -337,6 +459,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's cooperative kernels at every "
                          "TPI instead")
+    ap.add_argument("--only", nargs="+", default=(), metavar="WRAPPER",
+                    help="with --sweep: only these kernels (wrapper names, "
+                         "e.g. mont_expprod_positions ec_point_add; "
+                         "ep_shape: H4's launch-shape constants)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_timing: no CUDA device", file=sys.stderr)
@@ -350,7 +476,7 @@ def main(argv=None) -> int:
     from vmn_tpu_torch.ops import mont_kernels as K
 
     K.build_kernels()
-    res = sweep() if args.sweep else {
+    res = sweep(frozenset(args.only)) if args.sweep else {
         "tree": str(args.tree), "ms": time_tree(args.n, args.ec_n)}
     print(card)
     print(json.dumps(res))

@@ -19,9 +19,9 @@ functions.  Each has three parts here, as in ops/mont_kernels.py:
 Points at this boundary are Jacobian ``(X, Y, Z)`` triples of ``(N, L)``
 int32 16-bit limb tensors in Montgomery form (infinity: Z == 0), or
 affine ``(x, y)`` with an ``(N,)`` bool infinity mask; exponents are
-``(N, Le)`` standard-form limbs.  H5 and the combine read these row-major
-operands as they are; the wrappers of H6-H8 transpose to the limb-major
-``(L, N)`` layout those kernels read.
+``(N, Le)`` standard-form limbs.  H5, H6, H8 and the combine read these
+row-major operands as they are; H7's wrapper transposes to the
+limb-major ``(L, N)`` layout its kernel reads.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
@@ -68,10 +68,16 @@ design does about it):
   masked-selects its row (a warp broadcast) for one addition per digit.
   The TPU's one-hot f32 MXU gather is not carried over.  Off the mix
   path, as in vmn_tpu (arith/ec.py `_exp_impl`).
-* H8 `ec_point_add` replaces K12 `ec_point_add_pallas` (:747-773): one
-  thread per pair.  Also the EC path's other single-point additions and
-  doublings (a doubling is P + P: the addition takes its doubling branch
-  exactly when H = R = 0).
+* H8 `ec_point_add` replaces K12 `ec_point_add_pallas` (:747-773) on the
+  row-major operands as they lie, on TPI lanes a pair with the cooperative
+  field, TPI by the batch size (`COOP_TPI`: 8 below 4096 pairs, where
+  one pair's 24 dependent products are the latency, 4 to 16383, 2 from
+  16384, where the integer pipe bounds it).  One thread a pair, with
+  its operands in shared memory as in H6, spilled and ran slower at
+  every batch (PERF.md §6).  Bound by its products, 24 a pair in the
+  branchless form.  Also the EC path's other single-point
+  additions and doublings (a doubling is P + P: the addition takes its
+  doubling branch exactly when H = R = 0).
 """
 
 from __future__ import annotations
@@ -83,7 +89,6 @@ import torch
 
 from vmn_tpu_torch.ops import mont_kernels as K
 from vmn_tpu_torch.ops.mont_kernels import (
-    EP_MAX_LANES,
     WINDOW,
     Modulus,
     _digits,
@@ -103,6 +108,7 @@ EP_SUPER = 1 << 20
 MEXP_CHUNK = 56
 MEXP_FOLDERS = 320
 MEXP_BLOCKS = 132
+EP_MAX_LANES = 2048
 _WIDTHS = (8,)  # W = L/2 instantiated in ec_kernels.cu (P-256)
 
 EC_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
@@ -385,7 +391,8 @@ def _library() -> ctypes.CDLL:
             P, I64, I32, U32 = (ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.c_int, ctypes.c_uint32)
             sig = {
-                "vmn_ec_add": [I32] + [P] * 10 + [U32, I64, P],
+                "vmn_ec_add": [I32, I32] + [P] * 10 + [U32, I64, I32, I64,
+                                                       P],
                 "vmn_ec_smul": [I32, I32] + [P] * 9 + [U32, I64, I32, I32,
                                                        I32, I64, P],
                 "vmn_ec_chain": [I32, I32] + [P] * 8 + [U32, I32, P],
@@ -408,16 +415,18 @@ def _words(mod: Modulus) -> int:
     return w
 
 
-def _coords(ts, names, mod: Modulus, n: int):
-    """(n, L) int32 coordinates on the modulus' device -> limb-major
-    (L, n) copies; raises on any other device, dtype or shape."""
-    out = []
-    for t, name in zip(ts, names):
-        if t.dim() != 2 or t.shape[1] != mod.L:
-            raise ValueError(f"{name}: expected (N, {mod.L}) limbs, got "
-                             f"{tuple(t.shape)}")
-        out.append(K._limb_major(t, name, mod.limbs.device, n))
-    return out
+def _limb_major(x: torch.Tensor, name: str, device, cols: int
+                ) -> torch.Tensor:
+    """(cols, limbs) int32 on `device` -> its limb-major copy, as H7 reads
+    it; raises on any other device, dtype or shape."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != cols:
+        raise ValueError(
+            f"{name}: expected int32 (N={cols}, limbs), got "
+            f"{x.dtype} {tuple(x.shape)}"
+        )
+    return x.t().contiguous()
 
 
 def _mask(inf: torch.Tensor, device, n: int) -> torch.Tensor:
@@ -445,20 +454,24 @@ def _rows(ts):
 
 
 def ec_point_add(x1, y1, z1, x2, y2, z2, mod: Modulus):
-    """H8: batched Jacobian + Jacobian, six (N, L) -> three (N, L)."""
+    """H8: batched Jacobian + Jacobian, six (N, L) -> three (N, L), the
+    operands read as they lie (row-major)."""
     if x1.device.type == "cpu":
         return ec_point_add_plain(x1, y1, z1, x2, y2, z2, mod)
-    N, L = x1.shape
+    N, L = x1.shape[0], mod.L
     w = _words(mod)
-    ins = _coords((x1, y1, z1, x2, y2, z2),
-                  ("x1", "y1", "z1", "x2", "y2", "z2"), mod, N)
-    out = _out(L, N, x1.device)
+    dev = mod.limbs.device
+    ins = [K._rows(t, name, dev, N, L) for t, name in zip(
+        (x1, y1, z1, x2, y2, z2), ("x1", "y1", "z1", "x2", "y2", "z2"))]
+    out = [torch.empty((N, L), dtype=torch.int32, device=dev)
+           for _ in range(3)]
     if N:
+        t, threads, blocks = K.coop_launch("ec_point_add", w, N)
         K._check("ec_point_add", _library().vmn_ec_add(
-            w, *map(K._ptr, ins), *map(K._ptr, out), K._ptr(mod.limbs),
-            mod.mprime32, N, K._stream(x1.device)))
+            w, t, *map(K._ptr, ins), *map(K._ptr, out), K._ptr(mod.limbs),
+            mod.mprime32, N, threads, blocks, K._stream(dev)))
         _launched("ec_point_add", N)
-    return _rows(out)
+    return tuple(out)
 
 
 def ec_scalar_mul(x, y, inf, e, mod: Modulus, nbits: int):
@@ -466,7 +479,7 @@ def ec_scalar_mul(x, y, inf, e, mod: Modulus, nbits: int):
     bool, e (N, Le) standard limbs below 2^nbits -> Jacobian (N, L) x3."""
     if x.device.type == "cpu":
         return ec_scalar_mul_plain(x, y, inf, e, mod, nbits)
-    N, L = x.shape
+    N, L = x.shape[0], mod.L
     w = _words(mod)
     dev = mod.limbs.device
     ndig = max(1, -(-nbits // WINDOW))
@@ -492,7 +505,7 @@ def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
     (ndig_pad, L) x3 (see ec_multiexp_positions_plain)."""
     if x.device.type == "cpu":
         return ec_multiexp_positions_plain(x, y, inf, e, mod, nbits)
-    N, L = x.shape
+    N, L = x.shape[0], mod.L
     w = _words(mod)
     dev = mod.limbs.device
     ndig_pad = _ndig_pad(nbits)
@@ -527,7 +540,7 @@ def ec_multiexp_combine(PX, PY, PZ, mod: Modulus):
     ec_multiexp_combine_plain)."""
     if PX.device.type == "cpu":
         return ec_multiexp_combine_plain(PX, PY, PZ, mod)
-    J, L = PX.shape
+    J, L = PX.shape[0], mod.L
     w = _words(mod)
     dev = mod.limbs.device
     if J == 0:
@@ -566,7 +579,7 @@ def ec_fb_exp(table_x, table_y, e, mod: Modulus):
             raise ValueError("tables must be contiguous int32 on the card")
     w = _words(mod)
     N = e.shape[0]
-    eT = K._limb_major(_pad_exponent(e, ndig), "e", dev, N)
+    eT = _limb_major(_pad_exponent(e, ndig), "e", dev, N)
     out = _out(L, N, e.device)
     if N:
         K._check("ec_fb_exp", _library().vmn_ec_fb(

@@ -60,12 +60,21 @@ design does about it):
   a digit) and, at window 8, by the select, which costs about as much
   as the product it feeds.  The TPU's one-hot f32 MXU gather is not
   carried over.
-* H4 `mont_expprod_positions` replaces both `pallas_call`s of K6 (:552-727):
-  launch 1 writes a 16-entry table per element to device memory, launch 2
-  gives each thread one (lane, digit position) and loops over the lane's
-  elements inside the kernel (the TPU's sequential grid axis), then an H1
-  product tree multiplies the lanes.  Bound by products (one per element
-  and position) plus 16·W table words read per product.
+* H4 `mont_expprod_positions` replaces both `pallas_call`s of K6 (:552-727)
+  with one launch in which no table goes through device memory.  A block takes a block of digit positions and of elements and
+  walks its elements in chunks: the groups (TPI lanes, the cooperative
+  product) build each element's 16 entries in shared memory in four
+  levels of independent products, then fold the chunk into one
+  accumulator a (position, share of the elements), with a masked select
+  over all 16 entries; an H1 lane tree multiplies the blocks' partials.
+  Bound by its products: one a (element, position) and 14 an element for
+  each block of positions.  `ep_launch` gives the shape: positions in
+  blocks of `jb` (a multiple of EP_JB dividing ndig_pad, smaller while few
+  elements leave SMs idle), elements in about 132/pblocks blocks of at least
+  EP_MIN_ELEMENTS, chunks sized to the 227 KB a block may use with the
+  accumulators within EP_ACC_BYTES, which keeps W = 96 and 128 in reach.
+  EP_SUPER, EP_PER_LANE and EP_MAX_LANES (the device-memory table's cap
+  and the lane count) are gone with the table; TPI from `COOP_TPI`.
 * K7 `mont_expprod_pallas` (:730-750) is `mont_expprod` here: H4, then
   `mont_expprod_combine`, prod_j P_j^(2^(4j)) in one launch: one warp runs
   the 5·ndig_pad products back to back with H1's cooperative product,
@@ -73,8 +82,7 @@ design does about it):
   chain of dependent products: bound by the latency of one product, not
   by the card's throughput.  ptxas: 26 registers at W = 64, 22 at W = 8.
 
-H1, H2, H3 and the combine take row-major ``(N, L)`` operands as they
-are; H4 reads limb-major ``(L, N)``, which its wrapper transposes to.
+Every kernel here takes row-major ``(N, L)`` operands as they are.
 """
 
 from __future__ import annotations
@@ -95,14 +103,9 @@ import torch
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
 WINDOW = 4  # variable-base and multi-exponentiation window
-EP_JB = 16  # digit positions are padded to a multiple of this (as K6)
-# Elements per H4 table build: the (16, W, n) word table is 4 KB per
-# element at 2048 bits, so 2^20 elements cap it at 4 GiB of the 80 GB card
-# (the TPU capped it at 512 MB of 16 GB HBM, _EP_SUPER).
-EP_SUPER = 1 << 20
-# Elements folded per H4 thread before the H1 lane tree takes over.
-EP_PER_LANE = 8
-EP_MAX_LANES = 2048
+# Digit positions are padded to a multiple of this (as K6); H4's blocks of
+# positions are multiples of it too.
+EP_JB = 16
 
 KERNELS = ("mont_mul", "mont_exp", "mont_fb_exp", "mont_expprod_positions",
            "mont_expprod_combine")
@@ -395,18 +398,26 @@ _BAD_SHAPE = -2
 _WIDTHS = (8, 64)  # W = L/2 instantiated in mont_kernels.cu
 
 # Threads per element (TPI) of the cooperative kernels for n elements of W
-# words: TPI lanes of one warp share an element (H1, H2) or a point (H5,
+# words: TPI lanes of one warp share an element (H1-H4) or a point (H5, H8,
 # the EC combine).  Per (kernel, W), (from n elements, TPI) pairs, largest
 # n first.  Each n is the smallest N that `kernel_timing.py --sweep` timed
 # (N = 1, 4, 16, ..., 2048, 4096, 6144, 8192, 10000, 16384 at W = 64; 1,
 # 16, ..., 8192, 16384, ..., 262144 at W = 8; H3 1, 16, 256, 1024, 2048,
 # 4096, 8192, 10000, 16384 at W = 64 (both windows) and 1, 4, ..., 4096 at
-# W = 8; H5 256, 1024, 4096, 8192, 16384, ..., 262144 points) from which
-# the fewer lanes were faster at every N it timed; the crossover lies
-# between it and the N timed before it (PERF.md §6).  H1 at W = 8 was
-# fastest at TPI 8 at every N, H3 at W = 8 at TPI 4, H5 at TPI 8 at none.  The EC combine is one point (n = 1) on one warp, TPI 8
-# the fastest at 16 and 64 positions.  Every pair has its case in
-# mont_kernels.cu or ec_kernels.cu.
+# W = 8; H4 1, 6, 16, 64, 256, 1024, 2048, 4096, 10000 at W = 64 (2047-
+# and 256-bit exponents) and 1, 16, 256, 1024, 4096, 10000 at W = 8; H5
+# 256, 1024, 4096, 8192, 16384, ..., 262144 points; H8 1, 128, 1024, 4096,
+# 16384, 131072 pairs) from which the fewer lanes were faster at every N
+# it timed; the crossover lies between it and the N timed before it
+# (PERF.md §6).  H1 at W = 8 was fastest at TPI 8 at every N, H3 at W = 8
+# at TPI 4, H5 at TPI 8 at none, H4 at TPI 32 and H8 at TPI 1 at none.
+# H4's crossover at W = 64 moves with the exponent width: at 256 elements
+# TPI 8 won at 2047 bits and TPI 16 at 256 bits, so the rule, keyed on N
+# alone, may pick the slower TPI for wide exponents at 256 <= N < 1024;
+# no call of the modp2048 path falls there (N = 1, 6, 16, 10000).
+# The EC combine is one point (n = 1) on one warp, TPI 8 the fastest at
+# 16 and 64 positions.  Every pair has its case in mont_kernels.cu or
+# ec_kernels.cu.
 COOP_TPI = {
     ("mont_mul", 8): ((1, 8),),
     ("mont_mul", 64): ((4096, 8), (1, 32)),
@@ -414,8 +425,11 @@ COOP_TPI = {
     ("mont_exp", 64): ((2048, 8), (1, 32)),
     ("mont_fb_exp", 8): ((1, 4),),
     ("mont_fb_exp", 64): ((4096, 8), (1024, 16), (1, 32)),
+    ("mont_expprod_positions", 8): ((4096, 1), (1, 4)),
+    ("mont_expprod_positions", 64): ((1024, 8), (1, 16)),
     ("ec_scalar_mul", 8): ((16384, 2), (1, 4)),
     ("ec_multiexp_combine", 8): ((1, 8),),
+    ("ec_point_add", 8): ((16384, 2), (4096, 4), (1, 8)),
 }
 COOP_BLOCK = 128  # threads a block at most (kThreads in mont_kernels.cu)
 
@@ -450,6 +464,75 @@ def fb_launch(w: int, n: int, sms: int):
     per_block = -(-n // sms)
     threads = min(FB_BLOCK, -(-per_block * tpi // 32) * 32)
     return tpi, threads, -(-n * tpi // threads)
+
+
+EP_BLOCK = 1024  # H4's threads a block at most (kEpBlock)
+EP_SHARED = 232448  # the 227 KB of shared memory an H4 block may use
+EP_ACC_BYTES = 64 * 1024  # of which the accumulators take at most this
+# Elements an H4 block, or a share of one, takes at least where N allows.
+# A compromise (`kernel_timing.py --sweep --only ep_shape`, PERF.md §6):
+# fewer speed few elements with many positions, more speed N = 10000.
+EP_MIN_ELEMENTS = 16
+
+
+@dataclass(frozen=True)
+class EpLaunch:
+    """An H4 launch (csrc/mont_kernels.cu): `pblocks` blocks of `jb` digit
+    positions times `eblocks` blocks of `per_block` elements (the last may
+    hold fewer), each block `threads` threads (groups of `tpi` lanes),
+    folding `subs` shares of its elements into each position, in chunks
+    of at most `chunk` elements whose tables fit its shared memory."""
+
+    tpi: int
+    threads: int
+    jb: int
+    subs: int
+    per_block: int
+    chunk: int
+    eblocks: int
+    pblocks: int
+
+    @property
+    def parts(self) -> int:
+        """Partial products a position: one a (element block, share)."""
+        return self.eblocks * self.subs
+
+    def shared_bytes(self, w: int) -> int:
+        """The chunk's tables (16 entries and 4 words of padding an
+        element) and the accumulators."""
+        return 4 * (self.chunk * (16 * w + 4) + self.jb * self.subs * w)
+
+
+def ep_launch(w: int, n: int, npos: int, sms: int) -> EpLaunch:
+    """H4's launch over n >= 1 elements of W words and npos digit
+    positions (a multiple of EP_JB) on a card of `sms` SMs; TPI from
+    COOP_TPI.  Positions go to blocks of jb, the largest
+    multiple of EP_JB dividing npos whose accumulators fit EP_ACC_BYTES;
+    the elements to about sms / pblocks blocks of at least
+    EP_MIN_ELEMENTS elements.  While that leaves SMs without a block (a
+    few elements with many positions), jb takes the next such size down.
+    Within a block, the groups hold jb·subs items (subs shares of at
+    least EP_MIN_ELEMENTS elements), at most EP_BLOCK / tpi a round."""
+    tpi = threads_per_element("mont_expprod_positions", w, n)
+    gmax = EP_BLOCK // tpi
+    cap = EP_ACC_BYTES // (4 * w)  # accumulators a block may hold
+    for jb in range(min(npos, cap) // EP_JB * EP_JB, 0, -EP_JB):
+        if npos % jb:
+            continue
+        pblocks = npos // jb
+        eblocks = max(1, min(-(-sms // pblocks), n // EP_MIN_ELEMENTS))
+        if pblocks * eblocks >= sms:
+            break
+    per_block = -(-n // eblocks)
+    eblocks = -(-n // per_block)  # no block without elements
+    subs = max(1, min(gmax // jb, per_block // EP_MIN_ELEMENTS, cap // jb))
+    items = jb * subs
+    rounds = -(-items // gmax)
+    threads = -(-(-(-items // rounds) * tpi) // 32) * 32
+    most = (EP_SHARED - 4 * w * items) // (4 * (16 * w + 4))  # a chunk
+    chunk = -(-per_block // -(-per_block // most))
+    return EpLaunch(tpi, threads, jb, subs, per_block, chunk, eblocks,
+                    pblocks)
 
 
 def fb_pack(table: torch.Tensor, tpi: int) -> torch.Tensor:
@@ -534,9 +617,9 @@ def _library() -> ctypes.CDLL:
                 "vmn_mont_chain": [I32, P, P, P, U32, I32, P],
                 "vmn_mont_fb_exp": [I32, I32, I32, P, P, P, P, P, U32, I64,
                                     I32, I32, I32, I64, P],
-                "vmn_ep_table": [I32, P, P, P, P, U32, I64, P],
-                "vmn_ep_acc": [I32, P, P, P, P, P, U32, I64, I32, I32, I32,
-                               P],
+                "vmn_mont_expprod": [I32, I32, P, P, P, P, P, U32, I64,
+                                     I32, I32, I32, I64, I32, I32, I32, I32,
+                                     P],
             }
             for name, args in sig.items():
                 fn = getattr(lib, name)
@@ -564,18 +647,6 @@ def _words(mod: Modulus) -> int:
     if mod.L // 2 not in _WIDTHS:
         raise ValueError(f"no kernel instantiated for L={mod.L}")
     return mod.L // 2
-
-
-def _limb_major(x: torch.Tensor, name: str, device, cols: int
-                ) -> torch.Tensor:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != cols:
-        raise ValueError(
-            f"{name}: expected int32 (N={cols}, limbs), got "
-            f"{x.dtype} {tuple(x.shape)}"
-        )
-    return x.t().contiguous()
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -607,7 +678,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
     """H1: batched Montgomery product, (N, L) x (N, L) -> (N, L)."""
     if a.device.type == "cpu":
         return mont_mul_plain(a, b, mod)
-    N, L = a.shape
+    N, L = a.shape[0], mod.L
     w = _words(mod)
     dev = mod.limbs.device
     a = _rows(a, "a", dev, N, L)
@@ -628,7 +699,7 @@ def mont_exp(base: torch.Tensor, e: torch.Tensor, mod: Modulus, nbits: int
     standard limbs below 2^nbits."""
     if base.device.type == "cpu":
         return mont_exp_plain(base, e, mod, nbits)
-    N, L = base.shape
+    N, L = base.shape[0], mod.L
     w = _words(mod)
     dev = mod.limbs.device
     base = _rows(base, "base", dev, N, L)
@@ -682,38 +753,28 @@ def mont_fb_exp(table: torch.Tensor, e: torch.Tensor, mod: Modulus
 def mont_expprod_positions(bases: torch.Tensor, e: torch.Tensor,
                            mod: Modulus, nbits: int) -> torch.Tensor:
     """H4: per-digit-position products P_j = prod_i bases_i^(d_ij),
-    (ndig_pad, L) Montgomery form (see mont_expprod_positions_plain)."""
+    (ndig_pad, L) Montgomery form (see mont_expprod_positions_plain): one
+    launch gives `ep_launch(..).parts` partials a position, an H1 lane
+    tree multiplies them."""
     if bases.device.type == "cpu":
         return mont_expprod_positions_plain(bases, e, mod, nbits)
-    N, L = bases.shape
+    N, L = bases.shape[0], mod.L
     w = _words(mod)
-    bT = _limb_major(bases, "bases", mod.limbs.device, N)
-    eT = _limb_major(e, "e", mod.limbs.device, N)
+    dev = mod.limbs.device
+    bases = _rows(bases, "bases", dev, N, L)
+    e = _rows(e, "e", dev, N)  # digits past its limbs read as zero
     ndig_pad = _ndig_pad(nbits)
-    lib = _library()
-    stream = _stream(bases.device)
-    partials = []
-    for s0 in range(0, N, EP_SUPER):
-        bs = bT[:, s0 : s0 + EP_SUPER].contiguous()
-        es = eT[:, s0 : s0 + EP_SUPER].contiguous()
-        n = bs.shape[1]
-        lanes = 1 << max(0, (max(1, n // EP_PER_LANE)).bit_length() - 1)
-        lanes = min(lanes, EP_MAX_LANES)
-        tbl = torch.empty((16, w, n), dtype=torch.int32, device=bases.device)
-        out = torch.empty((L, ndig_pad * lanes), dtype=torch.int32,
-                          device=bases.device)
-        _check("mont_expprod_positions", lib.vmn_ep_table(
-            w, _ptr(bs), _ptr(tbl), _ptr(mod.limbs), _ptr(mod.one_mont),
-            mod.mprime32, n, stream))
-        _check("mont_expprod_positions", lib.vmn_ep_acc(
-            w, _ptr(tbl), _ptr(es), _ptr(out), _ptr(mod.limbs),
-            _ptr(mod.one_mont), mod.mprime32, n, es.shape[0], ndig_pad,
-            lanes, stream))
-        LAUNCHES["mont_expprod_positions"] += 1
-        partials.append(out.t().reshape(ndig_pad, lanes, L))
-    if not partials:
+    if not N:
         return mod.one_mont.expand(ndig_pad, L).contiguous()
-    return _lane_tree(torch.cat(partials, dim=1), mod, mont_mul)
+    sh = ep_launch(w, N, ndig_pad, _sms(dev))
+    out = torch.empty((ndig_pad, sh.parts, L), dtype=torch.int32, device=dev)
+    _check("mont_expprod_positions", _library().vmn_mont_expprod(
+        w, sh.tpi, _ptr(bases), _ptr(e), _ptr(out), _ptr(mod.limbs),
+        _ptr(mod.one_mont), mod.mprime32, N, e.shape[1], sh.jb, sh.subs,
+        sh.per_block, sh.chunk, sh.threads, sh.eblocks, sh.pblocks,
+        _stream(dev)))
+    _launched("mont_expprod_positions", N)
+    return _lane_tree(out, mod, mont_mul)
 
 
 def mont_expprod_combine(P: torch.Tensor, mod: Modulus) -> torch.Tensor:
@@ -721,7 +782,7 @@ def mont_expprod_combine(P: torch.Tensor, mod: Modulus) -> torch.Tensor:
     positions -> (L,), as one chain on one warp."""
     if P.device.type == "cpu":
         return mont_expprod_combine_plain(P, mod)
-    J, L = P.shape
+    J, L = P.shape[0], mod.L
     w = _words(mod)
     dev = mod.limbs.device
     if J == 0:
