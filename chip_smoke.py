@@ -1,6 +1,7 @@
 """Drive the vmn_tpu_torch mix paths once on one CUDA card.
 
-Usage:  python3 chip_smoke.py [--n N] [--ec-n N] [--profile PATH ...]
+Usage:  python3 chip_smoke.py [--n N] [--ec-n N] [--k3-n N] [--k3i-n N]
+                              [--profile PATH ...]
 
 Phases (one line each; any failure raises and the exit code is not 0):
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -33,7 +34,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
      wrappers choose is checked;
   5. the test256 and P-256 golden mixes on the card: each transcript must
      equal tests/golden/nizkp_{test256,p256}_k1 byte for byte, and the
-     port's verifier must accept it;
+     port's verifier must accept it and write the test vectors of
+     tests/golden/test_vectors{,_p256}.json; then the k=3, t=2, width-2
+     golden mix (three parties in threads over one LocalBoardHub):
+     party 1's transcript must equal tests/golden/nizkp_test256_k3_w2
+     and its test vectors test_vectors_k3w2.json;
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
@@ -42,16 +47,27 @@ Phases (one line each; any failure raises and the exit code is not 0):
      the EC path), with its calls and its time on random inputs of that
      shape (`multiexp` lines);
   7. the EC path: the same at P-256 with --ec-n ciphertexts (default
-     131072 = 2^17, from where `exp_prod` takes H6).
+     131072 = 2^17, from where `exp_prod` takes H6);
+  8. the multi-party path: modp2048, k=3 mix-servers, threshold 2, --k3-n
+     ciphertexts (default 10000), Fiat–Shamir: the three parties (threads
+     of this process on this one card) agree on the public key and on
+     the plaintexts, which are the messages; the port's verifier accepts
+     party 1's transcript and rejects it with one flipped byte; then the
+     same at --k3i-n ciphertexts (default 1000) with interactive
+     challenges (jointly flipped coins), agreement and multiset only,
+     with the launches of H2 and H3 made inside the coin flipping.
 
 Each mix zeroes the wrappers' launch counters just before `session.mix`
-and reads them just after it.  H1-H4 and the combine must have launched
-in the modp2048 mix, and H5, H6, the EC combine (once per H6 call) and H8
-in the P-256 mix (H7 is off that path, as in vmn_tpu, and reports 0); the
-`launches` line also counts H1's, H2's, H3's, H5's and H8's launches in
-each mix by batch size (1, 2-127, >=128); the `kernels` line reports each
-kernel's
-launches in its own path's mix, beside the error, time, plain version's
+(all three parties' in the k=3 runs: the counts are totals over the
+parties) and reads them just after it.  H1-H4 and the combine must have
+launched in the modp2048 mix and in the k=3 mix, H2 and H3 in the
+interactive mix's coin flipping, and H5, H6, the EC combine (once per
+H6 call) and H8 in the P-256 mix (H7 is off that path, as in vmn_tpu,
+and reports 0); the `launches` line also counts H1's, H2's, H3's, H5's
+and H8's launches in each mix by batch size (1, 2-127, >=128); the
+`kernels` line reports each kernel's launches in its own path's mix (a
+Montgomery kernel's also by path: `launches_by_path`), beside the
+error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
 stands under `at_4096`.  The last three lines are that JSON object, the
@@ -103,6 +119,20 @@ MAIN_CHECK = {"mont_mul": "mont_mul", "mont_exp": "mont_exp",
               "ec_fb_exp": "ec_fb_exp", "ec_point_add": "ec_point_add"}
 # phase 3's cooperative kernels
 COOP_MONT = ("mont_mul", "mont_exp", "mont_fb_exp", "mont_expprod_positions")
+# The verifier's test-vector names that tools/make_golden.py requests
+# (copied: that script imports jax).
+TV_NAMES = [
+    "par.sid", "par.version", "par.k", "par.lambda", "par.n_e",
+    "par.n_r", "par.n_v", "par.s_PRG", "par.s_Gq", "par.s_H",
+    "par.omega", "der.rho", "bas.pk", "bas.C_omega", "bas.M_omega",
+    "bas.R_omega", "bas.h", "bas.L_0", "bas.L_l", "bas.y_l", "u",
+    "PoS.s", "PoS.v", "PoS.A", "PoS.F", "PoS.B", "PoS.Ap", "PoS.Bp",
+    "PoS.Cp", "PoS.Dp", "PoS.Fp", "PoS.C", "PoS.D", "PoS.k_A",
+    "PoS.k_B", "PoS.k_C", "PoS.k_D", "PoS.k_E", "PoS.k_F", "Dec.s",
+    "Dec.v",
+    # precomputation-mode names (PoSC + CCPoS chains)
+    "par.N_0", "PoSC.s", "PoSC.v", "CCPoS.s", "CCPoS.v",
+]
 
 # Bounds: the larger of bytes moved (each input read once, each output
 # written once, int32 limbs as stored) over the card's memory rate, and
@@ -801,10 +831,12 @@ def _group(name: str):
     return ModPGroup.named(name, device="cuda")
 
 
-def _params(sid: str, group):
+def _params(sid: str, group, k: int = 1, threshold: int = 1,
+            noninteractive: bool = True):
     from vmn_tpu_torch.protocol.context import ProtocolParams
 
-    return ProtocolParams(sid=sid, k=1, threshold=1, pgroup=group)
+    return ProtocolParams(sid=sid, k=k, threshold=threshold, pgroup=group,
+                          noninteractive=noninteractive)
 
 
 def _points(group, arr):
@@ -812,13 +844,18 @@ def _points(group, arr):
     return arr.to_affine() if hasattr(arr, "to_affine") else arr.to_ints()
 
 
-def verify(params, nizkp: Path):
+def verify(params, nizkp: Path, test_vectors=None):
+    """(accepted, seconds) of the port's verifier on a mixing transcript;
+    with `test_vectors`, (accepted, seconds, the vectors it wrote)."""
     from vmn_tpu_torch.protocol.mixnet.verifier import FiatShamirVerifier
 
     t0 = time.perf_counter()
-    res = FiatShamirVerifier(params, nizkp).verify(expected_type="mixing")
+    v = FiatShamirVerifier(params, nizkp, test_vectors=test_vectors)
+    res = v.verify(expected_type="mixing")
     torch.cuda.synchronize()
-    return res.ok, time.perf_counter() - t0
+    if test_vectors is None:
+        return res.ok, time.perf_counter() - t0
+    return res.ok, time.perf_counter() - t0, v.tv
 
 
 def tampered_rejected(params, nizkp: Path, tmp: Path) -> bool:
@@ -832,9 +869,35 @@ def tampered_rejected(params, nizkp: Path, tmp: Path) -> bool:
     return not ok
 
 
+def same_transcript(nizkp: Path, golden: Path) -> int:
+    """Raises unless the two transcript directories hold the same files
+    with the same bytes; returns the number of files."""
+    files = sorted(p.relative_to(golden) for p in golden.rglob("*")
+                   if p.is_file())
+    got = sorted(p.relative_to(nizkp) for p in nizkp.rglob("*")
+                 if p.is_file())
+    if files != got:
+        raise AssertionError(f"golden file sets differ: {got} != {files}")
+    for rel in files:
+        if (nizkp / rel).read_bytes() != (golden / rel).read_bytes():
+            raise AssertionError(f"golden transcript differs in {rel}")
+    return len(files)
+
+
+def same_test_vectors(tv: dict, name: str) -> int:
+    """Raises unless the verifier's test vectors equal tests/golden/name;
+    returns their number."""
+    want = json.loads((GOLDEN / name).read_text())
+    if tv != want:
+        bad = sorted(k for k in {*tv, *want} if tv.get(k) != want.get(k))
+        raise AssertionError(f"test vectors differ from {name}: {bad}")
+    return len(tv)
+
+
 def golden_phase(tmp: Path, name: str) -> None:
     """The golden k=1 mix of tools/make_golden.py on the card: test256
-    (5 messages) or P-256 (3 messages); transcript byte-equal."""
+    (5 messages) or P-256 (3 messages); transcript byte-equal, and the
+    verifier's test vectors those vmn_tpu froze."""
     t0 = time.perf_counter()
     group = _group(name)
     n, make = ((3, group.from_affine) if name.startswith("P-")
@@ -845,25 +908,267 @@ def golden_phase(tmp: Path, name: str) -> None:
     nizkp, plain, mix_s, launches, _ = run_mix(
         params, make(msgs), tmp / f"golden_{name}", b"golden-party",
         b"golden-ciphs")
-    files = sorted(p.relative_to(golden) for p in golden.rglob("*")
-                   if p.is_file())
-    got = sorted(p.relative_to(nizkp) for p in nizkp.rglob("*")
-                 if p.is_file())
-    if files != got:
-        raise AssertionError(f"golden file sets differ: {got} != {files}")
-    for rel in files:
-        if (nizkp / rel).read_bytes() != (golden / rel).read_bytes():
-            raise AssertionError(f"golden transcript differs in {rel}")
+    files = same_transcript(nizkp, golden)
     if sorted(_points(group, plain)) != sorted(msgs):
         raise AssertionError("golden plaintext multiset differs")
-    ok, _ = verify(params, nizkp)
+    ok, _, tv = verify(params, nizkp, TV_NAMES)
     if not ok:
         raise AssertionError("port verifier rejected the golden transcript")
-    phase("golden", group=name, files=len(files), byte_equal=True,
-          verify_ok=True, mix_s=f"{mix_s:.3f}",
+    tvs = same_test_vectors(tv, "test_vectors.json" if name == "test256"
+                            else "test_vectors_p256.json")
+    phase("golden", group=name, files=files, byte_equal=True,
+          verify_ok=True, test_vectors=tvs, mix_s=f"{mix_s:.3f}",
           launches=json.dumps({k: v for k, v in launches.items() if v},
                               separators=(",", ":")),
           phase_s=f"{time.perf_counter() - t0:.1f}")
+
+
+# ------------------------------------------------------------ phase 8
+
+
+def run_parties(k: int, fn) -> list:
+    """fn(j) in one thread for each party j = 1..k: the k mix-servers as
+    threads of this process, on this one card.  1-based results; the
+    first party's exception is raised once every thread has ended."""
+    import threading
+
+    results, errors = [None] * (k + 1), []
+
+    def run(j):
+        try:
+            results[j] = fn(j)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(j,))
+               for j in range(1, k + 1)]
+    [th.start() for th in threads]
+    [th.join() for th in threads]
+    if errors:
+        raise errors[0]
+    return results
+
+
+def keygen_k(params, seed_of, workdir: Path):
+    """keygen of params.k parties in threads over one LocalBoardHub (the
+    plain-key exchange, then the DKG); (parties, seconds)."""
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+    from vmn_tpu_torch.protocol.mixnet.party import MixNetParty
+
+    hub = LocalBoardHub(params.k)
+
+    def one(j):
+        party = MixNetParty(params, hub.board(j), SeededSource(seed_of(j)),
+                            str(workdir / f"P{j:02d}"))
+        party.keygen()
+        return party
+
+    t0 = time.perf_counter()
+    parties = run_parties(params.k, one)
+    torch.cuda.synchronize()
+    return parties, time.perf_counter() - t0
+
+
+def run_mix_k(parties, ciphs, auxsid: str, width: int = 1, around=None):
+    """The parties mix `ciphs` in threads over a fresh LocalBoardHub, the
+    launch counters zeroed just before and read just after (totals over
+    the parties); `around()`, if given, is a context entered by this
+    thread around the mix.  (outputs, mix seconds, launches, launches by
+    batch size)."""
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+
+    k = parties[1].k
+    hub = LocalBoardHub(k)
+    sessions = [None]
+    for j in range(1, k + 1):
+        parties[j].board = hub.board(j)
+        sessions.append(parties[j].session(auxsid, width))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    E.reset_launches()
+    t0 = time.perf_counter()
+    with (around() if around is not None else contextlib.nullcontext()):
+        outs = run_parties(k, lambda j: sessions[j].mix(ciphs))
+        torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    launches = {**K.LAUNCHES, **E.LAUNCHES}
+    sizes = {k: dict(v) for k, v in (*K.LAUNCH_SIZES.items(),
+                                     *E.LAUNCH_SIZES.items())}
+    return outs, mix_s, launches, sizes
+
+
+@contextlib.contextmanager
+def launches_inside(module_file: str, log: dict):
+    """Counts into log, by wrapper, the Montgomery kernel launches made
+    while a frame of `module_file` is on the launching thread's stack."""
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    launched = K._launched
+
+    def counted(name, n):
+        launched(name, n)
+        f = sys._getframe(1)
+        while f is not None:
+            if f.f_code.co_filename.endswith(module_file):
+                with K.COUNT_LOCK:
+                    log[name] = log.get(name, 0) + 1
+                break
+            f = f.f_back
+
+    K._launched = counted
+    try:
+        yield log
+    finally:
+        K._launched = launched
+
+
+@contextlib.contextmanager
+def seconds_in(owner, names, log: dict):
+    """Adds into log[name] the host seconds spent in each method `name`
+    of class `owner`, over every thread that calls it."""
+    import functools
+    import threading
+
+    lock = threading.Lock()
+    saved = [(name, getattr(owner, name)) for name in names]
+
+    def timed_method(name, fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    log[name] = log.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    for name, fn in saved:
+        setattr(owner, name, timed_method(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def golden_k3_phase(tmp: Path) -> dict:
+    """tools/make_golden.py's k=3, t=2, width-2 mix on the card (test256,
+    5 messages, three parties in threads): party 1's transcript and the
+    verifier's test vectors as vmn_tpu froze them.  Returns the mix's
+    launches."""
+    from vmn_tpu_torch.arith.pgroup import PPArray
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol import elgamal
+
+    t0 = time.perf_counter()
+    group = _group("test256")
+    params = _params("Golden", group, k=3, threshold=2)
+    parties, keygen_s = keygen_k(params, lambda j: f"golden-party{j}".encode(),
+                                 tmp / "golden_k3")
+    msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(5)]
+    plain = elgamal.plain_group(group, 2)
+    m = PPArray(plain, (group.from_ints(msgs),) * 2)
+    r = plain.ring.random((5,), SeededSource(b"golden-ciphs"), 0)
+    ciphs = elgamal.encrypt(parties[1].full_public_key().widen(2), m, r)
+    outs, mix_s, launches, _ = run_mix_k(parties, ciphs, "golden", 2)
+    nizkp = tmp / "golden_k3" / "P01" / "nizkp.golden"
+    files = same_transcript(nizkp, GOLDEN / "nizkp_test256_k3_w2")
+    if not all(outs[j].equals(outs[1]) for j in (2, 3)):
+        raise AssertionError("k=3 golden: the parties' plaintexts differ")
+    for w in range(2):
+        if sorted(outs[1].project(w).to_ints()) != sorted(msgs):
+            raise AssertionError("k=3 golden plaintext multiset differs")
+    ok, _, tv = verify(params, nizkp, TV_NAMES)
+    if not ok:
+        raise AssertionError("port verifier rejected the k=3 golden")
+    tvs = same_test_vectors(tv, "test_vectors_k3w2.json")
+    phase("golden", group="test256-k3w2", k=3, threshold=2, width=2,
+          files=files, byte_equal=True, verify_ok=True, test_vectors=tvs,
+          keygen_s=f"{keygen_s:.3f}", mix_s=f"{mix_s:.3f}",
+          launches=json.dumps({k: v for k, v in launches.items() if v},
+                              separators=(",", ":")),
+          phase_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def multiparty_phase(n: int, tmp: Path, interactive: bool = False):
+    """modp2048, k=3 mix-servers, threshold 2, N ciphertexts: keygen,
+    encryption, the mix of the three parties in threads, agreement on
+    the key and the plaintexts, the plaintext multiset; Fiat–Shamir: the
+    verifier on party 1's transcript, and a flipped byte rejected;
+    interactive: the launches made inside the coin flipping.  Returns
+    (launches in the mix, by batch size, inside the coin flipping)."""
+    from vmn_tpu_torch.crypto.hash import SHA256
+    from vmn_tpu_torch.crypto.prg import PRGHeuristic
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.ops import mont_kernels as K
+    from vmn_tpu_torch.protocol import elgamal
+
+    t0 = time.perf_counter()
+    tag = "interactive" if interactive else "multiparty"
+    group = _group("modp2048")
+    params = _params(f"Smoke{tag}", group, k=3, threshold=2,
+                     noninteractive=not interactive)
+    prg = PRGHeuristic(SHA256)
+    prg.set_seed(SHA256.hash(b"smoke-msgs"))
+    m = group.random_array(n, prg, params.rbitlen)
+    msgs = m.to_ints()
+    from vmn_tpu_torch.protocol.distr.plainkeys import PlainKeysCipher
+
+    torch.cuda.reset_peak_memory_stats()
+    ny_keygen, ny_mix = {}, {}  # host seconds in Naor–Yung, all parties
+    with seconds_in(PlainKeysCipher, ("encrypt", "decrypt"), ny_keygen):
+        parties, keygen_s = keygen_k(
+            params, lambda j: f"smoke-party{j}".encode(), tmp / tag)
+    if len({p.full_public_key().to_bytetree().to_bytes()
+            for p in parties[1:]}) != 1:
+        raise AssertionError(f"{tag}: the parties' public keys differ")
+    r = group.ring.random((n,), SeededSource(b"smoke-ciphs"), 0)
+    ciphs = elgamal.encrypt(parties[1].full_public_key(), m, r)
+    coins = {}
+    with seconds_in(PlainKeysCipher, ("encrypt", "decrypt"), ny_mix):
+        outs, mix_s, launches, sizes = run_mix_k(
+            parties, ciphs, tag, around=(
+                (lambda: launches_inside("protocol/coinflip.py", coins))
+                if interactive else None))
+    if not all(outs[j].equals(outs[1]) for j in (2, 3)):
+        raise AssertionError(f"{tag}: the parties' plaintexts differ")
+    if sorted(outs[1].to_ints()) != sorted(msgs):
+        raise AssertionError(f"{tag}: plaintext multiset not preserved")
+    peak = torch.cuda.max_memory_allocated()
+    checks = {}
+    if interactive:
+        missing = [w for w in ("mont_exp", "mont_fb_exp") if not coins.get(w)]
+        checks["coinflip_launches"] = json.dumps(coins, separators=(",", ":"))
+    else:
+        nizkp = tmp / tag / "P01" / f"nizkp.{tag}"
+        ok, verify_s = verify(params, nizkp)
+        if not ok:
+            raise AssertionError("port verifier rejected the k=3 transcript")
+        if not tampered_rejected(params, nizkp, tmp):
+            raise AssertionError("tampered k=3 transcript accepted")
+        missing = [w for w in K.KERNELS if launches[w] == 0]
+        checks.update(verify_ok=True, tampered_rejected=True,
+                      verify_s=f"{verify_s:.3f}",
+                      verify_cps=f"{n / verify_s:.1f}")
+    if missing:
+        raise AssertionError(f"{tag}: not launched: {missing}")
+    phase(tag, group="modp2048", k=3, threshold=2, N=n,
+          parties="'3 threads of one interpreter on one card'",
+          keys_agree=True, plaintexts_agree=True, multiset=True, **checks,
+          keygen_s=f"{keygen_s:.3f}", mix_s=f"{mix_s:.3f}",
+          mix_cps=f"{n / mix_s:.1f}",
+          naor_yung_keygen_s=f"{sum(ny_keygen.values()):.3f}",
+          naor_yung_mix_s=f"{sum(ny_mix.values()):.3f}",
+          max_memory_allocated=peak,
+          launches=json.dumps({k: v for k, v in launches.items() if v},
+                              separators=(",", ":")),
+          phase_s=f"{time.perf_counter() - t0:.1f}")
+    return launches, sizes, coins
 
 
 @contextlib.contextmanager
@@ -981,10 +1286,15 @@ SPANS = (  # (module, class, method) timed as host spans by --profile
 )
 
 
+K3_WINDOW = "mix of the k=3 parties"  # --profile modp2048-k3's window
+
+
 def profile_phase(name: str, n: int, tmp: Path) -> None:
     """One more mix + verify of a path under torch.profiler: host spans
     (synchronised at entry and exit), device time by kernel and the
-    device idle share over the mix + verify window."""
+    device idle share over the mix + verify window.  modp2048-k3: the
+    three parties' mix in threads (keygen and encryption before the
+    profiler starts), the window from this thread's span around it."""
     import functools
     import importlib
 
@@ -1010,30 +1320,50 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
         from vmn_tpu_torch.crypto.hash import SHA256
         from vmn_tpu_torch.crypto.prg import PRGHeuristic
 
-        group = _group(name)
-        params = _params(f"Prof{name.replace('-', '')}", group)
+        from vmn_tpu_torch.crypto.randomsource import SeededSource
+        from vmn_tpu_torch.protocol import elgamal
+
+        k3 = name == "modp2048-k3"
+        group = _group("modp2048" if k3 else name)
+        params = _params(f"Prof{name.replace('-', '')}", group,
+                         k=3 if k3 else 1, threshold=2 if k3 else 1)
         prg = PRGHeuristic(SHA256)
         prg.set_seed(SHA256.hash(b"smoke-msgs"))
         m = group.random_array(n, prg, params.rbitlen)
+        if k3:
+            parties, _ = keygen_k(params,
+                                  lambda j: f"smoke-party{j}".encode(),
+                                  tmp / "prof_k3")
+            ciphs = elgamal.encrypt(
+                parties[1].full_public_key(), m,
+                group.ring.random((n,), SeededSource(b"smoke-ciphs"), 0))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            nizkp, _, mix_s, _, _ = run_mix(params, m, tmp / f"prof_{name}",
-                                            b"smoke-party", b"smoke-ciphs")
+            if k3:
+                _, mix_s, _, _ = run_mix_k(
+                    parties, ciphs, "prof",
+                    around=lambda: record_function(K3_WINDOW))
+                nizkp = tmp / "prof_k3" / "P01" / "nizkp.prof"
+            else:
+                nizkp, _, mix_s, _, _ = run_mix(
+                    params, m, tmp / f"prof_{name}", b"smoke-party",
+                    b"smoke-ciphs")
             ok, verify_s = verify(params, nizkp)
     finally:
         for owner, meth, fn in saved:
             setattr(owner, meth, fn)
     if not ok:
         raise AssertionError("profiled transcript rejected")
-    names = {f"{c}.{m}" for _, c, m in SPANS}
+    names = {f"{c}.{m}" for _, c, m in SPANS} | {K3_WINDOW}
     spans, ranges, kernels, ivals = {}, {}, {}, []
     events = list(prof.events())
     for e in events:
         if e.device_type != DeviceType.CUDA and e.name in names:
             spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us()
             ranges[e.name] = (e.time_range.start, e.time_range.end)
-    # the window: from the start of session.mix to the verifier's return
-    lo = ranges["MixSession.mix"][0]
+    # the window: from the start of session.mix (of the parties' threads,
+    # for k=3) to the verifier's return
+    lo = ranges[K3_WINDOW if k3 else "MixSession.mix"][0]
     hi = ranges["FiatShamirVerifier.verify"][1]
     for e in events:
         s, t = e.time_range.start, e.time_range.end
@@ -1071,11 +1401,17 @@ def main(argv=None) -> int:
                     help="ciphertexts in the modp2048 mix (default 10000)")
     ap.add_argument("--ec-n", type=int, default=1 << 17,
                     help="ciphertexts in the P-256 mix (default 131072)")
-    ap.add_argument("--profile", choices=["modp2048", "P-256"],
+    ap.add_argument("--k3-n", type=int, default=10000,
+                    help="ciphertexts in the modp2048 k=3 mix "
+                         "(default 10000)")
+    ap.add_argument("--k3i-n", type=int, default=1000,
+                    help="ciphertexts in the modp2048 k=3 interactive mix "
+                         "(default 1000)")
+    ap.add_argument("--profile", choices=["modp2048", "P-256", "modp2048-k3"],
                     action="append", default=[],
                     help="after the phases, profile one more mix + verify "
                          "of this path (host spans, device time by kernel, "
-                         "device idle share); may be given twice")
+                         "device idle share); may be given more than once")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1117,17 +1453,25 @@ def main(argv=None) -> int:
         tmp = Path(tmpname)
         golden_phase(tmp, "test256")
         golden_phase(tmp, "P-256")
+        golden_k3_phase(tmp)
         modp, modp_sizes, modp_widths = slice_phase("modp2048", args.n, tmp)
         ec, ec_sizes, ec_widths = slice_phase("P-256", args.ec_n, tmp)
+        k3, k3_sizes, _ = multiparty_phase(args.k3_n, tmp)
+        k3i, _, coins = multiparty_phase(args.k3i_n, tmp, interactive=True)
         for path in args.profile:
-            profile_phase(path, args.ec_n if path == "P-256" else args.n,
+            profile_phase(path, {"P-256": args.ec_n,
+                                 "modp2048-k3": args.k3_n}.get(path, args.n),
                           tmp)
     compact = {"separators": (",", ":")}
     phase("launches", modp2048_mix=json.dumps(modp, **compact),
           p256_mix=json.dumps(ec, **compact),
+          modp2048_k3_mix=json.dumps(k3, **compact),
+          modp2048_k3_interactive_mix=json.dumps(k3i, **compact),
+          modp2048_k3_interactive_coinflip=json.dumps(coins, **compact),
+          modp2048_k3_by_batch=json.dumps(k3_sizes, **compact),
           modp2048_by_batch=json.dumps(modp_sizes, **compact),
           p256_by_batch=json.dumps(ec_sizes, **compact))
-    missing = [k for k in K.KERNELS if modp[k] == 0]
+    missing = [k for k in K.KERNELS if modp[k] == 0 or k3[k] == 0]
     missing += [k for k in E.EC_KERNELS if ec[k] == 0 and k != "ec_fb_exp"]
     if missing:
         raise AssertionError(f"not launched in their path's mix: {missing}")
@@ -1149,6 +1493,11 @@ def main(argv=None) -> int:
             "launches": (ec if is_ec else modp)[name],
             "path": "P-256 mix" if is_ec else "modp2048 mix",
             **checks[MAIN_CHECK[name]]})
+        if not is_ec:
+            kernels[-1]["launches_by_path"] = {
+                "modp2048 mix": modp[name], "modp2048 k=3 mix": k3[name],
+                "modp2048 k=3 interactive mix": k3i[name],
+                "its coin flipping": coins.get(name, 0)}
     for name in ("mont_mul", "mont_exp"):
         kernels[K.KERNELS.index(name)].update(
             batch1=checks[f"{name}_b1"], w8=checks[f"{name}_w8"],

@@ -87,3 +87,19 @@ def test_port_verifier_rejects_flipped_p256_reply_byte(tmp_path):
     reply.write_bytes(bytes(raw))
     res = FiatShamirVerifier(_params(), nizkp).verify(expected_type="mixing")
     assert not res.ok
+
+
+def test_port_group_names_match_p256_test_vectors():
+    """The verifier's bas.* group test vectors are the groups' reprs; over
+    P-256 they must read as vmn_tpu wrote them
+    (tests/golden/test_vectors_p256.json), whatever the device."""
+    import json
+
+    from vmn_tpu_torch.protocol.context import ProtocolContext
+
+    want = json.loads((GOLDEN.parent / "test_vectors_p256.json").read_text())
+    ctx = ProtocolContext(_params())
+    width = int(want["par.omega"])
+    assert repr(ctx.ciph_group(width)) == want["bas.C_omega"]
+    assert repr(ctx.plain_group(width)) == want["bas.M_omega"]
+    assert repr(ctx.plain_group(width).ring) == want["bas.R_omega"]

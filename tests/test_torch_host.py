@@ -111,6 +111,11 @@ def test_port_imports_neither_jax_nor_vmn_tpu():
         "import vmn_tpu_torch, vmn_tpu_torch.interop\n"
         "import vmn_tpu_torch.protocol.mixnet.party\n"
         "import vmn_tpu_torch.protocol.mixnet.verifier\n"
+        "import vmn_tpu_torch.crypto.naor_yung\n"
+        "import vmn_tpu_torch.protocol.coinflip\n"
+        "import vmn_tpu_torch.protocol.distr.indgen\n"
+        "import vmn_tpu_torch.protocol.distr.plainkeys\n"
+        "import vmn_tpu_torch.protocol.secretsharing.shamir\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'vmn_tpu' or m.startswith('vmn_tpu.')]\n"
         "assert not bad, bad\n"

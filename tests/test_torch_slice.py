@@ -6,12 +6,14 @@ inputs of tools/make_golden.py: test256, k=1, n=5,
 Tolerance: exact equality of every transcript byte.
 """
 
+import json
 import shutil
 from pathlib import Path
 
 import pytest
 
 import torch_port_util  # noqa: F401 (torch thread count)
+from torch_port_util import TV_NAMES
 from vmn_tpu_torch.arith.pgroup import ModPGroup
 from vmn_tpu_torch.crypto.randomsource import SeededSource
 from vmn_tpu_torch.eio.bytetree import lazy_from_bytes
@@ -67,6 +69,51 @@ def test_port_rewrites_golden_transcript(port_mix):
 def test_port_mix_preserves_plaintext_multiset(port_mix):
     _, msgs, plain = port_mix
     assert sorted(plain) == sorted(msgs)
+
+
+def test_port_verifier_writes_golden_test_vectors(port_mix):
+    """The verifier's test vectors on the port's own transcript are the
+    ones vmn_tpu froze (tests/golden/test_vectors.json)."""
+    nizkp, _, _ = port_mix
+    v = FiatShamirVerifier(_params(), nizkp, test_vectors=TV_NAMES)
+    res = v.verify(expected_type="mixing")
+    assert res.ok and res.test_vectors is v.tv
+    want = json.loads((GOLDEN.parent / "test_vectors.json").read_text())
+    assert v.tv == want
+
+
+def test_port_verifier_switches_skip_parts(tmp_path):
+    """check_dec=False skips the decryption proof, check_pos=False the
+    proofs of shuffle: a flipped PoS reply byte is seen only with the
+    shuffle part on.  Without it a mixing transcript is decrypted from
+    ShuffledCiphertexts.bt, where vmn_tpu looks for a list no party
+    writes and fails (ROADMAP queue 3, F9)."""
+    from vmn_tpu.arith.pgroup import ModPGroup as JG
+    from vmn_tpu.protocol.context import ProtocolParams as JParams
+    from vmn_tpu.protocol.mixnet.verifier import FiatShamirVerifier as JV
+    from vmn_tpu.protocol.mixnet.verifier import VerificationError as JErr
+
+    nizkp = tmp_path / "nizkp"
+    shutil.copytree(GOLDEN, nizkp)
+    reply = nizkp / "proofs" / "PoSReply01.bt"
+    raw = bytearray(reply.read_bytes())
+    raw[-1] ^= 0x01
+    reply.write_bytes(bytes(raw))
+    v = FiatShamirVerifier(_params(), nizkp)
+    no_dec = v.verify(expected_type="mixing", check_dec=False, sloppy=True)
+    assert not no_dec.shuffle_ok and no_dec.decrypt_ok
+    no_pos = v.verify(expected_type="mixing", check_pos=False)
+    assert no_pos.ok and no_pos.shuffle_ok and no_pos.decrypt_ok
+    jparams = JParams(sid="Golden", k=1, threshold=1,
+                      pgroup=JG.named("test256"))
+    with pytest.raises(JErr, match="Ciphertexts01.bt"):
+        JV(jparams, nizkp).verify(expected_type="mixing", check_pos=False)
+    # a wrong published plaintext still fails the decryption part
+    plain = nizkp / "Plaintexts.bt"
+    raw = bytearray(plain.read_bytes())
+    raw[-1] ^= 0x01
+    plain.write_bytes(bytes(raw))
+    assert not v.verify(expected_type="mixing", check_pos=False).ok
 
 
 def test_port_verifier_accepts_vmn_tpu_transcript():

@@ -18,6 +18,52 @@ TEST256_P = int(
 )
 
 
+# The verifier's test-vector names that tools/make_golden.py requests
+# (copied: that script imports jax at module level).
+TV_NAMES = [
+    "par.sid", "par.version", "par.k", "par.lambda", "par.n_e",
+    "par.n_r", "par.n_v", "par.s_PRG", "par.s_Gq", "par.s_H",
+    "par.omega", "der.rho", "bas.pk", "bas.C_omega", "bas.M_omega",
+    "bas.R_omega", "bas.h", "bas.L_0", "bas.L_l", "bas.y_l", "u",
+    "PoS.s", "PoS.v", "PoS.A", "PoS.F", "PoS.B", "PoS.Ap", "PoS.Bp",
+    "PoS.Cp", "PoS.Dp", "PoS.Fp", "PoS.C", "PoS.D", "PoS.k_A",
+    "PoS.k_B", "PoS.k_C", "PoS.k_D", "PoS.k_E", "PoS.k_F", "Dec.s",
+    "Dec.v",
+    # precomputation-mode names (PoSC + CCPoS chains)
+    "par.N_0", "PoSC.s", "PoSC.v", "CCPoS.s", "CCPoS.v",
+]
+
+
+def golden_files(root) -> list:
+    """Relative paths of the files under a transcript directory."""
+    return sorted(p.relative_to(root) for p in root.rglob("*")
+                  if p.is_file())
+
+
+def run_parties(k: int, fn, parties=None) -> list:
+    """fn(j) in one thread for each party j in `parties` (default
+    1..k), as the mix-servers of one process; 1-based results.  A
+    party's exception fails the call."""
+    import threading
+    import traceback
+
+    parties = list(range(1, k + 1)) if parties is None else parties
+    results, errors = [None] * (k + 1), []
+
+    def run(j):
+        try:
+            results[j] = fn(j)
+        except Exception:  # noqa: BLE001 - surfaced below
+            errors.append(traceback.format_exc())
+
+    threads = [threading.Thread(target=run, args=(j,), daemon=True)
+               for j in parties]
+    [th.start() for th in threads]
+    [th.join(timeout=900) for th in threads]
+    assert not errors, errors[0]
+    return results
+
+
 def modp2048_p() -> int:
     from vmn_tpu_torch.arith.pgroup import _RFC3526_2048
 

@@ -18,7 +18,7 @@ the on-curve test, point derivation) is `MontCtx`'s.
 
 `ECqPGroup` / `ECArray` mirror `ModPGroup` / `GArray`, so the protocol
 layer runs unchanged over EC groups.  Left out of the JAX version: the
-sharded (`shard_map`) routes and `spill` (ROADMAP queue 11).
+sharded (`shard_map`) routes and `spill` (ROADMAP queue 1 item 7).
 
 Element byte-tree format: node(leaf(x), leaf(y)) with fixed-size
 unsigned big-endian coordinates of ``p.bit_length()//8 + 1`` bytes; the
@@ -533,7 +533,7 @@ class ECqPGroup:
         return isinstance(other, ECqPGroup) and other.name == self.name
 
     def __repr__(self):
-        return f"ECqPGroup({self.name}, {self.device})"
+        return f"ECqPGroup({self.name})"
 
 
 class ECArray:

@@ -21,6 +21,7 @@ the `use_pallas` switches and the shard_map routing.
 from __future__ import annotations
 
 import collections
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -85,6 +86,9 @@ class MontCtx:
         # long-lived bases (g, pk) are re-touched and stay resident.
         self._fb_tables = collections.OrderedDict()
         self._known_ints = collections.OrderedDict()
+        # Parties in threads of one process share a named group's
+        # context: the two caches are read and evicted under this lock.
+        self._cache_lock = threading.Lock()
 
     _FB_CACHE_MAX = 24
     _KNOWN_INT_MAX = 256
@@ -234,16 +238,17 @@ class MontCtx:
 
     def known_int(self, limbs) -> int:
         """Montgomery-form (L,) limbs -> int, cached by their bytes."""
-        raw = host_limbs(limbs)
-        key = raw.tobytes()
-        val = self._known_ints.get(key)
-        if val is None:
-            val = limbs_to_int(host_limbs(self.from_mont(limbs)))
+        key = host_limbs(limbs).tobytes()
+        with self._cache_lock:
+            val = self._known_ints.get(key)
+            if val is not None:
+                self._known_ints.move_to_end(key)
+                return val
+        val = limbs_to_int(host_limbs(self.from_mont(limbs)))
+        with self._cache_lock:
             self._known_ints[key] = val
             while len(self._known_ints) > self._KNOWN_INT_MAX:
                 self._known_ints.popitem(last=False)
-        else:
-            self._known_ints.move_to_end(key)
         return val
 
     def fixed_base_table(self, base_int: int, max_ebits: int,
@@ -251,10 +256,11 @@ class MontCtx:
         """(ndig, 2^window, L) Montgomery-form table T[j, d] =
         (base^(2^(window·j)))^d, built on the device and kept in an LRU."""
         key = (base_int, max_ebits, window)
-        tbl = self._fb_tables.get(key)
-        if tbl is not None:
-            self._fb_tables.move_to_end(key)
-            return tbl
+        with self._cache_lock:
+            tbl = self._fb_tables.get(key)
+            if tbl is not None:
+                self._fb_tables.move_to_end(key)
+                return tbl
         ndig = max(1, -(-max_ebits // window))
         step = 1 << window
         bases = []
@@ -267,9 +273,10 @@ class MontCtx:
         for _ in range(2, step):
             cols.append(self.mul(cols[-1], b_mont))
         tbl = torch.stack(cols, dim=1).contiguous()
-        self._fb_tables[key] = tbl
-        while len(self._fb_tables) > self._FB_CACHE_MAX:
-            self._fb_tables.popitem(last=False)
+        with self._cache_lock:
+            self._fb_tables[key] = tbl
+            while len(self._fb_tables) > self._FB_CACHE_MAX:
+                self._fb_tables.popitem(last=False)
         return tbl
 
     def exp_fixed(self, base_int: int, e, nbits: Optional[int] = None):

@@ -2,7 +2,7 @@
 (`resolve_hash`/`resolve_prg`, vmn_tpu/crypto/provable.py:306-341).
 
 The provably secure Pedersen hash and El Gamal PRG of that module are
-not ported yet (ROADMAP queue 9); naming them raises.
+not ported yet (ROADMAP queue 1 item 6, the CLI); naming them raises.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ def resolve_hash(spec: str) -> Hashfunction:
     if spec.startswith("SHA-"):
         return Hashfunction(spec)
     raise NotImplementedError(
-        f"hash {spec!r}: only SHA-* is ported (Pedersen hash: ROADMAP queue 9)"
+        f"hash {spec!r}: only SHA-* is ported "
+        "(Pedersen hash: ROADMAP queue 1 item 6)"
     )
 
 
@@ -25,5 +26,6 @@ def resolve_prg(spec: str) -> PRGHeuristic:
     if spec.startswith("SHA-"):
         return PRGHeuristic(Hashfunction(spec))
     raise NotImplementedError(
-        f"PRG {spec!r}: only SHA-* is ported (El Gamal PRG: ROADMAP queue 9)"
+        f"PRG {spec!r}: only SHA-* is ported "
+        "(El Gamal PRG: ROADMAP queue 1 item 6)"
     )

@@ -128,9 +128,10 @@ def reset_launches() -> None:
 
 
 def _launched(name: str, n: int) -> None:
-    LAUNCHES[name] += 1
-    if name in LAUNCH_SIZES:
-        LAUNCH_SIZES[name][K.size_bucket(n)] += 1
+    with K.COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if name in LAUNCH_SIZES:
+            LAUNCH_SIZES[name][K.size_bucket(n)] += 1
 
 
 # --------------------------------------------------------- plain versions
@@ -525,7 +526,7 @@ def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
             K._ptr(e[s0:]), K._ptr(out), K._ptr(mod.limbs),
             K._ptr(mod.one_mont), mod.mprime32, n, e.shape[1], ndig_pad,
             subs, blocks, K._stream(dev)))
-        LAUNCHES["ec_multiexp_positions"] += 1
+        _launched("ec_multiexp_positions", n)
         parts.append(out)
     if not parts:
         zero = torch.zeros((ndig_pad, L), dtype=torch.int32, device=dev)
@@ -586,5 +587,5 @@ def ec_fb_exp(table_x, table_y, e, mod: Modulus):
             w, K._ptr(table_x), K._ptr(table_y), K._ptr(eT),
             *map(K._ptr, out), K._ptr(mod.limbs), K._ptr(mod.one_mont),
             mod.mprime32, N, eT.shape[0], ndig, K._stream(e.device)))
-        LAUNCHES["ec_fb_exp"] += 1
+        _launched("ec_fb_exp", N)
     return _rows(out)

@@ -129,10 +129,16 @@ def size_bucket(n: int) -> str:
     return SIZE_BUCKETS[0 if n == 1 else 1 if n < 128 else 2]
 
 
+# Parties in threads of one process launch concurrently; the counts are
+# totals over them.
+COUNT_LOCK = threading.Lock()
+
+
 def _launched(name: str, n: int) -> None:
-    LAUNCHES[name] += 1
-    if name in LAUNCH_SIZES:
-        LAUNCH_SIZES[name][size_bucket(n)] += 1
+    with COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if name in LAUNCH_SIZES:
+            LAUNCH_SIZES[name][size_bucket(n)] += 1
 
 
 # ------------------------------------------------------------ constants

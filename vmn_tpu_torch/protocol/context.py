@@ -1,6 +1,9 @@
 """Port of `vmn_tpu.protocol.context`: security parameters, groups and
-the Fiat–Shamir prefix.  Only the non-interactive (Fiat–Shamir) mode is
-ported; interactive challenges (joint coin flipping) raise.
+the Fiat–Shamir prefix.  In the interactive mode
+(`noninteractive=False`) the challenge bit lengths are `vbitlen` and
+`ebitlen`, and each mixing session replaces the random-oracle
+challenger by jointly flipped coins (`protocol.coinflip.ChallengerI`,
+set up in `MixSession.__init__`).
 
 The equivalent of the reference's ProtocolElGamal base-class state
 (reference: ProtocolElGamal.java:73 — group/bit-length/PRG/RO-hash
@@ -51,10 +54,6 @@ class ProtocolParams:
     rohash_string: Optional[str] = None
 
     def __post_init__(self):
-        if not self.noninteractive:
-            raise NotImplementedError(
-                "interactive mode (coin-flipped challenges) is not ported"
-            )
         if self.pgroup is None:
             self.pgroup = ModPGroup.named("modp2048")
         if self.prg_string is None:

@@ -13,9 +13,10 @@ instances are collapsed (summed) into one joint key:
 
 Shares travel over the bulletin board encrypted to the receiver's
 CCA2 public key (reference: Pedersen.java dealSecret:355 encrypts with
-the pkeys from PlainKeys).  The cipher is pluggable: the in-process
-demo harness uses the identity cipher, the distributed runtime plugs
-Naor–Yung (`vmn_tpu.crypto.naor_yung`, not ported yet).
+the pkeys from PlainKeys).  The cipher is pluggable: for k > 1,
+`MixNetParty.setup` runs `plainkeys.run_plainkeys` and passes its
+Naor–Yung `PlainKeysCipher`; the identity cipher is the default of a
+call without one.
 
 Publishes per-party `PolynomialInExponent` byte trees and checks each
 received share against the dealt polynomial (Feldman verification
@@ -76,17 +77,12 @@ class DKGResult:
 
 
 def evaluate_poly_in_exp(coeffs: GArray, i: int) -> GArray:
-    """prod_m c_m^{i^m} for scalar index i."""
-    grp = coeffs.grp
-    t = coeffs.size
-    ring = grp.ring
-    powers = []
-    acc = 1
-    for _ in range(t):
-        powers.append(acc)
-        acc = acc * i
-    e = ring.from_ints(powers)
-    return coeffs.exp_prod(e)
+    """prod_m c_m^{i^m} for scalar index i.  The exponents are public and
+    small: the multi-exponentiation runs over the bits of i^(t-1) alone,
+    not the ring's."""
+    powers = [i ** m for m in range(coeffs.size)]
+    e = coeffs.grp.ring.from_ints(powers)
+    return coeffs.exp_prod(e, max(1, powers[-1].bit_length()))
 
 
 def run_dkg(

@@ -1,11 +1,16 @@
 """A mix-server: key generation, shuffling, decryption, proof export
 (port of `vmn_tpu.protocol.mixnet.party`, plain PoS path).
 
-Ported: `MixNetParty` (k=1 setup, `keygen`, `load_keys`,
-`full_public_key`, `session`) and `MixSession.shuffle` without
-precomputation, `_prove_pos`, `_verify_pos`, `decrypt` and `mix`.  The
-precomputation / commitment-consistent chain (PoSC + CCPoS) raises
-(ROADMAP queue 1 item 7); k > 1 needs the plain-key exchange (queue 9).
+Ported: `MixNetParty` (`setup` with the plain-key exchange for k > 1,
+`keygen`, `load_keys`, `set_public_key`, `full_public_key`,
+`set_active`, `session`) and `MixSession` in both challenge modes
+(Fiat–Shamir, or jointly flipped coins when the parameters say
+`noninteractive=False`): `shuffle` without precomputation, with the
+own output computed beside the previous party's verification
+(`_OptimisticOutput`), `_prove_pos`, `_verify_pos`, `decrypt` and `mix`.
+The precomputation / commitment-consistent chain (PoSC + CCPoS) raises
+(ROADMAP queue 1 item 4).  Left out of `vmn_tpu`'s version: the JAX-only
+`backpressure` and the file-backed spill of intermediate lists.
 
 Proof-directory layout (reference: MixNetElGamalSession.java:381-446):
 
@@ -26,8 +31,11 @@ Proof-directory layout (reference: MixNetElGamalSession.java:381-446):
 
 from __future__ import annotations
 
+import threading
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
+
+import torch
 
 from vmn_tpu_torch import VCR_COMPAT_VERSION
 from vmn_tpu_torch.arith.pgroup import Permutation, PPArray, PPGroup
@@ -74,6 +82,7 @@ class MixNetParty:
         board: BulletinBoard,
         randomsource,
         directory: Optional[str] = None,
+        cipher=None,
         log=None,
     ):
         self.log = log if log is not None else Log.silent()
@@ -89,16 +98,22 @@ class MixNetParty:
             if self.directory is not None
             else None
         )
+        self.cipher = cipher
+        self.plainkeys = None
         self.dkg: Optional[dkg_mod.DKGResult] = None
+        self.external_pk: Optional["elgamal.ElGamalPublicKey"] = None
         self.active = [True] * (self.k + 1)  # 1-based; [0] unused
 
     def setup(self) -> None:
-        """Point-to-point CCA2 keys protect VSS shares for k > 1
-        (reference: ProtocolElGamal.setup:807-832); k = 1 needs none."""
-        if self.k > 1:
-            raise NotImplementedError(
-                "k > 1 needs the plain-key exchange (ROADMAP queue 9)"
-            )
+        """Establish the point-to-point CCA2 keys (PlainKeys) used to
+        protect VSS shares, once per protocol instance (reference:
+        ProtocolElGamal.setup:807-832); k = 1 needs none."""
+        if self.cipher is None and self.k > 1:
+            self.log.info("Exchange plain (CCA2) keys.")
+            from vmn_tpu_torch.protocol.distr.plainkeys import run_plainkeys
+
+            self.plainkeys = run_plainkeys(self.ctx, self.board, self.rs)
+            self.cipher = self.plainkeys.cipher(self.rs)
 
     def keygen(self) -> "elgamal.ElGamalPublicKey":
         """Run DKG; returns the full public key (g, y).  Idempotent: the
@@ -109,7 +124,7 @@ class MixNetParty:
             return self.full_public_key()
         self.setup()
         self.log.info("Generate public key (distributed key generation).")
-        self.dkg = dkg_mod.run_dkg(self.ctx, self.board, self.rs)
+        self.dkg = dkg_mod.run_dkg(self.ctx, self.board, self.rs, self.cipher)
         if self.state is not None:
             self.state.write_bytetree(
                 "KeyAndPoly.bt",
@@ -125,8 +140,9 @@ class MixNetParty:
         return self.full_public_key()
 
     def load_keys(self, required: bool = True) -> bool:
-        """Reload persisted DKG state (`KeyAndPoly.bt`, which `vmn_tpu`
-        writes in the same format) from the working directory."""
+        """Reload persisted key state from the working directory: the
+        DKG result (`KeyAndPoly.bt`, which `vmn_tpu` writes in the same
+        format) or an external key (`ExternalPublicKey.bt`)."""
         if self.state is not None:
             bt = self.state.read_bytetree("KeyAndPoly.bt")
             if bt is not None:
@@ -138,15 +154,38 @@ class MixNetParty:
                     bt[2].to_u32(),
                 )
                 return True
+            ext = self.state.read_bytetree("ExternalPublicKey.bt")
+            if ext is not None:
+                self.external_pk = elgamal.ElGamalPublicKey.from_bytetree(
+                    self.ctx.key_group(), ext
+                )
+                return True
         if required:
             raise ProtocolError(
                 "no key state; run keygen or set a public key first"
             )
         return False
 
+    def set_public_key(self, pk: "elgamal.ElGamalPublicKey") -> None:
+        """External-key mode: shuffle against a key generated elsewhere
+        — no secret shares, so only shuffle sessions are allowed
+        (reference: MixNetElGamal.setPublicKey:227-242)."""
+        self.external_pk = pk
+        self.dkg = None
+        if self.state is not None:
+            self.state.write_bytetree("ExternalPublicKey.bt",
+                                      pk.to_bytetree())
+
     def full_public_key(self) -> "elgamal.ElGamalPublicKey":
+        if self.external_pk is not None:
+            return self.external_pk
         g = self.ctx.key_group().g
         return elgamal.ElGamalPublicKey(g, self.dkg.joint_public_key)
+
+    def set_active(self, active: List[bool]) -> None:
+        """1-based active flags ([0] unused) (reference:
+        MixNetElGamalTool -sact, SURVEY.md §2.5 elasticity)."""
+        self.active = list(active)
 
     def active_threshold(self) -> int:
         """Smallest index L such that parties 1..L include `threshold`
@@ -164,6 +203,55 @@ class MixNetParty:
         if self.directory is not None:
             nizkp = self.directory / f"nizkp.{auxsid}"
         return MixSession(self, auxsid, width, nizkp)
+
+
+class _OptimisticOutput:
+    """Own-turn output computed concurrently with verification of the
+    previous party's proof (reference: optimistic pipelining,
+    ShufflerElGamalSession.committedShuffleVerifyOptim:839-859, joined
+    at :937-944).  The worker computes re-encrypt+permute AND the
+    byte-tree serialization (the host-side cost), overlapping them with
+    the verifier's multi-exponentiations; the result is discarded when
+    the verification rejects (the chain input changes to the
+    passthrough).  The worker runs on the creating thread's CUDA stream,
+    so its kernels follow the ones that produced its input."""
+
+    def __init__(self, inp, compute):
+        self.based_on = inp
+        self.out = None
+        self.out_bytes = None
+        self.error = None
+        stream = (torch.cuda.current_stream()
+                  if torch.cuda.is_initialized() else None)
+
+        def work():
+            try:
+                with torch.cuda.stream(stream):
+                    out = compute(inp)
+                    self.out = out
+                    self.out_bytes = out.to_bytetree().to_bytes()
+            except Exception as e:  # noqa: BLE001 - surfaced on join
+                self.error = e
+
+        self.thread = threading.Thread(target=work, daemon=True)
+        self.thread.start()
+
+    def join(self, inp):
+        """Result if it was computed from `inp`, else (None, None)."""
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        if self.based_on is inp:
+            return self.out, self.out_bytes
+        return None, None
+
+
+def _next_active(party, l, active_threshold):
+    """Next active party index after l in the chain, or 0."""
+    for m in range(l + 1, active_threshold + 1):
+        if party.active[m]:
+            return m
+    return 0
 
 
 class MixSession:
@@ -196,6 +284,32 @@ class MixSession:
             self.rs = SeededSource(seed)
         else:
             self.rs = party.rs
+        if not party.par.noninteractive:
+            # Interactive mode: challenges are jointly flipped coins
+            # (reference: ChallengerI.java:53-60; selected by the
+            # `corr` info field, ProtocolElGamal.java:825-831).
+            from vmn_tpu_torch.protocol.coinflip import (
+                ChallengerI,
+                CoinFlipPRingSource,
+            )
+
+            source = CoinFlipPRingSource(
+                self.ctx, self.board.scope("coins"), self.rs,
+                cipher=party.cipher,
+            )
+            # Pre-deal the coins an entire mix is expected to consume
+            # (k PoS proofs + decryption, each one PRG seed + one
+            # challenge): the first challenge triggers one batched
+            # dealing burst, and every challenge costs a single open
+            # round (reference: prepareCoins during idle time,
+            # CoinFlipPRingSource.java:153-232).  Deferred to first
+            # use so constructing a session stays network-free.
+            q = self.ctx.pgroup.ring.q
+            per = max(1, (q.bit_length() - party.par.rbitlen) // 8)
+            v_b = (party.par.vbitlen + 7) // 8
+            per_proof = -(-32 // per) + -(-v_b // per)
+            source.pre_target = (party.k + 1) * per_proof
+            self.ctx.challenger = ChallengerI(source)
         self.nizkp = nizkp
         self.proofs = nizkp / "proofs" if nizkp else None
         if nizkp is not None:
@@ -227,13 +341,13 @@ class MixSession:
 
     def precomp(self, maxciph: int) -> None:
         raise NotImplementedError(
-            "precomputation is not ported (ROADMAP queue 1 item 7)"
+            "precomputation is not ported (ROADMAP queue 1 item 4)"
         )
 
     def committed_shuffle(self, ciphertexts, write_type: bool = True):
         raise NotImplementedError(
             "the commitment-consistent shuffle is not ported "
-            "(ROADMAP queue 1 item 7)"
+            "(ROADMAP queue 1 item 4)"
         )
 
     # ----------------------------------------------------------- shuffle
@@ -286,15 +400,28 @@ class MixSession:
             prover = PoSProver(pos_par, self.rs)
             prover.precompute(g, generators, permutation)
 
+        # Sequential chain over parties, with the own output computed
+        # beside the previous party's verification
+        # (reference: ShufflerElGamalSession.java:839-944).
+        def _own_output(x):
+            return x.mul(reenc_factors).permute(permutation.inv())
+
         inp = ciphertexts
         valid_proofs = 0
+        optimistic: Optional[_OptimisticOutput] = None
         for l in range(1, active_threshold + 1):
             if not party.active[l]:
                 continue
             if l == self.j:
-                out = inp.mul(reenc_factors).permute(permutation.inv())
+                out = out_bytes = None
+                if optimistic is not None:
+                    out, out_bytes = optimistic.join(inp)
+                    optimistic = None
+                if out is None:
+                    out = _own_output(inp)
+                    out_bytes = out.to_bytetree().to_bytes()
                 reenc_factors = None  # dead once the output exists
-                b.publish(f"Ciphertext{l}", out.to_bytetree().to_bytes())
+                b.publish(f"Ciphertext{l}", out_bytes)
                 party.log.child().info(
                     "Re-encrypt, permute and prove shuffle (PoS)."
                 )
@@ -309,6 +436,9 @@ class MixSession:
                     out = self._ciph_group().elem_from_bytetree(out_bt, n)
                 except (ByteTreeError, ValueError):
                     out = inp.copy_of_range(0, n)
+                if (_next_active(party, l, active_threshold) == self.j
+                        and permutation is not None):
+                    optimistic = _OptimisticOutput(out, _own_output)
                 party.log.child().info(f"Verify shuffle of party {l} (PoS).")
                 if self._verify_pos(b, l, pos_par, g, generators,
                                     wide_pk_elem, inp, out):
@@ -400,6 +530,10 @@ class MixSession:
         """Distributed verifiable decryption
         (reference: DistrElGamalSession.decrypt:344-540)."""
         party = self.party
+        if party.external_pk is not None:
+            raise ProtocolError(
+                "decryption impossible with an externally set public key"
+            )
         ctx = self.ctx
         k = party.k
         threshold = party.par.threshold

@@ -3,9 +3,12 @@
 
 Verifies `mixing`, `shuffling` and `decryption` transcripts offline — no
 network, no secrets (reference:
-MixNetElGamalVerifyFiatShamirSession.verify:1318-1668).  A transcript of
-the precomputation mode (`proofs/maxciph`, PoSC + CCPoS) raises
-(ROADMAP queue 1 item 7); test-vector output is not ported yet.
+MixNetElGamalVerifyFiatShamirSession.verify:1318-1668), with the
+reference's test-vector output (`test_vectors=`, `self.tv`) and its
+skip-part switches (`check_pos`, `check_dec`, `sloppy`; `check_posc`
+and `check_ccpos` are accepted for the precomputation mode).  A
+transcript of the precomputation mode (`proofs/maxciph`, PoSC + CCPoS)
+raises (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 from vmn_tpu_torch import VCR_COMPAT_VERSION
 from vmn_tpu_torch.arith.pgroup import deferred_membership
@@ -50,6 +53,7 @@ class VerificationResult:
     active_threshold: int
     shuffle_ok: bool
     decrypt_ok: bool
+    test_vectors: Dict[str, str]
 
     @property
     def ok(self) -> bool:
@@ -59,10 +63,28 @@ class VerificationResult:
 class FiatShamirVerifier:
     """Universal verifier for a nizkp directory."""
 
-    def __init__(self, params: ProtocolParams, nizkp):
+    def __init__(self, params: ProtocolParams, nizkp,
+                 test_vectors: Optional[List[str]] = None):
         self.par = params
         self.nizkp = Path(nizkp)
         self.proofs = self.nizkp / "proofs"
+        self.tv_names = set(test_vectors or [])
+        self.tv: Dict[str, str] = {}
+
+    def _tv(self, name: str, value) -> None:
+        """Test-vector output.  A requested PREFIX (e.g. "PoS")
+        activates every dotted name under it, exactly like the
+        reference name check (reference:
+        MixNetElGamalVerifyFiatShamir.checkTestVector:399-409,
+        checkPrintTestVector:418-430).  `value` may be a zero-argument
+        callable, called only when the name is requested (serializing
+        an N-array costs a device-to-host copy)."""
+        if name in self.tv_names or (
+            "." in name and name.split(".", 1)[0] in self.tv_names
+        ):
+            if callable(value):
+                value = value()
+            self.tv[name] = str(value)
 
     def _fail(self, msg: str):
         raise VerificationError(msg)
@@ -82,15 +104,26 @@ class FiatShamirVerifier:
 
     def verify(self, expected_type: Optional[str] = None,
                expected_auxsid: Optional[str] = None,
-               expected_width: Optional[int] = None) -> VerificationResult:
+               check_pos: bool = True,
+               check_dec: bool = True,
+               check_posc: bool = True,
+               check_ccpos: bool = True,
+               expected_width: Optional[int] = None,
+               sloppy: bool = False) -> VerificationResult:
         """Optimistic verification: subgroup-membership checks (host
         Jacobi, or the device QR test for large CUDA arrays) are deferred
         to a worker and joined before the verdict; if any fails — only
         possible on a Byzantine transcript — the whole verification
-        reruns with inline checks."""
-        kw = dict(expected_type=expected_type,
-                  expected_auxsid=expected_auxsid,
-                  expected_width=expected_width)
+        reruns with inline checks.  `check_pos`/`check_dec` skip the
+        shuffle or the decryption part (reference:
+        MixNetElGamalVerifyFiatShamirTool.java -nopos/-nodec/-sloppy,
+        :540-641)."""
+        kw = dict(
+            expected_type=expected_type, expected_auxsid=expected_auxsid,
+            check_pos=check_pos, check_dec=check_dec,
+            check_posc=check_posc, check_ccpos=check_ccpos,
+            expected_width=expected_width, sloppy=sloppy,
+        )
         futures = []
         with ThreadPoolExecutor(max_workers=1) as pool:
             try:
@@ -114,7 +147,9 @@ class FiatShamirVerifier:
             return False
 
     def _verify_inner(self, expected_type=None, expected_auxsid=None,
-                      expected_width=None) -> VerificationResult:
+                      check_pos=True, check_dec=True, check_posc=True,
+                      check_ccpos=True, expected_width=None,
+                      sloppy=False) -> VerificationResult:
         nz = self.nizkp
         version = self._read(nz / "version").decode().strip()
         if version != VCR_COMPAT_VERSION:
@@ -128,18 +163,41 @@ class FiatShamirVerifier:
             self._fail("wrong auxsid")
         if expected_width is not None and width != expected_width:
             self._fail(f"wrong width {width} != {expected_width}")
-        do_pos = ptype in ("mixing", "shuffling")
-        do_dec = ptype in ("mixing", "decryption")
+        do_pos = check_pos and ptype in ("mixing", "shuffling")
+        do_dec = check_dec and ptype in ("mixing", "decryption")
+        # Skip-part switches of the precomputation mode, kept for its
+        # port (reference: -noposc / -noccpos / -sloppy).
+        self._check_posc = check_posc
+        self._check_ccpos = check_ccpos
+        self._sloppy = sloppy
 
         ctx = ProtocolContext(self.par, f"{self.par.sid}.{auxsid}")
+        # The reference's test-vector names (reference:
+        # MixNetElGamalVerifyFiatShamirSession.java:162-1634).  Values
+        # are hex byte trees / decimal ints in the canonical encodings.
+        self._tv("par.sid", self.par.sid)
+        self._tv("par.version", version)
+        self._tv("par.k", self.par.k)
+        self._tv("par.lambda", self.par.threshold)
+        self._tv("par.n_e", self.par.ebitlenro)
+        self._tv("par.n_r", self.par.rbitlen)
+        self._tv("par.n_v", self.par.vbitlenro)
+        self._tv("par.s_PRG", self.par.prg_string)
+        self._tv("par.s_Gq", self.par.pgroup_string)
+        self._tv("par.s_H", self.par.rohash_string)
+        self._tv("par.omega", width)
+        self._tv("der.rho", ctx.global_prefix.hex())
 
         # Full public key (g, y): the basic key must be the generator.
         key_group = ctx.key_group()
-        fpk = elgamal.ElGamalPublicKey.from_bytetree(
-            key_group, self._read_bt(nz / "FullPublicKey.bt")
-        )
+        fpk_bt = self._read_bt(nz / "FullPublicKey.bt")
+        fpk = elgamal.ElGamalPublicKey.from_bytetree(key_group, fpk_bt)
         if not fpk.g.equals(key_group.g):
             self._fail("basic public key is not the standard generator")
+        self._tv("bas.pk", fpk_bt.to_bytes().hex())
+        self._tv("bas.C_omega", repr(ctx.ciph_group(width)))
+        self._tv("bas.M_omega", repr(ctx.plain_group(width)))
+        self._tv("bas.R_omega", repr(ctx.plain_group(width).ring))
 
         at_file = self.proofs / "activethreshold"
         active_threshold = (
@@ -155,10 +213,17 @@ class FiatShamirVerifier:
             if do_pos or ptype == "decryption":
                 bt = self._read_bt(nz / "Ciphertexts.bt")
             else:
+                # A mixing transcript without its shuffle part: the
+                # decryption's input is the last shuffler's list, which
+                # the parties write as ShuffledCiphertexts.bt (vmn_tpu
+                # reads proofs/Ciphertexts{activethreshold}.bt only,
+                # which no party writes: ROADMAP queue 3, F9).
+                last = self.proofs / f"Ciphertexts{active_threshold:02d}.bt"
                 bt = self._read_bt(
-                    self.proofs / f"Ciphertexts{active_threshold:02d}.bt"
+                    last if last.exists() else nz / "ShuffledCiphertexts.bt"
                 )
             ciphs = ciph_group.elem_from_bytetree(bt)
+            self._tv("bas.L_0", lambda bt=bt: bt.to_bytes().hex())
         n = ciphs.size if ciphs is not None else 0
 
         shuffle_ok = True
@@ -170,7 +235,7 @@ class FiatShamirVerifier:
         if do_dec:
             decrypt_ok = self._verify_decryption(ctx, width, ciphs, fpk)
         return VerificationResult(ptype, auxsid, width, active_threshold,
-                                  shuffle_ok, decrypt_ok)
+                                  shuffle_ok, decrypt_ok, self.tv)
 
     # ----------------------------------------------------------- shuffle
 
@@ -181,9 +246,11 @@ class FiatShamirVerifier:
         if (self.proofs / "maxciph").exists():
             raise NotImplementedError(
                 "precomputation transcripts (PoSC + CCPoS) are not ported "
-                "(ROADMAP queue 1 item 7)"
+                "(ROADMAP queue 1 item 4)"
             )
         generators = ctx.independent_generators("generators", n)
+        self._tv("bas.h",
+                 lambda: generators.to_bytetree().to_bytes().hex())
         g = ctx.pgroup.g
         wide_pk_elem = fpk.widen(width).as_ciph_elem()
         pos_par = PoSParams(ctx.vbitlen, ctx.ebitlen, ctx.rbitlen, ctx.prg)
@@ -202,6 +269,7 @@ class FiatShamirVerifier:
                 out = ciph_group.elem_from_bytetree(out_bt, n)
             except (ByteTreeError, ValueError):
                 self._fail(f"malformed output list of party {l}")
+            self._tv("bas.L_l", lambda bt=out_bt: bt.to_bytes().hex())
 
             V = PoSVerifier(pos_par)
             V.precompute(g, generators)
@@ -210,22 +278,38 @@ class FiatShamirVerifier:
             V.set_permutation_commitment(
                 self._read_bt(u_file) if u_file.exists() else None
             )
+            self._tv("u", lambda: V.u.to_bytetree().to_bytes().hex())
             seed = ctx.challenger.challenge(
                 pos_seed_data(g, generators, V.u, wide_pk_elem, inp, out),
                 8 * ctx.prg.min_seed_bytes,
                 ctx.rbitlen,
             )
+            self._tv("PoS.s", seed.hex())
             V.set_batch_vector(seed)
             V.compute_AF()
+            self._tv("PoS.A", lambda: V.A.to_bytetree().to_bytes().hex())
+            self._tv("PoS.F", lambda: V.F.to_bytetree().to_bytes().hex())
             commitment = V.set_commitment(self._read_bt(pc_file))
+            for name in ("B", "Ap", "Bp", "Cp", "Dp", "Fp"):
+                self._tv(f"PoS.{name}",
+                         lambda v=getattr(V, name):
+                         v.to_bytetree().to_bytes().hex())
             v_bytes = ctx.challenger.challenge(
                 pos_challenge_data(seed, commitment),
                 ctx.vbitlen, ctx.rbitlen,
             )
+            v = int.from_bytes(v_bytes, "big")
+            self._tv("PoS.v", v)
             reply_file = self.proofs / f"PoSReply{l:02d}.bt"
             verdict = reply_file.exists() and V.verify(
-                self._read_bt(reply_file), int.from_bytes(v_bytes, "big")
+                self._read_bt(reply_file), v
             )
+            if verdict:
+                for name in ("C", "D", "k_A", "k_B", "k_C", "k_D", "k_E",
+                             "k_F"):
+                    self._tv(f"PoS.{name}",
+                             lambda v=getattr(V, name):
+                             v.to_bytetree().to_bytes().hex())
             if verdict:
                 valid += 1
             else:
@@ -255,6 +339,9 @@ class FiatShamirVerifier:
         y_parties = [None] + [
             evaluate_poly_in_exp(poly, l) for l in range(1, k + 1)
         ]
+        self._tv("bas.y_l", lambda: ",".join(
+            y_parties[l].to_bytetree().to_bytes().hex()
+            for l in range(1, k + 1)))
 
         cr_bt = self._read_bt(self.proofs / "CorrectIndices.bt")
         correct = [bool(b) for b in cr_bt.data]
@@ -286,6 +373,7 @@ class FiatShamirVerifier:
         seed = ctx.challenger.challenge(
             seed_data, 8 * ctx.prg.min_seed_bytes, ctx.rbitlen
         )
+        self._tv("Dec.s", seed.hex())
         e = _batch_vector(field, n, ctx.ebitlen, ctx.prg, seed)
         A = u.exp_prod(e, ctx.ebitlen)
 
@@ -314,7 +402,9 @@ class FiatShamirVerifier:
         v_bytes = ctx.challenger.challenge(
             node(leaf(seed), all_coms), ctx.vbitlen, ctx.rbitlen
         )
-        v_f = field.from_int(int.from_bytes(v_bytes, "big"))
+        v_int = int.from_bytes(v_bytes, "big")
+        self._tv("Dec.v", v_int)
+        v_f = field.from_int(v_int)
 
         ok = _verify_combined(
             field, g_basic, A, fpk.y, combined_f, e, ctx.ebitlen,

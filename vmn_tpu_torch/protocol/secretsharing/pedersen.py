@@ -1,6 +1,6 @@
 """Port of `vmn_tpu.protocol.secretsharing.pedersen`: Pedersen verifiable
-secret sharing over the bulletin board, as far as distributed key
-generation needs it (`recover_secret` and Shamir recovery are not ported).
+secret sharing over the bulletin board, with the public recovery of a
+dealt secret (`recover_secret`, through `shamir.shamir_recover`).
 
 Original description:
 
@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 from vmn_tpu_torch.eio.bytetree import ByteTree, ByteTreeError
+from vmn_tpu_torch.protocol.secretsharing.shamir import shamir_recover
 
 
 class PedersenError(Exception):
@@ -173,6 +174,32 @@ def run_pedersen(
     if share is None:  # complained but dealer opened a valid share
         raise PedersenError("share unresolved after accusation round")
     return PedersenResult(dealer, True, share, poly)
+
+
+def recover_secret(ctx, board, result: PedersenResult, group=None):
+    """Jointly reconstruct a dealer's secret from published shares
+    (reference: Pedersen.recover:1057 — each party opens its share, the
+    first `threshold` Feldman-valid ones interpolate the secret)."""
+    from vmn_tpu_torch.protocol.distr.dkg import evaluate_poly_in_exp
+
+    group = group if group is not None else ctx.key_group()
+    ring = group.ring
+    t = result.poly_in_exp.size
+    b = board.scope(f"rec{result.dealer:02d}")
+    own = result.share.to_bytetree().to_bytes()
+    b.publish("Share", own)
+    shares = {}
+    for l in range(1, board.k + 1):
+        raw = own if l == board.j else b.wait_for(l, "Share")
+        try:
+            s = ring.from_bytetree(ByteTree.from_bytes(raw))
+        except (ByteTreeError, ValueError):
+            continue
+        if group.g.exp(s).equals(evaluate_poly_in_exp(result.poly_in_exp, l)):
+            shares[l] = s
+        if len(shares) == t:
+            break
+    return shamir_recover(ring, shares, t)
 
 
 class SequentialResult:
