@@ -12,7 +12,9 @@ Phases (one line each; any failure raises and the exit code is not 0):
      batch of one (a product; a power as MontCtx.inv gives it), H3
      mont_fb_exp at modp2048 width (window 8 on N and on one, window 4 on
      N) and at W=8 (window 4 on N and on one), and at the first N of any
-     TPI of H3's rule that those miss, H4 mont_expprod_positions at
+     TPI of H3's rule that those miss, H2 also on 1.25·N elements at
+     64-bit exponents (the precomputation's raised values), H4
+     mont_expprod_positions at
      modp2048 width on N elements (256-bit exponents) and on one (2047
      bits), at W=8 on N, and at the first N of any TPI of its rule that
      those miss, so that every TPI (lanes an element) the wrappers choose
@@ -31,14 +33,18 @@ Phases (one line each; any failure raises and the exit code is not 0):
      batch: once on 4096 points and once on the EC path's batch (--ec-n),
      H8 also on one pair; H5 and H8 also at the first N of any TPI (lanes
      a point) that those batches do not reach, so that every TPI their
-     wrappers choose is checked;
+     wrappers choose is checked; H5 also at 64-bit scalars on 1.25·--ec-n
+     points (the precomputation's raised values);
   5. the test256 and P-256 golden mixes on the card: each transcript must
      equal tests/golden/nizkp_{test256,p256}_k1 byte for byte, and the
      port's verifier must accept it and write the test vectors of
-     tests/golden/test_vectors{,_p256}.json; then the k=3, t=2, width-2
-     golden mix (three parties in threads over one LocalBoardHub):
-     party 1's transcript must equal tests/golden/nizkp_test256_k3_w2
-     and its test vectors test_vectors_k3w2.json;
+     tests/golden/test_vectors{,_p256}.json; the same for the test256
+     golden with precomputation for 8 ciphertexts
+     (nizkp_test256_k1_precomp, test_vectors_precomp.json); then the
+     k=3, t=2, width-2 golden mix (three parties in threads over one
+     LocalBoardHub): party 1's transcript must equal
+     tests/golden/nizkp_test256_k3_w2 and its test vectors
+     test_vectors_k3w2.json;
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
@@ -55,12 +61,27 @@ Phases (one line each; any failure raises and the exit code is not 0):
      party 1's transcript and rejects it with one flipped byte; then the
      same at --k3i-n ciphertexts (default 1000) with interactive
      challenges (jointly flipped coins), agreement and multiset only,
-     with the launches of H2 and H3 made inside the coin flipping.
+     with the launches of H2 and H3 made inside the coin flipping;
+  9. the precomputation path (`[precomp]` lines): modp2048 with k=1 and
+     with k=3, t=2 (Fiat–Shamir), precomputation (PoSC) for 1.25·N
+     ciphertexts (N and --k3-n: 12500 by default), then the online mix
+     (keep-list shrink, CCPoS, decryption) of N, then P-256, k=1,
+     1.25·--ec-n (163840) -> --ec-n: the plaintext multiset (and for k=3
+     the parties' agreement), the port's verifier accepting party 1's transcript and
+     rejecting it with one flipped byte in CCPoSReply01.bt and, apart,
+     in PoSCReply01.bt; each line gives the precomputation's, the online
+     mix's and the verify's seconds beside the plain mix's of the same
+     call, and the launches of the precomputation and of the online mix
+     apart; then H4 (H6 at P-256) at each (N, exponent bits) that the
+     precomputation, the online mix and the verify called it with, each
+     also equal to its plain version (`multiexp` lines).
 
 Each mix zeroes the wrappers' launch counters just before `session.mix`
 (all three parties' in the k=3 runs: the counts are totals over the
-parties) and reads them just after it.  H1-H4 and the combine must have
-launched in the modp2048 mix and in the k=3 mix, H2 and H3 in the
+parties) and reads them just after it; a precomputation path does the
+same around its precomputation, and then around its online mix.  H1-H4
+and the combine must have launched in the modp2048 mix, in the k=3 mix
+and in the modp2048 k=1 precomputation path, H2 and H3 in the
 interactive mix's coin flipping, and H5, H6, the EC combine (once per
 H6 call) and H8 in the P-256 mix (H7 is off that path, as in vmn_tpu,
 and reports 0); the `launches` line also counts H1's, H2's, H3's, H5's
@@ -230,14 +251,15 @@ def timed(fn):
 COMBINE_POSITIONS = 512  # K7's ndig_pad at a 2047-bit exponent
 
 
-def check_kernels(n: int, ec_n: int) -> dict:
+def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     """H1-H4 and K7's combine against their plain versions on the card.
     H1 and H2 at modp2048 (W=64) on n elements and at the P-256 field
     (W=8) on ec_n, the paths' batches (W=8 on n too), and at batch 1 (a
     product; a power
     as MontCtx.inv gives it): between them every TPI the wrappers choose;
-    H3 and H4 at modp2048 and n; the combine on COMBINE_POSITIONS
-    random positions."""
+    H2 also on pc_maxciph elements at 64-bit exponents, as the
+    precomputation raises its generators and commitments; H3 and H4 at
+    modp2048 and n; the combine on COMBINE_POSITIONS random positions."""
     from vmn_tpu_torch.arith.ec import _CURVES
     from vmn_tpu_torch.arith.limbs import int_to_limbs, ints_to_limbs
     from vmn_tpu_torch.arith.mont import MontCtx, device_limbs
@@ -319,6 +341,21 @@ def check_kernels(n: int, ec_n: int) -> dict:
     ctx = MontCtx(_RFC3526_2048, dev)
     m, W, L = ctx.m, ctx.L // 2, ctx.L
     a, a_int, e_full, e_full_int = width_cases(ctx, "", 2047, n)
+    # the precomputation's raised values: pc_maxciph bases, exponents of
+    # 64 bits in the field's 128 limbs, as GArray.exp_bits hands them on
+    pc_rows = [0, 1, pc_maxciph - 1]
+    pc_int = [x % m for x in ints(pc_maxciph, ctx.nbits)]
+    pc_a = ctx.encode(pc_int)
+    pc_e_int = ints(pc_maxciph, 64)
+    pc_e = device_limbs(ints_to_limbs(pc_e_int, L), dev)
+    cases["mont_exp_e64"] = (
+        lambda: K.mont_exp(pc_a, pc_e, ctx.mod, 64),
+        lambda: K.mont_exp_plain(pc_a, pc_e, ctx.mod, 64),
+        lambda: [pow(pc_int[i], pc_e_int[i], m) for i in pc_rows], pc_rows,
+        pc_maxciph, None)
+    bounds["mont_exp_e64"] = bound(
+        exp_products(pc_maxciph, pc_e, 16), W,
+        2 * 4 * pc_maxciph * L + 4 * pc_e.numel())
     e_short_int = ints(n, 256)  # batching-vector exponents
     e_short = device_limbs(ints_to_limbs(e_short_int, 16), dev)
     g = 4
@@ -717,6 +754,47 @@ def check_ec_kernels(n: int) -> dict:
     return results
 
 
+def check_ec_e64(n: int) -> dict:
+    """H5 at 64-bit scalars on n P-256 points, as the precomputation
+    raises its generators and commitments (exp_bits(·, 64) on the ring's
+    16 limbs): kernel == plain on the whole batch, a few rows against
+    Python EC arithmetic, times."""
+    from vmn_tpu_torch.arith import ec as EC
+    from vmn_tpu_torch.crypto.hash import SHA256
+    from vmn_tpu_torch.crypto.prg import PRGHeuristic
+    from vmn_tpu_torch.kernel_timing import device_ms
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    dev = torch.device("cuda", 0)
+    grp = EC.ECqPGroup.named("P-256", device=dev)
+    mod, p, a = grp.ctx.mod, grp.p, grp.a
+    prg = PRGHeuristic(SHA256)
+    prg.set_seed(SHA256.hash(b"smoke-ec-e64"))
+    pts = grp.random_array(n, prg, 8)
+    rng = np.random.default_rng(64)
+    ks = [int.from_bytes(rng.bytes(8), "big") for _ in range(n)]
+    ks[1], ks[2] = 0, (1 << 64) - 1
+    e = grp.ring.from_ints(ks).limbs
+    ins = (pts.x, pts.y, pts.inf, e, mod, 64)
+    got, _ = timed(lambda: E.ec_scalar_mul(*ins))
+    want, plain_ms = timed(lambda: E.ec_scalar_mul_plain(*ins))
+    err = max_abs_err(got, want)
+    rows = [0, 1, 2, 3, n // 2, n - 1]
+    at = torch.tensor(rows, device=dev)
+    in_pts = grp.to_affine(EC.ECArray(grp, pts.x[at], pts.y[at], pts.inf[at]))
+    out = grp.to_affine(EC.ECArray(
+        grp, *grp.curve.normalize(*(t[at] for t in got))))
+    if out != [host_ec_mul(p, a, P, ks[i]) for P, i in zip(in_pts, rows)]:
+        raise AssertionError("ec_scalar_mul_e64: kernel != Python EC")
+    r = {"N": n, "bits": 64, "max_abs_err": err,
+         "ms": device_ms(lambda: E.ec_scalar_mul(*ins)), "plain_ms": plain_ms,
+         "tpi": K.threads_per_element("ec_scalar_mul", 8, n),
+         **ec_bounds(n, e, 16, 0, 0)["ec_scalar_mul"]}
+    kernel_line("ec_scalar_mul_e64", r)
+    return r
+
+
 def check_ec_tpis(kernel: str, checked: set, seed: bytes, case) -> dict:
     """H5 or H8 (`kernel`) against its plain version at 37 points past the
     first N of each TPI that its rule can choose and that `checked` (the
@@ -787,14 +865,33 @@ def add_case(grp, pts, tpi):
 # ---------------------------------------------------------- phases 5-7
 
 
-def run_mix(params, msgs, workdir: Path, party_seed: bytes,
-            ciph_seed: bytes):
-    """keygen -> encrypt the message array `msgs` -> mix; returns (nizkp
-    dir, plaintext array, mix seconds, kernel launches of the mix alone,
-    H1/H2/H3/H5/H8 launches of the mix by batch size)."""
-    from vmn_tpu_torch.crypto.randomsource import SeededSource
+def counted(fn):
+    """fn() with the wrappers' launch counters zeroed just before it and
+    read just after it: (result, seconds, launches, H1/H2/H3/H5/H8
+    launches by batch size)."""
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    E.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**K.LAUNCHES, **E.LAUNCHES}
+    sizes = {k: dict(v) for k, v in (*K.LAUNCH_SIZES.items(),
+                                     *E.LAUNCH_SIZES.items())}
+    return out, seconds, launches, sizes
+
+
+def run_mix(params, msgs, workdir: Path, party_seed: bytes,
+            ciph_seed: bytes, maxciph: int = 0):
+    """keygen -> encrypt the message array `msgs` -> (precomputation for
+    `maxciph` ciphertexts, if not 0) -> mix; returns (nizkp dir,
+    plaintext array, mix seconds, kernel launches of the mix alone,
+    H1/H2/H3/H5/H8 launches of the mix by batch size)."""
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
     from vmn_tpu_torch.protocol import elgamal
     from vmn_tpu_torch.protocol.com.board import LocalBoardHub
     from vmn_tpu_torch.protocol.mixnet.party import MixNetParty
@@ -807,16 +904,9 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
     ciphs = elgamal.encrypt(pk, msgs, r)
     party.board = LocalBoardHub(1).board(1)
     session = party.session(params.sid.lower(), 1)
-    torch.cuda.synchronize()
-    K.reset_launches()
-    E.reset_launches()
-    t0 = time.perf_counter()
-    plain = session.mix(ciphs)
-    torch.cuda.synchronize()
-    mix_s = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **E.LAUNCHES}
-    sizes = {k: dict(v) for k, v in (*K.LAUNCH_SIZES.items(),
-                                     *E.LAUNCH_SIZES.items())}
+    if maxciph:
+        session.precomp(maxciph)
+    plain, mix_s, launches, sizes = counted(lambda: session.mix(ciphs))
     return session.nizkp, plain, mix_s, launches, sizes
 
 
@@ -858,10 +948,13 @@ def verify(params, nizkp: Path, test_vectors=None):
     return res.ok, time.perf_counter() - t0, v.tv
 
 
-def tampered_rejected(params, nizkp: Path, tmp: Path) -> bool:
-    bad = tmp / f"tampered_{params.sid}"
+def tampered_rejected(params, nizkp: Path, tmp: Path,
+                      name: str = "PoSReply01.bt") -> bool:
+    """Whether the verifier rejects the transcript with one byte of
+    proofs/`name` flipped."""
+    bad = tmp / f"tampered_{params.sid}_{name}"
     shutil.copytree(nizkp, bad)
-    reply = bad / "proofs" / "PoSReply01.bt"
+    reply = bad / "proofs" / name
     raw = bytearray(reply.read_bytes())
     raw[len(raw) // 2] ^= 0x01
     reply.write_bytes(bytes(raw))
@@ -894,29 +987,36 @@ def same_test_vectors(tv: dict, name: str) -> int:
     return len(tv)
 
 
-def golden_phase(tmp: Path, name: str) -> None:
+def golden_phase(tmp: Path, name: str, maxciph: int = 0) -> None:
     """The golden k=1 mix of tools/make_golden.py on the card: test256
-    (5 messages) or P-256 (3 messages); transcript byte-equal, and the
-    verifier's test vectors those vmn_tpu froze."""
+    (5 messages) or P-256 (3 messages), or test256 after a
+    precomputation for `maxciph` ciphertexts; transcript byte-equal, and
+    the verifier's test vectors those vmn_tpu froze."""
     t0 = time.perf_counter()
     group = _group(name)
     n, make = ((3, group.from_affine) if name.startswith("P-")
                else (5, group.from_ints))
     golden = GOLDEN / f"nizkp_{name.replace('-', '').lower()}_k1"
+    tv_file = ("test_vectors.json" if name == "test256"
+               else "test_vectors_p256.json")
+    if maxciph:
+        golden = golden.with_name(golden.name + "_precomp")
+        tv_file = "test_vectors_precomp.json"
     params = _params("Golden", group)
     msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
     nizkp, plain, mix_s, launches, _ = run_mix(
-        params, make(msgs), tmp / f"golden_{name}", b"golden-party",
-        b"golden-ciphs")
+        params, make(msgs), tmp / f"golden_{name}_{maxciph}",
+        b"golden-party", b"golden-ciphs", maxciph)
     files = same_transcript(nizkp, golden)
     if sorted(_points(group, plain)) != sorted(msgs):
         raise AssertionError("golden plaintext multiset differs")
     ok, _, tv = verify(params, nizkp, TV_NAMES)
     if not ok:
         raise AssertionError("port verifier rejected the golden transcript")
-    tvs = same_test_vectors(tv, "test_vectors.json" if name == "test256"
-                            else "test_vectors_p256.json")
-    phase("golden", group=name, files=files, byte_equal=True,
+    tvs = same_test_vectors(tv, tv_file)
+    phase("golden", group=name + ("-precomp" if maxciph else ""),
+          **({"maxciph": maxciph} if maxciph else {}),
+          files=files, byte_equal=True,
           verify_ok=True, test_vectors=tvs, mix_s=f"{mix_s:.3f}",
           launches=json.dumps({k: v for k, v in launches.items() if v},
                               separators=(",", ":")),
@@ -976,8 +1076,6 @@ def run_mix_k(parties, ciphs, auxsid: str, width: int = 1, around=None):
     the parties); `around()`, if given, is a context entered by this
     thread around the mix.  (outputs, mix seconds, launches, launches by
     batch size)."""
-    from vmn_tpu_torch.ops import ec_kernels as E
-    from vmn_tpu_torch.ops import mont_kernels as K
     from vmn_tpu_torch.protocol.com.board import LocalBoardHub
 
     k = parties[1].k
@@ -986,18 +1084,9 @@ def run_mix_k(parties, ciphs, auxsid: str, width: int = 1, around=None):
     for j in range(1, k + 1):
         parties[j].board = hub.board(j)
         sessions.append(parties[j].session(auxsid, width))
-    torch.cuda.synchronize()
-    K.reset_launches()
-    E.reset_launches()
-    t0 = time.perf_counter()
     with (around() if around is not None else contextlib.nullcontext()):
-        outs = run_parties(k, lambda j: sessions[j].mix(ciphs))
-        torch.cuda.synchronize()
-    mix_s = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **E.LAUNCHES}
-    sizes = {k: dict(v) for k, v in (*K.LAUNCH_SIZES.items(),
-                                     *E.LAUNCH_SIZES.items())}
-    return outs, mix_s, launches, sizes
+        return counted(
+            lambda: run_parties(k, lambda j: sessions[j].mix(ciphs)))
 
 
 @contextlib.contextmanager
@@ -1168,7 +1257,7 @@ def multiparty_phase(n: int, tmp: Path, interactive: bool = False):
           launches=json.dumps({k: v for k, v in launches.items() if v},
                               separators=(",", ":")),
           phase_s=f"{time.perf_counter() - t0:.1f}")
-    return launches, sizes, coins
+    return launches, sizes, coins, mix_s
 
 
 @contextlib.contextmanager
@@ -1194,10 +1283,15 @@ def calls_of(module, name: str, log: dict):
             setattr(m, name, fn)
 
 
-def multiexp_widths(group, mix: dict, ver: dict) -> list:
+def multiexp_widths(group, calls: dict, check: bool = False) -> list:
     """The (N, exponent bits) at which the path called its
-    multi-exponentiation's positions (H4 or H6) in the mix and in the
-    verify, each timed on the card on random inputs of that shape."""
+    multi-exponentiation's positions (H4 or H6), `calls` holding the
+    counts of each part by its name ("mix", "verify", ...), each timed on
+    the card on random inputs of that shape (P-256 points from a seeded
+    PRG); with `check`, the output also held equal to its plain
+    version's (exact)."""
+    from vmn_tpu_torch.crypto.hash import SHA256
+    from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.kernel_timing import _elements, _exponents, device_ms
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
@@ -1206,18 +1300,29 @@ def multiexp_widths(group, mix: dict, ver: dict) -> list:
     gen.manual_seed(4)
     mod = group.ctx.mod
     out = []
-    for N, bits in sorted({*mix, *ver}):
+    for N, bits in sorted(set().union(*calls.values())):
         e = _exponents(gen, N, bits, "cuda")
-        a = _elements(gen, N, mod.L, "cuda")
-        if hasattr(group, "curve"):  # field elements stand in for points
-            b = _elements(gen, N, mod.L, "cuda")
-            inf = torch.zeros(N, dtype=torch.bool, device="cuda")
-            run = lambda: E.ec_multiexp_positions(a, b, inf, e, mod, bits)
+        r = {"N": N, "bits": bits,
+             **{f"{part}_calls": c.get((N, bits), 0)
+                for part, c in calls.items()}}
+        if hasattr(group, "curve"):
+            prg = PRGHeuristic(SHA256)
+            prg.set_seed(SHA256.hash(b"smoke-multiexp-points"))
+            pts = group.random_array(N, prg, 8)
+            ins = (pts.x, pts.y, pts.inf, e, mod, bits)
+            run = lambda: E.ec_multiexp_positions(*ins)
+            plain = lambda: E.ec_multiexp_positions_plain(*ins)
         else:
+            a = _elements(gen, N, mod.L, "cuda")
             run = lambda: K.mont_expprod_positions(a, e, mod, bits)
-        out.append({"N": N, "bits": bits, "mix_calls": mix.get((N, bits), 0),
-                    "verify_calls": ver.get((N, bits), 0),
-                    "ms": device_ms(run)})
+            plain = lambda: K.mont_expprod_positions_plain(a, e, mod, bits)
+        if check:
+            got = run()
+            want, plain_ms = timed(plain)
+            r.update(tolerance="exact", max_abs_err=max_abs_err(got, want),
+                     plain_ms=plain_ms)
+        r["ms"] = device_ms(run)
+        out.append(r)
     return out
 
 
@@ -1262,11 +1367,105 @@ def slice_phase(name: str, n: int, tmp: Path):
           mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
           max_memory_allocated=peak,
           phase_s=f"{time.perf_counter() - t0:.1f}")
-    widths = multiexp_widths(group, mix_calls, verify_calls)
+    widths = multiexp_widths(group, {"mix": mix_calls,
+                                     "verify": verify_calls})
+    multiexp_lines(name, wrapper, widths)
+    return launches, sizes, widths, mix_s
+
+
+def multiexp_lines(path: str, wrapper: str, widths: list) -> None:
     for r in widths:
-        phase("multiexp", group=name, wrapper=wrapper,
-              **{k: (f"{v:.3f}" if k == "ms" else v) for k, v in r.items()})
-    return launches, sizes, widths
+        phase("multiexp", group=path, wrapper=wrapper,
+              **{k: (f"{v:.3f}" if k.endswith("ms") else v)
+                 for k, v in r.items()})
+
+
+def headroom(n: int) -> int:
+    """maxciph for an online mix of n: the 1.25x of tests/test_scale.py:73
+    (1280 -> 1024)."""
+    return n * 5 // 4
+
+
+def precomp_phase(name: str, k: int, n: int, tmp: Path, plain_mix_s: float):
+    """The precomputation path: `name` group, k parties (threshold 2
+    when k = 3, Fiat–Shamir, threads of this process), a precomputation
+    for headroom(n) ciphertexts, then the online mix of n: the plaintext
+    multiset and the parties' agreement, the verifier on party 1's
+    transcript, and that transcript rejected with one flipped byte in
+    its CCPoS reply and, apart, in its PoSC reply.  Prints the
+    precomputation's, the online mix's and the verify's seconds beside
+    `plain_mix_s` (the plain mix of the same configuration in this
+    run).  Returns (launches of the precomputation, of the online mix,
+    the multi-exponentiation's shapes)."""
+    from vmn_tpu_torch.crypto.hash import SHA256
+    from vmn_tpu_torch.crypto.prg import PRGHeuristic
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
+    from vmn_tpu_torch.protocol import elgamal
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+
+    t0 = time.perf_counter()
+    maxciph = headroom(n)
+    group = _group(name)
+    tag = f"precomp{name.replace('-', '')}k{k}".lower()
+    params = _params(f"Smoke{tag}", group, k=k, threshold=min(k, 2))
+    prg = PRGHeuristic(SHA256)
+    prg.set_seed(SHA256.hash(b"smoke-msgs"))
+    m = group.random_array(n, prg, params.rbitlen)
+    msgs = _points(group, m)
+    parties, keygen_s = keygen_k(params, lambda j: f"smoke-party{j}".encode(),
+                                 tmp / tag)
+    r = group.ring.random((n,), SeededSource(b"smoke-ciphs"), 0)
+    ciphs = elgamal.encrypt(parties[1].full_public_key(), m, r)
+    hub = LocalBoardHub(k)
+    sessions = [None]
+    for j in range(1, k + 1):
+        parties[j].board = hub.board(j)
+        sessions.append(parties[j].session(tag, 1))
+    owner, wrapper = ((E, "ec_multiexp_positions") if name.startswith("P-")
+                      else (K, "mont_expprod_positions"))
+    torch.cuda.reset_peak_memory_stats()
+    with calls_of(owner, wrapper, {}) as pre_calls:
+        _, precomp_s, pre, _ = counted(lambda: run_parties(
+            k, lambda j: sessions[j].precomp(maxciph)))
+    with calls_of(owner, wrapper, {}) as mix_calls:
+        outs, mix_s, mix, _ = counted(lambda: run_parties(
+            k, lambda j: sessions[j].mix(ciphs)))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(outs[j].equals(outs[1]) for j in range(2, k + 1)):
+        raise AssertionError(f"{tag}: the parties' plaintexts differ")
+    if sorted(_points(group, outs[1])) != sorted(msgs):
+        raise AssertionError(f"{tag}: plaintext multiset not preserved")
+    nizkp = sessions[1].nizkp
+    if not (nizkp / "proofs" / "CCPoSCommitment01.bt").exists():
+        raise AssertionError(f"{tag}: the mix did not take the CCPoS chain")
+    with calls_of(owner, wrapper, {}) as verify_calls:
+        ok, verify_s = verify(params, nizkp)
+    if not ok:
+        raise AssertionError(f"port verifier rejected the {tag} transcript")
+    for reply in ("CCPoSReply01.bt", "PoSCReply01.bt"):
+        if not tampered_rejected(params, nizkp, tmp, reply):
+            raise AssertionError(f"{tag}: flipped byte in {reply} accepted")
+    compact = {"separators": (",", ":")}
+    phase("precomp", group=name, k=k, threshold=params.threshold, N=n,
+          maxciph=maxciph, multiset=True, parties_agree=True,
+          verify_ok=True, tampered_rejected="CCPoSReply01,PoSCReply01",
+          keygen_s=f"{keygen_s:.3f}", precomp_s=f"{precomp_s:.3f}",
+          mix_s=f"{mix_s:.3f}", verify_s=f"{verify_s:.3f}",
+          plain_mix_s=f"{plain_mix_s:.3f}",
+          mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
+          max_memory_allocated=peak,
+          precomp_launches=json.dumps({w: v for w, v in pre.items() if v},
+                                      **compact),
+          mix_launches=json.dumps({w: v for w, v in mix.items() if v},
+                                  **compact),
+          phase_s=f"{time.perf_counter() - t0:.1f}")
+    widths = multiexp_widths(
+        group, {"precomp": pre_calls, "mix": mix_calls,
+                "verify": verify_calls}, check=True)
+    multiexp_lines(f"{name}-precomp-k{k}", wrapper, widths)
+    return pre, mix, widths
 
 
 SPANS = (  # (module, class, method) timed as host spans by --profile
@@ -1432,9 +1631,10 @@ def main(argv=None) -> int:
         print("  ptxas " + line)
 
     t0 = time.perf_counter()
-    checks = check_kernels(args.n, args.ec_n)
+    checks = check_kernels(args.n, args.ec_n, headroom(args.n))
     ec_small = check_ec_kernels(EC_CHECK_N)
     checks.update(check_ec_kernels(args.ec_n))
+    checks["ec_scalar_mul_e64"] = check_ec_e64(headroom(args.ec_n))
     for name, r in ec_small.items():
         checks[name][f"at_{EC_CHECK_N}"] = r
     checks.update(check_ec_tpis(
@@ -1453,11 +1653,19 @@ def main(argv=None) -> int:
         tmp = Path(tmpname)
         golden_phase(tmp, "test256")
         golden_phase(tmp, "P-256")
+        golden_phase(tmp, "test256", maxciph=8)
         golden_k3_phase(tmp)
-        modp, modp_sizes, modp_widths = slice_phase("modp2048", args.n, tmp)
-        ec, ec_sizes, ec_widths = slice_phase("P-256", args.ec_n, tmp)
-        k3, k3_sizes, _ = multiparty_phase(args.k3_n, tmp)
-        k3i, _, coins = multiparty_phase(args.k3i_n, tmp, interactive=True)
+        modp, modp_sizes, modp_widths, modp_s = slice_phase(
+            "modp2048", args.n, tmp)
+        ec, ec_sizes, ec_widths, ec_s = slice_phase("P-256", args.ec_n, tmp)
+        k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
+        k3i, _, coins, _ = multiparty_phase(args.k3i_n, tmp,
+                                            interactive=True)
+        pc, pc_mix, pc_widths = precomp_phase(
+            "modp2048", 1, args.n, tmp, modp_s)
+        pc3, pc3_mix, pc3_widths = precomp_phase(
+            "modp2048", 3, args.k3_n, tmp, k3_s)
+        _, _, pc_ec_widths = precomp_phase("P-256", 1, args.ec_n, tmp, ec_s)
         for path in args.profile:
             profile_phase(path, {"P-256": args.ec_n,
                                  "modp2048-k3": args.k3_n}.get(path, args.n),
@@ -1468,10 +1676,17 @@ def main(argv=None) -> int:
           modp2048_k3_mix=json.dumps(k3, **compact),
           modp2048_k3_interactive_mix=json.dumps(k3i, **compact),
           modp2048_k3_interactive_coinflip=json.dumps(coins, **compact),
+          modp2048_precomp=json.dumps(pc, **compact),
+          modp2048_precomp_online_mix=json.dumps(pc_mix, **compact),
+          modp2048_k3_precomp=json.dumps(pc3, **compact),
+          modp2048_k3_precomp_online_mix=json.dumps(pc3_mix, **compact),
           modp2048_k3_by_batch=json.dumps(k3_sizes, **compact),
           modp2048_by_batch=json.dumps(modp_sizes, **compact),
           p256_by_batch=json.dumps(ec_sizes, **compact))
     missing = [k for k in K.KERNELS if modp[k] == 0 or k3[k] == 0]
+    # the precomputation path: each of H1-H4 and K7's combine in its
+    # precomputation or its online mix
+    missing += [k for k in K.KERNELS if pc[k] + pc_mix[k] == 0]
     missing += [k for k in E.EC_KERNELS if ec[k] == 0 and k != "ec_fb_exp"]
     if missing:
         raise AssertionError(f"not launched in their path's mix: {missing}")
@@ -1497,7 +1712,11 @@ def main(argv=None) -> int:
             kernels[-1]["launches_by_path"] = {
                 "modp2048 mix": modp[name], "modp2048 k=3 mix": k3[name],
                 "modp2048 k=3 interactive mix": k3i[name],
-                "its coin flipping": coins.get(name, 0)}
+                "its coin flipping": coins.get(name, 0),
+                "modp2048 precomp": pc[name],
+                "modp2048 precomp online mix": pc_mix[name],
+                "modp2048 k=3 precomp": pc3[name],
+                "modp2048 k=3 precomp online mix": pc3_mix[name]}
     for name in ("mont_mul", "mont_exp"):
         kernels[K.KERNELS.index(name)].update(
             batch1=checks[f"{name}_b1"], w8=checks[f"{name}_w8"],
@@ -1509,8 +1728,12 @@ def main(argv=None) -> int:
     for name in E.LAUNCH_SIZES:
         kernels[ec_at[name]]["launches_by_batch"] = {
             "P-256 mix": ec_sizes[name]}
+    kernels[K.KERNELS.index("mont_exp")]["precomp_e64"] = checks[
+        "mont_exp_e64"]
     kernels[K.KERNELS.index("mont_expprod_positions")].update(
-        path_calls=modp_widths, batch1=checks["mont_expprod_positions_b1"],
+        path_calls=modp_widths, precomp_path_calls=pc_widths,
+        k3_precomp_path_calls=pc3_widths,
+        batch1=checks["mont_expprod_positions_b1"],
         w8=checks["mont_expprod_positions_w8"],
         at_first_n_of_tpi=[r for k, r in checks.items()
                            if k.startswith("mont_expprod_positions")
@@ -1519,9 +1742,12 @@ def main(argv=None) -> int:
         batch1=checks["ec_point_add_b1"],
         at_first_n_of_tpi=[r for k, r in checks.items()
                            if k.startswith("ec_point_add_tpi")])
-    kernels[ec_at["ec_multiexp_positions"]]["path_calls"] = ec_widths
-    kernels[ec_at["ec_scalar_mul"]]["at_first_n_of_tpi"] = [
-        r for k, r in checks.items() if k.startswith("ec_scalar_mul_tpi")]
+    kernels[ec_at["ec_multiexp_positions"]].update(
+        path_calls=ec_widths, precomp_path_calls=pc_ec_widths)
+    kernels[ec_at["ec_scalar_mul"]].update(
+        precomp_e64=checks["ec_scalar_mul_e64"],
+        at_first_n_of_tpi=[r for k, r in checks.items()
+                           if k.startswith("ec_scalar_mul_tpi")])
     kernels[K.KERNELS.index("mont_fb_exp")].update(
         window=8, batch1=checks["mont_fb_exp8_b1"],
         window4={"replaces": "vmn_tpu/ops/mont_kernels.py:487",

@@ -148,6 +148,11 @@ class Permutation:
         out[self.tbl] = np.arange(self.tbl.shape[0], dtype=np.int64)
         return Permutation(out)
 
+    def shrink(self, n: int) -> "Permutation":
+        """Restriction keeping the relative order of the images < n
+        (reference: Permutation.shrink, used by the maxciph shrink)."""
+        return Permutation(self.tbl[self.tbl < n])
+
     def index(self, device) -> torch.Tensor:
         return torch.from_numpy(self.tbl).to(device)
 

@@ -60,13 +60,16 @@ class RandomDevice(RandomSource):
 
 
 class SeededSource(RandomSource):
-    """Deterministic source for tests and reproducible demos."""
+    """Deterministic source for tests, reproducible demos and a
+    session's persisted randomness; `position` counts the bytes read."""
 
     def __init__(self, seed: bytes):
         self._prg = PRGHeuristic(SHA256)
         self._prg.set_seed(SHA256.hash(seed))
+        self.position = 0
 
     def read_bytes(self, n: int) -> bytes:
+        self.position += n
         return self._prg.read_bytes(n)
 
 

@@ -1,16 +1,20 @@
 """A mix-server: key generation, shuffling, decryption, proof export
-(port of `vmn_tpu.protocol.mixnet.party`, plain PoS path).
+(port of `vmn_tpu.protocol.mixnet.party`).
 
 Ported: `MixNetParty` (`setup` with the plain-key exchange for k > 1,
 `keygen`, `load_keys`, `set_public_key`, `full_public_key`,
 `set_active`, `session`) and `MixSession` in both challenge modes
 (Fiat–Shamir, or jointly flipped coins when the parameters say
-`noninteractive=False`): `shuffle` without precomputation, with the
-own output computed beside the previous party's verification
-(`_OptimisticOutput`), `_prove_pos`, `_verify_pos`, `decrypt` and `mix`.
-The precomputation / commitment-consistent chain (PoSC + CCPoS) raises
-(ROADMAP queue 1 item 4).  Left out of `vmn_tpu`'s version: the JAX-only
-`backpressure` and the file-backed spill of intermediate lists.
+`noninteractive=False`): `shuffle` with the own output computed beside
+the previous party's verification (`_OptimisticOutput`), `decrypt` and
+`mix`.  `shuffle` takes one of two chains: the plain PoS chain
+(`_prove_pos`, `_verify_pos`), or, after `precomp` (PoSC proofs of the
+permutation commitments for up to `maxciph` ciphertexts, persisted in
+the session's state directory under the `.precomp` marker), the
+commitment-consistent chain (`committed_shuffle`: the keep-list
+`_shrink`, then CCPoS, `_verify_ccpos`).  Left out of `vmn_tpu`'s
+version: the JAX-only `backpressure` and the file-backed spill of the
+resident arrays (ROADMAP queue 1 item 7).
 
 Proof-directory layout (reference: MixNetElGamalSession.java:381-446):
 
@@ -20,10 +24,14 @@ Proof-directory layout (reference: MixNetElGamalSession.java:381-446):
       Ciphertexts.bt ShuffledCiphertexts.bt Plaintexts.bt
       proofs/
         activethreshold
+        maxciph                          (precomputation only)
         PolynomialInExponent.bt
         Ciphertexts{l:02d}.bt            (intermediate shuffle outputs)
         PermutationCommitment{l:02d}.bt
         PoSCommitment{l:02d}.bt  PoSReply{l:02d}.bt
+        PoSCCommitment{l:02d}.bt PoSCReply{l:02d}.bt    (precomputation:
+        KeepList{l:02d}.bt                               in place of the
+        CCPoSCommitment{l:02d}.bt CCPoSReply{l:02d}.bt   PoS files)
         DecryptionFactors{l:02d}.bt
         DecrFactCommitment{l:02d}.bt  DecrFactReply{l:02d}.bt
         CorrectIndices.bt
@@ -35,6 +43,7 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from vmn_tpu_torch import VCR_COMPAT_VERSION
@@ -47,6 +56,12 @@ from vmn_tpu_torch.protocol import elgamal
 from vmn_tpu_torch.protocol.com.board import BulletinBoard
 from vmn_tpu_torch.protocol.context import ProtocolContext, ProtocolParams
 from vmn_tpu_torch.protocol.distr import dkg as dkg_mod
+from vmn_tpu_torch.protocol.hvzk.ccpos_w import (
+    CCPoSProver,
+    CCPoSVerifier,
+    ccpos_challenge_data,
+    ccpos_seed_data,
+)
 from vmn_tpu_torch.protocol.hvzk.pos_tw import (
     PoSParams,
     PoSProver,
@@ -56,6 +71,12 @@ from vmn_tpu_torch.protocol.hvzk.pos_tw import (
     _eq_device,
     pos_challenge_data,
     pos_seed_data,
+)
+from vmn_tpu_torch.protocol.hvzk.posc_tw import (
+    PoSCProver,
+    PoSCVerifier,
+    posc_challenge_data,
+    posc_seed_data,
 )
 from vmn_tpu_torch.protocol.log import Log
 from vmn_tpu_torch.protocol.state import StateDir
@@ -254,6 +275,25 @@ def _next_active(party, l, active_threshold):
     return 0
 
 
+class _PrecompState:
+    """Precomputed state of a session (reference: the cached arrays of
+    ShufflerElGamalSession + PermutationCommitment)."""
+
+    def __init__(self, maxciph, generators, raised_generators, raised_exp,
+                 active_threshold):
+        self.maxciph = maxciph
+        self.generators = generators
+        self.raised_generators = raised_generators
+        self.raised_exp = raised_exp
+        self.active_threshold = active_threshold
+        self.commitments = {}  # l -> GArray (permuted commitments)
+        self.raised_commitments = {}  # l -> GArray (others only)
+        self.exponents = None  # own commitment exponents r
+        self.permutation = None  # own permutation
+        self.reenc_exponents = None
+        self.reenc_factors = None
+
+
 class MixSession:
     """One mixing session (reference: MixNetElGamalSession.java:48)."""
 
@@ -311,6 +351,7 @@ class MixSession:
             source.pre_target = (party.k + 1) * per_proof
             self.ctx.challenger = ChallengerI(source)
         self.nizkp = nizkp
+        self._precomp: Optional[_PrecompState] = None
         self.proofs = nizkp / "proofs" if nizkp else None
         if nizkp is not None:
             _write(nizkp / "version", VCR_COMPAT_VERSION)
@@ -339,31 +380,406 @@ class MixSession:
     def _ciph_group(self) -> PPGroup:
         return self.ctx.ciph_group(self.width)
 
-    def precomp(self, maxciph: int) -> None:
-        raise NotImplementedError(
-            "precomputation is not ported (ROADMAP queue 1 item 4)"
-        )
+    # ------------------------------------------------------------ precomp
 
-    def committed_shuffle(self, ciphertexts, write_type: bool = True):
-        raise NotImplementedError(
-            "the commitment-consistent shuffle is not ported "
-            "(ROADMAP queue 1 item 4)"
+    def precomp(self, maxciph: int) -> None:
+        """Offline phase for up to `maxciph` ciphertexts: independent
+        generators, the permutation commitments with their PoSC proofs,
+        the other parties' raised commitments and the re-encryption
+        factors (reference: ShufflerElGamalSession.precomp:534-664).
+
+        Idempotent across processes: the state is persisted as byte
+        trees under the session's state directory and reloaded when the
+        `.precomp` marker is there (reference: disk caches,
+        ShufflerElGamalSession.java:548-663,
+        PermutationCommitment.java:156-218)."""
+        if self.state is not None and self.state.has_marker(".precomp"):
+            self.party.log.info("Read cached pre-computation.")
+            self._precomp = self._load_precomp()
+            return
+        party = self.party
+        party.log.info(f"Perform pre-computation for {maxciph} ciphertexts.")
+        ctx = self.ctx
+        b = self.board.scope("precomp")
+
+        generators = ctx.independent_generators("generators", maxciph)
+        g = ctx.pgroup.g
+        field = ctx.pgroup.ring
+
+        active_threshold = party.active_threshold()
+        if self.proofs is not None:
+            _write(self.proofs / "activethreshold", str(active_threshold))
+            _write(self.proofs / "maxciph", str(maxciph))
+
+        # Raised values: the verifier-local CCPoS speed-up (reference:
+        # raisedGenerators :475-510, RAISED_BITLENGTH=50).
+        raised_exp = field.from_int(self.rs.random_int(50))
+        raised_generators = generators.exp_bits(raised_exp, 64)
+
+        pos_par = PoSParams(ctx.vbitlen, ctx.ebitlen, ctx.rbitlen, ctx.prg)
+        st = _PrecompState(maxciph, generators, raised_generators,
+                           raised_exp, active_threshold)
+        own = self.j <= active_threshold and party.active[self.j]
+        if own:
+            st.exponents = field.random((maxciph,), self.rs, ctx.rbitlen)
+            st.permutation = Permutation.random(maxciph, self.rs)
+            st.commitments[self.j] = generators.mul(
+                g.exp(st.exponents)
+            ).permute(st.permutation)
+
+        # Publish the own commitment with its PoSC proof; verify the
+        # others' (a rejected one becomes the trivial commitment,
+        # reference: PermutationCommitment.java:343-349).
+        for l in range(1, active_threshold + 1):
+            if not party.active[l]:
+                continue
+            if l == self.j:
+                u = st.commitments[l]
+                u_bt = u.to_bytetree()
+                b.publish(f"PermutationCommitment{l}", u_bt.to_bytes())
+                self._export(self._pf("PermutationCommitment", l), u_bt)
+                P = PoSCProver(pos_par, self.rs)
+                P.set_instance(g, generators, u, st.exponents,
+                               st.permutation)
+                seed = ctx.challenger.challenge(
+                    posc_seed_data(g, generators, u),
+                    8 * ctx.prg.min_seed_bytes, ctx.rbitlen,
+                )
+                commitment = P.commit(seed)
+                self._export(self._pf("PoSCCommitment", l), commitment)
+                b.publish(f"PoSCCommitment{l}", commitment.to_bytes())
+                v_bytes = ctx.challenger.challenge(
+                    posc_challenge_data(seed, commitment),
+                    ctx.vbitlen, ctx.rbitlen,
+                )
+                reply = P.reply(int.from_bytes(v_bytes, "big"))
+                self._export(self._pf("PoSCReply", l), reply)
+                b.publish(f"PoSCReply{l}", reply.to_bytes())
+                continue
+            u_bt = lazy_from_bytes(b.wait_for(l, f"PermutationCommitment{l}"))
+            try:
+                u = ctx.pgroup.elem_from_bytetree(u_bt, maxciph)
+            except (ByteTreeError, ValueError):
+                u = generators.copy_of_range(0, maxciph)
+            self._export(self._pf("PermutationCommitment", l),
+                         u.to_bytetree())
+            V = PoSCVerifier(pos_par)
+            V.set_instance(g, generators, u)
+            seed = ctx.challenger.challenge(
+                posc_seed_data(g, generators, u),
+                8 * ctx.prg.min_seed_bytes, ctx.rbitlen,
+            )
+            V.set_batch_vector(seed)
+            com_bt = lazy_from_bytes(b.wait_for(l, f"PoSCCommitment{l}"))
+            commitment = V.set_commitment(com_bt)
+            self._export(self._pf("PoSCCommitment", l), commitment)
+            v_bytes = ctx.challenger.challenge(
+                posc_challenge_data(seed, commitment),
+                ctx.vbitlen, ctx.rbitlen,
+            )
+            reply_bt = lazy_from_bytes(b.wait_for(l, f"PoSCReply{l}"))
+            if V.verify(reply_bt, int.from_bytes(v_bytes, "big")):
+                self._export(self._pf("PoSCReply", l), reply_bt)
+                st.commitments[l] = u
+            else:
+                st.commitments[l] = generators.copy_of_range(0, maxciph)
+            st.raised_commitments[l] = st.commitments[l].exp_bits(
+                raised_exp, 64
+            )
+
+        if own:
+            st.reenc_exponents = ctx.plain_group(self.width).ring.random(
+                (maxciph,), self.rs, ctx.rbitlen
+            )
+            st.reenc_factors = elgamal.reencryption_factors(
+                party.full_public_key().widen(self.width),
+                st.reenc_exponents,
+            )
+        self._save_precomp(st)
+        self._precomp = st
+
+    def _save_precomp(self, st: _PrecompState) -> None:
+        """Persist every precomputed array as a byte-tree file, then the
+        one-way `.precomp` marker, so that a precomputation survives
+        into a later process (reference:
+        ShufflerElGamalSession.java:548-663)."""
+        sd = self.state
+        if sd is None:
+            return
+        sd.write_int("maxciph", st.maxciph)
+        sd.write_int("activethreshold", st.active_threshold)
+        # where the session's source stands: a later process resumes the
+        # stream there instead of drawing the online prover's blinders
+        # from bytes the precomputation already used (ROADMAP queue 3,
+        # F10; vmn_tpu has no such file)
+        sd.write_int("SourcePosition", self.rs.position)
+        sd.write_bytetree("Generators.bt", st.generators.to_bytetree())
+        sd.write_bytetree(
+            "RaisedGenerators.bt", st.raised_generators.to_bytetree()
         )
+        sd.write_bytetree("RaisedExponent.bt", st.raised_exp.to_bytetree())
+        for l, c in st.commitments.items():
+            sd.write_bytetree(
+                f"PermutationCommitment{l:02d}.bt", c.to_bytetree()
+            )
+        for l, c in st.raised_commitments.items():
+            sd.write_bytetree(f"RaisedCommitment{l:02d}.bt", c.to_bytetree())
+        if st.exponents is not None:
+            sd.write_bytetree("Exponents.bt", st.exponents.to_bytetree())
+            sd.write_indices("Permutation.bt", st.permutation.tbl)
+        if st.reenc_exponents is not None:
+            sd.write_bytetree(
+                "ReencExponents.bt", st.reenc_exponents.to_bytetree()
+            )
+            sd.write_bytetree(
+                "ReencFactors.bt", st.reenc_factors.to_bytetree()
+            )
+        sd.write_marker(".precomp")
+
+    def _load_precomp(self) -> _PrecompState:
+        """Rebuild `_PrecompState` from the session's state directory:
+        the party's own trusted cache, parsed without the subgroup test."""
+        sd = self.state
+        ctx = self.ctx
+        field = ctx.pgroup.ring
+        maxciph = sd.read_int("maxciph")
+        active_threshold = sd.read_int("activethreshold")
+        used = sd.read_int("SourcePosition")
+        if used is not None and self.rs.position < used:
+            self.rs.read_bytes(used - self.rs.position)
+
+        def elems(bt):
+            return ctx.pgroup.elem_from_bytetree(bt, maxciph, validate=False)
+
+        st = _PrecompState(
+            maxciph, elems(sd.read_bytetree("Generators.bt")),
+            elems(sd.read_bytetree("RaisedGenerators.bt")),
+            field.from_bytetree(sd.read_bytetree("RaisedExponent.bt")),
+            active_threshold,
+        )
+        for l in range(1, active_threshold + 1):
+            bt = sd.read_bytetree(f"PermutationCommitment{l:02d}.bt")
+            if bt is not None:
+                st.commitments[l] = elems(bt)
+            rbt = sd.read_bytetree(f"RaisedCommitment{l:02d}.bt")
+            if rbt is not None:
+                st.raised_commitments[l] = elems(rbt)
+        ebt = sd.read_bytetree("Exponents.bt")
+        if ebt is not None:
+            st.exponents = field.from_bytetree(ebt, maxciph)
+            st.permutation = Permutation(sd.read_indices("Permutation.bt"))
+        rbt = sd.read_bytetree("ReencExponents.bt")
+        if rbt is not None:
+            plain_ring = ctx.plain_group(self.width).ring
+            st.reenc_exponents = plain_ring.from_bytetree(rbt, maxciph)
+            st.reenc_factors = self._ciph_group().elem_from_bytetree(
+                sd.read_bytetree("ReencFactors.bt"), maxciph, validate=False
+            )
+        return st
+
+    def _shrink(self, n: int) -> _PrecompState:
+        """The precomputed state cut to the n ciphertexts that came, by
+        published keep lists; a malformed keep list keeps the first n
+        (reference: ShufflerElGamalSession.shrink:673-712,
+        PermutationCommitment.shrink:390-471)."""
+        st = self._precomp
+        party = self.party
+        b = self.board.scope("shrink")
+        sh = _PrecompState(
+            n,
+            st.generators.copy_of_range(0, n),
+            st.raised_generators.copy_of_range(0, n),
+            st.raised_exp,
+            st.active_threshold,
+        )
+        for l in range(1, st.active_threshold + 1):
+            if not party.active[l]:
+                continue
+            if l == self.j:
+                keep = st.permutation.tbl < n
+                bt = _bool_array_bt(keep.tolist())
+                b.publish(f"KeepList{l}", bt.to_bytes())
+                self._export(self._pf("KeepList", l), bt)
+                sh.exponents = st.exponents.copy_of_range(0, n)
+                sh.permutation = st.permutation.shrink(n)
+            else:
+                raw = lazy_from_bytes(b.wait_for(l, f"KeepList{l}"))
+                try:
+                    keep = np.frombuffer(raw.data, np.uint8).astype(bool)
+                    if keep.shape[0] != st.maxciph or keep.sum() != n:
+                        raise ByteTreeError("bad keep list")
+                except (ByteTreeError, ValueError):
+                    keep = np.zeros(st.maxciph, bool)
+                    keep[:n] = True
+                self._export(self._pf("KeepList", l),
+                             _bool_array_bt(keep.tolist()))
+            idx = np.nonzero(keep)[0]
+            sh.commitments[l] = st.commitments[l].take(idx)
+            if l != self.j:
+                sh.raised_commitments[l] = st.raised_commitments[l].take(idx)
+        if st.reenc_exponents is not None:
+            sh.reenc_exponents = st.reenc_exponents.copy_of_range(0, n)
+            sh.reenc_factors = st.reenc_factors.copy_of_range(0, n)
+        return sh
+
+    def committed_shuffle(self, ciphertexts: PPArray,
+                          write_type: bool = True) -> PPArray:
+        """Online phase after precomputation: the shrink, then a CCPoS
+        per party (reference:
+        ShufflerElGamalSession.committedShuffle:972-1038)."""
+        party = self.party
+        party.log.info(
+            f"Shuffle {ciphertexts.size} ciphertexts "
+            "(commitment-consistent chain)."
+        )
+        ctx = self.ctx
+        n = ciphertexts.size
+        b = self.board.scope("ccshuffle")
+
+        if self.nizkp is not None and write_type:
+            _write(self.nizkp / "type", "shuffling")
+        if self.nizkp is not None:
+            _write(self.nizkp / "FullPublicKey.bt",
+                   party.full_public_key().to_bytetree().to_bytes())
+            _write(self.nizkp / "Ciphertexts.bt",
+                   ciphertexts.to_bytetree().to_bytes())
+
+        st = self._shrink(n)
+        g = ctx.pgroup.g
+        wide_pk_elem = self._wide_pk()
+        pos_par = PoSParams(ctx.vbitlen, ctx.ebitlen, ctx.rbitlen, ctx.prg)
+        active_threshold = st.active_threshold
+
+        def _own_output(x):
+            return x.mul(st.reenc_factors).permute(st.permutation.inv())
+
+        inp = ciphertexts
+        valid_proofs = 0
+        optimistic: Optional[_OptimisticOutput] = None
+        for l in range(1, active_threshold + 1):
+            if not party.active[l]:
+                continue
+            if l == self.j:
+                out = out_bytes = None
+                if optimistic is not None:
+                    out, out_bytes = optimistic.join(inp)
+                    optimistic = None
+                if out is None:
+                    out = _own_output(inp)
+                    out_bytes = out.to_bytetree().to_bytes()
+                b.publish(f"Ciphertext{l}", out_bytes)
+                party.log.child().info(
+                    "Re-encrypt, permute and prove (CCPoS)."
+                )
+                P = CCPoSProver(pos_par, self.rs)
+                P.set_instance(
+                    g, st.generators, st.commitments[l], wide_pk_elem,
+                    inp, out, st.exponents, st.permutation,
+                    st.reenc_exponents,
+                )
+                seed = ctx.challenger.challenge(
+                    ccpos_seed_data(g, st.generators, st.commitments[l],
+                                    wide_pk_elem, inp, out),
+                    8 * ctx.prg.min_seed_bytes, ctx.rbitlen,
+                )
+                commitment = P.commit(seed)
+                self._export(self._pf("CCPoSCommitment", l), commitment)
+                b.publish(f"CCPoSCommitment{l}", commitment.to_bytes())
+                v_bytes = ctx.challenger.challenge(
+                    ccpos_challenge_data(seed, commitment),
+                    ctx.vbitlen, ctx.rbitlen,
+                )
+                reply = P.reply(int.from_bytes(v_bytes, "big"))
+                self._export(self._pf("CCPoSReply", l), reply)
+                b.publish(f"CCPoSReply{l}", reply.to_bytes())
+                valid_proofs += 1
+            else:
+                out_bt = lazy_from_bytes(b.wait_for(l, f"Ciphertext{l}"))
+                try:
+                    out = self._ciph_group().elem_from_bytetree(out_bt, n)
+                except (ByteTreeError, ValueError):
+                    out = inp.copy_of_range(0, n)
+                if (_next_active(party, l, active_threshold) == self.j
+                        and st.reenc_factors is not None):
+                    optimistic = _OptimisticOutput(out, _own_output)
+                party.log.child().info(
+                    f"Verify shuffle of party {l} (CCPoS)."
+                )
+                if self._verify_ccpos(b, l, pos_par, g, st, wide_pk_elem,
+                                      inp, out):
+                    valid_proofs += 1
+                else:
+                    out = inp.copy_of_range(0, n)
+            if self.nizkp is not None:
+                if l == active_threshold:
+                    _write(self.nizkp / "ShuffledCiphertexts.bt",
+                           out.to_bytetree().to_bytes())
+                else:
+                    self._export(self._pf("Ciphertexts", l),
+                                 out.to_bytetree())
+            inp = out
+
+        if valid_proofs < party.par.threshold:
+            raise ProtocolError(f"too few valid proofs ({valid_proofs})")
+        return inp
+
+    def _verify_ccpos(self, b, l, pos_par, g, st, pkey, w, wp) -> bool:
+        """CCPoS verification with the precomputed 50-bit raised values:
+        the A side folds into the ciphertext side (reference:
+        CCPoS.java:75-96, ShufflerElGamalSession.java:875-959)."""
+        ctx = self.ctx
+        raisedu = st.raised_commitments.get(l)
+        V = CCPoSVerifier(pos_par)
+        V.set_instance(g, st.generators, st.commitments[l], pkey, w, wp)
+        seed = ctx.challenger.challenge(
+            ccpos_seed_data(g, st.generators, st.commitments[l], pkey, w,
+                            wp),
+            8 * ctx.prg.min_seed_bytes, ctx.rbitlen,
+        )
+        V.set_batch_vector(seed)
+        V.compute_AB(raisedu)
+        com_bt = lazy_from_bytes(b.wait_for(l, f"CCPoSCommitment{l}"))
+        commitment = V.set_commitment(com_bt)
+        self._export(self._pf("CCPoSCommitment", l), commitment)
+        v_bytes = ctx.challenger.challenge(
+            ccpos_challenge_data(seed, commitment), ctx.vbitlen, ctx.rbitlen
+        )
+        reply_bt = lazy_from_bytes(b.wait_for(l, f"CCPoSReply{l}"))
+        raised = raisedu is not None
+        verdict = V.verify(
+            reply_bt, int.from_bytes(v_bytes, "big"),
+            raisedh=st.raised_generators if raised else None,
+            raised_exponent=st.raised_exp if raised else None,
+        )
+        if verdict:
+            self._export(self._pf("CCPoSReply", l), reply_bt)
+        return verdict
 
     # ----------------------------------------------------------- shuffle
 
     def shuffle(self, ciphertexts: PPArray, write_type: bool = True
                 ) -> PPArray:
-        """Plain PoS shuffle chain (reference:
+        """The commitment-consistent chain when this session has a
+        precomputation (made by this object, or by an earlier process on
+        the same state directory: the `.precomp` marker), the plain PoS
+        chain otherwise (reference: MixNetElGamalSession.shuffle:208-246;
         ShufflerElGamalSession.shuffle:362-433 + performShuffling:250-352).
         One-shot per session (marker `.shuffle`): a re-run returns the
         recorded output."""
-        if self.state is not None and self.state.has_marker(".shuffle"):
-            out = self._reload_ciphertexts("ShuffledCiphertexts.bt",
-                                           ciphertexts.size)
-            if out is not None:
-                return out
-            raise ProtocolError("session already used for shuffling")
+        if self.state is not None:
+            if self.state.has_marker(".shuffle"):
+                out = self._reload_ciphertexts("ShuffledCiphertexts.bt",
+                                               ciphertexts.size)
+                if out is not None:
+                    return out
+                raise ProtocolError("session already used for shuffling")
+            if self._precomp is None and self.state.has_marker(".precomp"):
+                self._precomp = self._load_precomp()
+        if self._precomp is not None:
+            out = self.committed_shuffle(ciphertexts, write_type)
+            if self.state is not None:
+                self.state.write_marker(".shuffle")
+            return out
         party = self.party
         party.log.info(f"Shuffle {ciphertexts.size} ciphertexts.")
         ctx = self.ctx

@@ -1,14 +1,14 @@
 """Standalone Fiat–Shamir verifier of a proof directory (port of
-`vmn_tpu.protocol.mixnet.verifier`, plain PoS path).
+`vmn_tpu.protocol.mixnet.verifier`).
 
 Verifies `mixing`, `shuffling` and `decryption` transcripts offline — no
 network, no secrets (reference:
 MixNetElGamalVerifyFiatShamirSession.verify:1318-1668), with the
 reference's test-vector output (`test_vectors=`, `self.tv`) and its
-skip-part switches (`check_pos`, `check_dec`, `sloppy`; `check_posc`
-and `check_ccpos` are accepted for the precomputation mode).  A
-transcript of the precomputation mode (`proofs/maxciph`, PoSC + CCPoS)
-raises (ROADMAP queue 1 item 4).
+skip-part switches (`check_pos`, `check_dec`, `sloppy`, and `check_posc`
+/ `check_ccpos` for the precomputation mode).  A shuffle is checked as
+a chain of PoS proofs, or, when the transcript holds `proofs/maxciph`,
+as the precomputation mode's chain: PoSC, the keep-list shrink, CCPoS.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from vmn_tpu_torch import VCR_COMPAT_VERSION
 from vmn_tpu_torch.arith.pgroup import deferred_membership
 from vmn_tpu_torch.eio.bytetree import (
@@ -26,11 +28,21 @@ from vmn_tpu_torch.eio.bytetree import (
 from vmn_tpu_torch.protocol import elgamal
 from vmn_tpu_torch.protocol.context import ProtocolContext, ProtocolParams
 from vmn_tpu_torch.protocol.distr.dkg import evaluate_poly_in_exp
+from vmn_tpu_torch.protocol.hvzk.ccpos_w import (
+    CCPoSVerifier,
+    ccpos_challenge_data,
+    ccpos_seed_data,
+)
 from vmn_tpu_torch.protocol.hvzk.pos_tw import (
     PoSParams,
     PoSVerifier,
     pos_challenge_data,
     pos_seed_data,
+)
+from vmn_tpu_torch.protocol.hvzk.posc_tw import (
+    PoSCVerifier,
+    posc_challenge_data,
+    posc_seed_data,
 )
 from vmn_tpu_torch.protocol.mixnet.party import (
     _batch_vector,
@@ -165,8 +177,8 @@ class FiatShamirVerifier:
             self._fail(f"wrong width {width} != {expected_width}")
         do_pos = check_pos and ptype in ("mixing", "shuffling")
         do_dec = check_dec and ptype in ("mixing", "decryption")
-        # Skip-part switches of the precomputation mode, kept for its
-        # port (reference: -noposc / -noccpos / -sloppy).
+        # Skip-part switches of the precomputation mode (reference:
+        # -noposc / -noccpos / -sloppy).
         self._check_posc = check_posc
         self._check_ccpos = check_ccpos
         self._sloppy = sloppy
@@ -242,11 +254,11 @@ class FiatShamirVerifier:
     def _verify_shuffling(self, ctx, width, ciph_group, ciphs, n,
                           active_threshold, fpk):
         """Per-party PoS chain, replacing an output by its input on
-        failure (reference: ...FiatShamirSession.java:1397-1517)."""
+        failure (reference: ...FiatShamirSession.java:1397-1517), or the
+        precomputation mode's chain when the transcript holds `maxciph`."""
         if (self.proofs / "maxciph").exists():
-            raise NotImplementedError(
-                "precomputation transcripts (PoSC + CCPoS) are not ported "
-                "(ROADMAP queue 1 item 4)"
+            return self._verify_shuffling_precomp(
+                ctx, width, ciph_group, ciphs, n, active_threshold, fpk
             )
         generators = ctx.independent_generators("generators", n)
         self._tv("bas.h",
@@ -311,6 +323,114 @@ class FiatShamirVerifier:
                              lambda v=getattr(V, name):
                              v.to_bytetree().to_bytes().hex())
             if verdict:
+                valid += 1
+            else:
+                out = inp.copy_of_range(0, n)
+            inp = out
+        return inp, valid >= self.par.threshold
+
+    def _verify_shuffling_precomp(self, ctx, width, ciph_group, ciphs, n,
+                                  active_threshold, fpk):
+        """Precomputation-mode chain: PoSC over the maxciph-sized
+        commitments, the keep-list shrink, then a CCPoS per party
+        (reference: ...FiatShamirSession.java:1404-1495).  The
+        `check_posc`/`check_ccpos` switches skip their proofs."""
+        maxciph = int(self._read(self.proofs / "maxciph").decode().strip())
+        self._tv("par.N_0", maxciph)
+        if maxciph < n:
+            self._fail("maxciph smaller than number of ciphertexts")
+        generators = ctx.independent_generators("generators", maxciph)
+        self._tv("bas.h",
+                 lambda: generators.to_bytetree().to_bytes().hex())
+        shrunk_generators = generators.copy_of_range(0, n)
+        g = ctx.pgroup.g
+        wide_pk_elem = fpk.widen(width).as_ciph_elem()
+        pos_par = PoSParams(ctx.vbitlen, ctx.ebitlen, ctx.rbitlen, ctx.prg)
+
+        inp = ciphs
+        valid = 0
+        for l in range(1, active_threshold + 1):
+            cc_file = self.proofs / f"CCPoSCommitment{l:02d}.bt"
+            if not cc_file.exists():
+                continue  # inactive party
+
+            # PoSC over the full-size commitment
+            u_file = self.proofs / f"PermutationCommitment{l:02d}.bt"
+            try:
+                perm_comm = ctx.pgroup.elem_from_bytetree(
+                    self._read_bt(u_file), maxciph
+                )
+            except (ByteTreeError, ValueError):
+                perm_comm = generators.copy_of_range(0, maxciph)
+            self._tv("u",
+                     lambda: perm_comm.to_bytetree().to_bytes().hex())
+            posc_ok = True
+            if self._check_posc:
+                V = PoSCVerifier(pos_par)
+                V.set_instance(g, generators, perm_comm)
+                seed = ctx.challenger.challenge(
+                    posc_seed_data(g, generators, perm_comm),
+                    8 * ctx.prg.min_seed_bytes, ctx.rbitlen,
+                )
+                self._tv("PoSC.s", seed.hex())
+                V.set_batch_vector(seed)
+                commitment = V.set_commitment(
+                    self._read_bt(self.proofs / f"PoSCCommitment{l:02d}.bt")
+                )
+                v_int = int.from_bytes(ctx.challenger.challenge(
+                    posc_challenge_data(seed, commitment),
+                    ctx.vbitlen, ctx.rbitlen,
+                ), "big")
+                self._tv("PoSC.v", v_int)
+                reply_file = self.proofs / f"PoSCReply{l:02d}.bt"
+                posc_ok = reply_file.exists() and V.verify(
+                    self._read_bt(reply_file), v_int
+                )
+            if not posc_ok:
+                perm_comm = generators.copy_of_range(0, maxciph)
+
+            # the keep-list shrink
+            kl_bt = self._read_bt(self.proofs / f"KeepList{l:02d}.bt")
+            keep = np.frombuffer(kl_bt.data, np.uint8).astype(bool)
+            if keep.shape[0] != maxciph or int(keep.sum()) != n:
+                self._fail(f"bad keep list of party {l}")
+            shrunk_comm = perm_comm.take(np.nonzero(keep)[0])
+
+            # the output list and its CCPoS
+            out_file = self.proofs / f"Ciphertexts{l:02d}.bt"
+            if l == active_threshold and not out_file.exists():
+                out_file = self.nizkp / "ShuffledCiphertexts.bt"
+            out_bt = self._read_bt(out_file)
+            try:
+                out = ciph_group.elem_from_bytetree(out_bt, n)
+            except (ByteTreeError, ValueError):
+                self._fail(f"malformed output list of party {l}")
+            self._tv("bas.L_l", lambda bt=out_bt: bt.to_bytes().hex())
+
+            cc_ok = True
+            if self._check_ccpos:
+                CV = CCPoSVerifier(pos_par)
+                CV.set_instance(g, shrunk_generators, shrunk_comm,
+                                wide_pk_elem, inp, out)
+                seed = ctx.challenger.challenge(
+                    ccpos_seed_data(g, shrunk_generators, shrunk_comm,
+                                    wide_pk_elem, inp, out),
+                    8 * ctx.prg.min_seed_bytes, ctx.rbitlen,
+                )
+                self._tv("CCPoS.s", seed.hex())
+                CV.set_batch_vector(seed)
+                CV.compute_AB()
+                commitment = CV.set_commitment(self._read_bt(cc_file))
+                v_int = int.from_bytes(ctx.challenger.challenge(
+                    ccpos_challenge_data(seed, commitment),
+                    ctx.vbitlen, ctx.rbitlen,
+                ), "big")
+                self._tv("CCPoS.v", v_int)
+                r_file = self.proofs / f"CCPoSReply{l:02d}.bt"
+                cc_ok = r_file.exists() and CV.verify(
+                    self._read_bt(r_file), v_int
+                )
+            if posc_ok and cc_ok:
                 valid += 1
             else:
                 out = inp.copy_of_range(0, n)
