@@ -2,6 +2,9 @@
 
 Usage:  python3 chip_smoke.py [--n N] [--ec-n N] [--k3-n N] [--k3i-n N]
                               [--profile PATH ...]
+        python3 chip_smoke.py --cli-party -- <vmn arguments>
+          (one `vmn` of the port on the card, its launches and board
+          figures on its last line: the party processes of phase 10)
 
 Phases (one line each; any failure raises and the exit code is not 0):
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -74,7 +77,28 @@ Phases (one line each; any failure raises and the exit code is not 0):
      call, and the launches of the precomputation and of the online mix
      apart; then H4 (H6 at P-256) at each (N, exponent bits) that the
      precomputation, the online mix and the verify called it with, each
-     also equal to its plain version (`multiexp` lines).
+     also equal to its plain version (`multiexp` lines);
+ 10. the operator tools (`[cli]` lines), each tool its own process
+     (`python3 -m vmn_tpu_torch.cli.main <tool>`, a `vmn` through
+     `--cli-party`), fixed signature keys and seed files: test256, k=1,
+     vmni -> vmn -keygen -> vmnd -ciphs -> vmn -mix -> vmnv -t on the
+     card, and the same commands in this process on the CPU, with
+     byte-equal nizkp directories, public key, ciphertexts and
+     plaintexts and equal -t output; modp2048, k=1, N ciphertexts, then
+     vmn -precomp for 1.25·N and vmn -mix in a second process on a new
+     auxsid: vmnv accepts both and rejects one flipped byte in
+     PoSReply01.bt / CCPoSReply01.bt, the plaintexts decode to vmnd's
+     messages; modp2048, k=3, t=2, --k3-n ciphertexts, three concurrent
+     `vmn -keygen` and then three concurrent `vmn -mix` processes over
+     the signed localhost HTTP board: equal keys and plaintexts, the
+     messages, vmnv accepting every party's transcript and rejecting a
+     flipped byte, each party's board figures (network, waiting, bytes,
+     signing and verifying seconds, nizkp bytes); P-256, k=1, --ec-n
+     ciphertexts written here through the raw interface; then vdemo
+     (k=3, t=2, 1000 messages, modp2048, over HTTP) and vdemo -protocol
+     all.  Each line gives every step's seconds, process start-up
+     included.  H1-H4 and the combine must launch in every modp2048
+     `vmn -mix` process, H5, H6, the EC combine and H8 in the P-256 one.
 
 Each mix zeroes the wrappers' launch counters just before `session.mix`
 (all three parties' in the k=3 runs: the counts are totals over the
@@ -86,8 +110,10 @@ interactive mix's coin flipping, and H5, H6, the EC combine (once per
 H6 call) and H8 in the P-256 mix (H7 is off that path, as in vmn_tpu,
 and reports 0); the `launches` line also counts H1's, H2's, H3's, H5's
 and H8's launches in each mix by batch size (1, 2-127, >=128); the
-`kernels` line reports each kernel's launches in its own path's mix (a
-Montgomery kernel's also by path: `launches_by_path`), beside the
+`kernels` line reports each kernel's launches in its own path's mix
+(also by path, `launches_by_path`, with the CLI's `vmn -mix` processes:
+"cli modp2048 k=1 mix", its precomputed "... online mix", "cli modp2048
+k=3 mix" summed over the three processes, "cli P-256 mix"), beside the
 error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
@@ -100,6 +126,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1468,6 +1495,521 @@ def precomp_phase(name: str, k: int, n: int, tmp: Path, plain_mix_s: float):
     return pre, mix, widths
 
 
+# ------------------------------------------------------------- phase 10
+
+CLI = [sys.executable, "-m", "vmn_tpu_torch.cli.main"]
+VDEMO_N = 1000  # vdemo's modp2048 k=3 run
+
+
+def cli_party(argv) -> int:
+    """`chip_smoke.py --cli-party -- <vmn args>`: `vmn` of the port in
+    this process, on the card, with the launch counters zeroed just
+    before it and read just after it.  The last line of standard output
+    is {"rc", "launches", "board"}: the board figures `vmn`'s postlude
+    reports (network, waiting, sent and received bytes, nizkp bytes)
+    and the seconds spent signing and verifying board messages."""
+    from vmn_tpu_torch.cli import vmn
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    board = {}
+    postlude = vmn._postlude
+
+    def report(party, t0, operation="operation"):
+        b = party.board
+        board.update(
+            network_s=getattr(b, "network_time", 0.0),
+            waiting_s=getattr(b, "waiting_time", 0.0),
+            sent_bytes=getattr(b, "sent_bytes", 0),
+            received_bytes=getattr(b, "received_bytes", 0),
+            sign_s=getattr(b, "sign_time", 0.0),
+            verify_s=getattr(b, "verify_time", 0.0),
+            nizkp_bytes=sum(f.stat().st_size
+                            for d in Path(party.directory).glob("nizkp.*")
+                            for f in d.rglob("*") if f.is_file()))
+        postlude(party, t0, operation)
+
+    vmn._postlude = report
+    torch.cuda.synchronize()
+    K.reset_launches()
+    E.reset_launches()
+    try:
+        rc = vmn.main(argv)
+    except SystemExit as e:
+        print(e.code, file=sys.stderr)
+        rc = e.code if isinstance(e.code, int) else 1
+    torch.cuda.synchronize()
+    print(json.dumps({"rc": rc, "launches": {**K.LAUNCHES, **E.LAUNCHES},
+                      "board": board}))
+    return rc
+
+
+class Procs:
+    """Processes of one CLI run, each with its output in a log file;
+    `wait` raises on a non-zero exit (unless told not to), and every
+    process still running when the run ends is killed."""
+
+    def __init__(self, workdir: Path):
+        self.workdir = workdir
+        self.live = []
+        self.n = 0
+        self.env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])])}
+
+    def start(self, args, cwd=None, party=False):
+        self.n += 1
+        log = self.workdir / f"proc{self.n:02d}_{args[0].lstrip('-')}.log"
+        cmd = ([sys.executable, str(REPO / "chip_smoke.py"), "--cli-party",
+                "--", *args] if party else [*CLI, *args])
+        with open(log, "w") as out:
+            p = subprocess.Popen(cmd, cwd=cwd or self.workdir, env=self.env,
+                                 stdout=out, stderr=subprocess.STDOUT)
+        p.log, p.args, p.t0 = log, args, time.perf_counter()
+        self.live.append(p)
+        return p
+
+    def wait(self, procs, check=True, timeout=900):
+        """[(exit code, seconds, output)] of procs, in order."""
+        res = []
+        for p in procs:
+            rc = p.wait(timeout=timeout)
+            self.live.remove(p)
+            text = p.log.read_text()
+            if check and rc != 0:
+                raise AssertionError(
+                    f"{' '.join(map(str, p.args))} exited {rc}:\n"
+                    + text[-3000:])
+            res.append((rc, time.perf_counter() - p.t0, text))
+        return res
+
+    def run(self, *args, cwd=None, party=False, check=True):
+        """(output, seconds) of one process; a party's output is its
+        last line's JSON object."""
+        (_, s, text), = self.wait([self.start(args, cwd, party)], check)
+        return (json.loads(text.strip().splitlines()[-1]) if party
+                else text), s
+
+    def close(self):
+        for p in self.live:
+            p.kill()
+            p.wait()
+        self.live = []
+
+
+@contextlib.contextmanager
+def processes(workdir: Path):
+    workdir.mkdir(parents=True, exist_ok=True)
+    procs = Procs(workdir)
+    try:
+        yield procs
+    finally:
+        procs.close()
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def cli_info(procs: Procs, sid: str, group: str, k: int = 1,
+             threshold: int = 1) -> dict:
+    """vmni -prot, one vmni -party per party (its own directory, fixed
+    signature keys and seed file; localhost HTTP and hint ports when
+    k > 1), vmni -merge: ({j: party directory}, {step: seconds})."""
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.crypto.signature import SignatureKeyPair
+
+    w = procs.workdir
+    _, s = procs.run("vmni", "-prot", "-sid", sid, "-nopart", str(k),
+                     "-thres", str(threshold), "-pgroup", f"named:{group}",
+                     "-stub", "stub.xml")
+    steps = {"vmni_prot": s, "vmni_party": 0.0}
+    ports = free_ports(2 * k)
+    dirs = {}
+    for j in range(1, k + 1):
+        d = dirs[j] = w / f"Party{j:02d}"
+        d.mkdir()
+        (d / "seed").write_bytes(f"{sid}-party-{j}".encode())
+        kp = SignatureKeyPair.generate(SeededSource(f"{sid}-sig-{j}".encode()))
+        net = (["-http", f"http://127.0.0.1:{ports[2 * j - 2]}",
+                "-hint", f"127.0.0.1:{ports[2 * j - 1]}"] if k > 1 else [])
+        _, s = procs.run("vmni", "-party", "-name", f"Party{j:02d}",
+                         "-stub", str(w / "stub.xml"), "-dir", str(d),
+                         "-seed", str(d / "seed"), "-pkey", kp.public.to_hex(),
+                         "-skey", kp.to_hex(), *net, "-out", "local.xml",
+                         cwd=d)
+        steps["vmni_party"] += s
+    _, s = procs.run("vmni", "-merge",
+                     *[str(dirs[j] / "local.xml") for j in dirs],
+                     "-out", "protInfo.xml")
+    steps["vmni_merge"] = s
+    return dirs, steps
+
+
+def cli_parties(procs: Procs, dirs: dict, *args) -> list:
+    """`vmn <args>` of every party at once, each in its own process
+    from its directory; [(party report, seconds)] by party."""
+    ps = [procs.start([args[0], str(dirs[j] / "privInfo.xml"),
+                       str(procs.workdir / "protInfo.xml"), *args[1:]],
+                      cwd=dirs[j], party=True) for j in sorted(dirs)]
+    return [(json.loads(text.strip().splitlines()[-1]), s)
+            for _, s, text in procs.wait(ps)]
+
+
+def cli_vmnd(procs: Procs, group: str, n: int, pk: Path):
+    """vmnd -ciphs of n counter messages: (seconds, encoding seconds)."""
+    out, s = procs.run("vmnd", "-ciphs", str(pk), "ciphertexts.bt",
+                       "-N", str(n), "-pgroup", f"named:{group}")
+    enc = re.search(r"encoding ([0-9.]+) s", out)
+    return s, float(enc.group(1))
+
+
+def cli_vmnv(procs: Procs, nizkp: Path, *extra, expect_ok=True):
+    """vmnv -mix on a transcript: (output, seconds); raises unless it
+    accepts (or, with expect_ok=False, rejects)."""
+    p = procs.start(["vmnv", str(procs.workdir / "protInfo.xml"),
+                     str(nizkp), "-mix", *extra])
+    (rc, s, text), = procs.wait([p], check=False)
+    if (rc == 0) != expect_ok or (expect_ok and "Proof is valid." not in text):
+        raise AssertionError(f"vmnv on {nizkp} exited {rc}:\n{text[-2000:]}")
+    return text, s
+
+
+def cli_tampered(procs: Procs, nizkp: Path, name: str, *extra) -> float:
+    """vmnv (with `extra`) on a copy of the transcript with one byte of
+    proofs/`name` flipped must exit non-zero; returns its seconds.  It runs in this
+    process on the card (its kernels are loaded here already), which
+    spares a process start-up for each flipped byte."""
+    import io
+
+    from vmn_tpu_torch.cli import vmnv
+
+    bad = procs.workdir / f"tampered_{nizkp.parent.name}_{name}"
+    shutil.copytree(nizkp, bad)
+    reply = bad / "proofs" / name
+    raw = bytearray(reply.read_bytes())
+    raw[len(raw) // 2] ^= 0x01
+    reply.write_bytes(bytes(raw))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = vmnv.main([str(procs.workdir / "protInfo.xml"), str(bad),
+                            "-mix", *extra])
+        except SystemExit as e:
+            rc = e.code
+    torch.cuda.synchronize()
+    if rc in (0, None) or "Proof is valid." in out.getvalue():
+        raise AssertionError(f"vmnv accepted {bad}:\n"
+                             + out.getvalue()[-2000:])
+    return time.perf_counter() - t0
+
+
+def decoded(group, path: Path) -> list:
+    """The messages of a plaintext file, decoded on the host."""
+    from vmn_tpu_torch.eio.bytetree import ByteTree
+
+    return sorted(group.decode_message(c.to_int_unsigned())
+                  for c in ByteTree.read_file(path).children)
+
+
+def tv_blocks(text: str) -> str:
+    """vmnv's -t output: its TEST VECTOR blocks."""
+    return text[text.index("\nTEST VECTOR"):text.rindex("Proof is valid.")]
+
+
+def missing_launches(launches: dict, kernels) -> list:
+    return [k for k in kernels if launches.get(k, 0) == 0]
+
+
+def fmt_steps(steps: dict) -> str:
+    return json.dumps({k: round(v, 3) for k, v in steps.items()},
+                      separators=(",", ":"))
+
+
+def cli_test256_phase(tmp: Path) -> None:
+    """test256, k=1: the operator flow as processes on the card, and the
+    same commands in this process with device="cpu": byte-equal nizkp
+    directories, public key, ciphertexts and plaintexts, equal -t."""
+    import io
+
+    from vmn_tpu_torch.cli import vmn, vmnd, vmnv
+
+    w = tmp / "cli_test256"
+    with processes(w / "card") as procs:
+        dirs, steps = cli_info(procs, "CliCard", "test256")
+        d = dirs[1]
+        _, steps["keygen"] = procs.run(
+            "vmn", "-keygen", str(d / "privInfo.xml"), "protInfo.xml",
+            "publicKey.bt")
+        steps["vmnd"], _ = cli_vmnd(procs, "test256", 5, w / "card" /
+                                    "publicKey.bt")
+        _, steps["mix"] = procs.run(
+            "vmn", "-mix", str(d / "privInfo.xml"), "protInfo.xml",
+            "ciphertexts.bt", "plaintexts.bt")
+        card_tv, steps["vmnv"] = cli_vmnv(procs, d / "nizkp.default",
+                                          "-t", ",".join(TV_NAMES))
+    # the same info files, seed and commands in this process on the CPU
+    cpu = w / "cpu"
+    shutil.copytree(w / "card" / "Party01", cpu / "Party01",
+                    ignore=shutil.ignore_patterns("state", "nizkp.*", "log"))
+    prot = (w / "card" / "protInfo.xml").read_text()
+    (cpu / "protInfo.xml").write_text(prot)
+    priv = (cpu / "Party01" / "privInfo.xml")
+    priv.write_text(priv.read_text().replace(str(w / "card"), str(cpu)))
+    cwd = Path.cwd()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(cpu)
+        with contextlib.redirect_stdout(io.StringIO()):
+            for mod, argv in (
+                    (vmn, ["-keygen", "Party01/privInfo.xml", "protInfo.xml",
+                           "publicKey.bt", "-s"]),
+                    (vmnd, ["-ciphs", "publicKey.bt", "ciphertexts.bt",
+                            "-N", "5", "-pgroup", "named:test256"]),
+                    (vmn, ["-mix", "Party01/privInfo.xml", "protInfo.xml",
+                           "ciphertexts.bt", "plaintexts.bt", "-s"])):
+                if mod.main(argv, device="cpu") != 0:
+                    raise AssertionError(f"CPU {argv[0]} failed")
+        with contextlib.redirect_stdout(out):
+            rc = vmnv.main(["protInfo.xml", "Party01/nizkp.default", "-mix",
+                            "-t", ",".join(TV_NAMES)], device="cpu")
+    finally:
+        os.chdir(cwd)
+    steps["cpu_in_process"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError("CPU vmnv rejected the CPU transcript")
+    nfiles = same_transcript(d / "nizkp.default",
+                             cpu / "Party01" / "nizkp.default")
+    for f in ("publicKey.bt", "ciphertexts.bt", "plaintexts.bt"):
+        if (w / "card" / f).read_bytes() != (cpu / f).read_bytes():
+            raise AssertionError(f"test256 CLI: {f} differs card vs CPU")
+    if tv_blocks(card_tv) != tv_blocks(out.getvalue()):
+        raise AssertionError("test256 CLI: vmnv -t output differs")
+    phase("cli", run="test256 k=1 card vs cpu", nizkp_files=nfiles,
+          bytes_equal="nizkp,publicKey.bt,ciphertexts.bt,plaintexts.bt",
+          tv_equal=True, steps_s=fmt_steps(steps))
+
+
+MIX_KERNELS = ("mont_mul", "mont_exp", "mont_fb_exp",
+               "mont_expprod_positions", "mont_expprod_combine")
+EC_MIX_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
+                  "ec_multiexp_combine", "ec_point_add")
+
+
+def cli_modp_phase(n: int, tmp: Path):
+    """modp2048, k=1, n ciphertexts: the flow as processes, then a
+    precomputation for headroom(n) and its online mix in a second
+    process on a new auxsid; returns the launches of the two mixes."""
+    from vmn_tpu_torch.arith.pgroup import ModPGroup
+
+    group = ModPGroup.named("modp2048", device="cuda")
+    want = sorted(f"{i:08d}".encode() for i in range(n))
+    with processes(tmp / "cli_modp2048") as procs:
+        w = procs.workdir
+        dirs, steps = cli_info(procs, "CliModp", "modp2048")
+        priv = str(dirs[1] / "privInfo.xml")
+        _, steps["keygen"] = procs.run("-keygen", priv, "protInfo.xml",
+                                       "publicKey.bt", party=True)
+        steps["vmnd"], encode_s = cli_vmnd(procs, "modp2048", n,
+                                           w / "publicKey.bt")
+        mix, steps["mix"] = procs.run("-mix", priv, "protInfo.xml",
+                                      "ciphertexts.bt", "plaintexts.bt",
+                                      party=True)
+        _, steps["vmnv"] = cli_vmnv(procs, dirs[1] / "nizkp.default")
+        steps["vmnv_tampered"] = cli_tampered(
+            procs, dirs[1] / "nizkp.default", "PoSReply01.bt")
+        if decoded(group, w / "plaintexts.bt") != want:
+            raise AssertionError("CLI modp2048: plaintext multiset differs")
+        pre, steps["precomp"] = procs.run(
+            "-precomp", priv, "protInfo.xml", "-auxsid", "pc",
+            "-maxciph", str(headroom(n)), party=True)
+        pc_mix, steps["precomp_mix"] = procs.run(
+            "-mix", priv, "protInfo.xml", "ciphertexts.bt", "pc_plain.bt",
+            "-auxsid", "pc", party=True)
+        nizkp = dirs[1] / "nizkp.pc"
+        if not (nizkp / "proofs" / "CCPoSCommitment01.bt").exists():
+            raise AssertionError("CLI precomp: the mix took no CCPoS chain")
+        _, steps["precomp_vmnv"] = cli_vmnv(procs, nizkp, "-auxsid", "pc")
+        steps["precomp_vmnv_tampered"] = cli_tampered(
+            procs, nizkp, "CCPoSReply01.bt", "-auxsid", "pc")
+        if decoded(group, w / "pc_plain.bt") != want:
+            raise AssertionError("CLI precomp: plaintext multiset differs")
+    # the precomputed path: each kernel in its precomputation or its
+    # online mix (the online mix has no fixed-base power, H3)
+    both = {k: pre["launches"][k] + pc_mix["launches"][k]
+            for k in MIX_KERNELS}
+    bad = (missing_launches(mix["launches"], MIX_KERNELS)
+           + missing_launches(both, MIX_KERNELS))
+    if bad:
+        raise AssertionError(f"CLI modp2048 -mix: not launched: {bad}")
+    compact = {"separators": (",", ":")}
+    phase("cli", run="modp2048 k=1", N=n, maxciph=headroom(n),
+          multiset=True, vmnv_ok="plain,precomp",
+          tampered_rejected="PoSReply01,CCPoSReply01",
+          vmnd_encode_s=f"{encode_s:.3f}", steps_s=fmt_steps(steps),
+          board=json.dumps(mix["board"], **compact),
+          mix_launches=json.dumps(
+              {k: v for k, v in mix["launches"].items() if v}, **compact),
+          precomp_launches=json.dumps(
+              {k: v for k, v in pre["launches"].items() if v}, **compact),
+          precomp_mix_launches=json.dumps(
+              {k: v for k, v in pc_mix["launches"].items() if v}, **compact))
+    return mix["launches"], pc_mix["launches"]
+
+
+def cli_k3_phase(n: int, tmp: Path) -> dict:
+    """modp2048, k=3, t=2, n ciphertexts: three `vmn` processes at once
+    over the signed localhost HTTP board (keygen, then mix); returns the
+    mixes' launches summed over the parties."""
+    from vmn_tpu_torch.arith.pgroup import ModPGroup
+
+    group = ModPGroup.named("modp2048", device="cuda")
+    with processes(tmp / "cli_modp2048_k3") as procs:
+        w = procs.workdir
+        dirs, steps = cli_info(procs, "CliK3", "modp2048", k=3, threshold=2)
+        t0 = time.perf_counter()
+        keygen = cli_parties(procs, dirs, "-keygen", "publicKey.bt")
+        steps["keygen"] = time.perf_counter() - t0
+        pks = {(dirs[j] / "publicKey.bt").read_bytes() for j in dirs}
+        if len(pks) != 1:
+            raise AssertionError("CLI k=3: the parties' public keys differ")
+        steps["vmnd"], encode_s = cli_vmnd(procs, "modp2048", n,
+                                           dirs[1] / "publicKey.bt")
+        t0 = time.perf_counter()
+        mixes = cli_parties(procs, dirs, "-mix", str(w / "ciphertexts.bt"),
+                            "plaintexts.bt")
+        steps["mix"] = time.perf_counter() - t0
+        plains = {(dirs[j] / "plaintexts.bt").read_bytes() for j in dirs}
+        if len(plains) != 1:
+            raise AssertionError("CLI k=3: the parties' plaintexts differ")
+        if decoded(group, dirs[1] / "plaintexts.bt") != sorted(
+                f"{i:08d}".encode() for i in range(n)):
+            raise AssertionError("CLI k=3: plaintext multiset differs")
+        t0 = time.perf_counter()
+        ps = [procs.start(["vmnv", str(w / "protInfo.xml"),
+                           str(dirs[j] / "nizkp.default"), "-mix"])
+              for j in sorted(dirs)]
+        if not all("Proof is valid." in text for _, _, text in procs.wait(ps)):
+            raise AssertionError("CLI k=3: vmnv did not accept a transcript")
+        steps["vmnv_3"] = time.perf_counter() - t0
+        steps["vmnv_tampered"] = cli_tampered(
+            procs, dirs[1] / "nizkp.default", "PoSReply01.bt")
+    for j, (rep, _) in enumerate(mixes, 1):
+        # parties above the threshold do not shuffle: they verify the
+        # shuffles and decrypt, which takes no fixed-base power (H3)
+        bad = missing_launches(rep["launches"], [
+            k for k in MIX_KERNELS if j <= 2 or k != "mont_fb_exp"])
+        if bad:
+            raise AssertionError(f"CLI k=3 party {j} -mix: not launched: "
+                                 f"{bad}")
+    total = {k: sum(rep["launches"][k] for rep, _ in mixes)
+             for k in mixes[0][0]["launches"]}
+    compact = {"separators": (",", ":")}
+    parties = {
+        f"Party{j:02d}": {
+            "keygen_s": round(keygen[j - 1][1], 3),
+            "mix_s": round(mixes[j - 1][1], 3),
+            "keygen_board": keygen[j - 1][0]["board"],
+            "mix_board": mixes[j - 1][0]["board"]}
+        for j in dirs}
+    phase("cli", run="modp2048 k=3 t=2 http", N=n, parties_agree=True,
+          multiset=True, vmnv_ok="Party01,Party02,Party03",
+          tampered_rejected="PoSReply01", vmnd_encode_s=f"{encode_s:.3f}",
+          steps_s=fmt_steps(steps),
+          parties=json.dumps(parties, **compact),
+          mix_launches=json.dumps({k: v for k, v in total.items() if v},
+                                  **compact))
+    return total
+
+
+def cli_ec_phase(n: int, tmp: Path) -> dict:
+    """P-256, k=1, n ciphertexts: vmni, vmn -keygen, the ciphertexts
+    written here through the port's raw interface (vmnd encodes ModP
+    groups only), vmn -mix, vmnv; returns the mix's launches."""
+    from vmn_tpu_torch.crypto.hash import SHA256
+    from vmn_tpu_torch.crypto.prg import PRGHeuristic
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol import elgamal
+    from vmn_tpu_torch.protocol.interfaces import RawInterface
+
+    group = _group("P-256")
+    raw = RawInterface()
+    with processes(tmp / "cli_p256") as procs:
+        w = procs.workdir
+        dirs, steps = cli_info(procs, "CliP256", "P-256")
+        priv = str(dirs[1] / "privInfo.xml")
+        _, steps["keygen"] = procs.run("-keygen", priv, "protInfo.xml",
+                                       "publicKey.bt", party=True)
+        t0 = time.perf_counter()
+        pk = raw.read_public_key(group, w / "publicKey.bt")
+        prg = PRGHeuristic(SHA256)
+        prg.set_seed(SHA256.hash(b"cli-ec-msgs"))
+        m = group.random_array(n, prg, 100)
+        r = group.ring.random((n,), SeededSource(b"cli-ec-ciphs"), 0)
+        raw.write_ciphertexts(elgamal.encrypt(pk, m, r),
+                              w / "ciphertexts.bt")
+        torch.cuda.synchronize()
+        steps["encrypt_here"] = time.perf_counter() - t0
+        mix, steps["mix"] = procs.run("-mix", priv, "protInfo.xml",
+                                      "ciphertexts.bt", "plaintexts.bt",
+                                      party=True)
+        _, steps["vmnv"] = cli_vmnv(procs, dirs[1] / "nizkp.default")
+        steps["vmnv_tampered"] = cli_tampered(
+            procs, dirs[1] / "nizkp.default", "PoSReply01.bt")
+        plain = raw.read_plaintexts(group, w / "plaintexts.bt")
+        if sorted(_points(group, plain)) != sorted(_points(group, m)):
+            raise AssertionError("CLI P-256: plaintext multiset differs")
+    bad = missing_launches(mix["launches"], EC_MIX_KERNELS)
+    if bad:
+        raise AssertionError(f"CLI P-256 -mix: not launched: {bad}")
+    compact = {"separators": (",", ":")}
+    phase("cli", run="P-256 k=1", N=n, multiset=True, vmnv_ok=True,
+          tampered_rejected="PoSReply01", steps_s=fmt_steps(steps),
+          board=json.dumps(mix["board"], **compact),
+          mix_launches=json.dumps(
+              {k: v for k, v in mix["launches"].items() if v}, **compact))
+    return mix["launches"]
+
+
+def cli_vdemo_phase(n: int, tmp: Path) -> None:
+    """vdemo over its default localhost HTTP board at modp2048 (k=3,
+    t=2, n messages), then vdemo -protocol all at test256."""
+    with processes(tmp / "cli_vdemo") as procs:
+        out, s = procs.run("vdemo", "-k", "3", "-t", "2", "-n", str(n),
+                           "-group", "modp2048", str(procs.workdir / "demo"))
+        if ("demo complete" not in out
+                or "plaintext multiset preserved: True" not in out
+                or "standalone verification: ok" not in out):
+            raise AssertionError(f"vdemo modp2048:\n{out[-2000:]}")
+        out_all, s_all = procs.run("vdemo", "-protocol", "all")
+        demos = out_all.count(" ok\n")
+    phase("cli", run="vdemo", modp2048_k3_n=n, vdemo_s=f"{s:.3f}",
+          protocol_all_ok=demos, protocol_all_s=f"{s_all:.3f}")
+
+
+def cli_phase(n: int, k3_n: int, ec_n: int, vdemo_n: int, tmp: Path):
+    """Phase 10: the operator tools, each as its own process."""
+    t0 = time.perf_counter()
+    cli_test256_phase(tmp)
+    modp, modp_pc = cli_modp_phase(n, tmp)
+    k3 = cli_k3_phase(k3_n, tmp)
+    ec = cli_ec_phase(ec_n, tmp)
+    cli_vdemo_phase(vdemo_n, tmp)
+    phase("cli", run="all", phase_s=f"{time.perf_counter() - t0:.1f}")
+    return {"cli modp2048 k=1 mix": modp,
+            "cli modp2048 k=1 precomp online mix": modp_pc,
+            "cli modp2048 k=3 mix": k3, "cli P-256 mix": ec}
+
+
 SPANS = (  # (module, class, method) timed as host spans by --profile
     ("vmn_tpu_torch.protocol.mixnet.party", "MixSession", "mix"),
     ("vmn_tpu_torch.protocol.mixnet.verifier", "FiatShamirVerifier",
@@ -1595,6 +2137,12 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--cli-party"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        return cli_party(argv[2:] if argv[1:2] == ["--"] else argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10000,
                     help="ciphertexts in the modp2048 mix (default 10000)")
@@ -1666,6 +2214,7 @@ def main(argv=None) -> int:
         pc3, pc3_mix, pc3_widths = precomp_phase(
             "modp2048", 3, args.k3_n, tmp, k3_s)
         _, _, pc_ec_widths = precomp_phase("P-256", 1, args.ec_n, tmp, ec_s)
+        cli = cli_phase(args.n, args.k3_n, args.ec_n, VDEMO_N, tmp)
         for path in args.profile:
             profile_phase(path, {"P-256": args.ec_n,
                                  "modp2048-k3": args.k3_n}.get(path, args.n),
@@ -1716,7 +2265,12 @@ def main(argv=None) -> int:
                 "modp2048 precomp": pc[name],
                 "modp2048 precomp online mix": pc_mix[name],
                 "modp2048 k=3 precomp": pc3[name],
-                "modp2048 k=3 precomp online mix": pc3_mix[name]}
+                "modp2048 k=3 precomp online mix": pc3_mix[name],
+                **{path: launches[name] for path, launches in cli.items()}}
+        else:
+            kernels[-1]["launches_by_path"] = {
+                "P-256 mix": ec[name],
+                "cli P-256 mix": cli["cli P-256 mix"][name]}
     for name in ("mont_mul", "mont_exp"):
         kernels[K.KERNELS.index(name)].update(
             batch1=checks[f"{name}_b1"], w8=checks[f"{name}_w8"],

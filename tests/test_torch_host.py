@@ -106,16 +106,29 @@ def test_jacobi_and_group_marshalling_match():
 
 
 def test_port_imports_neither_jax_nor_vmn_tpu():
+    """Every module of the port (found by walking the package, so a new
+    one is covered at once) and chip_smoke.py import without jax or
+    vmn_tpu; the modules named here must be among those walked."""
     code = (
-        "import sys\n"
-        "import vmn_tpu_torch, vmn_tpu_torch.interop\n"
-        "import vmn_tpu_torch.protocol.mixnet.party\n"
-        "import vmn_tpu_torch.protocol.mixnet.verifier\n"
-        "import vmn_tpu_torch.crypto.naor_yung\n"
-        "import vmn_tpu_torch.protocol.coinflip\n"
-        "import vmn_tpu_torch.protocol.distr.indgen\n"
-        "import vmn_tpu_torch.protocol.distr.plainkeys\n"
-        "import vmn_tpu_torch.protocol.secretsharing.shamir\n"
+        "import importlib, pkgutil, sys\n"
+        "import vmn_tpu_torch\n"
+        "names = {m.name for m in pkgutil.walk_packages("
+        "vmn_tpu_torch.__path__, 'vmn_tpu_torch.')}\n"
+        "need = {'vmn_tpu_torch.' + m for m in ("
+        "'interop', 'kernel_timing', 'protocol.mixnet.party', "
+        "'protocol.mixnet.verifier', 'crypto.naor_yung', "
+        "'protocol.coinflip', 'protocol.distr.indgen', "
+        "'protocol.distr.plainkeys', 'protocol.secretsharing.shamir', "
+        "'protocol.hvzk.posc_tw', 'protocol.hvzk.ccpos_w', "
+        "'protocol.hvzk.posc_multi', 'crypto.primes', 'crypto.provable', "
+        "'crypto.signature', 'protocol.info', 'protocol.interfaces', "
+        "'protocol.rear', 'protocol.com.http', 'cli.main', 'cli.vmni', "
+        "'cli.vmn', 'cli.vmnd', 'cli.vmnv', 'cli.vmnc', 'cli.vre', "
+        "'cli.vbt', 'cli.vog', 'cli.vhttp', 'cli.vdemo', 'cli.demos')}\n"
+        "assert need <= names, sorted(need - names)\n"
+        "for name in sorted(names):\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'vmn_tpu' or m.startswith('vmn_tpu.')]\n"
         "assert not bad, bad\n"

@@ -40,7 +40,8 @@ class Hashfunction:
         return string_leaf(self.name)
 
     @classmethod
-    def from_bytetree(cls, bt) -> "Hashfunction":
+    def from_bytetree(cls, bt, device="cuda") -> "Hashfunction":
+        """`device` is unused: a hash function holds no arrays."""
         return cls(bt.to_string())
 
     def __repr__(self):

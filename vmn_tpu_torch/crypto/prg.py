@@ -131,10 +131,10 @@ class PRGHeuristic(PRG):
         return marshal(self.hashfunction)
 
     @classmethod
-    def from_bytetree(cls, bt) -> "PRGHeuristic":
+    def from_bytetree(cls, bt, device="cuda") -> "PRGHeuristic":
         from vmn_tpu_torch.eio.marshal import unmarshal
 
-        return cls(unmarshal(bt))
+        return cls(unmarshal(bt, device))
 
     def __repr__(self):
         return f"PRGHeuristic({self.hashfunction.name})"

@@ -55,7 +55,8 @@ class RandomDevice(RandomSource):
         return string_leaf("/dev/urandom")
 
     @classmethod
-    def from_bytetree(cls, bt) -> "RandomDevice":
+    def from_bytetree(cls, bt, device="cuda") -> "RandomDevice":
+        """`device` is unused: the source holds no arrays."""
         return cls()
 
 

@@ -17,8 +17,9 @@ from typing import Callable, Dict, Tuple
 
 from vmn_tpu_torch.eio.bytetree import ByteTree, ByteTreeError, leaf, node
 
-# Registry: java-class-name -> constructor from byte tree.
-_REGISTRY: Dict[str, Callable[[ByteTree], object]] = {}
+# Registry: java-class-name -> constructor from a byte tree and the
+# `device` its arrays live on.
+_REGISTRY: Dict[str, Callable[..., object]] = {}
 
 
 def register(class_name: str):
@@ -40,14 +41,16 @@ def marshal(obj) -> ByteTree:
     return node(leaf(name.encode("utf-8")), obj.to_bytetree())
 
 
-def unmarshal(bt: ByteTree):
+def unmarshal(bt: ByteTree, device="cuda"):
+    """The object of a marshalled byte tree; a group (or an object that
+    holds one) is built on `device`."""
     if bt.is_leaf or len(bt.children) != 2:
         raise ByteTreeError("malformed marshalled object")
     name = bt[0].to_string()
     ctor = _REGISTRY.get(name)
     if ctor is None:
         raise ByteTreeError(f"unknown marshalled class: {name}")
-    return ctor(bt[1])
+    return ctor(bt[1], device=device)
 
 
 def marshal_hex(obj, comment: str = "") -> str:
@@ -66,6 +69,6 @@ def split_hex(s: str) -> Tuple[str, str]:
     return "", s
 
 
-def unmarshal_hex(s: str):
+def unmarshal_hex(s: str, device="cuda"):
     _, hx = split_hex(s)
-    return unmarshal(ByteTree.from_hex(hx))
+    return unmarshal(ByteTree.from_hex(hx), device)

@@ -75,8 +75,8 @@ class ProtocolContext:
         self.rosid = rosid if rosid is not None else par.sid
         from vmn_tpu_torch.crypto.provable import resolve_hash, resolve_prg
 
-        self.ro_hash = resolve_hash(par.rohash_name)
-        self.prg = resolve_prg(par.prg_name)
+        self.ro_hash = resolve_hash(par.rohash_name, self.pgroup.device)
+        self.prg = resolve_prg(par.prg_name, self.pgroup.device)
         self.global_prefix = self._global_prefix()
         self.challenger = ChallengerRO(self.ro_hash, self.global_prefix)
 
