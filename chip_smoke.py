@@ -10,21 +10,25 @@ Phases (one line each; any failure raises and the exit code is not 0):
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build the Hopper kernels from vmn_tpu_torch/csrc with nvcc (one nvcc
      per source file, all started together);
-  3. check H1 mont_mul and H2 mont_exp at modp2048 width (W=64) on N
-     elements and at the P-256 field (W=8) on --ec-n and N, each also on a
-     batch of one (a product; a power as MontCtx.inv gives it), H3
-     mont_fb_exp at modp2048 width (window 8 on N and on one, window 4 on
-     N) and at W=8 (window 4 on N and on one), and at the first N of any
-     TPI of H3's rule that those miss, H2 also on 1.25·N elements at
-     64-bit exponents (the precomputation's raised values), H4
-     mont_expprod_positions at
-     modp2048 width on N elements (256-bit exponents) and on one (2047
-     bits), at W=8 on N, and at the first N of any TPI of its rule that
-     those miss, so that every TPI (lanes an element) the wrappers choose
-     is checked (it fails otherwise), and K7's combine
-     mont_expprod_combine (512 positions) against their plain PyTorch
-     versions on the card (exact equality, a few rows, or H4's positions
-     combined, against Python pow), and time them (kernels on the device:
+  3. check H1 mont_mul, H2 mont_exp, H3 mont_fb_exp, H4
+     mont_expprod_positions and K7's combine mont_expprod_combine at each
+     width a path runs: modp2048 (W=64), modp3072 (W=96) and modp4096
+     (W=128) on N elements (--n, default 10000) with full-width exponents
+     (H4: 256-bit ones, and at W=96 and 128 also full-width ones), H1, H2,
+     H3 and H4 also on one element (H2: a^(m-2) as MontCtx.inv raises
+     it), H3 at window 8 (at W=64 also window 4 at 256 bits), the combine
+     over a full-width exponent's positions (512, 768, 1024), H2 at W=64
+     also on 1.25·N elements at 64-bit exponents (the precomputation's
+     raised values); at the P-256 field (W=8) H1 and H2 on --ec-n, on N
+     and on one, H3 at window 4 on N and on one, H4 on N; then each of
+     H1-H4 at the first N of any TPI of its rule that those miss, so that
+     every TPI (lanes an element) the wrappers choose is checked (it fails
+     otherwise).  Each against its plain PyTorch version on the card,
+     exact equality of the whole output, but H1-H3 at W=96 and 128 on 256
+     rows spread over the batch (a full-width plain power takes seconds
+     whatever the rows); a few rows (H4: its positions combined, at W=96
+     and 128 those of 16 elements in a launch of their own) against
+     Python pow; each timed on its whole batch (kernels on the device:
      vmn_tpu_torch/kernel_timing.py's device_ms);
   4. check H5 ec_scalar_mul, H6 ec_multiexp_positions (with the rest of
      `ec_multiexp`), the position combine ec_multiexp_combine (64
@@ -47,14 +51,17 @@ Phases (one line each; any failure raises and the exit code is not 0):
      k=3, t=2, width-2 golden mix (three parties in threads over one
      LocalBoardHub): party 1's transcript must equal
      tests/golden/nizkp_test256_k3_w2 and its test vectors
-     test_vectors_k3w2.json;
+     test_vectors_k3w2.json; then the modp3072 and modp4096 goldens
+     (nizkp_modp{3072,4096}_k1, test_vectors_modp{3072,4096}.json, written
+     by tests/torch_make_wide_golden.py);
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
      the same transcript with one flipped byte rejected; then each
      (N, exponent bits) at which the mix and the verify called H4 (H6 on
      the EC path), with its calls and its time on random inputs of that
-     shape (`multiexp` lines);
+     shape (`multiexp` lines); then the same at modp3072 and modp4096
+     with N ciphertexts, the same --n;
   7. the EC path: the same at P-256 with --ec-n ciphertexts (default
      131072 = 2^17, from where `exp_prod` takes H6);
   8. the multi-party path: modp2048, k=3 mix-servers, threshold 2, --k3-n
@@ -100,11 +107,16 @@ Phases (one line each; any failure raises and the exit code is not 0):
      included.  H1-H4 and the combine must launch in every modp2048
      `vmn -mix` process, H5, H6, the EC combine and H8 in the P-256 one.
 
+--profile modp2048|P-256|modp2048-k3|modp3072|modp4096 profiles one more
+mix + verify of that path after the phases (host spans, device time by
+kernel, the device's idle share); it may be given more than once.
+
 Each mix zeroes the wrappers' launch counters just before `session.mix`
 (all three parties' in the k=3 runs: the counts are totals over the
 parties) and reads them just after it; a precomputation path does the
 same around its precomputation, and then around its online mix.  H1-H4
-and the combine must have launched in the modp2048 mix, in the k=3 mix
+and the combine must have launched in the modp2048, modp3072 and
+modp4096 mixes, in the k=3 mix
 and in the modp2048 k=1 precomputation path, H2 and H3 in the
 interactive mix's coin flipping, and H5, H6, the EC combine (once per
 H6 call) and H8 in the P-256 mix (H7 is off that path, as in vmn_tpu,
@@ -275,241 +287,307 @@ def timed(fn):
 # ------------------------------------------------------------ phase 3
 
 
-COMBINE_POSITIONS = 512  # K7's ndig_pad at a 2047-bit exponent
+# The wide RFC 3526 groups and their widths W = L/2 (32-bit words).
+WIDE_GROUPS = {"modp3072": 96, "modp4096": 128}
+# Rows of a wide batch (W = 96, 128) at which H1-H3 are held to their
+# plain versions, spread from row 0 to row N-1 so that every block of the
+# launch holds some: a full-width plain power takes about as long on 256
+# rows as on one (PERF.md §6), and minutes on the whole batch.
+HELD_ROWS = 256
+# Elements of a wide H4 batch whose positions, combined, are held to
+# Python pow, in a launch of their own (each a full-width Python pow; N
+# of them would take minutes): the launch on the whole batch is held to
+# the plain version.
+PY_ELEMENTS = 16
+
+
+def spread(count: int, k: int) -> list:
+    """k rows of a batch of count, evenly spaced from the first to the
+    last (all of them where count <= k)."""
+    if count <= k:
+        return list(range(count))
+    return sorted({i * (count - 1) // (k - 1) for i in range(k)})
+
+
+def py_rows(count: int) -> list:
+    """The rows held to Python: 0-2 (the edge values), the middle, the
+    last."""
+    return sorted({0, 1, 2, count // 2, count - 1} & set(range(count)))
+
+
+def kernel_of(name: str, kernels) -> str:
+    """The kernel (wrapper name) whose check `name` is."""
+    return max((k for k in kernels if name.startswith(k)), key=len)
 
 
 def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
-    """H1-H4 and K7's combine against their plain versions on the card.
-    H1 and H2 at modp2048 (W=64) on n elements and at the P-256 field
-    (W=8) on ec_n, the paths' batches (W=8 on n too), and at batch 1 (a
-    product; a power
-    as MontCtx.inv gives it): between them every TPI the wrappers choose;
-    H2 also on pc_maxciph elements at 64-bit exponents, as the
-    precomputation raises its generators and commitments; H3 and H4 at
-    modp2048 and n; the combine on COMBINE_POSITIONS random positions."""
+    """H1-H4 and K7's combine against their plain versions on the card,
+    at each width a path runs: modp2048 (W=64), modp3072 (96) and
+    modp4096 (128) on n elements, the P-256 field (W=8) on ec_n and n.
+    H1 and H2 on the batch and on one element (a product; a power as
+    MontCtx.inv gives it), H2 at full-width exponents (W=8: 256 bits) and
+    at W=64 also on pc_maxciph elements at 64-bit exponents, as the
+    precomputation raises its generators and commitments; H3 at the
+    path's window (8; W=8: 4) on the batch and on one, window 4 also at
+    W=64; H4 on the batch at 256-bit exponents (at W=96 and 128 also at
+    full width) and on one element at full width; the combine over a
+    full-width exponent's positions (512, 768, 1024); then each of H1-H4
+    at the first N of any TPI of its rule that these miss.  Exact
+    equality with the plain version on the whole output, but H1-H3 at
+    W=96 and 128 on HELD_ROWS rows spread over the batch; a few rows (H4:
+    its positions combined) against Python pow.  Fails unless every TPI
+    of every rule was checked."""
+    from types import SimpleNamespace
+
     from vmn_tpu_torch.arith.ec import _CURVES
     from vmn_tpu_torch.arith.limbs import int_to_limbs, ints_to_limbs
     from vmn_tpu_torch.arith.mont import MontCtx, device_limbs
-    from vmn_tpu_torch.arith.pgroup import _RFC3526_2048
+    from vmn_tpu_torch.arith.pgroup import _NAMED_GROUPS
     from vmn_tpu_torch.kernel_timing import device_ms
     from vmn_tpu_torch.ops import mont_kernels as K
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2048)
+    g = 4  # the fixed base of H3
 
     def ints(count, bits):
         nb = (bits + 7) // 8 + 8
         return [int.from_bytes(rng.bytes(nb), "big") % (1 << bits)
                 for _ in range(count)]
 
-    rows = [0, 1, 2, n - 1]
-    # name: (kernel call, plain call, Python values of the rows checked,
-    # those rows, elements, products run where latency bounds the call)
-    cases, bounds = {}, {}
+    def limbs(e_int, bits):
+        return device_limbs(ints_to_limbs(e_int, -(-bits // 16)), dev)
 
-    def nz_below_top(e, ndig):
-        # the top digit's entry starts the accumulator: no product
-        return nonzero_digits(e, ndig - 1, 4) if ndig > 1 else 0
+    def width(ctx, bits, count):
+        """Inputs at ctx's width: count bases a, b (rows 0-2: 1, m - 1,
+        2), exponents e of `bits` bits and e256 of 256 (row 0: 0, row 1:
+        all ones)."""
+        m = ctx.m
+        d = SimpleNamespace(ctx=ctx, mod=ctx.mod, m=m, L=ctx.L,
+                            W=ctx.L // 2, bits=bits, wide=ctx.L > 128)
+        d.a_int = [x % m for x in ints(count, ctx.nbits)]
+        d.a_int[:3] = [1, m - 1, 2]
+        d.b_int = [x % m for x in ints(count, ctx.nbits)]
+        d.a, d.b = ctx.encode(d.a_int), ctx.encode(d.b_int)
+        for name, nb in (("e", bits), ("e256", 256)):
+            e_int = ints(count, nb)
+            e_int[0], e_int[1] = 0, (1 << nb) - 1
+            setattr(d, name + "_int", e_int)
+            setattr(d, name, limbs(e_int, nb))
+        return d
+
+    # name: (MontCtx, kernel on the batch, rows of its output held to the
+    # plain version (None: all), plain version on those rows, Python check
+    # of the kernel's output, elements, bound, products run where latency
+    # bounds the call)
+    cases = {}
 
     def exp_products(count, e, ndig):
-        # the table's 14 products, 4 squarings and, for a digit that is
-        # not 0, one product per digit below the top
-        return count * (14 + 4 * (ndig - 1)) + nz_below_top(e, ndig)
+        # the table's 14 products, 4 squarings a digit below the top and,
+        # for a digit that is not 0, one product (the top digit's entry
+        # starts the accumulator)
+        nz = nonzero_digits(e, ndig - 1, 4) if ndig > 1 else 0
+        return count * (14 + 4 * (ndig - 1)) + nz
 
-    def width_cases(ctx, tag, ebits, n, batch1=True):
-        """H1 and H2 at n, and at batch 1, on one modulus."""
-        m, W, L = ctx.m, ctx.L // 2, ctx.L
-        rows = [0, 1, 2, n - 1]
-        a_int = [x % m for x in ints(n, ctx.nbits)]
-        a_int[:3] = [1, m - 1, 2]
-        b_int = [x % m for x in ints(n, ctx.nbits)]
-        a, b = ctx.encode(a_int), ctx.encode(b_int)
-        e_int = ints(n, ebits)
-        e_int[0] = 0
-        e = device_limbs(ints_to_limbs(e_int, -(-ebits // 16)), dev)
-        x1 = a_int[3]  # a random row for the batch-1 cases
-        a1, b1 = ctx.encode([x1]), b[1:2].clone()
-        inv_bits = (m - 2).bit_length()  # MontCtx.inv's exponent, m - 2
-        e_inv = device_limbs(int_to_limbs(m - 2, -(-inv_bits // 16)),
-                             dev)[None]
-        nb = 4 * n * L  # one (n, L) int32 array
-        ndig, ndig_inv = -(-ebits // 4), -(-inv_bits // 4)
-        cases[f"mont_mul{tag}"] = (
-            lambda: K.mont_mul(a, b, ctx.mod),
-            lambda: K.mont_mul_plain(a, b, ctx.mod),
-            lambda: [a_int[i] * b_int[i] % m for i in rows], rows, n, None)
-        bounds[f"mont_mul{tag}"] = bound(n, W, 3 * nb)
-        cases[f"mont_exp{tag}"] = (
-            lambda: K.mont_exp(a, e, ctx.mod, ebits),
-            lambda: K.mont_exp_plain(a, e, ctx.mod, ebits),
-            lambda: [pow(a_int[i], e_int[i], m) for i in rows], rows, n,
-            None)
-        bounds[f"mont_exp{tag}"] = bound(exp_products(n, e, ndig), W,
-                                         2 * nb + 4 * n * e.shape[1])
-        if not batch1:
-            return a, a_int, e, e_int
-        cases[f"mont_mul{tag}_b1"] = (
-            lambda: K.mont_mul(a1, b1, ctx.mod),
-            lambda: K.mont_mul_plain(a1, b1, ctx.mod),
-            lambda: [x1 * b_int[1] % m], [0], 1, 1)
-        bounds[f"mont_mul{tag}_b1"] = bound(1, W, 3 * 4 * L)
-        # the launch that ctx.inv(a1) makes, with its exponent built once
-        cases[f"mont_exp{tag}_b1"] = (
-            lambda: K.mont_exp(a1, e_inv, ctx.mod, inv_bits),
-            lambda: K.mont_exp_plain(a1, e_inv, ctx.mod, inv_bits),
-            lambda: [pow(x1, m - 2, m)], [0], 1,
-            14 + 5 * (ndig_inv - 1))  # the products the kernel runs
-        max_abs_err(ctx.inv(a1), K.mont_exp(a1, e_inv, ctx.mod, inv_bits))
-        bounds[f"mont_exp{tag}_b1"] = bound(
-            exp_products(1, e_inv, ndig_inv), W,
-            2 * 4 * L + 4 * e_inv.numel())
-        return a, a_int, e, e_int
-
-    ctx = MontCtx(_RFC3526_2048, dev)
-    m, W, L = ctx.m, ctx.L // 2, ctx.L
-    a, a_int, e_full, e_full_int = width_cases(ctx, "", 2047, n)
-    # the precomputation's raised values: pc_maxciph bases, exponents of
-    # 64 bits in the field's 128 limbs, as GArray.exp_bits hands them on
-    pc_rows = [0, 1, pc_maxciph - 1]
-    pc_int = [x % m for x in ints(pc_maxciph, ctx.nbits)]
-    pc_a = ctx.encode(pc_int)
-    pc_e_int = ints(pc_maxciph, 64)
-    pc_e = device_limbs(ints_to_limbs(pc_e_int, L), dev)
-    cases["mont_exp_e64"] = (
-        lambda: K.mont_exp(pc_a, pc_e, ctx.mod, 64),
-        lambda: K.mont_exp_plain(pc_a, pc_e, ctx.mod, 64),
-        lambda: [pow(pc_int[i], pc_e_int[i], m) for i in pc_rows], pc_rows,
-        pc_maxciph, None)
-    bounds["mont_exp_e64"] = bound(
-        exp_products(pc_maxciph, pc_e, 16), W,
-        2 * 4 * pc_maxciph * L + 4 * pc_e.numel())
-    e_short_int = ints(n, 256)  # batching-vector exponents
-    e_short = device_limbs(ints_to_limbs(e_short_int, 16), dev)
-    g = 4
-    tbl8 = ctx.fixed_base_table(g, 2047, 8)
-    tbl4 = ctx.fixed_base_table(g, 256, 4)
-    nb = 4 * n * L
-    ndig_s = 256 // 4
-    nz_short = nonzero_digits(e_short, ndig_s, 4)
-    def fb_case(name, cx, tbl, e, e_int, count):
-        """H3 on the first `count` elements of e: a product per digit that
-        is not 0 (the bound); rows against Python pow."""
-        e = e[:count].contiguous()
-        r = sorted({0, 1, count - 1} & set(range(count)))
+    def elementwise(name, d, fn, pre, rows_in, post, py, count, bnd,
+                    products=None):
+        """K.fn(*pre, *rows_in, *post), whose output row i depends on row
+        i of rows_in alone: held to K.fn_plain on HELD_ROWS rows at the
+        wide widths, else on all; py(i) is row i's Python value."""
+        kern, plain = getattr(K, fn), getattr(K, fn + "_plain")
+        rows = py_rows(count)
+        held, held_in = None, rows_in
+        if d.wide and count > HELD_ROWS:
+            held = torch.tensor(sorted(set(spread(count, HELD_ROWS))
+                                       | set(rows)), device=dev)
+            held_in = tuple(t[held] for t in rows_in)
         cases[name] = (
-            lambda: K.mont_fb_exp(tbl, e, cx.mod),
-            lambda: K.mont_fb_exp_plain(tbl, e, cx.mod),
-            lambda: [pow(g, e_int[i], cx.m) for i in r], r, count,
-            tbl.shape[0] if count == 1 else None)  # one product a digit
+            d.ctx, lambda: kern(*pre, *rows_in, *post), held,
+            lambda: plain(*pre, *held_in, *post),
+            lambda got: d.ctx.decode(got[rows]) == [py(i) for i in rows],
+            count, bnd, products)
+
+    def mul_case(d, name, count, at=0):
+        s = slice(at, at + count)
+        elementwise(name, d, "mont_mul", (), (d.a[s], d.b[s]), (d.mod,),
+                    lambda i: d.a_int[at + i] * d.b_int[at + i] % d.m,
+                    count, bound(count, d.W, 3 * 4 * count * d.L),
+                    1 if count == 1 else None)
+
+    def exp_case(d, name, x, x_int, e, e_int, bits, products=None):
+        count = x.shape[0]
+        elementwise(name, d, "mont_exp", (), (x, e), (d.mod, bits),
+                    lambda i: pow(x_int[i], e_int[i], d.m), count,
+                    bound(exp_products(count, e, -(-bits // 4)), d.W,
+                          2 * 4 * count * d.L + 4 * e.numel()), products)
+
+    def fb_case(d, name, tbl, e, e_int, count, at=0):
         window = tbl.shape[1].bit_length() - 1
-        bounds[name] = bound(nonzero_digits(e, tbl.shape[0], window),
-                             cx.L // 2, 4 * tbl.numel() + 4 * e.numel()
-                             + 4 * count * cx.L)
+        e = e[at : at + count].contiguous()
+        elementwise(name, d, "mont_fb_exp", (tbl,), (e,), (d.mod,),
+                    lambda i: pow(g, e_int[at + i], d.m), count,
+                    bound(nonzero_digits(e, tbl.shape[0], window), d.W,
+                          4 * tbl.numel() + 4 * e.numel() + 4 * count * d.L),
+                    tbl.shape[0] if count == 1 else None)
 
-    fb_case("mont_fb_exp8", ctx, tbl8, e_full, e_full_int, n)
-    fb_case("mont_fb_exp8_b1", ctx, tbl8, e_full, e_full_int, 1)
-    fb_case("mont_fb_exp4", ctx, tbl4, e_short, e_short_int, n)
+    def ep_case(d, name, e, e_int, bits, count, at=0):
+        """H4 on elements at .. at + count; its positions, combined (K7's
+        combine), against Python pow: those of the batch, or at the wide
+        widths those of PY_ELEMENTS of its elements in their own launch."""
+        x, e = d.a[at : at + count], e[at : at + count].contiguous()
+        ix = list(range(count))
+        launch = (lambda ix: K.mont_expprod_positions(x[ix], e[ix], d.mod,
+                                                      bits))
+        py_out = lambda got: got  # noqa: E731
+        if d.wide and count > PY_ELEMENTS:
+            ix = spread(count, PY_ELEMENTS)
+            t = torch.tensor(ix, device=dev)
+            py_out = lambda got: launch(t)  # noqa: E731
 
-    def expprod_case(name, cx, a, a_int, e, e_int, nbits, count):
-        """H4 on the first `count` elements; its positions combined (K7's
-        combine) against Python pow."""
-        a, e = a[:count].contiguous(), e[:count].contiguous()
-        ndig = -(-nbits // 4)
-
-        def py():
+        def truth(got):
             want = 1
-            for x, k in zip(a_int[:count], e_int[:count]):
-                want = want * pow(x, k, cx.m) % cx.m
-            return [want]
+            for i in ix:
+                want = want * pow(d.a_int[at + i], e_int[at + i], d.m) % d.m
+            return d.ctx.decode(
+                K.mont_expprod_combine(py_out(got), d.mod)[None]) == [want]
 
-        # a batch of one runs the table's four levels and one fold
-        # product back to back
-        cases[name] = (
-            lambda: K.mont_expprod_positions(a, e, cx.mod, nbits),
-            lambda: K.mont_expprod_positions_plain(a, e, cx.mod, nbits),
-            py, None, count, 5 if count == 1 else None)
+        ndig = -(-bits // 4)
         # each base's table, then per position one product per digit that
-        # is not 0, less the first
-        nz = nonzero_digits(e, ndig, 4)
-        bounds[name] = bound(count * 14 + max(nz - ndig, 0), cx.L // 2,
-                             4 * count * cx.L + 4 * e.numel()
-                             + 4 * K._ndig_pad(nbits) * cx.L)
+        # is not 0, less the first; a batch of one runs the table's four
+        # levels and one fold product back to back
+        cases[name] = (
+            d.ctx, lambda: K.mont_expprod_positions(x, e, d.mod, bits), None,
+            lambda: K.mont_expprod_positions_plain(x, e, d.mod, bits),
+            truth, count,
+            bound(count * 14 + max(nonzero_digits(e, ndig, 4) - ndig, 0),
+                  d.W, 4 * count * d.L + 4 * e.numel()
+                  + 4 * K._ndig_pad(bits) * d.L),
+            5 if count == 1 else None)
 
-    expprod_case("mont_expprod_positions", ctx, a, a_int, e_short,
-                 e_short_int, 256, n)
-    # the path's smallest call: one element, 2047-bit exponent, on row 3
-    # (rows 0-2 hold the edge bases and exponent 0)
-    expprod_case("mont_expprod_positions_b1", ctx, a[3:], a_int[3:],
-                 e_full[3:], e_full_int[3:], 2047, 1)
-    J = COMBINE_POSITIONS
-    P_int = [x % m for x in ints(J, 2048)]
-    P = ctx.encode(P_int)
+    def combine_case(d, name):
+        J = K._ndig_pad(d.bits)
+        P_int = [x % d.m for x in ints(J, d.ctx.nbits)]
+        P = d.ctx.encode(P_int)
 
-    def combine_py():
-        acc = 1
-        for x in reversed(P_int):
-            acc = pow(acc, 16, m) * x % m
-        return [acc]
+        def truth(got):
+            acc = 1
+            for x in reversed(P_int):
+                acc = pow(acc, 16, d.m) * x % d.m
+            return d.ctx.decode(got) == [acc]
 
-    cases["mont_expprod_combine"] = (
-        lambda: K.mont_expprod_combine(P, ctx.mod)[None],
-        lambda: K.mont_expprod_combine_plain(P, ctx.mod)[None],
-        combine_py, [0], J, 5 * (J - 1))
-    # 4 squarings and one product per position below the top
-    bounds["mont_expprod_combine"] = bound(5 * (J - 1), W, 4 * J * L + 4 * L)
+        # 4 squarings and one product per position below the top
+        cases[name] = (
+            d.ctx, lambda: K.mont_expprod_combine(P, d.mod)[None], None,
+            lambda: K.mont_expprod_combine_plain(P, d.mod)[None], truth, J,
+            bound(5 * (J - 1), d.W, 4 * J * d.L + 4 * d.L), 5 * (J - 1))
 
+    def batch_cases(d, tag, count):
+        """H1 and H2 on `count` elements and on one (row 3), the batch-1
+        power as MontCtx.inv raises a^(m-2)."""
+        mul_case(d, f"mont_mul{tag}", count)
+        exp_case(d, f"mont_exp{tag}", d.a[:count], d.a_int, d.e[:count],
+                 d.e_int, d.bits)
+        mul_case(d, f"mont_mul{tag}_b1", 1, at=3)
+        inv_bits = (d.m - 2).bit_length()
+        e_inv = device_limbs(int_to_limbs(d.m - 2, -(-inv_bits // 16)),
+                             dev)[None]
+        a1 = d.a[3:4]
+        max_abs_err(d.ctx.inv(a1), K.mont_exp(a1, e_inv, d.mod, inv_bits))
+        exp_case(d, f"mont_exp{tag}_b1", a1, d.a_int[3:4], e_inv, [d.m - 2],
+                 inv_bits, products=14 + 5 * (-(-inv_bits // 4) - 1))
+
+    # per width: its inputs, its tag, the H3 table and exponents of its
+    # path, and its ModP-path cases
+    widths = {}
+    for group, W in (("modp2048", 64), *WIDE_GROUPS.items()):
+        ctx = MontCtx(_NAMED_GROUPS[group][0], dev)
+        d = width(ctx, ctx.nbits - 1, n)  # |q|: full-width exponents
+        tag = "" if W == 64 else f"_w{W}"
+        d.tbl = ctx.fixed_base_table(g, d.bits, 8)
+        widths[W] = (d, tag, 8)
+        batch_cases(d, tag, n)
+        fb_case(d, f"mont_fb_exp8{tag}", d.tbl, d.e, d.e_int, n)
+        fb_case(d, f"mont_fb_exp8{tag}_b1", d.tbl, d.e, d.e_int, 1, at=3)
+        ep_case(d, f"mont_expprod_positions{tag}", d.e256, d.e256_int, 256,
+                n)
+        if d.wide:
+            ep_case(d, f"mont_expprod_positions{tag}_full", d.e, d.e_int,
+                    d.bits, n)
+        # the path's smallest call: one element at full width, on row 3
+        ep_case(d, f"mont_expprod_positions{tag}_b1", d.e, d.e_int, d.bits,
+                1, at=3)
+        combine_case(d, f"mont_expprod_combine{tag}")
+        if W == 64:
+            # the precomputation's raised values: pc_maxciph bases,
+            # exponents of 64 bits in the field's L limbs, as
+            # GArray.exp_bits hands them on
+            pc_int = [x % d.m for x in ints(pc_maxciph, ctx.nbits)]
+            pc_e_int = ints(pc_maxciph, 64)
+            exp_case(d, "mont_exp_e64", ctx.encode(pc_int), pc_int,
+                     device_limbs(ints_to_limbs(pc_e_int, d.L), dev),
+                     pc_e_int, 64)
+            tbl4 = ctx.fixed_base_table(g, 256, 4)
+            fb_case(d, "mont_fb_exp4", tbl4, d.e256, d.e256_int, n)
+    # the P-256 field (the EC path's and the test256 golden's width): H1
+    # and H2 on ec_n and on n, H3 at window 4 and H4 on n
     ctx8 = MontCtx(_CURVES["P-256"][0], dev)
-    width_cases(ctx8, "_w8", 256, ec_n)
-    a8, a8_int, e8, e8_int = width_cases(ctx8, "_w8_n", 256, n, batch1=False)
-    # H4 at W = 8 (the test256 golden's width) on n
-    expprod_case("mont_expprod_positions_w8", ctx8, a8, a8_int, e8, e8_int,
-                 256, n)
-    def at_other_tpis(kernel, w, counts, case):
-        """case(tpi, count) at 37 past the first N of each TPI of the rule
-        of `kernel` at W that the checks on `counts` elements miss."""
-        reached = {K.threads_per_element(kernel, w, c) for c in counts}
-        for lo, tpi in K.COOP_TPI[kernel, w]:
-            if tpi not in reached and lo + 37 <= n:
-                case(tpi, lo + 37)
+    d8 = width(ctx8, 256, max(n, ec_n))
+    d8.tbl = ctx8.fixed_base_table(g, 256, 4)
+    widths[8] = (d8, "_w8", 4)
+    batch_cases(d8, "_w8", ec_n)
+    mul_case(d8, "mont_mul_w8_n", n)
+    exp_case(d8, "mont_exp_w8_n", d8.a[:n], d8.a_int, d8.e[:n], d8.e_int,
+             256)
+    ep_case(d8, "mont_expprod_positions_w8", d8.e, d8.e_int, 256, n)
+    fb_case(d8, "mont_fb_exp4_w8", d8.tbl, d8.e, d8.e_int, n)
+    fb_case(d8, "mont_fb_exp4_w8_b1", d8.tbl, d8.e, d8.e_int, 1, at=3)
 
-    # and at the first N of any TPI of its rule that these do not reach
-    at_other_tpis("mont_expprod_positions", 64, (1, n), lambda t, c: (
-        expprod_case(f"mont_expprod_positions_tpi{t}", ctx, a, a_int,
-                     e_short, e_short_int, 256, c)))
-    at_other_tpis("mont_expprod_positions", 8, (n,), lambda t, c: (
-        expprod_case(f"mont_expprod_positions_w8_tpi{t}", ctx8, a8, a8_int,
-                     e8, e8_int, 256, c)))
-    # H3 at W = 8, window 4 (the test256 golden's width): on n and on one
-    tbl4_w8 = ctx8.fixed_base_table(g, 256, 4)
-    fb_case("mont_fb_exp4_w8", ctx8, tbl4_w8, e_short, e_short_int, n)
-    fb_case("mont_fb_exp4_w8_b1", ctx8, tbl4_w8, e_short, e_short_int, 1)
-    # and at the first N of any TPI its rule has that these do not reach
-    at_other_tpis("mont_fb_exp", 64, (1, n), lambda t, c: fb_case(
-        f"mont_fb_exp8_tpi{t}", ctx, tbl8, e_full, e_full_int, c))
-    at_other_tpis("mont_fb_exp", 8, (1, n), lambda t, c: fb_case(
-        f"mont_fb_exp4_w8_tpi{t}", ctx8, tbl4_w8, e_short, e_short_int, c))
+    # and each kernel at 37 past the first N of any TPI of its rule that
+    # these miss
+    reached = {}
+    for name, (cx, *_, count, _, _) in cases.items():
+        key = (kernel_of(name, K.KERNELS), cx.L // 2)
+        if key[0] in COOP_MONT:
+            reached.setdefault(key, set()).add(
+                K.threads_per_element(*key, count))
+    for (kernel, W), rule in K.COOP_TPI.items():
+        if kernel not in COOP_MONT:
+            continue
+        d, tag, window = widths[W]
+        for lo, tpi in rule:
+            c = lo + 37
+            if tpi in reached[kernel, W] or c > n:
+                continue
+            if kernel == "mont_mul":
+                mul_case(d, f"mont_mul{tag}_tpi{tpi}", c)
+            elif kernel == "mont_exp":
+                exp_case(d, f"mont_exp{tag}_tpi{tpi}", d.a[:c], d.a_int,
+                         d.e[:c], d.e_int, d.bits)
+            elif kernel == "mont_fb_exp":
+                fb_case(d, f"mont_fb_exp{window}{tag}_tpi{tpi}", d.tbl, d.e,
+                        d.e_int, c)
+            else:
+                ep_case(d, f"{kernel}{tag}_tpi{tpi}", d.e256, d.e256_int,
+                        256, c)
 
     results, tpis = {}, set()
-    for name, (kern, plain, py, py_rows, count, products) in cases.items():
-        cx = ctx8 if "_w8" in name else ctx
+    for name, (cx, kern, held, plain, truth, count, bnd,
+               products) in cases.items():
         got, _ = timed(kern)  # first launch: compare, then time warm
         want, plain_ms = timed(plain)
-        err = max_abs_err(got, want)
-        if name.startswith("mont_expprod_positions"):
-            # P_j = prod_i a_i^(d_ij): recombine and compare with pow
-            combined = K.mont_expprod_combine(got, cx.mod)
-            if cx.decode(combined[None]) != py():
-                raise AssertionError(f"{name}: multi-exp != Python pow")
-        elif cx.decode(got[py_rows]) != py():
+        err = max_abs_err(got if held is None else got[held], want)
+        if not truth(got):
             raise AssertionError(f"{name}: kernel != Python pow")
         ms = device_ms(kern)
         r = {"N": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             **bounds[name]}
-        kernel = max((k for k in K.KERNELS if name.startswith(k)), key=len)
+             **bnd}
+        if held is not None:
+            r["checked_rows"] = len(held)
+        kernel, W = kernel_of(name, K.KERNELS), cx.L // 2
         if kernel in COOP_MONT:
-            r["tpi"] = K.threads_per_element(kernel, cx.L // 2, count)
-            tpis.add((kernel, cx.L // 2, r["tpi"]))
-        if name.endswith("_b1") or name == "mont_expprod_combine":
+            r["tpi"] = K.threads_per_element(kernel, W, count)
+            tpis.add((kernel, W, r["tpi"]))
+        if products is not None:
             # a chain of dependent products on one element: the bound that
             # binds is one product's latency, not the card's throughput
             r.update(products=products,
@@ -551,6 +629,8 @@ def kernel_line(name: str, r: dict) -> None:
                  "bound": f"'{r['bound_note']}'"}
     if "tpi" in r:
         extra["tpi"] = r["tpi"]
+    if "checked_rows" in r:
+        extra["checked_rows"] = r["checked_rows"]
     if "shape" in r:
         extra["shape"] = json.dumps(r["shape"], separators=(",", ":"))
     phase("kernel", name=name, N=r["N"], tolerance="exact", equal=True,
@@ -1015,17 +1095,20 @@ def same_test_vectors(tv: dict, name: str) -> int:
 
 
 def golden_phase(tmp: Path, name: str, maxciph: int = 0) -> None:
-    """The golden k=1 mix of tools/make_golden.py on the card: test256
-    (5 messages) or P-256 (3 messages), or test256 after a
-    precomputation for `maxciph` ciphertexts; transcript byte-equal, and
-    the verifier's test vectors those vmn_tpu froze."""
+    """The golden k=1 mix of tools/make_golden.py on the card: test256,
+    modp3072 or modp4096 (5 messages), P-256 (3 messages), or test256
+    after a precomputation for `maxciph` ciphertexts; transcript
+    byte-equal, and the verifier's test vectors those vmn_tpu froze
+    (tests/golden/test_vectors_{group}.json for the wide groups, written
+    by tests/torch_make_wide_golden.py)."""
     t0 = time.perf_counter()
     group = _group(name)
     n, make = ((3, group.from_affine) if name.startswith("P-")
                else (5, group.from_ints))
     golden = GOLDEN / f"nizkp_{name.replace('-', '').lower()}_k1"
-    tv_file = ("test_vectors.json" if name == "test256"
-               else "test_vectors_p256.json")
+    tv_file = {"test256": "test_vectors.json",
+               "P-256": "test_vectors_p256.json"}.get(
+                   name, f"test_vectors_{name}.json")
     if maxciph:
         golden = golden.with_name(golden.name + "_precomp")
         tv_file = "test_vectors_precomp.json"
@@ -2145,7 +2228,8 @@ def main(argv=None) -> int:
         return cli_party(argv[2:] if argv[1:2] == ["--"] else argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10000,
-                    help="ciphertexts in the modp2048 mix (default 10000)")
+                    help="ciphertexts in the modp2048, modp3072 and modp4096 "
+                         "mixes (default 10000)")
     ap.add_argument("--ec-n", type=int, default=1 << 17,
                     help="ciphertexts in the P-256 mix (default 131072)")
     ap.add_argument("--k3-n", type=int, default=10000,
@@ -2154,7 +2238,8 @@ def main(argv=None) -> int:
     ap.add_argument("--k3i-n", type=int, default=1000,
                     help="ciphertexts in the modp2048 k=3 interactive mix "
                          "(default 1000)")
-    ap.add_argument("--profile", choices=["modp2048", "P-256", "modp2048-k3"],
+    ap.add_argument("--profile", choices=["modp2048", "P-256", "modp2048-k3",
+                                          "modp3072", "modp4096"],
                     action="append", default=[],
                     help="after the phases, profile one more mix + verify "
                          "of this path (host spans, device time by kernel, "
@@ -2203,8 +2288,12 @@ def main(argv=None) -> int:
         golden_phase(tmp, "P-256")
         golden_phase(tmp, "test256", maxciph=8)
         golden_k3_phase(tmp)
+        for group in WIDE_GROUPS:
+            golden_phase(tmp, group)
         modp, modp_sizes, modp_widths, modp_s = slice_phase(
             "modp2048", args.n, tmp)
+        wide_mix = {group: slice_phase(group, args.n, tmp)
+                    for group in WIDE_GROUPS}
         ec, ec_sizes, ec_widths, ec_s = slice_phase("P-256", args.ec_n, tmp)
         k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
         k3i, _, coins, _ = multiparty_phase(args.k3i_n, tmp,
@@ -2231,8 +2320,15 @@ def main(argv=None) -> int:
           modp2048_k3_precomp_online_mix=json.dumps(pc3_mix, **compact),
           modp2048_k3_by_batch=json.dumps(k3_sizes, **compact),
           modp2048_by_batch=json.dumps(modp_sizes, **compact),
-          p256_by_batch=json.dumps(ec_sizes, **compact))
+          p256_by_batch=json.dumps(ec_sizes, **compact),
+          **{f"{g}_mix": json.dumps(r[0], **compact)
+             for g, r in wide_mix.items()},
+          **{f"{g}_by_batch": json.dumps(r[1], **compact)
+             for g, r in wide_mix.items()})
     missing = [k for k in K.KERNELS if modp[k] == 0 or k3[k] == 0]
+    # the wide paths: each of H1-H4 and K7's combine in each mix
+    missing += [f"{k} ({g})" for g, r in wide_mix.items() for k in K.KERNELS
+                if r[0][k] == 0]
     # the precomputation path: each of H1-H4 and K7's combine in its
     # precomputation or its online mix
     missing += [k for k in K.KERNELS if pc[k] + pc_mix[k] == 0]
@@ -2266,7 +2362,14 @@ def main(argv=None) -> int:
                 "modp2048 precomp online mix": pc_mix[name],
                 "modp2048 k=3 precomp": pc3[name],
                 "modp2048 k=3 precomp online mix": pc3_mix[name],
-                **{path: launches[name] for path, launches in cli.items()}}
+                **{path: launches[name] for path, launches in cli.items()},
+                **{f"{g} mix": r[0][name] for g, r in wide_mix.items()}}
+            # the same kernel at W = 96 and 128: its checks there
+            kernels[-1]["wide"] = {
+                g: {case: r for case, r in checks.items()
+                    if f"_w{W}" in case
+                    and kernel_of(case, K.KERNELS) == name}
+                for g, W in WIDE_GROUPS.items()}
         else:
             kernels[-1]["launches_by_path"] = {
                 "P-256 mix": ec[name],
@@ -2277,7 +2380,9 @@ def main(argv=None) -> int:
             w8_at_n=checks[f"{name}_w8_n"],
             w8_batch1=checks[f"{name}_w8_b1"],
             launches_by_batch={"modp2048 mix": modp_sizes[name],
-                               "P-256 mix": ec_sizes[name]})
+                               "P-256 mix": ec_sizes[name],
+                               **{f"{g} mix": r[1][name]
+                                  for g, r in wide_mix.items()}})
     ec_at = {name: len(K.KERNELS) + i for i, name in enumerate(E.EC_KERNELS)}
     for name in E.LAUNCH_SIZES:
         kernels[ec_at[name]]["launches_by_batch"] = {
@@ -2286,6 +2391,7 @@ def main(argv=None) -> int:
         "mont_exp_e64"]
     kernels[K.KERNELS.index("mont_expprod_positions")].update(
         path_calls=modp_widths, precomp_path_calls=pc_widths,
+        wide_path_calls={g: r[2] for g, r in wide_mix.items()},
         k3_precomp_path_calls=pc3_widths,
         batch1=checks["mont_expprod_positions_b1"],
         w8=checks["mont_expprod_positions_w8"],

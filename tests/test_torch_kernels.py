@@ -20,8 +20,8 @@ import pytest
 import torch
 
 from torch_port_util import (  # noqa: F401 (cuda_device: fixture)
-    TEST256_P, as_np, cuda_device, edge_values, limbs_np, modp2048_p,
-    modulus, rand_ints,
+    TEST256_P, WIDTH_GROUP, as_np, cuda_device, edge_values, limbs_np,
+    modp2048_p, modulus, rand_ints,
 )
 from vmn_tpu_torch import interop
 from vmn_tpu_torch.arith.mont import MontCtx as TCtx, device_limbs
@@ -181,7 +181,10 @@ def test_coop_launch_covers_every_element(w):
             assert K.threads_per_element(kernel, w, n) == tpi
 
 
-_FB_SHAPES = [(w, window, t) for w, window in ((64, 8), (64, 4), (8, 4))
+# (W, window) of H3's instantiations: window 4 at W = 96 and 128 is not
+# on their paths and not built
+_FB_SHAPES = [(w, window, t) for w, window in ((64, 8), (64, 4), (8, 4),
+                                               (96, 8), (128, 8))
               for t in sorted({t for _, t in K.COOP_TPI["mont_fb_exp", w]})]
 
 
@@ -189,7 +192,8 @@ _FB_SHAPES = [(w, window, t) for w, window in ((64, 8), (64, 4), (8, 4))
 def test_fb_pack_gives_each_lane_its_slice(w, window, tpi):
     """H3's packed table read as its kernel reads it: lane r of a group
     takes vector kk of entry d at d·W + kk·TPI·V + r·V, which must hold
-    words r·S + kk·V .. + V - 1 of entry d (S = W/TPI, V = min(4, S))."""
+    words r·S + kk·V .. + V - 1 of entry d (S = W/TPI, V the widest of
+    4, 2, 1 dividing S)."""
     rng = np.random.default_rng(w + window + tpi)
     ndig, entries, L = 3, 1 << window, 2 * w
     table = torch.from_numpy(rng.integers(0, 1 << 16, (ndig, entries, L),
@@ -198,7 +202,8 @@ def test_fb_pack_gives_each_lane_its_slice(w, window, tpi):
     words = (table[..., 0::2].numpy().astype(np.uint32)
              | (table[..., 1::2].numpy().astype(np.uint32) << 16))
     S = w // tpi
-    V = min(4, S)
+    V = 4 if S % 4 == 0 else 2 if S % 2 == 0 else 1
+    assert V == K.slice_vec(S)
     for j in range(ndig):
         for d in (0, 1, entries - 1):
             for r in range(tpi):
@@ -274,11 +279,11 @@ def _ep_visits(w, n, npos, sh):
     return count, part
 
 
-# (W, TPI given where COOP_TPI has no rule): W = 96 and 128 are the
-# widths of modp3072 and modp4096, not built yet.
+# (W, the TPI its COOP_TPI rule gives at every N, where it has one): W = 96
+# and 128 are the widths of modp3072 and modp4096.
 @pytest.mark.parametrize("w,tpi", [(8, None), (64, None), (96, 16),
                                    (128, 16)])
-def test_ep_launch_covers_every_pair(w, tpi, monkeypatch):
+def test_ep_launch_covers_every_pair(w, tpi):
     """H4's launch shape at each width: whole warps of at most EP_BLOCK
     threads, position blocks that tile the positions, the chunk's tables
     and the accumulators within the shared memory a block may use, at
@@ -290,9 +295,6 @@ def test_ep_launch_covers_every_pair(w, tpi, monkeypatch):
              (10000, 160), (1 << 17, 16)]
     if w >= 96:
         cases += [(1, 1024), (1000, 1024), (10000, 768)]
-    if tpi is not None:
-        monkeypatch.setitem(K.COOP_TPI, ("mont_expprod_positions", w),
-                            ((1, tpi),))
     for n, npos in cases:
         sh = K.ep_launch(w, n, npos, 132)
         assert tpi is None or sh.tpi == tpi
@@ -509,8 +511,8 @@ def test_cuda_fb_exp_every_tpi(w, window, tpi, n, cuda_device, monkeypatch):
     its rule: one element, and batches that are no multiple of a block;
     exponents all ones and 0 among random ones."""
     monkeypatch.setitem(K.COOP_TPI, ("mont_fb_exp", w), ((1, tpi),))
-    tc = TCtx(modulus("modp2048" if w == 64 else "test256"), cuda_device)
-    nbits = 2047 if window == 8 else 256
+    tc = TCtx(modulus(WIDTH_GROUP[w]), cuda_device)
+    nbits = tc.nbits - 1 if window == 8 else 256
     table = tc.fixed_base_table(5, nbits, window)
     rng = np.random.default_rng(n + tpi)
     es = [(1 << nbits) - 1, 0] + rand_ints(rng, n, 1 << nbits)
@@ -525,7 +527,10 @@ def test_cuda_fb_exp_every_tpi(w, window, tpi, n, cuda_device, monkeypatch):
 
 
 
-_EP_PAIRS = [(w, t) for w in K._WIDTHS
+# W = 8 and 64 here; W = 96 and 128 in tests/test_torch_wide.py, on fewer
+# elements (the plain version's lane tree over 10000 elements at 2047
+# bits grows with L²)
+_EP_PAIRS = [(w, t) for w in (8, 64)
              for t in sorted({t for _, t in K.COOP_TPI[
                  "mont_expprod_positions", w]})]
 
@@ -541,7 +546,7 @@ def test_cuda_expprod_every_tpi(w, tpi, n, nbits, cuda_device, monkeypatch):
     plain version's positions and, combined, Python pow."""
     monkeypatch.setitem(K.COOP_TPI, ("mont_expprod_positions", w),
                         ((1, tpi),))
-    tc = TCtx(modulus("modp2048" if w == 64 else "test256"), cuda_device)
+    tc = TCtx(modulus(WIDTH_GROUP[w]), cuda_device)
     nbits = min(nbits, tc.nbits - 1)
     rng = np.random.default_rng(n + tpi + nbits)
     xs = rand_ints(rng, n, tc.m)

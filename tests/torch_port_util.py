@@ -71,7 +71,16 @@ def modp2048_p() -> int:
 
 
 def modulus(name: str) -> int:
-    return TEST256_P if name == "test256" else modp2048_p()
+    """The modulus of test256 or of a named RFC 3526 group (modp2048,
+    modp3072, modp4096)."""
+    from vmn_tpu_torch.arith.pgroup import _NAMED_GROUPS
+
+    return TEST256_P if name == "test256" else _NAMED_GROUPS[name][0]
+
+
+# The named group of each width W = L/2 of the Montgomery kernels.
+WIDTH_GROUP = {8: "test256", 64: "modp2048", 96: "modp3072",
+               128: "modp4096"}
 
 
 def rand_ints(rng: np.random.Generator, n: int, bound: int) -> list:

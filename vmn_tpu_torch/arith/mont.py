@@ -81,7 +81,9 @@ class MontCtx:
         self.one = self._const(1)
         self.zero = self._const(0)
         # Fixed-base tables are large device buffers (window 8 at 2048
-        # bits: 33 MB).  Session-derived bases (h0 per mix session) would
+        # bits: 33 MB; 75 MB at modp3072, 134 MB at modp4096, so a full
+        # cache of the latter holds 3.2 GB of the card's 80 GB).
+        # Session-derived bases (h0 per mix session) would
         # accrete one table per session, so the cache is a small LRU;
         # long-lived bases (g, pk) are re-touched and stay resident.
         self._fb_tables = collections.OrderedDict()

@@ -38,6 +38,10 @@
 // with no stack frame and no spill at any instantiation --
 //   W = 64: mont_mul TPI 8/32: 48/28;       mont_exp 56/32;    chain 26;
 //           mont_expprod TPI 8/16: 64/53.
+//   W = 96: mont_mul TPI 16/32: 39/32;      mont_exp 48/36;    chain 32;
+//           mont_expprod TPI 16: 61.
+//   W = 128: mont_mul TPI 32: 32;  mont_exp TPI 16/32: 56/40;  chain 38;
+//           mont_expprod TPI 16: 64.
 //   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 22;
 //           mont_expprod TPI 1/4: 64/42.
 #include <cuda_runtime.h>
@@ -182,13 +186,19 @@ __global__ void __launch_bounds__(32)
 //
 // The staged table is the wrapper's packed copy of T (fb_pack in
 // ops/mont_kernels.py): word lane·S + k of an entry (k < S) lies at
-// [k / V][lane][k % V] of the entry, V = min(4, S):
-// one vector load gives a lane V words of its slice, the TPI lanes of a
-// group read TPI·V consecutive words, and every group of the warp reads
-// the same ones (a broadcast), so no bank conflict.  Two buffers: the
-// copy of digit j + 1 (cp.async, 16 bytes a thread at a time) runs under
-// digit j's select and product, as K4 overlapped its two VMEM buffers;
-// one barrier a digit.  At window 8 and W = 64 a buffer is 64 KB, so a
+// [k / V][lane][k % V] of the entry, V the widest of 4, 2, 1 that divides
+// S (slice_vec): one vector load gives a lane V words of its slice, the
+// TPI lanes of a group read TPI·V consecutive words, and every group of
+// the warp reads the same ones (a broadcast), so no bank conflict.  Two
+// buffers: the copy of the next piece (cp.async, 16 bytes a thread at a
+// time) runs under this piece's select and product, as K4 overlapped its
+// two VMEM buffers; one barrier a piece.  A piece is a digit's 2^WB
+// entries where two of them fit the 227 KB a block may use (every window
+// at W <= 96: 192 KB at window 8, W = 96), else half of them (window 8
+// at W = 128: two 64 KB halves, staged in turn, where two whole digits
+// would take 256 KB); the masked select runs over every entry of every
+// piece of the digit before its product.  At window 8 and W = 64 a
+// buffer is 64 KB, so a
 // block holds the SM's shared memory alone: the launch shape (fb_launch)
 // gives a block about N/132 elements, so that N = 10000 is one wave of
 // 132 blocks of 19 warps (TPI 8), where blocks of 128 threads would leave
@@ -199,7 +209,11 @@ __global__ void __launch_bounds__(32)
 // at window 8 about as many integer instructions as the product it feeds,
 // and about half of the kernel's time on the H100 (PERF.md §6).  ptxas
 // (sm_90a): 56 / 38 / 26 registers at W = 64, TPI 8 / 16 / 32 (either
-// window), 26 at W = 8, TPI 4; no stack frame, no spill.
+// window), 26 at W = 8, TPI 4; 32 / 36 at W = 96 / 128, TPI 32 (window
+// 8); no stack frame, no spill.  At W = 96 and 128 only TPI 32 is built:
+// TPI 16 measured slower on the paths' 10000 elements, and a block of
+// 1024 threads caps a thread at 64 registers, which TPI 8's 12 or 16
+// words a slice would pass.
 __device__ __forceinline__ void cp_async16(uint32_t* dst,
                                            const uint32_t* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -213,6 +227,22 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Words a lane moves at once in the shared layouts of H3 and H4: the
+// widest of 4, 2, 1 that divides its S words.
+template <int S>
+__host__ __device__ constexpr int slice_vec() {
+  return S % 4 == 0 ? 4 : S % 2 == 0 ? 2 : 1;
+}
+
+constexpr int kFbShared = 232448;  // the 227 KB a block may opt in to
+
+// Pieces a digit of 2^WB entries of W words is staged in: 1 where two
+// digits fit kFbShared, else 2 (two half digits do).
+template <int W, int WB>
+__host__ __device__ constexpr int fb_pieces() {
+  return 2 * (4 << WB) * W <= kFbShared ? 1 : 2;
 }
 
 // V consecutive words from shared memory (16-, 8- or 4-byte aligned).
@@ -237,9 +267,10 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
                        const int32_t* __restrict__ one, uint32_t mp, int64_t n,
                        int le, int ndig) {
   constexpr int S = W / TPI;
-  constexpr int V = S < 4 ? S : 4;
-  constexpr int kEntries = 1 << WB;
-  constexpr int kBlk = kEntries * W;  // words of one digit's entries
+  constexpr int V = slice_vec<S>();
+  constexpr int kPieces = fb_pieces<W, WB>();
+  constexpr int kEntries = (1 << WB) / kPieces;  // entries of a piece
+  constexpr int kBlk = kEntries * W;  // words of one piece
   extern __shared__ __align__(16) uint32_t fb_stage[];  // [2][kBlk]
   bool live;
   const int64_t idx = vmn::group_element<TPI>(n, &live);
@@ -248,27 +279,32 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
   vmn::load_slice<W, TPI>(mm, m);
   vmn::load_slice<W, TPI>(acc, one);
   const int32_t* ex = e + idx * le;
-  auto stage = [&](int j) {
-    uint32_t* dst = fb_stage + (j & 1) * kBlk;
-    const uint32_t* src = table + (int64_t)j * kBlk;
+  // piece u = j·kPieces + p: entries p·kEntries .. of digit j, which
+  // follow one another in the packed table
+  auto stage = [&](int u) {
+    uint32_t* dst = fb_stage + (u & 1) * kBlk;
+    const uint32_t* src = table + (int64_t)u * kBlk;
     for (int c = 4 * threadIdx.x; c < kBlk; c += 4 * blockDim.x) {
       cp_async16(dst + c, src + c);
     }
     cp_async_commit();
   };
+  const int pieces = ndig * kPieces;
   stage(0);
   uint32_t dig = vmn::row_digit<WB>(ex, le, 0);
-#pragma unroll 1
-  for (int j = 0; j < ndig; ++j) {
-    cp_async_wait_all();  // this thread's copies of digit j have landed
-    __syncthreads();      // everyone's, and digit j - 1's buffer is read
-    if (j + 1 < ndig) stage(j + 1);
-    const uint32_t* row = fb_stage + (j & 1) * kBlk + lane * V;
 #pragma unroll
-    for (int k = 0; k < S; ++k) fac[k] = 0;
+  for (int k = 0; k < S; ++k) fac[k] = 0;
+#pragma unroll 1
+  for (int u = 0; u < pieces; ++u) {
+    cp_async_wait_all();  // this thread's copies of piece u have landed
+    __syncthreads();      // everyone's, and piece u - 1's buffer is read
+    if (u + 1 < pieces) stage(u + 1);
+    const int p = u % kPieces;
+    const uint32_t* row = fb_stage + (u & 1) * kBlk + lane * V;
 #pragma unroll 2
     for (int d = 0; d < kEntries; ++d) {
-      const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
+      const uint32_t mask =
+          0u - (uint32_t)(dig == (uint32_t)(p * kEntries + d));
 #pragma unroll
       for (int kk = 0; kk < S / V; ++kk) {
         uint32_t w[V];
@@ -277,8 +313,13 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
         for (int v = 0; v < V; ++v) fac[kk * V + v] |= w[v] & mask;
       }
     }
-    dig = vmn::row_digit<WB>(ex, le, j + 1);  // loaded under the product
-    vmn::coop_mont_mul<W, TPI>(acc, acc, fac, mm, mp);
+    if (p == kPieces - 1) {  // the digit's last piece: its product
+      // the next digit, loaded under the product
+      dig = vmn::row_digit<WB>(ex, le, u / kPieces + 1);
+      vmn::coop_mont_mul<W, TPI>(acc, acc, fac, mm, mp);
+#pragma unroll
+      for (int k = 0; k < S; ++k) fac[k] = 0;
+    }
   }
   if (live) vmn::store_slice<W, TPI>(out + idx * 2 * W, acc);
 }
@@ -331,20 +372,17 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
 // the shared memory), registers held at 64 by __launch_bounds__ (used in
 // full at W = 64, TPI 8, with no stack frame and no spill).  TPI by N
 // (COOP_TPI): 16 for a few elements, 8 from 1024 at W = 64; at every N
-// 32 lanes were slower, their groups too few for the positions.
+// 32 lanes were slower, their groups too few for the positions.  At
+// W = 96 and 128, TPI 16 at every N (ptxas: 61 and 64 registers, no
+// spill), where TPI 8's slices would pass the 64 registers.
 constexpr int kEpBlock = 1024;  // EP_BLOCK in ops/mont_kernels.py
-constexpr int kEpShared = 232448;  // the 227 KB a block may opt in to
+constexpr int kEpShared = kFbShared;
 // Words between two elements' tables: 16 entries and 4 words of padding,
 // so that groups reading the same entry of neighbouring elements (the
 // build's first levels) start 4 banks apart.
 template <int W>
 __host__ __device__ constexpr int ep_stride() {
   return 16 * W + 4;
-}
-
-template <int S>
-__host__ __device__ constexpr int slice_vec() {
-  return S % 4 == 0 ? 4 : S % 2 == 0 ? 2 : 1;
 }
 
 template <int V>
@@ -483,7 +521,8 @@ int launch_fb(const uint32_t* table, const int32_t* e, int32_t* out,
       ndig < 1) {
     return kBadShape;
   }
-  const size_t smem = sizeof(uint32_t) * 2 * (size_t)(1 << WB) * W;
+  const size_t smem =
+      sizeof(uint32_t) * 2 * (size_t)((1 << WB) / fb_pieces<W, WB>()) * W;
   // Above 48 KB (window 8 at 2048 bits: 128 KB) a launch is refused
   // unless the kernel opts in to the larger dynamic shared memory.
   if (smem > 48 * 1024) {
@@ -553,10 +592,9 @@ int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
 
 }  // namespace
 
-// Instantiated widths (W = L/2): test256 and P-256 (L=16) and modp2048
-// (L=128), the widths that the tests and chip_smoke.py check against the
-// plain versions.  A wider group (modp3072: W=96, modp4096: W=128) gets its
-// case here with the first cell or test that runs it.
+// Instantiated widths (W = L/2): test256 and P-256 (L=16), modp2048
+// (L=128), modp3072 (L=192) and modp4096 (L=256), the widths that the
+// tests and chip_smoke.py check against the plain versions.
 #define VMN_FOR_W(w, ...)                          \
   switch (w) {                                     \
     case 8: {                                      \
@@ -567,6 +605,14 @@ int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
       constexpr int W = 64;                        \
       __VA_ARGS__;                                 \
     } break;                                       \
+    case 96: {                                     \
+      constexpr int W = 96;                        \
+      __VA_ARGS__;                                 \
+    } break;                                       \
+    case 128: {                                    \
+      constexpr int W = 128;                       \
+      __VA_ARGS__;                                 \
+    } break;                                       \
     default:                                       \
       return kUnsupportedWidth;                    \
   }
@@ -574,8 +620,9 @@ int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
 extern "C" {
 
 // H1 and H2 are instantiated at the (W, TPI) pairs that COOP_TPI in
-// ops/mont_kernels.py chooses: H1 at (8, 8), (64, 8), (64, 32), H2 at
-// those and (8, 1).
+// ops/mont_kernels.py chooses: H1 at (8, 8), (64, 8), (64, 32), (96, 16),
+// (96, 32), (128, 32), H2 at (8, 1), (8, 8), (64, 8), (64, 32) and at TPI 16
+// and 32 of W = 96 and 128.
 int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
                  int32_t* out, const int32_t* m, uint32_t mp, int64_t n,
                  int threads, int64_t blocks, void* stream) {
@@ -585,6 +632,9 @@ int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
     case 8 << 8 | 8: return launch_mul<8, 8>(VMN_MUL_ARGS);
     case 64 << 8 | 8: return launch_mul<64, 8>(VMN_MUL_ARGS);
     case 64 << 8 | 32: return launch_mul<64, 32>(VMN_MUL_ARGS);
+    case 96 << 8 | 16: return launch_mul<96, 16>(VMN_MUL_ARGS);
+    case 96 << 8 | 32: return launch_mul<96, 32>(VMN_MUL_ARGS);
+    case 128 << 8 | 32: return launch_mul<128, 32>(VMN_MUL_ARGS);
     default: return kUnsupportedWidth;
   }
 #undef VMN_MUL_ARGS
@@ -601,6 +651,10 @@ int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
     case 8 << 8 | 8: return launch_exp<8, 8>(VMN_EXP_ARGS);
     case 64 << 8 | 8: return launch_exp<64, 8>(VMN_EXP_ARGS);
     case 64 << 8 | 32: return launch_exp<64, 32>(VMN_EXP_ARGS);
+    case 96 << 8 | 16: return launch_exp<96, 16>(VMN_EXP_ARGS);
+    case 96 << 8 | 32: return launch_exp<96, 32>(VMN_EXP_ARGS);
+    case 128 << 8 | 16: return launch_exp<128, 16>(VMN_EXP_ARGS);
+    case 128 << 8 | 32: return launch_exp<128, 32>(VMN_EXP_ARGS);
     default: return kUnsupportedWidth;
   }
 #undef VMN_EXP_ARGS
@@ -617,8 +671,11 @@ int vmn_mont_chain(int w, const int32_t* P, int32_t* out, const int32_t* m,
 }
 
 // H3 at (W, window, TPI): (64, 8), (64, 4) and (8, 4) -- the modp2048
-// path, 256-bit exponents at modp2048 and the test256 golden -- at the
-// TPIs that COOP_TPI["mont_fb_exp", W] can choose.
+// path, 256-bit exponents at modp2048 and the test256 golden -- and
+// (96, 8), (128, 8), the modp3072 and modp4096 paths, at the TPIs that
+// COOP_TPI["mont_fb_exp", W] can choose.  Window 4 at W = 96 and 128 is
+// on no path (every fixed-base power there has a full-width exponent)
+// and is not built.
 int vmn_mont_fb_exp(int w, int wb, int tpi, const uint32_t* table,
                     const int32_t* e, int32_t* out, const int32_t* m,
                     const int32_t* one, uint32_t mp, int64_t n, int le,
@@ -633,6 +690,8 @@ int vmn_mont_fb_exp(int w, int wb, int tpi, const uint32_t* table,
     case 64 << 16 | 4 << 8 | 16: return launch_fb<64, 4, 16>(VMN_FB_ARGS);
     case 64 << 16 | 4 << 8 | 32: return launch_fb<64, 4, 32>(VMN_FB_ARGS);
     case 8 << 16 | 4 << 8 | 4: return launch_fb<8, 4, 4>(VMN_FB_ARGS);
+    case 96 << 16 | 8 << 8 | 32: return launch_fb<96, 8, 32>(VMN_FB_ARGS);
+    case 128 << 16 | 8 << 8 | 32: return launch_fb<128, 8, 32>(VMN_FB_ARGS);
     default: return kUnsupportedWidth;
   }
 #undef VMN_FB_ARGS
@@ -653,6 +712,8 @@ int vmn_mont_expprod(int w, int tpi, const int32_t* bases, const int32_t* e,
     case 8 << 8 | 4: return launch_ep<8, 4>(VMN_EP_ARGS);
     case 64 << 8 | 8: return launch_ep<64, 8>(VMN_EP_ARGS);
     case 64 << 8 | 16: return launch_ep<64, 16>(VMN_EP_ARGS);
+    case 96 << 8 | 16: return launch_ep<96, 16>(VMN_EP_ARGS);
+    case 128 << 8 | 16: return launch_ep<128, 16>(VMN_EP_ARGS);
     default: return kUnsupportedWidth;
   }
 #undef VMN_EP_ARGS

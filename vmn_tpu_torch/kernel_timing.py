@@ -21,9 +21,10 @@ inputs made on the card from fixed seeds:
   bits) the modp2048 path calls it with (`EP_WIDTHS`; N elements for
   its 10000), and at the P-256 field (W = 8, the test256 golden's width)
   on N elements, 256-bit exponents;
-* K7's combine over 512 positions: `mont_expprod_combine` where the tree
-  has it, else the loop of single-element H1 launches that `mont_expprod`
-  ran before it had its own launch;
+* K7's combine over 512 positions (a 2047-bit exponent's):
+  `mont_expprod_combine` where the tree has it, else the loop of
+  single-element H1 launches that `mont_expprod` ran before it had its
+  own launch;
 * H5 `ec_scalar_mul`, H6 `ec_multiexp_positions`, H7 `ec_fb_exp` (on g)
   and H8 `ec_point_add` at P-256 on 4096 and on --ec-n points, H8 also
   on one pair and, at --ec-n, H8's and H6's kernels alone (without H6's
@@ -32,7 +33,12 @@ inputs made on the card from fixed seeds:
 * the EC position combine over 64 positions (a 256-bit
   multi-exponentiation): `ec_multiexp_combine` where the tree has it,
   else the loop of single-point H8 launches that `ec_multiexp` ran
-  before it had its own launch.
+  before it had its own launch;
+* at each wider width the tree instantiates (its `_WIDTHS`: modp3072,
+  W = 96, and modp4096, W = 128, from the wide-group slice on), the same
+  as at modp2048 with exponents of |q| bits in place of 2047 (the
+  combine over 768 and 1024 positions), H3 at window 8 only (`_w96`,
+  `_w128` keys).
 
 Every tree of the port since the EC slice has these wrappers with these
 signatures, so a commit and its parent, unpacked side by side, are timed
@@ -40,8 +46,9 @@ the same way on the same inputs, one process each.
 
 --sweep times the cooperative kernels of this tree at every TPI (lanes an
 element or point) they are built for: H1, H2 and H3 over a range of N at
-both widths (H3 at both windows of W = 64), H4 over a range of N at 2047-
-and 256-bit exponents (W = 64) and 256-bit ones (W = 8), H5 over a range
+each width the tree instantiates (H3 at both windows of W = 64, at
+window 8 of W = 96 and 128), H4 over a range of N at full-width and
+256-bit exponents (W >= 64) and 256-bit ones (W = 8), H5 over a range
 of points and H8 over 1 to 2^17 pairs at P-256, and the EC combine over
 16 and 64 positions, forcing the TPI
 through `COOP_TPI`, the table the wrappers choose it from (a TPI with no
@@ -69,23 +76,33 @@ if __name__ == "__main__":  # run as a file: its folder is no import root
 import torch  # noqa: E402
 
 SPIN_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clock cycles
-COMBINE_POSITIONS = 512  # K7's ndig_pad at a 2047-bit exponent
 EC_COMBINE_POSITIONS = 64  # K10's ndig_pad at a 256-bit scalar
+# The modp widths above 64 words: modp3072 and modp4096.
+WIDE_N = (1, 4, 16, 64, 256, 1024, 2048, 4096, 8192, 10000)
 SWEEP_N = {64: (1, 4, 16, 64, 256, 1024, 2048, 4096, 6144, 8192, 10000,
                 16384),
            8: (1, 16, 256, 1024, 4096, 8192, 16384, 32768, 65536, 131072,
-               262144)}
+               262144),
+           96: WIDE_N, 128: WIDE_N}
 SWEEP_SMUL_N = (256, 1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
 SWEEP_FB_N = {64: (1, 16, 256, 1024, 2048, 4096, 8192, 10000, 16384),
-              8: (1, 4, 16, 64, 256, 1024, 4096)}
+              8: (1, 4, 16, 64, 256, 1024, 4096),
+              96: (1, 16, 256, 1024, 2048, 4096, 8192, 10000),
+              128: (1, 16, 256, 1024, 2048, 4096, 8192, 10000)}
+# H3's (window, exponent bits) by width: the fixed-base powers of each
+# path (None: |q| bits, the full width)
+FB_CASES = {64: ((8, None), (4, 256)), 8: ((4, 256),), 96: ((8, None),),
+            128: ((8, None),)}
 SWEEP_MEXP_N = (4096, 16384, 65536, 131072, 262144)
 SWEEP_EP_N = {64: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
-              8: (1, 16, 256, 1024, 4096, 10000)}
+              8: (1, 16, 256, 1024, 4096, 10000),
+              96: (1, 6, 16, 64, 256, 1024, 4096, 10000),
+              128: (1, 6, 16, 64, 256, 1024, 4096, 10000)}
 SWEEP_ADD_N = (1, 128, 1024, 4096, 16384, 131072)
-# H4's (elements, exponent bits) on the modp2048 path (PERF.md §6):
-# the element count 10000 stands for --n.
-EP_WIDTHS = ((1, 2047), (6, 2047), (16, 2047), (10000, 100), (10000, 256),
-             (10000, 400), (10000, 612), (10000, 2047))
+# H4's (elements, exponent bits) on the ModP paths (PERF.md §6): the
+# element count 10000 stands for --n, bits None for |q|.
+EP_WIDTHS = ((1, None), (6, None), (16, None), (10000, 100), (10000, 256),
+             (10000, 400), (10000, 612), (10000, None))
 EP_CALLS = (2, 2, 1, 2, 7, 9, 3, 1)  # mix + verify calls at each width
 SWEEP_COMBINE_POSITIONS = (16, 64)
 # H4's launch-shape constants (ops/mont_kernels.py), swept at EP_WIDTHS.
@@ -160,17 +177,34 @@ def _limbs_of(x: int, dev) -> torch.Tensor:
                         dtype=torch.int32, device=dev)
 
 
-def _moduli(dev):
+def _moduli(dev, widths=(64, 8)):
+    """{W: MontCtx} of modp2048 (64), the P-256 field (8), modp3072 (96)
+    and modp4096 (128), for the widths asked."""
     from vmn_tpu_torch.arith.ec import _CURVES
     from vmn_tpu_torch.arith.mont import MontCtx
-    from vmn_tpu_torch.arith.pgroup import _RFC3526_2048
+    from vmn_tpu_torch.arith.pgroup import (
+        _RFC3526_2048, _RFC3526_3072, _RFC3526_4096,
+    )
 
-    return {64: MontCtx(_RFC3526_2048, dev),
-            8: MontCtx(_CURVES["P-256"][0], dev)}
+    moduli = {64: _RFC3526_2048, 8: _CURVES["P-256"][0],
+              96: _RFC3526_3072, 128: _RFC3526_4096}
+    return {w: MontCtx(moduli[w], dev) for w in widths}
+
+
+def _tree_widths(K) -> list:
+    """The widths that the tree of mont_kernels module K instantiates, in
+    the order they are timed: modp2048 and the P-256 field first."""
+    return [w for w in (64, 8, 96, 128) if w in K._WIDTHS]
+
+
+def _full_bits(ctx) -> int:
+    """The exponent bits of a ModP path's full-width powers (|q|)."""
+    return ctx.nbits - 1
 
 
 def time_tree(n: int, ec_n: int) -> dict:
-    """{case: device ms} of the wrappers of the imported package."""
+    """{case: device ms} of the wrappers of the imported package, at each
+    width it instantiates."""
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
@@ -178,9 +212,10 @@ def time_tree(n: int, ec_n: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(2048)
     out = {}
-    for w, ctx in _moduli(dev).items():
-        tag, count = ("", n) if w == 64 else ("_w8", ec_n)
-        ebits = 2047 if w == 64 else 256
+    for w, ctx in _moduli(dev, _tree_widths(K)).items():
+        tag = "" if w == 64 else f"_w{w}"
+        count = ec_n if w == 8 else n
+        ebits = 256 if w == 8 else _full_bits(ctx)
         a = _elements(gen, count, ctx.L, dev)
         b = _elements(gen, count, ctx.L, dev)
         e = _exponents(gen, count, ebits, dev)
@@ -195,33 +230,35 @@ def time_tree(n: int, ec_n: int) -> dict:
         out[f"mont_exp{tag}_b1"] = device_ms(
             lambda: K.mont_exp(a1, e_inv, ctx.mod, inv_bits))
         e256 = _exponents(gen, n, 256, dev)
-        tbl4 = ctx.fixed_base_table(5, 256, 4)
-        a_n = a[:n]
-        if w == 64:
-            tbl8 = ctx.fixed_base_table(5, ebits, 8)
-            out["mont_fb_exp8"] = device_ms(
-                lambda: K.mont_fb_exp(tbl8, e, ctx.mod))
-            out["mont_fb_exp4"] = device_ms(
-                lambda: K.mont_fb_exp(tbl4, e256, ctx.mod))
-            for count, bits in EP_WIDTHS:
-                count = n if count == 10000 else count
-                eb = _exponents(gen, count, bits, dev)
-                ab = a[:count]
-                key = ("mont_expprod_positions" if (count, bits) == (n, 256)
-                       else f"mont_expprod_positions_{count}x{bits}")
-                out[key] = device_ms(
-                    lambda: K.mont_expprod_positions(ab, eb, ctx.mod, bits))
-            P = _elements(gen, COMBINE_POSITIONS, ctx.L, dev)
-            out["mont_expprod_combine"] = device_ms(
-                lambda: _combine(K, P, ctx.mod))
-        else:
-            out["mont_fb_exp4_w8"] = device_ms(
-                lambda: K.mont_fb_exp(tbl4, e256, ctx.mod))
+        for window, bits in FB_CASES[w]:
+            tbl = ctx.fixed_base_table(5, bits or ebits, window)
+            eb = e256 if bits == 256 else e
+            out[f"mont_fb_exp{window}{tag}"] = device_ms(
+                lambda: K.mont_fb_exp(tbl, eb, ctx.mod))
+        if w == 8:
+            a_n = a[:n]
             out["mont_expprod_positions_w8"] = device_ms(
                 lambda: K.mont_expprod_positions(a_n, e256, ctx.mod, 256))
+            continue
+        for count, bits in _ep_widths(ctx, n):
+            eb = _exponents(gen, count, bits, dev)
+            ab = a[:count]
+            key = f"mont_expprod_positions{tag}" + (
+                "" if (count, bits) == (n, 256) else f"_{count}x{bits}")
+            out[key] = device_ms(
+                lambda: K.mont_expprod_positions(ab, eb, ctx.mod, bits))
+        P = _elements(gen, K._ndig_pad(ebits), ctx.L, dev)
+        out[f"mont_expprod_combine{tag}"] = device_ms(
+            lambda: _combine(K, P, ctx.mod))
     out.update(_time_ec(E, dev, 4096, "_4096"))
     out.update(_time_ec(E, dev, ec_n, ""))
     return out
+
+
+def _ep_widths(ctx, n: int) -> list:
+    """EP_WIDTHS at ctx's width: (elements, exponent bits)."""
+    return [(n if count == 10000 else count, bits or _full_bits(ctx))
+            for count, bits in EP_WIDTHS]
 
 
 def _combine(K, P, mod):
@@ -324,11 +361,11 @@ def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
 
 
 def sweep(only=()) -> dict:
-    """H1 and H2 at every instantiated TPI over SWEEP_N at both widths, H4
-    over SWEEP_EP_N, H3 over SWEEP_FB_N; H5 over SWEEP_SMUL_N points, H8
-    over SWEEP_ADD_N pairs and the EC combine over
-    SWEEP_COMBINE_POSITIONS at P-256; H6 over SWEEP_MEXP_N points.  Only
-    the kernels (wrapper names) in `only`, where it names any."""
+    """H1 and H2 at every instantiated TPI over SWEEP_N at each width the
+    tree instantiates, H4 over SWEEP_EP_N, H3 over SWEEP_FB_N; H5 over
+    SWEEP_SMUL_N points, H8 over SWEEP_ADD_N pairs and the EC combine
+    over SWEEP_COMBINE_POSITIONS at P-256; H6 over SWEEP_MEXP_N points.
+    Only the kernels (wrapper names) in `only`, where it names any."""
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
@@ -336,8 +373,8 @@ def sweep(only=()) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows, best = [], {}
-    for w, ctx in _moduli(dev).items():
-        ebits = 2047 if w == 64 else 256
+    for w, ctx in _moduli(dev, _tree_widths(K)).items():
+        ebits = _full_bits(ctx) if w >= 64 else 256
         top = max(SWEEP_N[w])
         a = _elements(gen, top, ctx.L, dev)
         b = _elements(gen, top, ctx.L, dev)
@@ -350,7 +387,7 @@ def sweep(only=()) -> dict:
                           only=only)
         ep_top = max(SWEEP_EP_N[w])
         a = _elements(gen, ep_top, ctx.L, dev)
-        for bits in (2047, 256) if w == 64 else (256,):
+        for bits in (ebits, 256) if w >= 64 else (256,):
             e = _exponents(gen, ep_top, bits, dev)
             _sweep_kernel(K, "mont_expprod_positions", w, SWEEP_EP_N[w],
                           lambda k: K.mont_expprod_positions(
@@ -358,7 +395,8 @@ def sweep(only=()) -> dict:
                           tag=f" bits={bits}", only=only)
         fb_n = max(SWEEP_FB_N[w])
         a = _elements(gen, fb_n, ctx.L, dev)
-        for window, bits in ((8, 2047), (4, 256)) if w == 64 else ((4, 256),):
+        for window, bits in FB_CASES[w]:
+            bits = bits or ebits
             tbl = ctx.fixed_base_table(5, bits, window)
             e = _exponents(gen, fb_n, bits, dev)
             _sweep_kernel(K, "mont_fb_exp", w, SWEEP_FB_N[w],
@@ -406,14 +444,15 @@ def _sweep_ep_shape(K, ctx, gen, dev, rows: list) -> None:
     and a `path_ms` row per constants: the widths' times weighted by the
     path's calls (EP_CALLS)."""
     a = _elements(gen, 10000, ctx.L, dev)
+    widths = _ep_widths(ctx, 10000)
     es = {bits: _exponents(gen, 10000, bits, dev)
-          for bits in {b for _, b in EP_WIDTHS}}
+          for bits in {b for _, b in widths}}
     saved = K.EP_MIN_ELEMENTS, K.EP_ACC_BYTES
     try:
         for K.EP_MIN_ELEMENTS in SWEEP_EP_MIN_ELEMENTS:
             for K.EP_ACC_BYTES in SWEEP_EP_ACC_BYTES:
                 path = 0.0
-                for (n, bits), calls in zip(EP_WIDTHS, EP_CALLS):
+                for (n, bits), calls in zip(widths, EP_CALLS):
                     ab, eb = a[:n], es[bits][:n]
                     ms = device_ms(lambda: K.mont_expprod_positions(
                         ab, eb, ctx.mod, bits), reps=10)
@@ -433,7 +472,7 @@ def _sweep_ep_shape(K, ctx, gen, dev, rows: list) -> None:
                       f"{K.EP_MIN_ELEMENTS} acc_bytes={K.EP_ACC_BYTES} "
                       f"path_ms={path:.4f} " + " ".join(
                           f"{r['N']}x{r['bits']}={r['ms']:.4f}"
-                          for r in rows[-1 - len(EP_WIDTHS):-1]),
+                          for r in rows[-1 - len(widths):-1]),
                       flush=True)
     finally:
         K.EP_MIN_ELEMENTS, K.EP_ACC_BYTES = saved

@@ -56,7 +56,9 @@ design does about it):
   lays the table out so that the reads are broadcasts without bank
   conflicts).  A window-8 digit's entries are 64 KB at 2048 bits, so a
   block holds an SM's shared memory alone; `fb_launch` sizes the blocks
-  so that N = 10000 fills the 132 SMs once.  Bound by the products (one
+  so that N = 10000 fills the 132 SMs once.  At 4096 bits two digits
+  (256 KB) pass the 227 KB a block may use: the digit is staged in two
+  halves, the select running over both before the product.  Bound by the products (one
   a digit) and, at window 8, by the select, which costs about as much
   as the product it feeds.  The TPU's one-hot f32 MXU gather is not
   carried over.
@@ -401,7 +403,9 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 _UNSUPPORTED_WIDTH = -1
 _BAD_SHAPE = -2
-_WIDTHS = (8, 64)  # W = L/2 instantiated in mont_kernels.cu
+# W = L/2 instantiated in mont_kernels.cu: test256 and the P-256 field,
+# modp2048, modp3072, modp4096
+_WIDTHS = (8, 64, 96, 128)
 
 # Threads per element (TPI) of the cooperative kernels for n elements of W
 # words: TPI lanes of one warp share an element (H1-H4) or a point (H5, H8,
@@ -422,8 +426,19 @@ _WIDTHS = (8, 64)  # W = L/2 instantiated in mont_kernels.cu
 # alone, may pick the slower TPI for wide exponents at 256 <= N < 1024;
 # no call of the modp2048 path falls there (N = 1, 6, 16, 10000).
 # The EC combine is one point (n = 1) on one warp, TPI 8 the fastest at
-# 16 and 64 positions.  Every pair has its case in mont_kernels.cu or
-# ec_kernels.cu.
+# 16 and 64 positions.  At W = 96 and 128 (modp3072, modp4096) every
+# kernel was timed at N = 1, 4 (H1, H2) or 6 (H4), 16, 64 (not H3), 256,
+# 1024, 2048 (not H4), 4096, 8192 (not H4), 10000, with full-width and
+# 256-bit exponents for H4, at TPI 8, 16, 32 (H1, H2), 16, 32 (H3, H4):
+# H1 at W = 96 crosses to TPI 16 between 1024 and 2048, at W = 128 TPI 32
+# was fastest at every N but 8192 (by 1 %); H2 crosses to TPI 16 between
+# 256 and 1024 (W = 96) and between 1024 and 2048 (W = 128); TPI 8 won
+# neither at every N past a crossover (H2 at W = 96: at 4096 and 8192,
+# not at 10000), so it is not built there.  H3 at TPI 32 was the faster at
+# 10000 at both widths, TPI 16 from 2048 to 8192: at 10000 TPI 16 takes
+# two waves of 1024-thread blocks (one block an SM, its staged digits
+# holding the shared memory), 2·24.2 ms at W = 96 against 24.2 at 8192;
+# H4 at TPI 16 at every N and both exponent widths.
 COOP_TPI = {
     ("mont_mul", 8): ((1, 8),),
     ("mont_mul", 64): ((4096, 8), (1, 32)),
@@ -433,6 +448,14 @@ COOP_TPI = {
     ("mont_fb_exp", 64): ((4096, 8), (1024, 16), (1, 32)),
     ("mont_expprod_positions", 8): ((4096, 1), (1, 4)),
     ("mont_expprod_positions", 64): ((1024, 8), (1, 16)),
+    ("mont_mul", 96): ((2048, 16), (1, 32)),
+    ("mont_mul", 128): ((1, 32),),
+    ("mont_exp", 96): ((1024, 16), (1, 32)),
+    ("mont_exp", 128): ((2048, 16), (1, 32)),
+    ("mont_fb_exp", 96): ((1, 32),),
+    ("mont_fb_exp", 128): ((1, 32),),
+    ("mont_expprod_positions", 96): ((1, 16),),
+    ("mont_expprod_positions", 128): ((1, 16),),
     ("ec_scalar_mul", 8): ((16384, 2), (1, 4)),
     ("ec_multiexp_combine", 8): ((1, 8),),
     ("ec_point_add", 8): ((16384, 2), (4096, 4), (1, 8)),
@@ -457,6 +480,10 @@ def coop_launch(kernel: str, w: int, n: int):
 
 
 FB_BLOCK = 1024  # H3's threads a block at most (kFbBlock in mont_coop.cuh)
+# The 227 KB of shared memory a block may opt in to (kFbShared): H3 stages
+# a digit's entries twice within it, or half a digit's where two digits
+# do not fit (window 8 at W = 128).
+FB_SHARED = 232448
 
 
 def fb_launch(w: int, n: int, sms: int):
@@ -473,7 +500,7 @@ def fb_launch(w: int, n: int, sms: int):
 
 
 EP_BLOCK = 1024  # H4's threads a block at most (kEpBlock)
-EP_SHARED = 232448  # the 227 KB of shared memory an H4 block may use
+EP_SHARED = FB_SHARED  # the shared memory an H4 block may use
 EP_ACC_BYTES = 64 * 1024  # of which the accumulators take at most this
 # Elements an H4 block, or a share of one, takes at least where N allows.
 # A compromise (`kernel_timing.py --sweep --only ep_shape`, PERF.md §6):
@@ -541,16 +568,23 @@ def ep_launch(w: int, n: int, npos: int, sms: int) -> EpLaunch:
                     pblocks)
 
 
+def slice_vec(s: int) -> int:
+    """Words a lane of H3 or H4 moves at once from its S-word slice in
+    shared memory: the widest of 4, 2, 1 dividing S (slice_vec in csrc/
+    mont_kernels.cu)."""
+    return 4 if s % 4 == 0 else 2 if s % 2 == 0 else 1
+
+
 def fb_pack(table: torch.Tensor, tpi: int) -> torch.Tensor:
     """H3's copy of a fixed-base table (ndig, 2^w, L) int32 limbs: per
     entry W packed 32-bit words, word k of lane r's slice (S = W/TPI
-    words) at [k // V][r][k % V], V = min(4, S), so that a group's lanes
-    read their slices as vectors of consecutive words (csrc/
+    words) at [k // V][r][k % V], V = slice_vec(S), so that a group's
+    lanes read their slices as vectors of consecutive words (csrc/
     mont_kernels.cu, H3)."""
     ndig, entries, L = table.shape
     w = L // 2
     s = w // tpi
-    v = min(4, s)
+    v = slice_vec(s)
     t = table.to(torch.int64)
     words = t[..., 0::2] | (t[..., 1::2] << LIMB_BITS)  # below 2^32
     words = torch.where(words >= 1 << 31, words - (1 << 32), words)
