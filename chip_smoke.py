@@ -20,11 +20,13 @@ Phases (one line each; any failure raises and the exit code is not 0):
      over a full-width exponent's positions (512, 768, 1024), H2 at W=64
      also on 1.25·N elements at 64-bit exponents (the precomputation's
      raised values); at the P-256 field (W=8) H1 and H2 on --ec-n, on N
-     and on one, H3 at window 4 on N and on one, H4 on N; then each of
-     H1-H4 at the first N of any TPI of its rule that those miss, so that
-     every TPI (lanes an element) the wrappers choose is checked (it fails
-     otherwise).  Each against its plain PyTorch version on the card,
-     exact equality of the whole output, but H1-H3 at W=96 and 128 on 256
+     and on one, H3 at window 4 on N and on one, H4 on N; at the P-384
+     field (W=12) H1 and H2 on --ec-n and on one, and K7's combine over
+     96 positions; then each of H1-H4 at the first N of any TPI of its
+     rule that those miss, so that every TPI (lanes an element) the
+     wrappers choose is checked (it fails otherwise).  Each against its
+     plain PyTorch version on the card, exact equality of the whole
+     output, but H1-H3 at W=96 and 128, and H2 at W=12 on --ec-n, on 256
      rows spread over the batch (a full-width plain power takes seconds
      whatever the rows); a few rows (H4: its positions combined, at W=96
      and 128 those of 16 elements in a launch of their own) against
@@ -41,7 +43,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
      H8 also on one pair; H5 and H8 also at the first N of any TPI (lanes
      a point) that those batches do not reach, so that every TPI their
      wrappers choose is checked; H5 also at 64-bit scalars on 1.25·--ec-n
-     points (the precomputation's raised values);
+     points (the precomputation's raised values); then the same at P-384
+     (W=12: 384-bit scalars, the combine over 96 positions), whole on
+     4096 points, and at --ec-n H5, H7 and H8 on 256 rows spread over the
+     batch with the edge rows (each output row depends on its own inputs
+     alone), H6 whole on 16384 points of the batch's launch shape;
   5. the test256 and P-256 golden mixes on the card: each transcript must
      equal tests/golden/nizkp_{test256,p256}_k1 byte for byte, and the
      port's verifier must accept it and write the test vectors of
@@ -53,7 +59,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
      tests/golden/nizkp_test256_k3_w2 and its test vectors
      test_vectors_k3w2.json; then the modp3072 and modp4096 goldens
      (nizkp_modp{3072,4096}_k1, test_vectors_modp{3072,4096}.json, written
-     by tests/torch_make_wide_golden.py);
+     by tests/torch_make_wide_golden.py), and the P-384 golden
+     (nizkp_p384_k1, test_vectors_p384.json, the same script);
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
@@ -62,8 +69,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
      the EC path), with its calls and its time on random inputs of that
      shape (`multiexp` lines); then the same at modp3072 and modp4096
      with N ciphertexts, the same --n;
-  7. the EC path: the same at P-256 with --ec-n ciphertexts (default
-     131072 = 2^17, from where `exp_prod` takes H6);
+  7. the EC paths: the same at P-256 and at P-384 with --ec-n
+     ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6);
   8. the multi-party path: modp2048, k=3 mix-servers, threshold 2, --k3-n
      ciphertexts (default 10000), Fiat–Shamir: the three parties (threads
      of this process on this one card) agree on the public key and on
@@ -107,7 +114,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
      included.  H1-H4 and the combine must launch in every modp2048
      `vmn -mix` process, H5, H6, the EC combine and H8 in the P-256 one.
 
---profile modp2048|P-256|modp2048-k3|modp3072|modp4096 profiles one more
+--profile modp2048|P-256|P-384|modp2048-k3|modp3072|modp4096 profiles one more
 mix + verify of that path after the phases (host spans, device time by
 kernel, the device's idle share); it may be given more than once.
 
@@ -118,9 +125,10 @@ same around its precomputation, and then around its online mix.  H1-H4
 and the combine must have launched in the modp2048, modp3072 and
 modp4096 mixes, in the k=3 mix
 and in the modp2048 k=1 precomputation path, H2 and H3 in the
-interactive mix's coin flipping, and H5, H6, the EC combine (once per
-H6 call) and H8 in the P-256 mix (H7 is off that path, as in vmn_tpu,
-and reports 0); the `launches` line also counts H1's, H2's, H3's, H5's
+interactive mix's coin flipping, H5, H6, the EC combine (once per H6
+call) and H8 in the P-256 mix, and the same with H1 and H2 at W=12 in
+the P-384 mix (H7 is off those paths, as in vmn_tpu, and reports 0); the
+`launches` line also counts H1's, H2's, H3's, H5's
 and H8's launches in each mix by batch size (1, 2-127, >=128); the
 `kernels` line reports each kernel's launches in its own path's mix
 (also by path, `launches_by_path`, with the CLI's `vmn -mix` processes:
@@ -129,7 +137,8 @@ k=3 mix" summed over the three processes, "cli P-256 mix"), beside the
 error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
-stands under `at_4096`.  The last three lines are that JSON object, the
+stands under `at_4096`, and each kernel's launches in the P-384 mix with
+its check at W=12 under `p384`.  The last three lines are that JSON object, the
 card's name and power limit, and a JSON status object.
 """
 
@@ -320,10 +329,21 @@ def kernel_of(name: str, kernels) -> str:
     return max((k for k in kernels if name.startswith(k)), key=len)
 
 
+def checks_at(checks: dict, name: str, tag: str, kernels) -> dict:
+    """The checks of kernel `name` whose width or curve tag is `tag`
+    ("_w96", "_w12", "_p384"; "_w12" is not "_w128")."""
+    return {case: r for case, r in checks.items()
+            if re.search(rf"{tag}(_|$)", case)
+            and kernel_of(case, kernels) == name}
+
+
 def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     """H1-H4 and K7's combine against their plain versions on the card,
     at each width a path runs: modp2048 (W=64), modp3072 (96) and
-    modp4096 (128) on n elements, the P-256 field (W=8) on ec_n and n.
+    modp4096 (128) on n elements, the P-256 field (W=8) on ec_n and n,
+    the P-384 field (W=12, where its path runs H1 and H2 alone) on ec_n
+    and on one, and K7's combine there over a 384-bit exponent's 96
+    positions (built with the width, on no path).
     H1 and H2 on the batch and on one element (a product; a power as
     MontCtx.inv gives it), H2 at full-width exponents (W=8: 256 bits) and
     at W=64 also on pc_maxciph elements at 64-bit exponents, as the
@@ -334,9 +354,9 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     full-width exponent's positions (512, 768, 1024); then each of H1-H4
     at the first N of any TPI of its rule that these miss.  Exact
     equality with the plain version on the whole output, but H1-H3 at
-    W=96 and 128 on HELD_ROWS rows spread over the batch; a few rows (H4:
-    its positions combined) against Python pow.  Fails unless every TPI
-    of every rule was checked."""
+    W=96 and 128, and H2 at W=12 on ec_n, on HELD_ROWS rows spread over
+    the batch; a few rows (H4: its positions combined) against Python
+    pow.  Fails unless every TPI of every rule was checked."""
     from types import SimpleNamespace
 
     from vmn_tpu_torch.arith.ec import _CURVES
@@ -358,13 +378,15 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     def limbs(e_int, bits):
         return device_limbs(ints_to_limbs(e_int, -(-bits // 16)), dev)
 
-    def width(ctx, bits, count):
+    def width(ctx, bits, count, held=False):
         """Inputs at ctx's width: count bases a, b (rows 0-2: 1, m - 1,
         2), exponents e of `bits` bits and e256 of 256 (row 0: 0, row 1:
-        all ones)."""
+        all ones).  `held`: H2 is held on HELD_ROWS rows, as at the wide
+        widths H1-H3 are."""
         m = ctx.m
         d = SimpleNamespace(ctx=ctx, mod=ctx.mod, m=m, L=ctx.L,
-                            W=ctx.L // 2, bits=bits, wide=ctx.L > 128)
+                            W=ctx.L // 2, bits=bits, wide=ctx.L > 128,
+                            held=held)
         d.a_int = [x % m for x in ints(count, ctx.nbits)]
         d.a_int[:3] = [1, m - 1, 2]
         d.b_int = [x % m for x in ints(count, ctx.nbits)]
@@ -393,11 +415,12 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
                     products=None):
         """K.fn(*pre, *rows_in, *post), whose output row i depends on row
         i of rows_in alone: held to K.fn_plain on HELD_ROWS rows at the
-        wide widths, else on all; py(i) is row i's Python value."""
+        wide widths (and H2 where d.held), else on all; py(i) is row i's
+        Python value."""
         kern, plain = getattr(K, fn), getattr(K, fn + "_plain")
         rows = py_rows(count)
         held, held_in = None, rows_in
-        if d.wide and count > HELD_ROWS:
+        if (d.wide or (d.held and fn == "mont_exp")) and count > HELD_ROWS:
             held = torch.tensor(sorted(set(spread(count, HELD_ROWS))
                                        | set(rows)), device=dev)
             held_in = tuple(t[held] for t in rows_in)
@@ -541,6 +564,14 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     ep_case(d8, "mont_expprod_positions_w8", d8.e, d8.e_int, 256, n)
     fb_case(d8, "mont_fb_exp4_w8", d8.tbl, d8.e, d8.e_int, n)
     fb_case(d8, "mont_fb_exp4_w8_b1", d8.tbl, d8.e, d8.e_int, 1, at=3)
+    # the P-384 field (W = 12): H1 and H2 on ec_n and on one (the path's
+    # batch-1 inversions); the full-width plain power on all of ec_n would
+    # take seconds a row block, so H2 is held on HELD_ROWS rows
+    ctx12 = MontCtx(_CURVES["P-384"][0], dev)
+    d12 = width(ctx12, 384, ec_n, held=True)
+    widths[12] = (d12, "_w12", None)
+    batch_cases(d12, "_w12", ec_n)
+    combine_case(d12, "mont_expprod_combine_w12")
 
     # and each kernel at 37 past the first N of any TPI of its rule that
     # these miss
@@ -631,6 +662,8 @@ def kernel_line(name: str, r: dict) -> None:
         extra["tpi"] = r["tpi"]
     if "checked_rows" in r:
         extra["checked_rows"] = r["checked_rows"]
+    if "checked_points" in r:
+        extra["checked_points"] = r["checked_points"]
     if "shape" in r:
         extra["shape"] = json.dumps(r["shape"], separators=(",", ":"))
     phase("kernel", name=name, N=r["N"], tolerance="exact", equal=True,
@@ -670,11 +703,12 @@ def host_ec_mul(p: int, a: int, P, k: int):
 
 
 def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int,
-              npos: int) -> dict:
-    """Bounds of H5-H8 at P-256 on n points and exponents e of ndig 4-bit
-    digits (the fixed-base table of table_words words), and of the
-    combine over npos positions."""
-    W, L = 8, 16
+              npos: int, W: int = 8) -> dict:
+    """Bounds of H5-H8 on n points of a curve of W-word coordinates
+    (P-256: 8, P-384: 12) and exponents e of ndig 4-bit digits (the
+    fixed-base table of table_words words), and of the combine over npos
+    positions."""
+    L = 2 * W
     nb = 4 * n * L  # one (n, L) int32 array
     nz = nonzero_digits(e, ndig, 4)
     return {
@@ -700,15 +734,35 @@ def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int,
 
 
 EC_CHECK_N = 4096  # the small EC check, beside the one at --ec-n
-EC_COMBINE_POSITIONS = 64  # K10's ndig_pad at a 256-bit scalar
+# Points of P-384's batch on which H6, a sum over the batch, is held whole
+# to its plain version, with the path batch's launch shape (132 blocks of
+# 2 folders a position, each block walking several chunks): on all 2^17
+# the plain fold took 41.7 s and left the run 44 s under its limit, less
+# than the spread between two runs (PERF.md §6); an eighth of the batch
+# gives back about 36 s.  At the whole batch H6 is timed and, with the
+# combine, held to Python EC arithmetic over H5's outputs.
+MEXP_HELD_N = 16384
 
 
-def check_ec_kernels(n: int) -> dict:
-    """H5-H8 at P-256 on n points: kernel == plain on the whole batch, a
+def curve_tag(curve: str) -> str:
+    """The suffix of a curve's check names: none at P-256, "_p384"."""
+    return "" if curve == "P-256" else "_" + curve.replace("-", "").lower()
+
+
+def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
+    """H5-H8 on n points of `curve` (P-256 or P-384): kernel == plain, a
     few rows against Python EC arithmetic, times; H7 also against H5 on
-    g; the combine on the first EC_COMBINE_POSITIONS of H5's Jacobian
-    outputs.  Run at 4096 points and at the EC path's batch (--ec-n),
-    where H6 splits the points into its widest lanes."""
+    g; the combine on the first ndig_pad of H5's Jacobian outputs (64
+    positions at P-256, 96 at P-384).  Run at 4096 points and at the EC
+    path's batch (--ec-n), where H6 splits the points into its widest
+    lanes.  Held to the plain versions on the whole batch, but at P-384
+    above EC_CHECK_N points H5, H7 and H8, whose output rows each depend
+    on their own inputs alone, on HELD_ROWS rows spread over the batch
+    with the edge rows (a P-384 plain scalar multiple on all 2^17 would
+    take minutes), and H6, a sum over the batch, whole on its first
+    MEXP_HELD_N points in a launch of their own, of the batch's launch
+    shape.  Results are keyed by kernel name, with curve_tag(curve)
+    after it."""
     from vmn_tpu_torch.arith import ec as EC
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
@@ -717,9 +771,9 @@ def check_ec_kernels(n: int) -> dict:
     from vmn_tpu_torch.ops import mont_kernels as K
 
     dev = torch.device("cuda", 0)
-    grp = EC.ECqPGroup.named("P-256", device=dev)
+    grp = EC.ECqPGroup.named(curve, device=dev)
     mod, p, a, q = grp.ctx.mod, grp.p, grp.a, grp.n
-    L = grp.L
+    L, W, tag = grp.L, grp.L // 2, curve_tag(curve)
     prg = PRGHeuristic(SHA256)
     prg.set_seed(SHA256.hash(b"smoke-ec-points"))
     pts = grp.random_array(n, prg, 8)
@@ -727,10 +781,11 @@ def check_ec_kernels(n: int) -> dict:
     inf = pts.inf.clone()
     x[0], y[0], inf[0] = 0, 0, True  # row 0: the point at infinity
     rng = np.random.default_rng(256)
-    ks = [int.from_bytes(rng.bytes(40), "big") % q for _ in range(n)]
+    nbits = grp.ring.nbits
+    ks = [int.from_bytes(rng.bytes(nbits // 8 + 8), "big") % q
+          for _ in range(n)]
     ks[1], ks[2], ks[3] = 0, q - 1, 1
     e = grp.ring.from_ints(ks).limbs
-    nbits = 256
     ndig = nbits // 4
     X, Y, Z = E.ec_scalar_mul(x, y, inf, e, mod, nbits)
     # H8 pairs: rows 0-2 add a point to itself (row 0: infinity +
@@ -751,27 +806,42 @@ def check_ec_kernels(n: int) -> dict:
 
     in_pts = [None] + pts.copy_of_range(1, n).to_affine()
     rows = sorted({0, 1, 2, 3, 4, n // 3, n // 2, n - 1})
+    rows_t = torch.tensor(rows, device=dev)
+
+    def pick(ts):  # the rows held to Python EC arithmetic
+        return tuple(t[rows_t] for t in ts)
+
     G = (grp.gx, grp.gy)
-    J = EC_COMBINE_POSITIONS
-    bnds = ec_bounds(n, e, ndig, tbx.numel() + tby.numel(), J)
+    J = K._ndig_pad(nbits)
+    bnds = ec_bounds(n, e, ndig, tbx.numel() + tby.numel(), J, W)
     Pj = [t[:J].contiguous() for t in (X, Y, Z)]
+    h = None  # the rows of H5, H7 and H8 held to their plain versions
+    m = n  # the points of H6's launch held to its plain version
+    if curve != "P-256" and n > EC_CHECK_N:
+        h = torch.tensor(sorted(set(spread(n, HELD_ROWS)) | set(rows)),
+                         device=dev)
+        m = min(n, MEXP_HELD_N)
+        if E.mexp_shape(m, ndig, W) != E.mexp_shape(n, ndig, W):
+            raise AssertionError(f"H6 held at {m} points: another shape")
+    at = (lambda ts: ts) if h is None else (
+        lambda ts: tuple(t[h] for t in ts))
+    mexp_m = (x[:m], y[:m], inf[:m], e[:m], mod, nbits)
     cases = {
         "ec_scalar_mul": (
             lambda: E.ec_scalar_mul(x, y, inf, e, mod, nbits),
-            lambda: E.ec_scalar_mul_plain(x, y, inf, e, mod, nbits),
+            lambda: E.ec_scalar_mul_plain(*at((x, y, inf, e)), mod, nbits),
             lambda out: [host_ec_mul(p, a, in_pts[i], ks[i])
                          if in_pts[i] else None for i in rows]),
         "ec_multiexp_positions": (
             lambda: E.ec_multiexp_positions(x, y, inf, e, mod, nbits),
-            lambda: E.ec_multiexp_positions_plain(x, y, inf, e, mod, nbits),
-            None),
+            lambda: E.ec_multiexp_positions_plain(*mexp_m), None),
         "ec_fb_exp": (
             lambda: E.ec_fb_exp(tbx, tby, e, mod),
-            lambda: E.ec_fb_exp_plain(tbx, tby, e, mod),
+            lambda: E.ec_fb_exp_plain(tbx, tby, *at((e,)), mod),
             lambda out: [host_ec_mul(p, a, G, ks[i]) for i in rows]),
         "ec_point_add": (
             lambda: E.ec_point_add(*j1, *j2, mod),
-            lambda: E.ec_point_add_plain(*j1, *j2, mod),
+            lambda: E.ec_point_add_plain(*at(j1), *at(j2), mod),
             None),
         "ec_multiexp_combine": (
             lambda: tuple(t[None] for t in E.ec_multiexp_combine(*Pj, mod)),
@@ -784,21 +854,27 @@ def check_ec_kernels(n: int) -> dict:
     for name, (kern, plain, py) in cases.items():
         got, _ = timed(kern)
         want, plain_ms = timed(plain)
-        err = max_abs_err(got, want)
+        held = h is not None and name in ("ec_scalar_mul", "ec_fb_exp",
+                                          "ec_point_add")
+        if name == "ec_multiexp_positions" and m < n:
+            got_m = E.ec_multiexp_positions(*mexp_m)
+        else:
+            got_m = got
+        err = max_abs_err(at(got) if held else got_m, want)
         if name == "ec_scalar_mul":
             smul_aff = affine(got)
             if [smul_aff[i] for i in rows] != py(got):
-                raise AssertionError(f"{name}: kernel != Python EC")
+                raise AssertionError(f"{name}{tag}: kernel != Python EC")
         elif name == "ec_multiexp_positions":
             acc = None
             for pt in smul_aff:
                 acc = host_ec_add(p, a, acc, pt)
             combined = E.ec_multiexp(x, y, inf, e, mod, nbits)
             if affine(tuple(t[None] for t in combined)) != [acc]:
-                raise AssertionError(f"{name}: multi-exp != Python EC")
+                raise AssertionError(f"{name}{tag}: multi-exp != Python EC")
         elif name == "ec_fb_exp":
-            if [affine(got)[i] for i in rows] != py(got):
-                raise AssertionError(f"{name}: kernel != Python EC")
+            if affine(pick(got)) != py(got):
+                raise AssertionError(f"{name}{tag}: kernel != Python EC")
         elif name == "ec_multiexp_combine":
             acc = None  # sum_j 16^j·S_j, Horner from the top position
             for pt in reversed(smul_aff[:J]):
@@ -806,34 +882,36 @@ def check_ec_kernels(n: int) -> dict:
                     acc = host_ec_add(p, a, acc, acc)
                 acc = host_ec_add(p, a, acc, pt)
             if affine(got) != [acc]:
-                raise AssertionError(f"{name}: kernel != Python EC")
+                raise AssertionError(f"{name}{tag}: kernel != Python EC")
         else:
             second = [smul_aff[k] for k in idx.tolist()]
             s3 = smul_aff[3]
             second[3] = None if s3 is None else (s3[0], (-s3[1]) % p)
-            got_aff = affine(got)
-            if ([got_aff[i] for i in rows]
+            if (affine(pick(got))
                     != [host_ec_add(p, a, smul_aff[i], second[i])
                         for i in rows]):
-                raise AssertionError(f"{name}: kernel != Python EC")
+                raise AssertionError(f"{name}{tag}: kernel != Python EC")
         ms = device_ms(kern)
-        results[name] = {"N": n, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms, **bnds[name]}
+        r = results[name + tag] = {"N": n, "max_abs_err": err, "ms": ms,
+                                   "plain_ms": plain_ms, **bnds[name]}
+        if held:
+            r["checked_rows"] = len(h)
+        elif got_m is not got:
+            r["checked_points"] = m
         if name in ("ec_scalar_mul", "ec_point_add"):
-            results[name]["tpi"] = K.threads_per_element(name, 8, n)
+            r["tpi"] = K.threads_per_element(name, W, n)
         elif name == "ec_multiexp_positions":
-            blocks, subs = E.mexp_shape(n, ndig)
-            results[name]["shape"] = {
-                "chunk": E.MEXP_CHUNK, "folders": E.MEXP_FOLDERS,
-                "blocks": blocks, "subs": subs,
-                "partials_a_position": blocks * subs}
+            blocks, subs = E.mexp_shape(n, ndig, W)
+            chunk, folders = E.MEXP_SHAPES[W]
+            r["shape"] = {"chunk": chunk, "folders": folders,
+                          "blocks": blocks, "subs": subs,
+                          "partials_a_position": blocks * subs}
         elif name == "ec_multiexp_combine":
             ops = 5 * J
-            results[name].update(
-                N=J, tpi=K.threads_per_element(name, 8, 1), point_ops=ops,
-                us_per_point_op=1e3 * ms / ops,
-                bound_note="latency-bound: one point on one warp")
-        kernel_line(name, results[name])
+            r.update(N=J, tpi=K.threads_per_element(name, W, 1),
+                     point_ops=ops, us_per_point_op=1e3 * ms / ops,
+                     bound_note="latency-bound: one point on one warp")
+        kernel_line(name + tag, r)
     # H8 on one pair (row 4: two random points), as the EC path's
     # single-point additions and doublings call it
     one = [t[4:5].contiguous() for t in (*j1, *j2)]
@@ -842,29 +920,31 @@ def check_ec_kernels(n: int) -> dict:
     err = max_abs_err(got, want)
     s3 = smul_aff[idx[4].item()]
     if affine(got) != [host_ec_add(p, a, smul_aff[4], s3)]:
-        raise AssertionError("ec_point_add_b1: kernel != Python EC")
+        raise AssertionError(f"ec_point_add_b1{tag}: kernel != Python EC")
     ms = device_ms(lambda: E.ec_point_add(*one, mod))
-    results["ec_point_add_b1"] = {
+    b1 = f"ec_point_add_b1{tag}"
+    results[b1] = {
         "N": 1, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "tpi": K.threads_per_element("ec_point_add", 8, 1),
-        **ec_bounds(1, e[:1], ndig, 0, 0)["ec_point_add"],
+        "tpi": K.threads_per_element("ec_point_add", W, 1),
+        **ec_bounds(1, e[:1], ndig, 0, 0, W)["ec_point_add"],
         "products": 24, "us_per_product": 1e3 * ms / 24,
         "bound_note": "latency-bound: the 24 products of one pair"}
-    kernel_line("ec_point_add_b1", results["ec_point_add_b1"])
+    kernel_line(b1, results[b1])
     # The routing fact for fixed-base powers: H7 against H5 on g.
     fb_ms = device_ms(lambda: E.ec_fb_exp(tbx, tby, e, mod))
     sm_ms = device_ms(lambda: E.ec_scalar_mul(gx, gy, no_inf, e, mod, nbits))
-    results["ec_fb_exp"]["vs_ec_scalar_mul_on_g"] = {"fb_ms": fb_ms,
-                                                     "smul_ms": sm_ms}
-    phase("fixed-base", base="g", N=n, bits=nbits, h7_ms=f"{fb_ms:.3f}",
-          h5_ms=f"{sm_ms:.3f}", h5_over_h7=f"{sm_ms / fb_ms:.2f}")
+    results["ec_fb_exp" + tag]["vs_ec_scalar_mul_on_g"] = {"fb_ms": fb_ms,
+                                                           "smul_ms": sm_ms}
+    phase("fixed-base", curve=curve, base="g", N=n, bits=nbits,
+          h7_ms=f"{fb_ms:.3f}", h5_ms=f"{sm_ms:.3f}",
+          h5_over_h7=f"{sm_ms / fb_ms:.2f}")
     return results
 
 
-def check_ec_e64(n: int) -> dict:
-    """H5 at 64-bit scalars on n P-256 points, as the precomputation
+def check_ec_e64(n: int, curve: str = "P-256") -> dict:
+    """H5 at 64-bit scalars on n points of `curve`, as the precomputation
     raises its generators and commitments (exp_bits(·, 64) on the ring's
-    16 limbs): kernel == plain on the whole batch, a few rows against
+    limbs): kernel == plain on the whole batch, a few rows against
     Python EC arithmetic, times."""
     from vmn_tpu_torch.arith import ec as EC
     from vmn_tpu_torch.crypto.hash import SHA256
@@ -874,8 +954,8 @@ def check_ec_e64(n: int) -> dict:
     from vmn_tpu_torch.ops import mont_kernels as K
 
     dev = torch.device("cuda", 0)
-    grp = EC.ECqPGroup.named("P-256", device=dev)
-    mod, p, a = grp.ctx.mod, grp.p, grp.a
+    grp = EC.ECqPGroup.named(curve, device=dev)
+    mod, p, a, W = grp.ctx.mod, grp.p, grp.a, grp.L // 2
     prg = PRGHeuristic(SHA256)
     prg.set_seed(SHA256.hash(b"smoke-ec-e64"))
     pts = grp.random_array(n, prg, 8)
@@ -896,47 +976,50 @@ def check_ec_e64(n: int) -> dict:
         raise AssertionError("ec_scalar_mul_e64: kernel != Python EC")
     r = {"N": n, "bits": 64, "max_abs_err": err,
          "ms": device_ms(lambda: E.ec_scalar_mul(*ins)), "plain_ms": plain_ms,
-         "tpi": K.threads_per_element("ec_scalar_mul", 8, n),
-         **ec_bounds(n, e, 16, 0, 0)["ec_scalar_mul"]}
-    kernel_line("ec_scalar_mul_e64", r)
+         "tpi": K.threads_per_element("ec_scalar_mul", W, n),
+         **ec_bounds(n, e, 16, 0, 0, W)["ec_scalar_mul"]}
+    kernel_line("ec_scalar_mul_e64" + curve_tag(curve), r)
     return r
 
 
-def check_ec_tpis(kernel: str, checked: set, seed: bytes, case) -> dict:
-    """H5 or H8 (`kernel`) against its plain version at 37 points past the
-    first N of each TPI that its rule can choose and that `checked` (the
-    TPIs of the checks already made) lacks; fails unless every TPI of the
-    rule has been checked.  case(grp, pts, tpi) -> (kernel call, plain
-    call, bound) on n random P-256 points `pts` drawn from `seed`."""
+def check_ec_tpis(kernel: str, checked: set, seed: bytes, case,
+                  curve: str = "P-256") -> dict:
+    """H5 or H8 (`kernel`) at `curve` against its plain version at 37
+    points past the first N of each TPI that its rule can choose and that
+    `checked` (the TPIs of the checks already made) lacks; fails unless
+    every TPI of the rule has been checked.  case(grp, pts, tpi) ->
+    (kernel call, plain call, bound) on n random points `pts` drawn from
+    `seed`."""
     from vmn_tpu_torch.arith import ec as EC
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.kernel_timing import device_ms
     from vmn_tpu_torch.ops import mont_kernels as K
 
-    grp = EC.ECqPGroup.named("P-256", device=torch.device("cuda", 0))
+    grp = EC.ECqPGroup.named(curve, device=torch.device("cuda", 0))
+    W = grp.L // 2
     results = {}
-    for lo, tpi in K.COOP_TPI[kernel, 8]:
+    for lo, tpi in K.COOP_TPI[kernel, W]:
         if tpi in checked:
             continue
         n = lo + 37
-        if K.threads_per_element(kernel, 8, n) != tpi:
+        if K.threads_per_element(kernel, W, n) != tpi:
             n = lo
         prg = PRGHeuristic(SHA256)
         prg.set_seed(SHA256.hash(seed))
         kern, plain, bnd = case(grp, grp.random_array(n, prg, 8), tpi)
         got, _ = timed(kern)
         want, plain_ms = timed(plain)
-        name = f"{kernel}_tpi{tpi}"
+        name = f"{kernel}{curve_tag(curve)}_tpi{tpi}"
         results[name] = {
             "N": n, "tpi": tpi, "max_abs_err": max_abs_err(got, want),
             "plain_ms": plain_ms, "ms": device_ms(kern), **bnd}
         kernel_line(name, results[name])
         checked.add(tpi)
-    want = {t for _, t in K.COOP_TPI[kernel, 8]}
+    want = {t for _, t in K.COOP_TPI[kernel, W]}
     if checked != want:
-        raise AssertionError(f"{kernel} instantiations not checked: "
-                             f"{sorted(want - checked)}")
+        raise AssertionError(f"{kernel} at {curve}: instantiations not "
+                             f"checked: {sorted(want - checked)}")
     return results
 
 
@@ -944,17 +1027,18 @@ def smul_case(grp, pts, tpi):
     """H5 on pts (row 0 at infinity) with random scalars and 0, 1, q - 1."""
     from vmn_tpu_torch.ops import ec_kernels as E
 
-    n, q = len(pts.inf), grp.n
+    n, q, bits = len(pts.inf), grp.n, grp.ring.nbits
     inf = pts.inf.clone()
     inf[0] = True  # row 0: the point at infinity
     rng = np.random.default_rng(tpi)
-    ks = [int.from_bytes(rng.bytes(40), "big") % q for _ in range(n)]
+    ks = [int.from_bytes(rng.bytes(bits // 8 + 8), "big") % q
+          for _ in range(n)]
     ks[1:4] = [0, 1, q - 1][: n - 1]
     e = grp.ring.from_ints(ks).limbs
-    args = (pts.x, pts.y, inf, e, grp.ctx.mod, 256)
+    args = (pts.x, pts.y, inf, e, grp.ctx.mod, bits)
     return (lambda: E.ec_scalar_mul(*args),
             lambda: E.ec_scalar_mul_plain(*args),
-            ec_bounds(n, e, 64, 0, 0)["ec_scalar_mul"])
+            ec_bounds(n, e, bits // 4, 0, 0, grp.L // 2)["ec_scalar_mul"])
 
 
 def add_case(grp, pts, tpi):
@@ -966,7 +1050,7 @@ def add_case(grp, pts, tpi):
     j2 = [t.flip(0).contiguous() for t in j1]
     return (lambda: E.ec_point_add(*j1, *j2, mod),
             lambda: E.ec_point_add_plain(*j1, *j2, mod),
-            bound(n * EC_ADD_PRODUCTS, 8, 9 * 4 * n * 16))
+            bound(n * EC_ADD_PRODUCTS, grp.L // 2, 9 * 4 * n * grp.L))
 
 
 # ---------------------------------------------------------- phases 5-7
@@ -1096,18 +1180,20 @@ def same_test_vectors(tv: dict, name: str) -> int:
 
 def golden_phase(tmp: Path, name: str, maxciph: int = 0) -> None:
     """The golden k=1 mix of tools/make_golden.py on the card: test256,
-    modp3072 or modp4096 (5 messages), P-256 (3 messages), or test256
-    after a precomputation for `maxciph` ciphertexts; transcript
+    modp3072 or modp4096 (5 messages), P-256 or P-384 (3 messages), or
+    test256 after a precomputation for `maxciph` ciphertexts; transcript
     byte-equal, and the verifier's test vectors those vmn_tpu froze
-    (tests/golden/test_vectors_{group}.json for the wide groups, written
-    by tests/torch_make_wide_golden.py)."""
+    (tests/golden/test_vectors_{group}.json for the wide groups,
+    test_vectors_p384.json for P-384, written by
+    tests/torch_make_wide_golden.py)."""
     t0 = time.perf_counter()
     group = _group(name)
     n, make = ((3, group.from_affine) if name.startswith("P-")
                else (5, group.from_ints))
     golden = GOLDEN / f"nizkp_{name.replace('-', '').lower()}_k1"
     tv_file = {"test256": "test_vectors.json",
-               "P-256": "test_vectors_p256.json"}.get(
+               "P-256": "test_vectors_p256.json",
+               "P-384": "test_vectors_p384.json"}.get(
                    name, f"test_vectors_{name}.json")
     if maxciph:
         golden = golden.with_name(golden.name + "_precomp")
@@ -1843,6 +1929,9 @@ def cli_test256_phase(tmp: Path) -> None:
     cpu = w / "cpu"
     shutil.copytree(w / "card" / "Party01", cpu / "Party01",
                     ignore=shutil.ignore_patterns("state", "nizkp.*", "log"))
+    # each vmn replaced the card's seed file (F12): the CPU starts from
+    # the seed cli_info wrote
+    (cpu / "Party01" / "seed").write_bytes(b"CliCard-party-1")
     prot = (w / "card" / "protInfo.xml").read_text()
     (cpu / "protInfo.xml").write_text(prot)
     priv = (cpu / "Party01" / "privInfo.xml")
@@ -1886,6 +1975,9 @@ MIX_KERNELS = ("mont_mul", "mont_exp", "mont_fb_exp",
                "mont_expprod_positions", "mont_expprod_combine")
 EC_MIX_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
                   "ec_multiexp_combine", "ec_point_add")
+# The Montgomery kernels of the P-384 mix (W = 12): the field's and the
+# ring's products and powers.
+P384_MONT = ("mont_mul", "mont_exp")
 
 
 def cli_modp_phase(n: int, tmp: Path):
@@ -2210,11 +2302,12 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
           device_events=len(ivals))
     for name, us in sorted(spans.items(), key=lambda kv: -kv[1]):
         print(f"  span {name} s={us / 1e6:.3f}")
-    # the 12 longest, and below them every kernel in an anonymous
-    # namespace (the port's own, and some of torch's)
+    # the 12 longest, and below them every kernel of the port (the
+    # Montgomery ones in an anonymous namespace, as some of torch's; the EC
+    # ones in vmn_ec)
     for i, (name, (us, cnt)) in enumerate(
             sorted(kernels.items(), key=lambda kv: -kv[1][0])):
-        if i < 12 or "(anonymous namespace)::" in name:
+        if i < 12 or "(anonymous namespace)::" in name or "vmn_ec::" in name:
             print(f"  device {name[:60]} s={us / 1e6:.4f} "
                   f"share={us / busy:.4f} launches={cnt}")
 
@@ -2231,15 +2324,17 @@ def main(argv=None) -> int:
                     help="ciphertexts in the modp2048, modp3072 and modp4096 "
                          "mixes (default 10000)")
     ap.add_argument("--ec-n", type=int, default=1 << 17,
-                    help="ciphertexts in the P-256 mix (default 131072)")
+                    help="ciphertexts in the P-256 and P-384 mixes "
+                         "(default 131072)")
     ap.add_argument("--k3-n", type=int, default=10000,
                     help="ciphertexts in the modp2048 k=3 mix "
                          "(default 10000)")
     ap.add_argument("--k3i-n", type=int, default=1000,
                     help="ciphertexts in the modp2048 k=3 interactive mix "
                          "(default 1000)")
-    ap.add_argument("--profile", choices=["modp2048", "P-256", "modp2048-k3",
-                                          "modp3072", "modp4096"],
+    ap.add_argument("--profile", choices=["modp2048", "P-256", "P-384",
+                                          "modp2048-k3", "modp3072",
+                                          "modp4096"],
                     action="append", default=[],
                     help="after the phases, profile one more mix + verify "
                          "of this path (host spans, device time by kernel, "
@@ -2279,6 +2374,20 @@ def main(argv=None) -> int:
                          checks["ec_point_add"]["tpi"],
                          checks["ec_point_add_b1"]["tpi"]},
         b"smoke-ec-add-tpi", add_case))
+    # P-384 (W = 12): whole at 4096 points, on spread rows at --ec-n
+    p384_small = check_ec_kernels(EC_CHECK_N, "P-384")
+    checks.update(check_ec_kernels(args.ec_n, "P-384"))
+    for name, r in p384_small.items():
+        checks[name][f"at_{EC_CHECK_N}"] = r
+    checks.update(check_ec_tpis(
+        "ec_scalar_mul", {p384_small["ec_scalar_mul_p384"]["tpi"],
+                          checks["ec_scalar_mul_p384"]["tpi"]},
+        b"smoke-ec-tpi", smul_case, "P-384"))
+    checks.update(check_ec_tpis(
+        "ec_point_add", {p384_small["ec_point_add_p384"]["tpi"],
+                         checks["ec_point_add_p384"]["tpi"],
+                         checks["ec_point_add_b1_p384"]["tpi"]},
+        b"smoke-ec-add-tpi", add_case, "P-384"))
     phase("kernels", checked=len(checks),
           phase_s=f"{time.perf_counter() - t0:.1f}")
 
@@ -2286,6 +2395,7 @@ def main(argv=None) -> int:
         tmp = Path(tmpname)
         golden_phase(tmp, "test256")
         golden_phase(tmp, "P-256")
+        golden_phase(tmp, "P-384")
         golden_phase(tmp, "test256", maxciph=8)
         golden_k3_phase(tmp)
         for group in WIDE_GROUPS:
@@ -2295,6 +2405,8 @@ def main(argv=None) -> int:
         wide_mix = {group: slice_phase(group, args.n, tmp)
                     for group in WIDE_GROUPS}
         ec, ec_sizes, ec_widths, ec_s = slice_phase("P-256", args.ec_n, tmp)
+        p384, p384_sizes, p384_widths, _ = slice_phase("P-384", args.ec_n,
+                                                       tmp)
         k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
         k3i, _, coins, _ = multiparty_phase(args.k3i_n, tmp,
                                             interactive=True)
@@ -2305,7 +2417,7 @@ def main(argv=None) -> int:
         _, _, pc_ec_widths = precomp_phase("P-256", 1, args.ec_n, tmp, ec_s)
         cli = cli_phase(args.n, args.k3_n, args.ec_n, VDEMO_N, tmp)
         for path in args.profile:
-            profile_phase(path, {"P-256": args.ec_n,
+            profile_phase(path, {"P-256": args.ec_n, "P-384": args.ec_n,
                                  "modp2048-k3": args.k3_n}.get(path, args.n),
                           tmp)
     compact = {"separators": (",", ":")}
@@ -2321,6 +2433,8 @@ def main(argv=None) -> int:
           modp2048_k3_by_batch=json.dumps(k3_sizes, **compact),
           modp2048_by_batch=json.dumps(modp_sizes, **compact),
           p256_by_batch=json.dumps(ec_sizes, **compact),
+          p384_mix=json.dumps(p384, **compact),
+          p384_by_batch=json.dumps(p384_sizes, **compact),
           **{f"{g}_mix": json.dumps(r[0], **compact)
              for g, r in wide_mix.items()},
           **{f"{g}_by_batch": json.dumps(r[1], **compact)
@@ -2333,26 +2447,39 @@ def main(argv=None) -> int:
     # precomputation or its online mix
     missing += [k for k in K.KERNELS if pc[k] + pc_mix[k] == 0]
     missing += [k for k in E.EC_KERNELS if ec[k] == 0 and k != "ec_fb_exp"]
+    # P-384: H5, H6, the EC combine and H8, and H1/H2 at W = 12 (every
+    # modulus of that mix, the field and the ring, has 24 limbs)
+    missing += [f"{k} (P-384)" for k in (*E.EC_KERNELS, *P384_MONT)
+                if p384[k] == 0 and k != "ec_fb_exp"]
     if missing:
         raise AssertionError(f"not launched in their path's mix: {missing}")
-    if (args.ec_n <= E.EP_SUPER
-            and ec["ec_multiexp_combine"] != ec["ec_multiexp_positions"]):
-        # below EP_SUPER points H6 counts one launch a multi-exponentiation
-        raise AssertionError("P-256 mix: not one combine per H6 call")
+    for path, launches in (("P-256", ec), ("P-384", p384)):
+        if (args.ec_n <= E.EP_SUPER and launches["ec_multiexp_combine"]
+                != launches["ec_multiexp_positions"]):
+            # below EP_SUPER points H6 counts one launch a
+            # multi-exponentiation
+            raise AssertionError(f"{path} mix: not one combine per H6 call")
     phase("done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     torch.cuda.synchronize()
     kernels = []
     for name in (*K.KERNELS, *E.EC_KERNELS):
         is_ec = name in E.EC_KERNELS
+        tag = "_p384" if is_ec else "_w12"
+        w12 = checks_at(checks, name, tag, (*K.KERNELS, *E.EC_KERNELS))
         kernels.append({
             "name": name, "route": "cuda",
             "source": "vmn_tpu_torch/csrc/"
-                      + ("ec_kernels.cu" if is_ec else "mont_kernels.cu"),
+                      + ("ec_kernels.cuh" if is_ec else "mont_kernels.cu"),
             "replaces": REPLACES[name],
             "launches": (ec if is_ec else modp)[name],
             "path": "P-256 mix" if is_ec else "modp2048 mix",
             **checks[MAIN_CHECK[name]]})
+        # the same kernel at W = 12: its launches in the P-384 mix and its
+        # check at that path's batch (none where W = 12 has no kernel)
+        kernels[-1]["p384"] = {
+            "launches": p384[name], **checks.get(MAIN_CHECK[name] + tag, {}),
+            "checks": w12}
         if not is_ec:
             kernels[-1]["launches_by_path"] = {
                 "modp2048 mix": modp[name], "modp2048 k=3 mix": k3[name],
@@ -2363,16 +2490,15 @@ def main(argv=None) -> int:
                 "modp2048 k=3 precomp": pc3[name],
                 "modp2048 k=3 precomp online mix": pc3_mix[name],
                 **{path: launches[name] for path, launches in cli.items()},
-                **{f"{g} mix": r[0][name] for g, r in wide_mix.items()}}
+                **{f"{g} mix": r[0][name] for g, r in wide_mix.items()},
+                "P-384 mix": p384[name]}
             # the same kernel at W = 96 and 128: its checks there
             kernels[-1]["wide"] = {
-                g: {case: r for case, r in checks.items()
-                    if f"_w{W}" in case
-                    and kernel_of(case, K.KERNELS) == name}
+                g: checks_at(checks, name, f"_w{W}", K.KERNELS)
                 for g, W in WIDE_GROUPS.items()}
         else:
             kernels[-1]["launches_by_path"] = {
-                "P-256 mix": ec[name],
+                "P-256 mix": ec[name], "P-384 mix": p384[name],
                 "cli P-256 mix": cli["cli P-256 mix"][name]}
     for name in ("mont_mul", "mont_exp"):
         kernels[K.KERNELS.index(name)].update(
@@ -2381,12 +2507,13 @@ def main(argv=None) -> int:
             w8_batch1=checks[f"{name}_w8_b1"],
             launches_by_batch={"modp2048 mix": modp_sizes[name],
                                "P-256 mix": ec_sizes[name],
+                               "P-384 mix": p384_sizes[name],
                                **{f"{g} mix": r[1][name]
                                   for g, r in wide_mix.items()}})
     ec_at = {name: len(K.KERNELS) + i for i, name in enumerate(E.EC_KERNELS)}
     for name in E.LAUNCH_SIZES:
         kernels[ec_at[name]]["launches_by_batch"] = {
-            "P-256 mix": ec_sizes[name]}
+            "P-256 mix": ec_sizes[name], "P-384 mix": p384_sizes[name]}
     kernels[K.KERNELS.index("mont_exp")]["precomp_e64"] = checks[
         "mont_exp_e64"]
     kernels[K.KERNELS.index("mont_expprod_positions")].update(
@@ -2403,7 +2530,8 @@ def main(argv=None) -> int:
         at_first_n_of_tpi=[r for k, r in checks.items()
                            if k.startswith("ec_point_add_tpi")])
     kernels[ec_at["ec_multiexp_positions"]].update(
-        path_calls=ec_widths, precomp_path_calls=pc_ec_widths)
+        path_calls=ec_widths, precomp_path_calls=pc_ec_widths,
+        p384_path_calls=p384_widths)
     kernels[ec_at["ec_scalar_mul"]].update(
         precomp_e64=checks["ec_scalar_mul_e64"],
         at_first_n_of_tpi=[r for k, r in checks.items()

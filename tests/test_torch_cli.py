@@ -2,8 +2,9 @@
 on the CPU at test256: port copies of tests/test_cli.py and of the CLI
 tests of tests/test_state.py, the two packages' CLI bytes for the same
 info files and seed, each package's `vmnv` on the other's transcript,
-the batched message encoding of `vmnd`, and the private info checks
-(fault F4, `arrays=file`).
+the batched message encoding of `vmnd`, the private info checks (fault
+F4, `arrays=file`) and the seed file's replacement at each `vmn`
+invocation (fault F12).
 
 Every tool is called as `main(argv, device="cpu")`.  Everything compared
 is bytes or integers, so every tolerance here is exact equality.
@@ -252,28 +253,38 @@ def _tv_blocks(text: str) -> str:
     return text[text.index("\nTEST VECTOR"):text.rindex("Proof is valid.")]
 
 
-def _flow(root: Path, main_of, tools, precomp=False):
+def _flow(root: Path, main_of, tools, precomp=False, seeds=None):
     """One operator flow in `root` over shared info files (relative
     directory and seed, so both packages read the same bytes):
-    keygen, vmnd, (precomp), mix, vmnv -t; returns vmnv's output."""
+    keygen, vmnd, (precomp), mix, vmnv -t; returns vmnv's output and the
+    seed each `vmn` invocation read, by its mode.  The port replaces the
+    seed file at each invocation (fault F12) and vmn_tpu does not, so a
+    flow given `seeds` (vmn_tpu's) first gets, before each invocation,
+    the seed that the port read at the same step."""
     cwd = os.getcwd()
     os.chdir(root)
+    read = {}
+
+    def vmn_(argv):
+        if seeds is not None:
+            (root / "seed").write_bytes(seeds[argv[0]])
+        read[argv[0]] = (root / "seed").read_bytes()
+        assert _quiet(main_of(tools["vmn"]), argv + ["-s"])[0] == 0
+
     try:
-        for argv in (
-            ["-keygen", "privInfo.xml", "protInfo.xml", "publicKey.bt"],
-            *([["-precomp", "privInfo.xml", "protInfo.xml",
-                "-maxciph", "6"]] if precomp else []),
-        ):
-            assert _quiet(main_of(tools["vmn"]), argv + ["-s"])[0] == 0
+        vmn_(["-keygen", "privInfo.xml", "protInfo.xml", "publicKey.bt"])
+        if precomp:
+            vmn_(["-precomp", "privInfo.xml", "protInfo.xml", "-maxciph",
+                  "6"])
         assert _quiet(main_of(tools["vmnd"]), [
             "-ciphs", "publicKey.bt", "ciphertexts.bt", "-N", "5",
             "-pgroup", GROUP])[0] == 0
-        assert _quiet(main_of(tools["vmn"]), [
-            "-mix", "privInfo.xml", "protInfo.xml", "ciphertexts.bt",
-            "plaintexts.bt", "-s"])[0] == 0
+        vmn_(["-mix", "privInfo.xml", "protInfo.xml", "ciphertexts.bt",
+              "plaintexts.bt"])
     finally:
         os.chdir(cwd)
-    return _vmnv(main_of(tools["vmnv"]), root, root / "p1" / "nizkp.default")
+    return (_vmnv(main_of(tools["vmnv"]), root,
+                  root / "p1" / "nizkp.default"), read)
 
 
 def _vmnv(main, root: Path, nizkp: Path) -> str:
@@ -336,9 +347,13 @@ def both_flows(request, tmp_path_factory):
                          b"both-seed", ("port", "jax"))
     port = {"vmn": vmn, "vmnd": vmnd, "vmnv": vmnv}
     jax_ = {"vmn": j_vmn, "vmnd": j_vmnd, "vmnv": j_vmnv}
-    outs = {"port": _flow(roots["port"], _port_main, port, request.param),
-            "jax": _flow(roots["jax"], _jax_main, jax_, request.param)}
-    return roots, outs, {"port": _port_main(vmnv), "jax": _jax_main(j_vmnv)}
+    outs, seeds = {}, {}
+    outs["port"], seeds["port"] = _flow(roots["port"], _port_main, port,
+                                        request.param)
+    outs["jax"], seeds["jax"] = _flow(roots["jax"], _jax_main, jax_,
+                                      request.param, seeds["port"])
+    return (roots, outs, {"port": _port_main(vmnv), "jax": _jax_main(j_vmnv)},
+            seeds)
 
 
 @pytest.mark.parametrize("both_flows", [False], indirect=True,
@@ -346,7 +361,7 @@ def both_flows(request, tmp_path_factory):
 def test_cli_bytes_equal_vmn_tpu(both_flows):
     """Same info files and seed: byte-equal nizkp directories, public
     key, ciphertexts and plaintexts, and equal `vmnv -t` output."""
-    roots, outs, _ = both_flows
+    roots, outs, _, _ = both_flows
     _same_outputs(roots["port"], roots["jax"])
     assert _tv_blocks(outs["port"]) == _tv_blocks(outs["jax"])
 
@@ -356,7 +371,7 @@ def test_cli_bytes_equal_vmn_tpu(both_flows):
 def test_vmnv_accepts_the_other_packages_transcript(both_flows):
     """Each package's vmnv on the other's CLI transcript: accepted, with
     the test vectors the other package's vmnv printed for it."""
-    roots, outs, vmnvs = both_flows
+    roots, outs, vmnvs, _ = both_flows
     for mine, other in (("port", "jax"), ("jax", "port")):
         out = _vmnv(vmnvs[mine], roots[other],
                     roots[other] / "p1" / "nizkp.default")
@@ -368,28 +383,29 @@ def test_vmnv_accepts_the_other_packages_transcript(both_flows):
 def test_cli_precomp_equals_one_process_run(both_flows, tmp_path):
     """`vmn -precomp` and `vmn -mix` as two invocations write the bytes
     of one party object that precomputes and then mixes (the session's
-    source resumes at its saved position).  vmn_tpu's CLI restarts that
-    source (fault F10), so its CCPoS blinders differ."""
+    source resumes at its saved position), keygen's and that object's
+    sources seeded with what `-keygen` and `-precomp` read.  vmn_tpu's
+    CLI restarts that source (fault F10), so its CCPoS blinders
+    differ."""
     from vmn_tpu_torch.crypto.randomsource import SeededSource
     from vmn_tpu_torch.protocol.com.board import LocalBoardHub
     from vmn_tpu_torch.protocol.info import ProtocolInfo
     from vmn_tpu_torch.protocol.interfaces import RawInterface
     from vmn_tpu_torch.protocol.mixnet.party import MixNetParty
 
-    roots, _, _ = both_flows
+    roots, _, _, seeds = both_flows
     lib = tmp_path / "lib"
     lib.mkdir()
     params = ProtocolInfo.read(roots["port"] / "protInfo.xml") \
         .to_params("cpu")
-    seed = (roots["port"] / "seed").read_bytes()
 
-    def party():
+    def party(mode):
         return MixNetParty(params, LocalBoardHub(1).board(1),
-                           SeededSource(seed), str(lib / "p1"))
+                           SeededSource(seeds["port"][mode]), str(lib / "p1"))
 
     raw = RawInterface()
-    raw.write_public_key(party().keygen(), lib / "publicKey.bt")
-    p = party()
+    raw.write_public_key(party("-keygen").keygen(), lib / "publicKey.bt")
+    p = party("-precomp")
     p.load_keys()
     session = p.session("default", 1)
     session.precomp(6)
@@ -453,7 +469,7 @@ def test_vmnc_equals_vmn_tpu(both_flows, case, tmp_path, monkeypatch):
     standard output and output bytes."""
     from vmn_tpu.cli import vmnc as j_vmnc
 
-    roots, _, _ = both_flows
+    roots, _, _, _ = both_flows
     got = {}
     for tag, main in (("port", _port_main(vmnc)), ("jax", j_vmnc.main)):
         d = tmp_path / tag
@@ -482,7 +498,7 @@ def test_vbt_equals_vmn_tpu(both_flows, argv, monkeypatch):
     from vmn_tpu.cli import vbt as j_vbt
     from vmn_tpu_torch.eio.bytetree import ByteTree
 
-    roots, _, _ = both_flows
+    roots, _, _, _ = both_flows
     monkeypatch.chdir(roots["port"])
     Path("ciphertexts.hex").write_text(
         ByteTree.read_file("ciphertexts.bt").to_bytes().hex() + "\n")
@@ -548,6 +564,63 @@ def test_wrong_private_info_refused_f4(tmp_path, monkeypatch):
     assert "<dir>" in str(e.value.code) and "<skey>" in str(e.value.code)
 
 
+def _session_seed(root: Path) -> bytes:
+    return (root / "p1" / "state" / "session.default"
+            / "session_seed").read_bytes()
+
+
+def _keygen_mix(main, root: Path) -> dict:
+    """vmn -keygen, the port's vmnd, vmn -mix in root through `main` (a
+    vmn's entry point); the seed file's bytes before each vmn and at
+    the end."""
+    seen = {}
+    for mode, argv in (
+            ("-keygen", ["publicKey.bt"]),
+            ("-mix", ["ciphertexts.bt", "plaintexts.bt"])):
+        if mode == "-mix":
+            assert _cli(vmnd, ["-ciphs", "publicKey.bt", "ciphertexts.bt",
+                               "-N", "5", "-pgroup", GROUP]) == 0
+        seen[mode] = (root / "seed").read_bytes()
+        assert main([mode, "privInfo.xml", "protInfo.xml", *argv,
+                     "-s"]) == 0
+    seen["end"] = (root / "seed").read_bytes()
+    return seen
+
+
+def test_seed_file_advances_f12(tmp_path, monkeypatch):
+    """Fault F12, repaired: the port's vmn replaces the seed file before
+    each invocation draws anything, so -mix reads another seed than
+    -keygen, and the session's seed is not the start of the stream that
+    -keygen drew the secret key from."""
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+
+    monkeypatch.chdir(tmp_path)
+    _cli_protinfo(tmp_path)
+    seen = _keygen_mix(lambda a: _cli(vmn, a), tmp_path)
+    assert seen["-keygen"] == b"cli-seed"
+    assert len(set(seen.values())) == 3
+    session = _session_seed(tmp_path)
+    assert not SeededSource(seen["-keygen"]).read_bytes(4096).startswith(
+        session)
+    assert session == SeededSource(seen["-mix"]).read_bytes(32)
+
+
+def test_vmn_tpu_replays_the_keygen_stream_f12(tmp_path, monkeypatch):
+    """vmn_tpu's behaviour (fault F12), which stays as it is: its vmn
+    leaves the seed file as it found it, so -mix restarts the stream of
+    -keygen's seed and the session's seed is that stream's first 32
+    bytes, the bytes -keygen drew first."""
+    from vmn_tpu.cli import vmn as j_vmn
+    from vmn_tpu.crypto.randomsource import SeededSource as JSeededSource
+
+    monkeypatch.chdir(tmp_path)
+    _cli_protinfo(tmp_path)
+    seen = _keygen_mix(j_vmn.main, tmp_path)
+    assert set(seen.values()) == {b"cli-seed"}
+    assert _session_seed(tmp_path) == JSeededSource(b"cli-seed").read_bytes(
+        32)
+
+
 @pytest.mark.cuda
 def test_cuda_cli_flow_bytes_equal_cpu(tmp_path, cuda_device):
     """The test256 CLI flow on the card writes the CPU flow's bytes."""
@@ -555,7 +628,7 @@ def test_cuda_cli_flow_bytes_equal_cpu(tmp_path, cuda_device):
     tools = {"vmn": vmn, "vmnd": vmnd, "vmnv": vmnv}
     outs = {dev: _flow(roots[dev],
                        lambda mod, d=dev: (lambda a: mod.main(a, device=d)),
-                       tools)
+                       tools)[0]
             for dev in roots}
     _same_outputs(roots["cpu"], roots["cuda"])
     assert _tv_blocks(outs["cpu"]) == _tv_blocks(outs["cuda"])

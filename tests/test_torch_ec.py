@@ -12,7 +12,8 @@
   CPU): affine Montgomery limbs, infinity masks and bytes equal.
 * The device default of the entry points (the card, never a silent CPU).
 * On a CUDA device only: H5-H8 and the combine against their plain
-  versions, H5 at every TPI its wrapper can choose.
+  versions, H5 and H8 at every TPI their wrappers can choose, at P-256
+  and at P-384.
 
 JAX is imported only by the fixtures of the JAX-comparing tests, so the
 `cuda` tests also run where JAX is not installed:
@@ -190,10 +191,10 @@ def test_multiexp_plain_matches_pallas(jx, tg, interpret, monkeypatch, N,
     assert tg.to_affine(TEC.ECArray(tg, *got)) == [acc]
 
 
-def _kernel_order(n, npos, blocks, subs):
+def _kernel_order(n, blocks, subs, C):
     """The points each H6 fold thread adds, in its order, as the kernel's
-    loops visit them (csrc/ec_kernels.cu, ec_mexp_kernel)."""
-    C = E.MEXP_CHUNK
+    loops visit them (csrc/ec_kernels.cuh, ec_mexp_kernel), chunks of C
+    points."""
     order = {}
     for b in range(blocks):
         for s in range(subs):
@@ -203,30 +204,37 @@ def _kernel_order(n, npos, blocks, subs):
     return order
 
 
-@pytest.mark.parametrize("n,npos", [(1, 64), (63, 64), (64, 16), (4096, 64),
-                                    (5000, 48), (9000, 16), (1 << 17, 64),
-                                    (20000, 320), (300, 1)])
-def test_mexp_order_is_the_kernels(n, npos):
-    """H6's launch shape and the plain version's fold order against the
-    kernel's loops: every point once in each position, at most
-    EP_MAX_LANES partials a position, no block without a chunk."""
-    blocks, subs = E.mexp_shape(n, npos)
-    assert 1 <= blocks <= min(E.MEXP_BLOCKS, -(-n // E.MEXP_CHUNK))
-    assert npos * subs <= E.MEXP_FOLDERS and blocks * subs <= E.EP_MAX_LANES
-    order = E._mexp_order(n, blocks, subs, "cpu")
-    want = _kernel_order(n, npos, blocks, subs)
+@pytest.mark.parametrize("n,npos,w", [
+    *(pytest.param(n, npos, 8, id=f"{n}-{npos}") for n, npos in (
+        (1, 64), (63, 64), (64, 16), (4096, 64), (5000, 48), (9000, 16),
+        (1 << 17, 64), (20000, 320), (300, 1))),
+    # P-384 (W = 12, chunks of 40 points, 192 folders)
+    *(pytest.param(n, npos, 12, id=f"w12-{n}-{npos}") for n, npos in (
+        (1, 96), (39, 96), (41, 32), (5000, 96), (1 << 17, 96),
+        (20000, 192)))])
+def test_mexp_order_is_the_kernels(n, npos, w):
+    """H6's launch shape at width W and the plain version's fold order
+    against the kernel's loops: every point once in each position, at
+    most EP_MAX_LANES partials a position, no block without a chunk."""
+    chunk, folders = E.MEXP_SHAPES[w]
+    blocks, subs = E.mexp_shape(n, npos, w)
+    assert 1 <= blocks <= min(E.MEXP_BLOCKS, -(-n // chunk))
+    assert npos * subs <= folders and blocks * subs <= E.EP_MAX_LANES
+    order = E._mexp_order(n, blocks, subs, chunk, "cpu")
+    want = _kernel_order(n, blocks, subs, chunk)
     assert order.shape[0] == blocks * subs
     for q, pts in want.items():
         row = order[q].tolist()
         assert row[: len(pts)] == pts and set(row[len(pts):]) <= {-1}
     assert sorted(i for pts in want.values() for i in pts) == list(range(n))
-    if (n, npos) == (1 << 17, 64):
-        assert (blocks, subs) == (132, 5)
+    if n == 1 << 17:
+        assert (blocks, subs) == {8: (132, 5), 12: (132, 2)}[w]
 
 
 def test_mexp_shape_refuses_too_many_positions():
-    with pytest.raises(ValueError, match="digit positions"):
-        E.mexp_shape(1000, E.MEXP_FOLDERS + 16)
+    for w, (_, folders) in E.MEXP_SHAPES.items():
+        with pytest.raises(ValueError, match="digit positions"):
+            E.mexp_shape(1000, folders + 16, w)
 
 
 def test_multiexp_combine_plain_matches_python(tg):
@@ -452,8 +460,9 @@ def test_bytetree_round_trip_with_infinity(arrays, tg):
 @pytest.mark.parametrize("name", ["P-224", "P-384", "P-521"])
 def test_other_curves_on_the_cpu(jx, name):
     """The other NIST curves run through the plain versions on the CPU,
-    P-521's odd L = 33 included (on the card their widths have no kernel
-    yet): addition, doubling and P + (-P) against Python ints; the
+    P-521's odd L = 33 included (on the card P-224's and P-521's widths
+    have no kernel yet; P-384's are held in tests/test_torch_p384.py):
+    addition, doubling and P + (-P) against Python ints; the
     message codec and the byte tree against vmn_tpu."""
     tg = TGroup.named(name, device="cpu")
     jg = jx.JEC.ECqPGroup.named(name)
@@ -507,31 +516,33 @@ def test_entry_points_default_to_the_card():
 _N_CUDA = 300
 
 
-def _cuda_case(kernel, device):
-    """(kernel output, plain output) at P-256 on the card, with infinity,
-    P == Q, P == -Q and scalars 0 and n - 1 among random inputs."""
-    tg = TGroup.named("P-256", device=device)
-    mod = tg.ctx.mod
+def _cuda_case(kernel, device, curve="P-256"):
+    """(kernel output, plain output) at `curve` on the card, with
+    infinity, P == Q, P == -Q and scalars 0 and n - 1 among random
+    inputs."""
+    tg = TGroup.named(curve, device=device)
+    mod, bits = tg.ctx.mod, tg.ring.nbits
     rng = np.random.default_rng(256)
-    ks = [0, 1, tg.n - 1] + [int.from_bytes(rng.bytes(40), "big") % tg.n
-                             for _ in range(_N_CUDA)]
+    ks = [0, 1, tg.n - 1] + [
+        int.from_bytes(rng.bytes(bits // 8 + 8), "big") % tg.n
+        for _ in range(_N_CUDA)]
     pts = tg.g.exp(tg.ring.from_ints(ks))  # row 0: infinity
     e = tg.ring.from_ints(ks[::-1]).limbs
     if kernel == "ec_scalar_mul":
-        args = (pts.x, pts.y, pts.inf, e, mod, 256)
+        args = (pts.x, pts.y, pts.inf, e, mod, bits)
         return E.ec_scalar_mul(*args), E.ec_scalar_mul_plain(*args)
     if kernel == "ec_multiexp_positions":
-        args = (pts.x, pts.y, pts.inf, e, mod, 256)
+        args = (pts.x, pts.y, pts.inf, e, mod, bits)
         return (E.ec_multiexp_positions(*args),
                 E.ec_multiexp_positions_plain(*args))
     if kernel == "ec_fb_exp":
-        tbx, tby = TEC._ec_fb_table(tg.curve, *tg.g._jac(), 64)
+        tbx, tby = TEC._ec_fb_table(tg.curve, *tg.g._jac(), bits // 4)
         return (E.ec_fb_exp(tbx, tby, e, mod),
                 E.ec_fb_exp_plain(tbx, tby, e, mod))
     if kernel == "ec_multiexp_combine":
-        # 64 positions with Z != 1 from H5, row 0 at infinity
-        P = [t[:64] for t in E.ec_scalar_mul(pts.x, pts.y, pts.inf, e, mod,
-                                             256)]
+        # a scalar's positions with Z != 1 from H5, row 0 at infinity
+        P = [t[:bits // 4] for t in E.ec_scalar_mul(pts.x, pts.y, pts.inf,
+                                                    e, mod, bits)]
         return (E.ec_multiexp_combine(*P, mod),
                 E.ec_multiexp_combine_plain(*P, mod))
     # rows 0-2 add a point to itself (row 0: infinity + infinity), row 3
@@ -547,43 +558,51 @@ def _cuda_case(kernel, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("curve", ["P-256", "P-384"])
 @pytest.mark.parametrize("kernel", E.EC_KERNELS)
-def test_cuda_ec_kernel_matches_plain(kernel, cuda_device):
-    got, want = _cuda_case(kernel, cuda_device)
+def test_cuda_ec_kernel_matches_plain(kernel, curve, cuda_device):
+    got, want = _cuda_case(kernel, cuda_device, curve)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
-def _first_n(kernel, tpi):
-    return min(lo for lo, t in E.K.COOP_TPI[kernel, 8] if t == tpi)
+def _first_n(kernel, tpi, w=8):
+    return min(lo for lo, t in E.K.COOP_TPI[kernel, w] if t == tpi)
+
+
+# (curve, TPI) of each H5 or H8 instantiation its rule can choose
+def _curve_tpis(kernel):
+    return [(c, t) for c, w in (("P-256", 8), ("P-384", 12))
+            for t in sorted({t for _, t in E.K.COOP_TPI[kernel, w]})]
 
 
 def _smul_batch(tg, n, device):
-    """n points and scalars at P-256: infinity, scalars 0, 1 and n - 1
-    among random ones (points g^k from a few distinct k)."""
+    """n points and scalars of tg's curve: infinity, scalars 0, 1 and
+    n - 1 among random ones (points g^k from a few distinct k)."""
     rng = np.random.default_rng(n)
-    base = [0] + [int.from_bytes(rng.bytes(40), "big") % tg.n
+    nb = tg.ring.nbits // 8 + 8
+    base = [0] + [int.from_bytes(rng.bytes(nb), "big") % tg.n
                   for _ in range(63)]
     pts = tg.g.exp(tg.ring.from_ints(base))  # row 0: infinity
     idx = torch.arange(n, device=device) % 64
-    ks = [0, 1, tg.n - 1] + [int.from_bytes(rng.bytes(40), "big") % tg.n
+    ks = [0, 1, tg.n - 1] + [int.from_bytes(rng.bytes(nb), "big") % tg.n
                              for _ in range(n - 3)]
     e = tg.ring.from_ints(ks[:n]).limbs
     return pts.x[idx], pts.y[idx], pts.inf[idx], e
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "tpi", sorted({t for _, t in E.K.COOP_TPI["ec_scalar_mul", 8]}))
-def test_cuda_smul_every_tpi(tpi, cuda_device):
+@pytest.mark.parametrize("curve,tpi", _curve_tpis("ec_scalar_mul"))
+def test_cuda_smul_every_tpi(curve, tpi, cuda_device):
     """H5 at each TPI its wrapper picks, reached through N: 37 points past
     the fewest for which it picks it, so that N is no multiple of a
     block's points."""
-    tg = TGroup.named("P-256", device=cuda_device)
-    n = _first_n("ec_scalar_mul", tpi) + 37
-    assert E.K.threads_per_element("ec_scalar_mul", 8, n) == tpi
-    args = (*_smul_batch(tg, n, cuda_device), tg.ctx.mod, 256)
+    tg = TGroup.named(curve, device=cuda_device)
+    w = tg.L // 2
+    n = _first_n("ec_scalar_mul", tpi, w) + 37
+    assert E.K.threads_per_element("ec_scalar_mul", w, n) == tpi
+    args = (*_smul_batch(tg, n, cuda_device), tg.ctx.mod, tg.ring.nbits)
     E.reset_launches()
     got = E.ec_scalar_mul(*args)
     assert E.LAUNCHES["ec_scalar_mul"] == 1
@@ -653,20 +672,20 @@ def test_cuda_multiexp_positions_edges(n, super_chunk, blocks, cuda_device,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 127, 128, 4096])
-@pytest.mark.parametrize(
-    "tpi", sorted({t for _, t in E.K.COOP_TPI["ec_point_add", 8]}))
-def test_cuda_point_add_every_tpi(tpi, n, cuda_device, monkeypatch):
+@pytest.mark.parametrize("curve,tpi", _curve_tpis("ec_point_add"))
+def test_cuda_point_add_every_tpi(curve, tpi, n, cuda_device, monkeypatch):
     """H8 at each TPI its rule picks, forced through the rule: infinity
     on either side and on both, P + P (its doubling branch), P + (-P),
     the rest random pairs with Z != 1; against the plain version and
     Python EC arithmetic."""
-    monkeypatch.setitem(E.K.COOP_TPI, ("ec_point_add", 8), ((1, tpi),))
-    tg = TGroup.named("P-256", device=cuda_device)
+    tg = TGroup.named(curve, device=cuda_device)
+    monkeypatch.setitem(E.K.COOP_TPI, ("ec_point_add", tg.L // 2),
+                        ((1, tpi),))
     mod = tg.ctx.mod
     p, a, _ = _host(tg)
     x, y, inf, e = _smul_batch(tg, max(n, 8), cuda_device)
     inf[1] = True  # row 1: infinity (row 0 already is)
-    P = [t[:n] for t in E.ec_scalar_mul(x, y, inf, e, mod, 256)]
+    P = [t[:n] for t in E.ec_scalar_mul(x, y, inf, e, mod, tg.ring.nbits)]
     idx = torch.arange(n - 1, -1, -1, device=cuda_device)
     if n >= 8:
         idx[:6] = torch.tensor([0, 2, 1, 3, 4, 5], device=cuda_device)

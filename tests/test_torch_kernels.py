@@ -150,8 +150,13 @@ def test_coop_launch_covers_every_element(w):
     """The TPI the wrappers pick divides W, is built, and is reached by
     some N; the launch's threads cover every element's lanes in whole
     warps, with no block left idle (H4's launch, `ep_launch`, takes the
-    TPI of its rule and whole warps of at most EP_BLOCK threads)."""
+    TPI of its rule and whole warps of at most EP_BLOCK threads).  At
+    W = 12 (P-384) only H1 and H2 are built, and have rules."""
     for kernel in ("mont_mul", "mont_exp", "mont_expprod_positions"):
+        if w == 12 and kernel == "mont_expprod_positions":
+            with pytest.raises(ValueError, match="no kernel"):
+                K.threads_per_element(kernel, w, 1)
+            continue
         rule = K.COOP_TPI[kernel, w]
         tpis = {t for _, t in rule}
         assert rule[-1][0] == 1  # every N >= 1 has a TPI
@@ -217,7 +222,12 @@ def test_fb_launch_fills_the_card(w):
     """H3's launch shape on 132 SMs: whole warps of at most FB_BLOCK
     threads cover every element's lanes; up to 132·FB_BLOCK lanes the
     blocks fill every SM once (N = 10000 at W = 64: 132 blocks) and from
-    32 elements an SM no fewer than 90 % of the SMs get a block."""
+    32 elements an SM no fewer than 90 % of the SMs get a block.  At
+    W = 12 (P-384) H3 is not built, and its launch raises."""
+    if w == 12:
+        with pytest.raises(ValueError, match="no kernel"):
+            K.fb_launch(w, 1, 132)
+        return
     rule = K.COOP_TPI["mont_fb_exp", w]
     assert rule[-1][0] == 1
     for n in sorted({1, 2, 5, 31, 33, 131, 132, 133, 4224, 5000, 10000,

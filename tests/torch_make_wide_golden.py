@@ -1,15 +1,17 @@
 """Write the wide-group golden fixtures of the port's tests with vmn_tpu.
 
-The k=1 golden mix of tools/make_golden.py (five messages, its seeds
-b"golden-party" and b"golden-ciphs") over RFC 3526 modp3072 and
-modp4096, on the CPU: the transcript goes to
-tests/golden/nizkp_modp{3072,4096}_k1 and the verifier's test vectors
-(the same TV_NAMES) to tests/golden/test_vectors_modp{3072,4096}.json.
-tests/test_torch_wide.py and tests/test_torch_wide_4096.py hold the
-port's verifier to them on the CPU, and chip_smoke.py's golden phase
-rewrites them byte for byte on the card.
+The k=1 golden mix of tools/make_golden.py (its seeds b"golden-party"
+and b"golden-ciphs") on the CPU: five messages over RFC 3526 modp3072
+and modp4096, three over the NIST curve P-384.  The transcript goes to
+tests/golden/nizkp_{modp3072,modp4096,p384}_k1 and the verifier's test
+vectors (the same TV_NAMES) to
+tests/golden/test_vectors_{modp3072,modp4096,p384}.json.
+tests/test_torch_wide.py, tests/test_torch_wide_4096.py and
+tests/test_torch_p384.py hold the port to them on the CPU, and
+chip_smoke.py's golden phase rewrites them byte for byte on the card.
 
-Usage (from the repo root, about 2 minutes for both groups):
+Usage (from the repo root, about 2 minutes for the two ModP groups and
+1.5 for P-384):
     JAX_PLATFORMS=cpu python tests/torch_make_wide_golden.py [GROUP ...]
 """
 
@@ -21,12 +23,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
-GROUPS = ("modp3072", "modp4096")
+GROUPS = ("modp3072", "modp4096", "P-384")
 
 
 def fixture_names(group: str):
     """(transcript directory, test-vector file) of a wide group's golden."""
-    return f"nizkp_{group}_k1", f"test_vectors_{group}.json"
+    tag = group.replace("-", "").lower()
+    return f"nizkp_{tag}_k1", f"test_vectors_{tag}.json"
 
 
 def main(argv) -> int:

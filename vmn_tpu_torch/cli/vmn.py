@@ -57,7 +57,7 @@ def _board(prot, priv, j):
 
 def _mk_party(prot, priv, device, silent=False, offline=False):
     from vmn_tpu_torch.crypto.provable import resolve_random_source
-    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.crypto.randomsource import SeededSource, take_seed_file
     from vmn_tpu_torch.protocol.log import Log
     from vmn_tpu_torch.protocol.mixnet.party import MixNetParty
 
@@ -78,7 +78,10 @@ def _mk_party(prot, priv, device, silent=False, offline=False):
             "vmn: out-of-core arrays (arrays=file in the private info) "
             "are not ported yet; set arrays=ram")
     if priv.seed:
-        rs = SeededSource(Path(priv.seed).read_bytes())
+        # Each invocation reads the seed file and leaves its successor
+        # there (fault F12: vmn_tpu restarts the same stream every time,
+        # so a session's seed repeats the key's first bytes).
+        rs = SeededSource(take_seed_file(priv.seed))
     else:
         rs = resolve_random_source(priv.rand, directory=priv.dir,
                                    device=device)

@@ -13,7 +13,9 @@ only provers consume this module.
 
 from __future__ import annotations
 
+import hashlib
 import os
+from pathlib import Path
 
 from vmn_tpu_torch.crypto.prg import PRGHeuristic
 from vmn_tpu_torch.crypto.hash import SHA256
@@ -72,6 +74,21 @@ class SeededSource(RandomSource):
     def read_bytes(self, n: int) -> bytes:
         self.position += n
         return self._prg.read_bytes(n)
+
+
+def take_seed_file(path) -> bytes:
+    """The seed in a seed file, which is replaced by its successor before
+    the caller draws anything (the reference's seed-file semantics, as
+    `PRGRandomSource` follows them), so that no two runs on the file
+    read the same stream.  The successor is SHA-256 over a tag of its own
+    and the seed, not bytes of the stream the caller reads; it goes to a
+    temporary file that is then renamed over the seed file."""
+    path = Path(path)
+    seed = path.read_bytes()
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_bytes(hashlib.sha256(b"vmn-seed-next" + seed).digest())
+    os.replace(tmp, path)
+    return seed
 
 
 from vmn_tpu_torch.eio.marshal import register as _register  # noqa: E402

@@ -44,6 +44,7 @@
 //           mont_expprod TPI 16: 64.
 //   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 22;
 //           mont_expprod TPI 1/4: 64/42.
+//   W = 12: mont_mul TPI 4: 32;   mont_exp TPI 1/2/4: 80/48/36; chain 34.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -592,13 +593,17 @@ int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
 
 }  // namespace
 
-// Instantiated widths (W = L/2): test256 and P-256 (L=16), modp2048
-// (L=128), modp3072 (L=192) and modp4096 (L=256), the widths that the
-// tests and chip_smoke.py check against the plain versions.
+// Instantiated widths (W = L/2): test256 and P-256 (L=16), P-384 (L=24),
+// modp2048 (L=128), modp3072 (L=192) and modp4096 (L=256), the widths that
+// the tests and chip_smoke.py check against the plain versions.
 #define VMN_FOR_W(w, ...)                          \
   switch (w) {                                     \
     case 8: {                                      \
       constexpr int W = 8;                         \
+      __VA_ARGS__;                                 \
+    } break;                                       \
+    case 12: {                                     \
+      constexpr int W = 12;                        \
       __VA_ARGS__;                                 \
     } break;                                       \
     case 64: {                                     \
@@ -620,9 +625,9 @@ int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
 extern "C" {
 
 // H1 and H2 are instantiated at the (W, TPI) pairs that COOP_TPI in
-// ops/mont_kernels.py chooses: H1 at (8, 8), (64, 8), (64, 32), (96, 16),
-// (96, 32), (128, 32), H2 at (8, 1), (8, 8), (64, 8), (64, 32) and at TPI 16
-// and 32 of W = 96 and 128.
+// ops/mont_kernels.py chooses: H1 at (8, 8), (12, 4), (64, 8), (64, 32),
+// (96, 16), (96, 32), (128, 32), H2 at (8, 1), (8, 8), (12, 1), (12, 2),
+// (12, 4), (64, 8), (64, 32) and at TPI 16 and 32 of W = 96 and 128.
 int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
                  int32_t* out, const int32_t* m, uint32_t mp, int64_t n,
                  int threads, int64_t blocks, void* stream) {
@@ -630,6 +635,7 @@ int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
 #define VMN_MUL_ARGS a, b, out, m, mp, n, threads, blocks, s
   switch (w << 8 | tpi) {
     case 8 << 8 | 8: return launch_mul<8, 8>(VMN_MUL_ARGS);
+    case 12 << 8 | 4: return launch_mul<12, 4>(VMN_MUL_ARGS);
     case 64 << 8 | 8: return launch_mul<64, 8>(VMN_MUL_ARGS);
     case 64 << 8 | 32: return launch_mul<64, 32>(VMN_MUL_ARGS);
     case 96 << 8 | 16: return launch_mul<96, 16>(VMN_MUL_ARGS);
@@ -649,6 +655,9 @@ int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
   switch (w << 8 | tpi) {
     case 8 << 8 | 1: return launch_exp<8, 1>(VMN_EXP_ARGS);
     case 8 << 8 | 8: return launch_exp<8, 8>(VMN_EXP_ARGS);
+    case 12 << 8 | 1: return launch_exp<12, 1>(VMN_EXP_ARGS);
+    case 12 << 8 | 2: return launch_exp<12, 2>(VMN_EXP_ARGS);
+    case 12 << 8 | 4: return launch_exp<12, 4>(VMN_EXP_ARGS);
     case 64 << 8 | 8: return launch_exp<64, 8>(VMN_EXP_ARGS);
     case 64 << 8 | 32: return launch_exp<64, 32>(VMN_EXP_ARGS);
     case 96 << 8 | 16: return launch_exp<96, 16>(VMN_EXP_ARGS);
@@ -660,13 +669,14 @@ int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
 #undef VMN_EXP_ARGS
 }
 
-// One warp: TPI = 32 at W >= 32, TPI = W below.
+// One warp: TPI the largest power of two that divides W, at most 32 (8
+// at W = 8, 4 at W = 12, 32 at the ModP widths).
 int vmn_mont_chain(int w, const int32_t* P, int32_t* out, const int32_t* m,
                    uint32_t mp, int npos, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npos < 1) return kBadShape;
-  VMN_FOR_W(w, mont_chain_kernel<W, (W < 32 ? W : 32)><<<1, 32, 0, s>>>(
-                   P, out, m, mp, npos));
+  VMN_FOR_W(w, mont_chain_kernel<W, ((W & -W) < 32 ? (W & -W) : 32)>
+                   <<<1, 32, 0, s>>>(P, out, m, mp, npos));
   return (int)cudaGetLastError();
 }
 

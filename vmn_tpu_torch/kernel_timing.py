@@ -4,6 +4,7 @@ Usage (from any directory, on a machine with a card):
 
     python3 vmn_tpu_torch/kernel_timing.py [--tree DIR] [--n N] [--ec-n N]
     python3 vmn_tpu_torch/kernel_timing.py --sweep [--only WRAPPER ...]
+                                           [--widths W ...]
 
 Without --sweep it times, with `device_ms`, the wrappers of the
 `vmn_tpu_torch` package under DIR (default: the tree this file is in) on
@@ -38,7 +39,11 @@ inputs made on the card from fixed seeds:
   W = 96, and modp4096, W = 128, from the wide-group slice on), the same
   as at modp2048 with exponents of |q| bits in place of 2047 (the
   combine over 768 and 1024 positions), H3 at window 8 only (`_w96`,
-  `_w128` keys).
+  `_w128` keys);
+* where the tree instantiates W = 12 (the P-384 slice on): H1 and H2 at
+  the P-384 field on --ec-n elements and on one (384-bit exponents,
+  `_w12` keys), and H5-H8 and the EC combine at P-384 on --ec-n points
+  (`_p384` keys, the combine over 96 positions).
 
 Every tree of the port since the EC slice has these wrappers with these
 signatures, so a commit and its parent, unpacked side by side, are timed
@@ -47,16 +52,19 @@ the same way on the same inputs, one process each.
 --sweep times the cooperative kernels of this tree at every TPI (lanes an
 element or point) they are built for: H1, H2 and H3 over a range of N at
 each width the tree instantiates (H3 at both windows of W = 64, at
-window 8 of W = 96 and 128), H4 over a range of N at full-width and
-256-bit exponents (W >= 64) and 256-bit ones (W = 8), H5 over a range
-of points and H8 over 1 to 2^17 pairs at P-256, and the EC combine over
-16 and 64 positions, forcing the TPI
-through `COOP_TPI`, the table the wrappers choose it from (a TPI with no
-kernel is skipped); it prints, per kernel and width, the fastest TPI at
-each N.  It also times H6 (one chunk shape is built) over a range of
-points, and H4 at modp2048 at each (elements, exponent bits) of the path
-under every pair of its launch-shape constants EP_MIN_ELEMENTS and
-EP_ACC_BYTES (`--only ep_shape` for that alone).
+window 8 of W = 96 and 128, none at W = 12), H4 over a range of N at
+full-width and 256-bit exponents (W >= 64) and 256-bit ones (W = 8), H5
+over a range of points and H8 over 1 to 2^17 pairs at P-256 and at
+P-384 (where the tree has W = 12), and the EC combine over 16 and 64
+positions (P-384: 16 and 96), forcing the TPI through `COOP_TPI`, the
+table the wrappers choose it from (a TPI with no kernel is skipped); it
+prints, per kernel and width, the fastest TPI at each N.  It also times
+H6 (one chunk shape is built a width) over a range of points, and H4 at
+modp2048 at each (elements, exponent bits) of the path under every pair
+of its launch-shape constants EP_MIN_ELEMENTS and EP_ACC_BYTES (`--only
+ep_shape` for that alone).  `--widths` limits the sweep to those widths
+(e.g. `--widths 12`: H1, H2 at the P-384 field and the EC kernels at
+P-384).
 
 Prints the card's name and power limit, then one JSON object.
 """
@@ -84,6 +92,7 @@ SWEEP_N = {64: (1, 4, 16, 64, 256, 1024, 2048, 4096, 6144, 8192, 10000,
            8: (1, 16, 256, 1024, 4096, 8192, 16384, 32768, 65536, 131072,
                262144),
            96: WIDE_N, 128: WIDE_N}
+SWEEP_N[12] = SWEEP_N[8]
 SWEEP_SMUL_N = (256, 1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
 SWEEP_FB_N = {64: (1, 16, 256, 1024, 2048, 4096, 8192, 10000, 16384),
               8: (1, 4, 16, 64, 256, 1024, 4096),
@@ -92,7 +101,10 @@ SWEEP_FB_N = {64: (1, 16, 256, 1024, 2048, 4096, 8192, 10000, 16384),
 # H3's (window, exponent bits) by width: the fixed-base powers of each
 # path (None: |q| bits, the full width)
 FB_CASES = {64: ((8, None), (4, 256)), 8: ((4, 256),), 96: ((8, None),),
-            128: ((8, None),)}
+            128: ((8, None),), 12: ()}
+# The curves of the EC kernels by field width W, their scalars' bits and
+# the positions of the combine's sweep (the last: a scalar's).
+EC_CURVES = {8: ("P-256", 256, (16, 64)), 12: ("P-384", 384, (16, 96))}
 SWEEP_MEXP_N = (4096, 16384, 65536, 131072, 262144)
 SWEEP_EP_N = {64: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
               8: (1, 16, 256, 1024, 4096, 10000),
@@ -178,8 +190,8 @@ def _limbs_of(x: int, dev) -> torch.Tensor:
 
 
 def _moduli(dev, widths=(64, 8)):
-    """{W: MontCtx} of modp2048 (64), the P-256 field (8), modp3072 (96)
-    and modp4096 (128), for the widths asked."""
+    """{W: MontCtx} of modp2048 (64), the P-256 field (8), the P-384 field
+    (12), modp3072 (96) and modp4096 (128), for the widths asked."""
     from vmn_tpu_torch.arith.ec import _CURVES
     from vmn_tpu_torch.arith.mont import MontCtx
     from vmn_tpu_torch.arith.pgroup import (
@@ -187,14 +199,15 @@ def _moduli(dev, widths=(64, 8)):
     )
 
     moduli = {64: _RFC3526_2048, 8: _CURVES["P-256"][0],
-              96: _RFC3526_3072, 128: _RFC3526_4096}
+              12: _CURVES["P-384"][0], 96: _RFC3526_3072,
+              128: _RFC3526_4096}
     return {w: MontCtx(moduli[w], dev) for w in widths}
 
 
 def _tree_widths(K) -> list:
     """The widths that the tree of mont_kernels module K instantiates, in
     the order they are timed: modp2048 and the P-256 field first."""
-    return [w for w in (64, 8, 96, 128) if w in K._WIDTHS]
+    return [w for w in (64, 8, 12, 96, 128) if w in K._WIDTHS]
 
 
 def _full_bits(ctx) -> int:
@@ -214,8 +227,8 @@ def time_tree(n: int, ec_n: int) -> dict:
     out = {}
     for w, ctx in _moduli(dev, _tree_widths(K)).items():
         tag = "" if w == 64 else f"_w{w}"
-        count = ec_n if w == 8 else n
-        ebits = 256 if w == 8 else _full_bits(ctx)
+        count = ec_n if w in EC_CURVES else n
+        ebits = EC_CURVES[w][1] if w in EC_CURVES else _full_bits(ctx)
         a = _elements(gen, count, ctx.L, dev)
         b = _elements(gen, count, ctx.L, dev)
         e = _exponents(gen, count, ebits, dev)
@@ -240,6 +253,8 @@ def time_tree(n: int, ec_n: int) -> dict:
             out["mont_expprod_positions_w8"] = device_ms(
                 lambda: K.mont_expprod_positions(a_n, e256, ctx.mod, 256))
             continue
+        if w == 12:  # the P-384 path runs H1 and H2 alone at this width
+            continue
         for count, bits in _ep_widths(ctx, n):
             eb = _exponents(gen, count, bits, dev)
             ab = a[:count]
@@ -252,6 +267,8 @@ def time_tree(n: int, ec_n: int) -> dict:
             lambda: _combine(K, P, ctx.mod))
     out.update(_time_ec(E, dev, 4096, "_4096"))
     out.update(_time_ec(E, dev, ec_n, ""))
+    if 12 in getattr(E, "_WIDTHS", ()):
+        out.update(_time_ec(E, dev, ec_n, "_p384", 12))
     return out
 
 
@@ -284,44 +301,48 @@ def _ec_combine(E, P, mod):
     return tuple(t[0] for t in acc)
 
 
-def _time_ec(E, dev, n: int, tag: str) -> dict:
+def _time_ec(E, dev, n: int, tag: str, w: int = 8) -> dict:
+    """The EC wrappers on n points of the curve of width W (EC_CURVES);
+    at --ec-n (no tag, or P-384's) also the combine, H8 on one pair and
+    H8's and H6's kernels alone."""
     import numpy as np
 
     from vmn_tpu_torch.arith.ec import ECqPGroup, _ec_fb_table
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
 
-    grp = ECqPGroup.named("P-256", device=dev)
+    name, bits, positions = EC_CURVES[w]
+    grp = ECqPGroup.named(name, device=dev)
     mod = grp.ctx.mod
     prg = PRGHeuristic(SHA256)
     prg.set_seed(SHA256.hash(b"smoke-ec-points"))
     pts = grp.random_array(n, prg, 8)
     x, y, inf = pts.x, pts.y, pts.inf
     rng = np.random.default_rng(256)
-    e = grp.ring.from_ints([int.from_bytes(rng.bytes(40), "big") % grp.n
-                            for _ in range(n)]).limbs
-    X, Y, Z = E.ec_scalar_mul(x, y, inf, e, mod, 256)
+    e = grp.ring.from_ints([int.from_bytes(rng.bytes(bits // 8 + 8), "big")
+                            % grp.n for _ in range(n)]).limbs
+    X, Y, Z = E.ec_scalar_mul(x, y, inf, e, mod, bits)
     X2, Y2, Z2 = (t.flip(0).contiguous() for t in (X, Y, Z))
     extra = {}
-    if not tag:
-        P = [t[:EC_COMBINE_POSITIONS].contiguous() for t in (X, Y, Z)]
-        extra["ec_multiexp_combine"] = device_ms(
+    if tag in ("", "_p384"):
+        P = [t[:positions[-1]].contiguous() for t in (X, Y, Z)]
+        extra[f"ec_multiexp_combine{tag}"] = device_ms(
             lambda: _ec_combine(E, P, mod))
         one = [t[1:2].clone() for t in (X, Y, Z, X2, Y2, Z2)]
-        extra["ec_point_add_b1"] = device_ms(
+        extra[f"ec_point_add_b1{tag}"] = device_ms(
             lambda: E.ec_point_add(*one, mod), reps=20)
-        extra["ec_point_add_kernel_only"] = kernel_ms(
+        extra[f"ec_point_add_kernel_only{tag}"] = kernel_ms(
             lambda: E.ec_point_add(X, Y, Z, X2, Y2, Z2, mod), "ec_add_kernel")
-        extra["ec_multiexp_positions_kernel_only"] = kernel_ms(
-            lambda: E.ec_multiexp_positions(x, y, inf, e, mod, 256),
+        extra[f"ec_multiexp_positions_kernel_only{tag}"] = kernel_ms(
+            lambda: E.ec_multiexp_positions(x, y, inf, e, mod, bits),
             "ec_mexp_kernel", reps=3)
-    tbx, tby = _ec_fb_table(grp.curve, *grp.g._jac(), 64)
+    tbx, tby = _ec_fb_table(grp.curve, *grp.g._jac(), bits // 4)
     return {
         **extra,
         f"ec_scalar_mul{tag}": device_ms(
-            lambda: E.ec_scalar_mul(x, y, inf, e, mod, 256)),
+            lambda: E.ec_scalar_mul(x, y, inf, e, mod, bits)),
         f"ec_multiexp_positions{tag}": device_ms(
-            lambda: E.ec_multiexp_positions(x, y, inf, e, mod, 256)),
+            lambda: E.ec_multiexp_positions(x, y, inf, e, mod, bits)),
         f"ec_point_add{tag}": device_ms(
             lambda: E.ec_point_add(X, Y, Z, X2, Y2, Z2, mod), reps=20),
         f"ec_fb_exp{tag}": device_ms(lambda: E.ec_fb_exp(tbx, tby, e, mod)),
@@ -333,7 +354,7 @@ def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
     """Time run(n) at every TPI that divides W and has a kernel, forcing it
     through COOP_TPI[kernel, w]; the rule is restored after.  Nothing
     where `only` names other kernels."""
-    if only and kernel not in only:
+    if (only and kernel not in only) or (kernel, w) not in K.COOP_TPI:
         return
     rule = K.COOP_TPI[kernel, w]
     tpis = []
@@ -360,12 +381,13 @@ def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
         K.COOP_TPI[kernel, w] = rule
 
 
-def sweep(only=()) -> dict:
+def sweep(only=(), widths=()) -> dict:
     """H1 and H2 at every instantiated TPI over SWEEP_N at each width the
     tree instantiates, H4 over SWEEP_EP_N, H3 over SWEEP_FB_N; H5 over
     SWEEP_SMUL_N points, H8 over SWEEP_ADD_N pairs and the EC combine
-    over SWEEP_COMBINE_POSITIONS at P-256; H6 over SWEEP_MEXP_N points.
-    Only the kernels (wrapper names) in `only`, where it names any."""
+    over the positions of EC_CURVES at each curve's width; H6 over
+    SWEEP_MEXP_N points.  Only the kernels (wrapper names) in `only`, and
+    the widths in `widths`, where they name any."""
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
@@ -373,8 +395,9 @@ def sweep(only=()) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows, best = [], {}
-    for w, ctx in _moduli(dev, _tree_widths(K)).items():
-        ebits = _full_bits(ctx) if w >= 64 else 256
+    mont_widths = [w for w in _tree_widths(K) if not widths or w in widths]
+    for w, ctx in _moduli(dev, mont_widths).items():
+        ebits = _full_bits(ctx) if w >= 64 else EC_CURVES[w][1]
         top = max(SWEEP_N[w])
         a = _elements(gen, top, ctx.L, dev)
         b = _elements(gen, top, ctx.L, dev)
@@ -385,6 +408,8 @@ def sweep(only=()) -> dict:
         for kernel, run in runs.items():
             _sweep_kernel(K, kernel, w, SWEEP_N[w], run, rows, best,
                           only=only)
+        if ("mont_expprod_positions", w) not in K.COOP_TPI:
+            continue  # W = 12: H1 and H2 alone (no H3, no H4)
         ep_top = max(SWEEP_EP_N[w])
         a = _elements(gen, ep_top, ctx.L, dev)
         for bits in (ebits, 256) if w >= 64 else (256,):
@@ -404,39 +429,45 @@ def sweep(only=()) -> dict:
                           best, tag=f" window={window}", only=only)
     # The EC kernels' work does not depend on their inputs (constant time,
     # docs/DEVIATIONS.md #5), so field elements below p stand in for points.
-    ctx = _moduli(dev)[8]
+    for w in getattr(E, "_WIDTHS", (8,)):
+        if not widths or w in widths:
+            _sweep_ec(K, E, w, _moduli(dev, (w,))[w], gen, dev, rows, best,
+                      only)
+    if (not only or "ep_shape" in only) and (not widths or 64 in widths):
+        _sweep_ep_shape(K, _moduli(dev)[64], gen, dev, rows)
+    return {"sweep": rows, "fastest_tpi": best}
+
+
+def _sweep_ec(K, E, w, ctx, gen, dev, rows: list, best: dict, only) -> None:
+    """H5, the EC combine and H8 at every TPI, H6 at its shape, on the
+    curve of width W (EC_CURVES)."""
+    _, bits, positions = EC_CURVES[w]
     top = max(SWEEP_SMUL_N)
     x, y = (_elements(gen, top, ctx.L, dev) for _ in range(2))
     inf = torch.zeros(top, dtype=torch.bool, device=dev)
-    e = _exponents(gen, top, 256, dev)
-    _sweep_kernel(K, "ec_scalar_mul", 8, SWEEP_SMUL_N,
+    e = _exponents(gen, top, bits, dev)
+    _sweep_kernel(K, "ec_scalar_mul", w, SWEEP_SMUL_N,
                   lambda k: E.ec_scalar_mul(x[:k], y[:k], inf[:k], e[:k],
-                                            ctx.mod, 256), rows, best,
+                                            ctx.mod, bits), rows, best,
                   only=only)
-    P = [_elements(gen, max(SWEEP_COMBINE_POSITIONS), ctx.L, dev)
-         for _ in range(3)]
-    _sweep_kernel(K, "ec_multiexp_combine", 8, SWEEP_COMBINE_POSITIONS,
+    P = [_elements(gen, max(positions), ctx.L, dev) for _ in range(3)]
+    _sweep_kernel(K, "ec_multiexp_combine", w, positions,
                   lambda k: E.ec_multiexp_combine(*(t[:k] for t in P),
                                                   ctx.mod), rows, best,
                   only=only)
     Z1, X2, Y2, Z2 = (_elements(gen, top, ctx.L, dev) for _ in range(4))
-    _sweep_kernel(K, "ec_point_add", 8, SWEEP_ADD_N,
+    _sweep_kernel(K, "ec_point_add", w, SWEEP_ADD_N,
                   lambda k: E.ec_point_add(x[:k], y[:k], Z1[:k], X2[:k],
                                            Y2[:k], Z2[:k], ctx.mod),
                   rows, best, only=only)
     mexp = not only or "ec_multiexp_positions" in only
     for n in SWEEP_MEXP_N if mexp else ():
         ms = device_ms(lambda: E.ec_multiexp_positions(
-            x[:n], y[:n], inf[:n], e[:n], ctx.mod, 256), reps=5)
-        rows.append({"kernel": "ec_multiexp_positions", "W": 8, "N": n,
-                     "shape": _mexp_shape(E, n), "ms": ms})
-        print(f"[sweep] kernel=ec_multiexp_positions W=8 N={n} "
+            x[:n], y[:n], inf[:n], e[:n], ctx.mod, bits), reps=5)
+        rows.append({"kernel": "ec_multiexp_positions", "W": w, "N": n,
+                     "shape": _mexp_shape(E, n, w, bits), "ms": ms})
+        print(f"[sweep] kernel=ec_multiexp_positions W={w} N={n} "
               f"shape={rows[-1]['shape']} ms={ms:.4f}", flush=True)
-    if not only or "ep_shape" in only:
-        _sweep_ep_shape(K, _moduli(dev)[64], gen, dev, rows)
-    return {"sweep": rows, "fastest_tpi": best}
-
-
 def _sweep_ep_shape(K, ctx, gen, dev, rows: list) -> None:
     """H4 at W = 64 at each of EP_WIDTHS under every (EP_MIN_ELEMENTS,
     EP_ACC_BYTES) of the sweep, the TPI from its rule; the constants are
@@ -478,11 +509,18 @@ def _sweep_ep_shape(K, ctx, gen, dev, rows: list) -> None:
         K.EP_MIN_ELEMENTS, K.EP_ACC_BYTES = saved
 
 
-def _mexp_shape(E, n: int) -> dict:
-    """H6's launch shape for n points at 256-bit scalars (64 positions)."""
-    blocks, subs = E.mexp_shape(n, 64)
-    return {"chunk": E.MEXP_CHUNK, "folders": E.MEXP_FOLDERS,
-            "blocks": blocks, "subs": subs}
+def _mexp_shape(E, n: int, w: int, bits: int) -> dict:
+    """H6's launch shape at width W for n points at scalars of `bits`
+    bits (64 positions at 256 bits)."""
+    npos = bits // 4
+    if hasattr(E, "MEXP_SHAPES"):
+        chunk, folders = E.MEXP_SHAPES[w]
+        blocks, subs = E.mexp_shape(n, npos, w)
+    else:  # a tree before PR 11: one shape, P-256's
+        chunk, folders = E.MEXP_CHUNK, E.MEXP_FOLDERS
+        blocks, subs = E.mexp_shape(n, npos)
+    return {"chunk": chunk, "folders": folders, "blocks": blocks,
+            "subs": subs}
 
 
 def main(argv=None) -> int:
@@ -502,6 +540,8 @@ def main(argv=None) -> int:
                     help="with --sweep: only these kernels (wrapper names, "
                          "e.g. mont_expprod_positions ec_point_add; "
                          "ep_shape: H4's launch-shape constants)")
+    ap.add_argument("--widths", nargs="+", type=int, default=(), metavar="W",
+                    help="with --sweep: only these widths (words), e.g. 12")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_timing: no CUDA device", file=sys.stderr)
@@ -515,8 +555,10 @@ def main(argv=None) -> int:
     from vmn_tpu_torch.ops import mont_kernels as K
 
     K.build_kernels()
-    res = sweep(frozenset(args.only)) if args.sweep else {
-        "tree": str(args.tree), "ms": time_tree(args.n, args.ec_n)}
+    if args.sweep:
+        res = sweep(frozenset(args.only), frozenset(args.widths))
+    else:
+        res = {"tree": str(args.tree), "ms": time_tree(args.n, args.ec_n)}
     print(card)
     print(json.dumps(res))
     return 0

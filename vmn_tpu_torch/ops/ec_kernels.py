@@ -34,8 +34,9 @@ design does about it):
   products through `mont_coop.cuh`).
 * H5 `ec_scalar_mul` replaces K9 `ec_scalar_mul_pallas`
   (vmn_tpu/ops/ec_kernels.py:277-331).  TPI lanes of a warp per point
-  (TPI from the point count, `COOP_TPI`: 4 up to 8192 points, 2 from
-  16384): 14 additions build 16 Jacobian multiples in shared memory, then
+  (TPI from the point count, `COOP_TPI`: at W = 8 4 up to 8192 points,
+  2 from 16384; at W = 12 4): 14 additions build 16 Jacobian multiples
+  in shared memory, then
   per 4-bit digit 4 doublings, a masked select over all 16 entries and one
   addition; the formulas run their independent products in pairs.  The
   branchless addition also computes a doubling, 24 products where the
@@ -47,13 +48,15 @@ design does about it):
   §6).  At 4096 points that kernel filled 32 of the 132 SMs.
 * H6 `ec_multiexp_positions` replaces both `pallas_call`s of K10
   `ec_multiexp_pallas` (:444-570) with one launch in which no point's
-  table goes through device memory: a block walks chunks of MEXP_CHUNK
-  points; two warps build the next chunk's 16 multiples a point into
-  shared memory while ten fold the current one, each fold thread one
-  digit position and every subs-th point (`mexp_shape`), with a masked
-  select over all 16 entries; one-thread field, 12 warps an SM.  Bound
-  by its products (14 table additions a point and one addition a point
-  and position, 24 products each).  An H8 tree joins the partials
+  table goes through device memory: a block walks chunks of points
+  (`MEXP_SHAPES`: 56 at W = 8, 40 at W = 12); two warps build the next
+  chunk's 16 multiples a point into shared memory while the others (ten
+  warps at W = 8, six at W = 12) fold the current one, each fold thread
+  one digit position and every subs-th point (`mexp_shape`), with a
+  masked select over all 16 entries; one-thread field, 12 warps an SM at
+  W = 8 (168 registers a thread), 8 at W = 12 (255).  Bound by its
+  products (14 table additions a point and one addition a point and
+  position, 24 products each).  An H8 tree joins the partials
   (`_lane_tree`).
 * `ec_multiexp_combine` is K10's position combine (:571-584),
   sum_j 2^(4j)·S_j, in one launch: one warp runs the 5·ndig_pad point
@@ -101,15 +104,15 @@ from vmn_tpu_torch.ops.mont_kernels import (
 ENTRIES = 1 << WINDOW
 # Points per H6 launch; the partials of the launches are joined together.
 EP_SUPER = 1 << 20
-# H6's partition (csrc/ec_kernels.cu): chunks of MEXP_CHUNK points, one
-# builder thread a point; MEXP_FOLDERS fold threads a block; at most
-# MEXP_BLOCKS blocks (one an SM of the H100 SXM), at most EP_MAX_LANES
-# partials a digit position.
-MEXP_CHUNK = 56
-MEXP_FOLDERS = 320
+# H6's partition at each width W (MexpShape in csrc/ec_kernels.cuh):
+# chunks of `chunk` points, one builder thread a point, `folders` fold
+# threads a block; at most MEXP_BLOCKS blocks (one an SM of the H100 SXM),
+# at most EP_MAX_LANES partials a digit position.
+MEXP_SHAPES = {8: (56, 320), 12: (40, 192)}  # W: (chunk, folders)
 MEXP_BLOCKS = 132
 EP_MAX_LANES = 2048
-_WIDTHS = (8,)  # W = L/2 instantiated in ec_kernels.cu (P-256)
+# W = L/2 instantiated in the ec_*.cu files: P-256, P-384
+_WIDTHS = (8, 12)
 
 EC_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
               "ec_multiexp_combine", "ec_fb_exp", "ec_point_add")
@@ -259,26 +262,28 @@ def ec_scalar_mul_plain(x, y, inf, e, mod: Modulus, nbits: int):
     return tuple(t.contiguous() for t in acc)
 
 
-def mexp_shape(n: int, npos: int):
-    """(blocks, subs) of an H6 launch over n >= 1 points and npos digit
-    positions: `subs` fold threads a position, each folding every subs-th
-    point of a chunk; blocks walk the chunks b, b + blocks, ...; partial
-    q = b·subs + s of each position."""
-    if npos > MEXP_FOLDERS:
-        raise ValueError(f"H6 folds at most {MEXP_FOLDERS} digit positions, "
+def mexp_shape(n: int, npos: int, w: int):
+    """(blocks, subs) of an H6 launch at width W over n >= 1 points and
+    npos digit positions: `subs` fold threads a position, each folding
+    every subs-th point of a chunk; blocks walk the chunks b, b + blocks,
+    ...; partial q = b·subs + s of each position."""
+    chunk, folders = MEXP_SHAPES[w]
+    if npos > folders:
+        raise ValueError(f"H6 folds at most {folders} digit positions, "
                          f"got {npos}")
-    subs = max(1, MEXP_FOLDERS // npos)
-    chunks = -(-n // MEXP_CHUNK)
+    subs = max(1, folders // npos)
+    chunks = -(-n // chunk)
     return max(1, min(MEXP_BLOCKS, chunks, EP_MAX_LANES // subs)), subs
 
 
-def _mexp_order(n: int, blocks: int, subs: int, device):
+def _mexp_order(n: int, blocks: int, subs: int, chunk: int, device):
     """(blocks·subs, steps) point indices of each H6 partial, in the
-    order its fold thread adds them (-1: nothing more)."""
+    order its fold thread adds them (-1: nothing more), chunks of
+    `chunk` points."""
     i = torch.arange(n, device=device)
-    k, c = i // MEXP_CHUNK, i % MEXP_CHUNK
+    k, c = i // chunk, i % chunk
     sub = c % subs
-    per_chunk = (MEXP_CHUNK - sub + subs - 1) // subs  # a full chunk's
+    per_chunk = (chunk - sub + subs - 1) // subs  # a full chunk's
     # every chunk before the last is full, and the last is its block's last
     step = (k // blocks) * per_chunk + c // subs
     q = (k % blocks) * subs + sub
@@ -314,14 +319,15 @@ def ec_multiexp_positions_plain(x, y, inf, e, mod: Modulus, nbits: int):
     N, L = x.shape
     ndig_pad = _ndig_pad(nbits)
     one = mod.one_mont
+    w = L // 2
     parts = []
     for s0 in range(0, N, EP_SUPER):
         n = min(EP_SUPER, N - s0)
-        blocks, subs = mexp_shape(n, ndig_pad)
+        blocks, subs = mexp_shape(n, ndig_pad, w)
         sl = slice(s0, s0 + n)
         tX, tY, tZ = _multiples_plain(F, x[sl], y[sl], inf[sl], mod)
         digits = _digits(e[sl], ndig_pad, WINDOW)  # (ndig_pad, n)
-        order = _mexp_order(n, blocks, subs, x.device)
+        order = _mexp_order(n, blocks, subs, MEXP_SHAPES[w][0], x.device)
         shape = (ndig_pad * order.shape[0], L)
         aX = torch.zeros(shape, dtype=x.dtype, device=x.device)
         aY = one.expand(shape)
@@ -518,7 +524,7 @@ def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
     parts = []
     for s0 in range(0, N, EP_SUPER):
         n = min(EP_SUPER, N - s0)
-        blocks, subs = mexp_shape(n, ndig_pad)
+        blocks, subs = mexp_shape(n, ndig_pad, w)
         out = torch.empty((3, ndig_pad, blocks * subs, L), dtype=torch.int32,
                           device=dev)
         K._check("ec_multiexp_positions", lib.vmn_ec_mexp(

@@ -404,8 +404,8 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _UNSUPPORTED_WIDTH = -1
 _BAD_SHAPE = -2
 # W = L/2 instantiated in mont_kernels.cu: test256 and the P-256 field,
-# modp2048, modp3072, modp4096
-_WIDTHS = (8, 64, 96, 128)
+# the P-384 field and ring, modp2048, modp3072, modp4096
+_WIDTHS = (8, 12, 64, 96, 128)
 
 # Threads per element (TPI) of the cooperative kernels for n elements of W
 # words: TPI lanes of one warp share an element (H1-H4) or a point (H5, H8,
@@ -438,7 +438,14 @@ _WIDTHS = (8, 64, 96, 128)
 # 10000 at both widths, TPI 16 from 2048 to 8192: at 10000 TPI 16 takes
 # two waves of 1024-thread blocks (one block an SM, its staged digits
 # holding the shared memory), 2·24.2 ms at W = 96 against 24.2 at 8192;
-# H4 at TPI 16 at every N and both exponent widths.
+# H4 at TPI 16 at every N and both exponent widths.  At W = 12 (the
+# P-384 field and ring; H1 and H2 over 1, 16, 256, ..., 262144 elements at
+# TPI 1, 2, 4 and 384-bit exponents, H5 over 256 to 262144 points and H8
+# over 1 to 131072 pairs at TPI 2 and 4): H1 at TPI 4 was fastest at every
+# N but 262144 (by 2 %); H2 crosses to TPI 2 between 4096 and 8192 and to
+# TPI 1 between 16384 and 32768; H5 and H8 at TPI 4 at every N (H5 at TPI
+# 2 keeps a 144 KB table a block, one block an SM; at 2^17 151.5 against
+# 103.1 ms), so TPI 1 and 2 of H1, H5 and H8 are not built there.
 COOP_TPI = {
     ("mont_mul", 8): ((1, 8),),
     ("mont_mul", 64): ((4096, 8), (1, 32)),
@@ -459,13 +466,20 @@ COOP_TPI = {
     ("ec_scalar_mul", 8): ((16384, 2), (1, 4)),
     ("ec_multiexp_combine", 8): ((1, 8),),
     ("ec_point_add", 8): ((16384, 2), (4096, 4), (1, 8)),
+    ("mont_mul", 12): ((1, 4),),
+    ("mont_exp", 12): ((32768, 1), (8192, 2), (1, 4)),
+    ("ec_scalar_mul", 12): ((1, 4),),
+    ("ec_multiexp_combine", 12): ((1, 4),),
+    ("ec_point_add", 12): ((1, 4),),
 }
 COOP_BLOCK = 128  # threads a block at most (kThreads in mont_kernels.cu)
 
 
 def threads_per_element(kernel: str, w: int, n: int) -> int:
     """A cooperative kernel's TPI for n >= 1 elements of W words
-    (COOP_TPI)."""
+    (COOP_TPI); raises where no rule (and so no kernel) is built."""
+    if (kernel, w) not in COOP_TPI:
+        raise ValueError(f"{kernel}: no kernel instantiated for W={w}")
     return next(t for lo, t in COOP_TPI[kernel, w] if n >= lo)
 
 
