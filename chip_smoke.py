@@ -22,11 +22,14 @@ Phases (one line each; any failure raises and the exit code is not 0):
      raised values); at the P-256 field (W=8) H1 and H2 on --ec-n, on N
      and on one, H3 at window 4 on N and on one, H4 on N; at the P-384
      field (W=12) H1 and H2 on --ec-n and on one, and K7's combine over
-     96 positions; then each of H1-H4 at the first N of any TPI of its
+     96 positions; at the P-521 field and ring (L = 33 limbs at the
+     inner width W' = 20, converted at the kernels' boundary) H1 and H2
+     on --ec-n, whole on 4096 and on one; then each of H1-H4 at the first
+     N of any TPI of its
      rule that those miss, so that every TPI (lanes an element) the
      wrappers choose is checked (it fails otherwise).  Each against its
      plain PyTorch version on the card, exact equality of the whole
-     output, but H1-H3 at W=96 and 128, and H2 at W=12 on --ec-n, on 256
+     output, but H1-H3 at W=96 and 128, and H2 at W=12 and 20 on --ec-n, on 256
      rows spread over the batch (a full-width plain power takes seconds
      whatever the rows); a few rows (H4: its positions combined, at W=96
      and 128 those of 16 elements in a launch of their own) against
@@ -42,12 +45,15 @@ Phases (one line each; any failure raises and the exit code is not 0):
      batch: once on 4096 points and once on the EC path's batch (--ec-n),
      H8 also on one pair; H5 and H8 also at the first N of any TPI (lanes
      a point) that those batches do not reach, so that every TPI their
-     wrappers choose is checked; H5 also at 64-bit scalars on 1.25·--ec-n
-     points (the precomputation's raised values); then the same at P-384
+     wrappers choose is checked; H5 also at 64-bit scalars on
+     1.25·min(--ec-n, 65536) points (the precomputation's raised values); then the same at P-384
      (W=12: 384-bit scalars, the combine over 96 positions), whole on
      4096 points, and at --ec-n H5, H7 and H8 on 256 rows spread over the
      batch with the edge rows (each output row depends on its own inputs
-     alone), H6 whole on 16384 points of the batch's launch shape;
+     alone), H6 whole on 16384 points of the batch's launch shape; then
+     the same at P-521 (W' = 20: 521-bit scalars, the combine over 144
+     positions, no H7: off its path and not built), one loop over the
+     curves;
   5. the test256 and P-256 golden mixes on the card: each transcript must
      equal tests/golden/nizkp_{test256,p256}_k1 byte for byte, and the
      port's verifier must accept it and write the test vectors of
@@ -59,8 +65,9 @@ Phases (one line each; any failure raises and the exit code is not 0):
      tests/golden/nizkp_test256_k3_w2 and its test vectors
      test_vectors_k3w2.json; then the modp3072 and modp4096 goldens
      (nizkp_modp{3072,4096}_k1, test_vectors_modp{3072,4096}.json, written
-     by tests/torch_make_wide_golden.py), and the P-384 golden
-     (nizkp_p384_k1, test_vectors_p384.json, the same script);
+     by tests/torch_make_wide_golden.py), and the P-384 and P-521
+     goldens (nizkp_p{384,521}_k1, test_vectors_p{384,521}.json, the
+     same script);
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
@@ -69,7 +76,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
      the EC path), with its calls and its time on random inputs of that
      shape (`multiexp` lines); then the same at modp3072 and modp4096
      with N ciphertexts, the same --n;
-  7. the EC paths: the same at P-256 and at P-384 with --ec-n
+  7. the EC paths: the same at P-256, P-384 and P-521 with --ec-n
      ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6);
   8. the multi-party path: modp2048, k=3 mix-servers, threshold 2, --k3-n
      ciphertexts (default 10000), Fiat–Shamir: the three parties (threads
@@ -83,7 +90,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
      with k=3, t=2 (Fiat–Shamir), precomputation (PoSC) for 1.25·N
      ciphertexts (N and --k3-n: 12500 by default), then the online mix
      (keep-list shrink, CCPoS, decryption) of N, then P-256, k=1,
-     1.25·--ec-n (163840) -> --ec-n: the plaintext multiset (and for k=3
+     1.25·min(--ec-n, 65536) (81920) -> 65536 (PC_EC_N): the plaintext
+     multiset (and for k=3
      the parties' agreement), the port's verifier accepting party 1's transcript and
      rejecting it with one flipped byte in CCPoSReply01.bt and, apart,
      in PoSCReply01.bt; each line gives the precomputation's, the online
@@ -114,7 +122,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
      included.  H1-H4 and the combine must launch in every modp2048
      `vmn -mix` process, H5, H6, the EC combine and H8 in the P-256 one.
 
---profile modp2048|P-256|P-384|modp2048-k3|modp3072|modp4096 profiles one more
+--profile modp2048|P-256|P-384|P-521|modp2048-k3|modp3072|modp4096 profiles one more
 mix + verify of that path after the phases (host spans, device time by
 kernel, the device's idle share); it may be given more than once.
 
@@ -127,7 +135,8 @@ modp4096 mixes, in the k=3 mix
 and in the modp2048 k=1 precomputation path, H2 and H3 in the
 interactive mix's coin flipping, H5, H6, the EC combine (once per H6
 call) and H8 in the P-256 mix, and the same with H1 and H2 at W=12 in
-the P-384 mix (H7 is off those paths, as in vmn_tpu, and reports 0); the
+the P-384 mix and at W'=20 in the P-521 mix (H7 is off those paths, as
+in vmn_tpu, and reports 0); the
 `launches` line also counts H1's, H2's, H3's, H5's
 and H8's launches in each mix by batch size (1, 2-127, >=128); the
 `kernels` line reports each kernel's launches in its own path's mix
@@ -138,7 +147,8 @@ error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
 stands under `at_4096`, and each kernel's launches in the P-384 mix with
-its check at W=12 under `p384`.  The last three lines are that JSON object, the
+its check at W=12 under `p384`, in the P-521 mix with its check at
+W'=20 under `p521`.  The last three lines are that JSON object, the
 card's name and power limit, and a JSON status object.
 """
 
@@ -240,6 +250,12 @@ def bound(products: int, words: int, nbytes: int) -> dict:
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
+
+
+def bound_words(nbits: int) -> int:
+    """The 32-bit words of a modulus of nbits bits: the width of the bound
+    (the least work), P-521's 17 where its kernels compute at 24."""
+    return -(-nbits // 32)
 
 
 def phase(tag: str, **fields) -> None:
@@ -385,8 +401,8 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         widths H1-H3 are."""
         m = ctx.m
         d = SimpleNamespace(ctx=ctx, mod=ctx.mod, m=m, L=ctx.L,
-                            W=ctx.L // 2, bits=bits, wide=ctx.L > 128,
-                            held=held)
+                            W=ctx.mod.W, BW=bound_words(ctx.nbits),
+                            bits=bits, wide=ctx.L > 128, held=held)
         d.a_int = [x % m for x in ints(count, ctx.nbits)]
         d.a_int[:3] = [1, m - 1, 2]
         d.b_int = [x % m for x in ints(count, ctx.nbits)]
@@ -412,7 +428,7 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         return count * (14 + 4 * (ndig - 1)) + nz
 
     def elementwise(name, d, fn, pre, rows_in, post, py, count, bnd,
-                    products=None):
+                    products=None, whole=False):
         """K.fn(*pre, *rows_in, *post), whose output row i depends on row
         i of rows_in alone: held to K.fn_plain on HELD_ROWS rows at the
         wide widths (and H2 where d.held), else on all; py(i) is row i's
@@ -420,7 +436,8 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         kern, plain = getattr(K, fn), getattr(K, fn + "_plain")
         rows = py_rows(count)
         held, held_in = None, rows_in
-        if (d.wide or (d.held and fn == "mont_exp")) and count > HELD_ROWS:
+        if ((d.wide or (d.held and fn == "mont_exp")) and count > HELD_ROWS
+                and not whole):
             held = torch.tensor(sorted(set(spread(count, HELD_ROWS))
                                        | set(rows)), device=dev)
             held_in = tuple(t[held] for t in rows_in)
@@ -434,15 +451,17 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         s = slice(at, at + count)
         elementwise(name, d, "mont_mul", (), (d.a[s], d.b[s]), (d.mod,),
                     lambda i: d.a_int[at + i] * d.b_int[at + i] % d.m,
-                    count, bound(count, d.W, 3 * 4 * count * d.L),
+                    count, bound(count, d.BW, 3 * 4 * count * d.L),
                     1 if count == 1 else None)
 
-    def exp_case(d, name, x, x_int, e, e_int, bits, products=None):
+    def exp_case(d, name, x, x_int, e, e_int, bits, products=None,
+                 whole=False):
         count = x.shape[0]
         elementwise(name, d, "mont_exp", (), (x, e), (d.mod, bits),
                     lambda i: pow(x_int[i], e_int[i], d.m), count,
-                    bound(exp_products(count, e, -(-bits // 4)), d.W,
-                          2 * 4 * count * d.L + 4 * e.numel()), products)
+                    bound(exp_products(count, e, -(-bits // 4)), d.BW,
+                          2 * 4 * count * d.L + 4 * e.numel()), products,
+                    whole)
 
     def fb_case(d, name, tbl, e, e_int, count, at=0):
         window = tbl.shape[1].bit_length() - 1
@@ -519,15 +538,34 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         exp_case(d, f"mont_exp{tag}_b1", a1, d.a_int[3:4], e_inv, [d.m - 2],
                  inv_bits, products=14 + 5 * (-(-inv_bits // 4) - 1))
 
+    def _tpi_cases(d, tag, window, kernel, rule, reached):
+        """kernel on d's modulus at 37 past the first N of each TPI of
+        its rule that `reached` lacks (up to n elements)."""
+        for lo, tpi in rule:
+            c = lo + 37
+            if tpi in reached or c > n:
+                continue
+            if kernel == "mont_mul":
+                mul_case(d, f"mont_mul{tag}_tpi{tpi}", c)
+            elif kernel == "mont_exp":
+                exp_case(d, f"mont_exp{tag}_tpi{tpi}", d.a[:c], d.a_int,
+                         d.e[:c], d.e_int, d.bits)
+            elif kernel == "mont_fb_exp":
+                fb_case(d, f"mont_fb_exp{window}{tag}_tpi{tpi}", d.tbl, d.e,
+                        d.e_int, c)
+            else:
+                ep_case(d, f"{kernel}{tag}_tpi{tpi}", d.e256, d.e256_int,
+                        256, c)
+
     # per width: its inputs, its tag, the H3 table and exponents of its
     # path, and its ModP-path cases
-    widths = {}
+    widths = {}  # W: [(inputs, tag, H3's window)], a modulus each
     for group, W in (("modp2048", 64), *WIDE_GROUPS.items()):
         ctx = MontCtx(_NAMED_GROUPS[group][0], dev)
         d = width(ctx, ctx.nbits - 1, n)  # |q|: full-width exponents
         tag = "" if W == 64 else f"_w{W}"
         d.tbl = ctx.fixed_base_table(g, d.bits, 8)
-        widths[W] = (d, tag, 8)
+        widths[W] = [(d, tag, 8)]
         batch_cases(d, tag, n)
         fb_case(d, f"mont_fb_exp8{tag}", d.tbl, d.e, d.e_int, n)
         fb_case(d, f"mont_fb_exp8{tag}_b1", d.tbl, d.e, d.e_int, 1, at=3)
@@ -556,7 +594,7 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     ctx8 = MontCtx(_CURVES["P-256"][0], dev)
     d8 = width(ctx8, 256, max(n, ec_n))
     d8.tbl = ctx8.fixed_base_table(g, 256, 4)
-    widths[8] = (d8, "_w8", 4)
+    widths[8] = [(d8, "_w8", 4)]
     batch_cases(d8, "_w8", ec_n)
     mul_case(d8, "mont_mul_w8_n", n)
     exp_case(d8, "mont_exp_w8_n", d8.a[:n], d8.a_int, d8.e[:n], d8.e_int,
@@ -569,37 +607,41 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     # take seconds a row block, so H2 is held on HELD_ROWS rows
     ctx12 = MontCtx(_CURVES["P-384"][0], dev)
     d12 = width(ctx12, 384, ec_n, held=True)
-    widths[12] = (d12, "_w12", None)
+    widths[12] = [(d12, "_w12", None)]
     batch_cases(d12, "_w12", ec_n)
     combine_case(d12, "mont_expprod_combine_w12")
+    # the P-521 field and scalar ring (L = 33 limbs at the inner width
+    # W' = 20, converted at the kernels' boundary): H1 and H2 on ec_n (H2
+    # held on HELD_ROWS rows), whole on EC_CHECK_N elements, as the curve's
+    # kernels, and on one; K7's combine has no W' form
+    for ring in (False, True):
+        grp = _group("P-521")
+        ctx = grp.ring.ctx if ring else grp.ctx
+        d = width(ctx, ctx.nbits, ec_n, held=True)
+        tag = f"_w{ctx.mod.W}" + ("_ring" if ring else "")
+        widths.setdefault(ctx.mod.W, []).append((d, tag, None))
+        batch_cases(d, tag, ec_n)
+        k = min(ec_n, EC_CHECK_N)
+        mul_case(d, f"mont_mul{tag}_{k}", k)
+        exp_case(d, f"mont_exp{tag}_{k}", d.a[:k], d.a_int, d.e[:k],
+                 d.e_int, d.bits, whole=True)
 
     # and each kernel at 37 past the first N of any TPI of its rule that
     # these miss
+    # (of each modulus of a width)
     reached = {}
     for name, (cx, *_, count, _, _) in cases.items():
-        key = (kernel_of(name, K.KERNELS), cx.L // 2)
-        if key[0] in COOP_MONT:
-            reached.setdefault(key, set()).add(
-                K.threads_per_element(*key, count))
+        kernel, W = kernel_of(name, K.KERNELS), cx.mod.W
+        if kernel in COOP_MONT:
+            reached.setdefault((kernel, W, id(cx)), set()).add(
+                K.threads_per_element(kernel, W, count))
     for (kernel, W), rule in K.COOP_TPI.items():
         if kernel not in COOP_MONT:
             continue
-        d, tag, window = widths[W]
-        for lo, tpi in rule:
-            c = lo + 37
-            if tpi in reached[kernel, W] or c > n:
-                continue
-            if kernel == "mont_mul":
-                mul_case(d, f"mont_mul{tag}_tpi{tpi}", c)
-            elif kernel == "mont_exp":
-                exp_case(d, f"mont_exp{tag}_tpi{tpi}", d.a[:c], d.a_int,
-                         d.e[:c], d.e_int, d.bits)
-            elif kernel == "mont_fb_exp":
-                fb_case(d, f"mont_fb_exp{window}{tag}_tpi{tpi}", d.tbl, d.e,
-                        d.e_int, c)
-            else:
-                ep_case(d, f"{kernel}{tag}_tpi{tpi}", d.e256, d.e256_int,
-                        256, c)
+        for d, tag, window in widths[W]:
+            _tpi_cases(d, tag, window, kernel, rule,
+                       reached.get((kernel, W, id(d.ctx)), set()))
+
 
     results, tpis = {}, set()
     for name, (cx, kern, held, plain, truth, count, bnd,
@@ -614,7 +656,7 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
              **bnd}
         if held is not None:
             r["checked_rows"] = len(held)
-        kernel, W = kernel_of(name, K.KERNELS), cx.L // 2
+        kernel, W = kernel_of(name, K.KERNELS), cx.mod.W
         if kernel in COOP_MONT:
             r["tpi"] = K.threads_per_element(kernel, W, count)
             tpis.add((kernel, W, r["tpi"]))
@@ -703,12 +745,13 @@ def host_ec_mul(p: int, a: int, P, k: int):
 
 
 def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int,
-              npos: int, W: int = 8) -> dict:
+              npos: int, W: int = 8, L: int = 0) -> dict:
     """Bounds of H5-H8 on n points of a curve of W-word coordinates
-    (P-256: 8, P-384: 12) and exponents e of ndig 4-bit digits (the
+    (P-256: 8, P-384: 12, P-521: 17, bound_words) held in L 16-bit limbs
+    (default 2W; P-521: 33) and exponents e of ndig 4-bit digits (the
     fixed-base table of table_words words), and of the combine over npos
     positions."""
-    L = 2 * W
+    L = L or 2 * W
     nb = 4 * n * L  # one (n, L) int32 array
     nz = nonzero_digits(e, ndig, 4)
     return {
@@ -734,28 +777,42 @@ def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int,
 
 
 EC_CHECK_N = 4096  # the small EC check, beside the one at --ec-n
-# Points of P-384's batch on which H6, a sum over the batch, is held whole
-# to its plain version, with the path batch's launch shape (132 blocks of
-# 2 folders a position, each block walking several chunks): on all 2^17
-# the plain fold took 41.7 s and left the run 44 s under its limit, less
-# than the spread between two runs (PERF.md §6); an eighth of the batch
-# gives back about 36 s.  At the whole batch H6 is timed and, with the
-# combine, held to Python EC arithmetic over H5's outputs.
+# Points of P-384's and P-521's batch on which H6, a sum over the batch,
+# is held whole to its plain version, with the path batch's launch shape
+# (132 blocks, each walking several chunks): on all 2^17 the plain fold at
+# P-384 took 41.7 s and left the run 44 s under its limit, less than the
+# spread between two runs (PERF.md §6); an eighth of the batch gives back
+# about 36 s.  At the whole batch H6 is timed and, with the combine, held
+# to Python EC arithmetic over H5's outputs.
 MEXP_HELD_N = 16384
+# The NIST curves of the EC paths, each checked, mixed and verified the
+# same way: P-256 (W = 8), P-384 (W = 12), P-521 (L = 33 limbs at the
+# inner width W' = 20).
+EC_PATH_CURVES = ("P-256", "P-384", "P-521")
+# The Montgomery kernels of the P-384 and P-521 mixes: the field's and the
+# ring's products and powers.
+CURVE_MONT = ("mont_mul", "mont_exp")
 
 
 def curve_tag(curve: str) -> str:
-    """The suffix of a curve's check names: none at P-256, "_p384"."""
-    return "" if curve == "P-256" else "_" + curve.replace("-", "").lower()
+    """The suffix of a curve's check names: none at P-256, "_p384",
+    "_p521"."""
+    return "" if curve == "P-256" else "_" + curve_key(curve)
+
+
+def curve_key(curve: str) -> str:
+    """"p256", "p384", "p521": a curve's key in the printed lines."""
+    return curve.replace("-", "").lower()
 
 
 def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
-    """H5-H8 on n points of `curve` (P-256 or P-384): kernel == plain, a
+    """H5-H8 on n points of `curve` (EC_PATH_CURVES): kernel == plain, a
     few rows against Python EC arithmetic, times; H7 also against H5 on
-    g; the combine on the first ndig_pad of H5's Jacobian outputs (64
-    positions at P-256, 96 at P-384).  Run at 4096 points and at the EC
-    path's batch (--ec-n), where H6 splits the points into its widest
-    lanes.  Held to the plain versions on the whole batch, but at P-384
+    g (not at P-521, where H7 is not built: off the path); the combine on
+    the first ndig_pad of H5's Jacobian outputs (64 positions at P-256,
+    96 at P-384, 144 at P-521).  Run at 4096 points and at the EC path's
+    batch (--ec-n), where H6 splits the points into its widest lanes.
+    Held to the plain versions on the whole batch, but at P-384 and P-521
     above EC_CHECK_N points H5, H7 and H8, whose output rows each depend
     on their own inputs alone, on HELD_ROWS rows spread over the batch
     with the edge rows (a P-384 plain scalar multiple on all 2^17 would
@@ -773,7 +830,8 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
     dev = torch.device("cuda", 0)
     grp = EC.ECqPGroup.named(curve, device=dev)
     mod, p, a, q = grp.ctx.mod, grp.p, grp.a, grp.n
-    L, W, tag = grp.L, grp.L // 2, curve_tag(curve)
+    L, W, tag = grp.L, mod.W, curve_tag(curve)
+    fb = not mod.conv  # H7 is built at the unpadded widths alone
     prg = PRGHeuristic(SHA256)
     prg.set_seed(SHA256.hash(b"smoke-ec-points"))
     pts = grp.random_array(n, prg, 8)
@@ -786,7 +844,7 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
           for _ in range(n)]
     ks[1], ks[2], ks[3] = 0, q - 1, 1
     e = grp.ring.from_ints(ks).limbs
-    ndig = nbits // 4
+    ndig = -(-nbits // 4)
     X, Y, Z = E.ec_scalar_mul(x, y, inf, e, mod, nbits)
     # H8 pairs: rows 0-2 add a point to itself (row 0: infinity +
     # infinity), row 3 its negative; the rest pair the batch with its
@@ -796,7 +854,8 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
     j1 = (X, Y, Z)
     j2 = [t[idx] for t in j1]
     j2[1][3] = grp.ctx.neg(Y[3])
-    tbx, tby = EC._ec_fb_table(grp.curve, *grp.g._jac(), ndig)
+    tbx, tby = (EC._ec_fb_table(grp.curve, *grp.g._jac(), ndig) if fb
+                else (torch.zeros(0), torch.zeros(0)))
     gx = grp.g.x.expand(n, L).contiguous()
     gy = grp.g.y.expand(n, L).contiguous()
     no_inf = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -813,7 +872,8 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
 
     G = (grp.gx, grp.gy)
     J = K._ndig_pad(nbits)
-    bnds = ec_bounds(n, e, ndig, tbx.numel() + tby.numel(), J, W)
+    BW = bound_words(p.bit_length())
+    bnds = ec_bounds(n, e, ndig, tbx.numel() + tby.numel(), J, BW, L)
     Pj = [t[:J].contiguous() for t in (X, Y, Z)]
     h = None  # the rows of H5, H7 and H8 held to their plain versions
     m = n  # the points of H6's launch held to its plain version
@@ -821,7 +881,7 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
         h = torch.tensor(sorted(set(spread(n, HELD_ROWS)) | set(rows)),
                          device=dev)
         m = min(n, MEXP_HELD_N)
-        if E.mexp_shape(m, ndig, W) != E.mexp_shape(n, ndig, W):
+        if E.mexp_shape(m, J, W) != E.mexp_shape(n, J, W):
             raise AssertionError(f"H6 held at {m} points: another shape")
     at = (lambda ts: ts) if h is None else (
         lambda ts: tuple(t[h] for t in ts))
@@ -835,10 +895,11 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
         "ec_multiexp_positions": (
             lambda: E.ec_multiexp_positions(x, y, inf, e, mod, nbits),
             lambda: E.ec_multiexp_positions_plain(*mexp_m), None),
-        "ec_fb_exp": (
+        **({"ec_fb_exp": (
             lambda: E.ec_fb_exp(tbx, tby, e, mod),
             lambda: E.ec_fb_exp_plain(tbx, tby, *at((e,)), mod),
-            lambda out: [host_ec_mul(p, a, G, ks[i]) for i in rows]),
+            lambda out: [host_ec_mul(p, a, G, ks[i]) for i in rows])}
+           if fb else {}),
         "ec_point_add": (
             lambda: E.ec_point_add(*j1, *j2, mod),
             lambda: E.ec_point_add_plain(*at(j1), *at(j2), mod),
@@ -901,11 +962,12 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
         if name in ("ec_scalar_mul", "ec_point_add"):
             r["tpi"] = K.threads_per_element(name, W, n)
         elif name == "ec_multiexp_positions":
-            blocks, subs = E.mexp_shape(n, ndig, W)
+            blocks, subs = E.mexp_shape(n, J, W)
             chunk, folders = E.MEXP_SHAPES[W]
             r["shape"] = {"chunk": chunk, "folders": folders,
                           "blocks": blocks, "subs": subs,
-                          "partials_a_position": blocks * subs}
+                          "partials_a_position": blocks * subs,
+                          "lanes_a_group": E.MEXP_TPI.get(W, 1)}
         elif name == "ec_multiexp_combine":
             ops = 5 * J
             r.update(N=J, tpi=K.threads_per_element(name, W, 1),
@@ -926,10 +988,12 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
     results[b1] = {
         "N": 1, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "tpi": K.threads_per_element("ec_point_add", W, 1),
-        **ec_bounds(1, e[:1], ndig, 0, 0, W)["ec_point_add"],
+        **ec_bounds(1, e[:1], ndig, 0, 0, BW, L)["ec_point_add"],
         "products": 24, "us_per_product": 1e3 * ms / 24,
         "bound_note": "latency-bound: the 24 products of one pair"}
     kernel_line(b1, results[b1])
+    if not fb:
+        return results
     # The routing fact for fixed-base powers: H7 against H5 on g.
     fb_ms = device_ms(lambda: E.ec_fb_exp(tbx, tby, e, mod))
     sm_ms = device_ms(lambda: E.ec_scalar_mul(gx, gy, no_inf, e, mod, nbits))
@@ -955,7 +1019,7 @@ def check_ec_e64(n: int, curve: str = "P-256") -> dict:
 
     dev = torch.device("cuda", 0)
     grp = EC.ECqPGroup.named(curve, device=dev)
-    mod, p, a, W = grp.ctx.mod, grp.p, grp.a, grp.L // 2
+    mod, p, a, W = grp.ctx.mod, grp.p, grp.a, grp.ctx.mod.W
     prg = PRGHeuristic(SHA256)
     prg.set_seed(SHA256.hash(b"smoke-ec-e64"))
     pts = grp.random_array(n, prg, 8)
@@ -977,7 +1041,8 @@ def check_ec_e64(n: int, curve: str = "P-256") -> dict:
     r = {"N": n, "bits": 64, "max_abs_err": err,
          "ms": device_ms(lambda: E.ec_scalar_mul(*ins)), "plain_ms": plain_ms,
          "tpi": K.threads_per_element("ec_scalar_mul", W, n),
-         **ec_bounds(n, e, 16, 0, 0, W)["ec_scalar_mul"]}
+         **ec_bounds(n, e, 16, 0, 0, bound_words(p.bit_length()),
+                     grp.L)["ec_scalar_mul"]}
     kernel_line("ec_scalar_mul_e64" + curve_tag(curve), r)
     return r
 
@@ -997,7 +1062,7 @@ def check_ec_tpis(kernel: str, checked: set, seed: bytes, case,
     from vmn_tpu_torch.ops import mont_kernels as K
 
     grp = EC.ECqPGroup.named(curve, device=torch.device("cuda", 0))
-    W = grp.L // 2
+    W = grp.ctx.mod.W
     results = {}
     for lo, tpi in K.COOP_TPI[kernel, W]:
         if tpi in checked:
@@ -1038,7 +1103,8 @@ def smul_case(grp, pts, tpi):
     args = (pts.x, pts.y, inf, e, grp.ctx.mod, bits)
     return (lambda: E.ec_scalar_mul(*args),
             lambda: E.ec_scalar_mul_plain(*args),
-            ec_bounds(n, e, bits // 4, 0, 0, grp.L // 2)["ec_scalar_mul"])
+            ec_bounds(n, e, -(-bits // 4), 0, 0, bound_words(grp.p.bit_length()),
+                      grp.L)["ec_scalar_mul"])
 
 
 def add_case(grp, pts, tpi):
@@ -1050,7 +1116,8 @@ def add_case(grp, pts, tpi):
     j2 = [t.flip(0).contiguous() for t in j1]
     return (lambda: E.ec_point_add(*j1, *j2, mod),
             lambda: E.ec_point_add_plain(*j1, *j2, mod),
-            bound(n * EC_ADD_PRODUCTS, grp.L // 2, 9 * 4 * n * grp.L))
+            bound(n * EC_ADD_PRODUCTS, bound_words(grp.p.bit_length()),
+                  9 * 4 * n * grp.L))
 
 
 # ---------------------------------------------------------- phases 5-7
@@ -1180,21 +1247,19 @@ def same_test_vectors(tv: dict, name: str) -> int:
 
 def golden_phase(tmp: Path, name: str, maxciph: int = 0) -> None:
     """The golden k=1 mix of tools/make_golden.py on the card: test256,
-    modp3072 or modp4096 (5 messages), P-256 or P-384 (3 messages), or
-    test256 after a precomputation for `maxciph` ciphertexts; transcript
-    byte-equal, and the verifier's test vectors those vmn_tpu froze
-    (tests/golden/test_vectors_{group}.json for the wide groups,
-    test_vectors_p384.json for P-384, written by
-    tests/torch_make_wide_golden.py)."""
+    modp3072 or modp4096 (5 messages), P-256, P-384 or P-521 (3
+    messages), or test256 after a precomputation for `maxciph`
+    ciphertexts; transcript byte-equal, and the verifier's test vectors
+    those vmn_tpu froze (tests/golden/test_vectors_{group}.json for the
+    wide groups, test_vectors_p384.json and test_vectors_p521.json for
+    P-384 and P-521, written by tests/torch_make_wide_golden.py)."""
     t0 = time.perf_counter()
     group = _group(name)
     n, make = ((3, group.from_affine) if name.startswith("P-")
                else (5, group.from_ints))
     golden = GOLDEN / f"nizkp_{name.replace('-', '').lower()}_k1"
-    tv_file = {"test256": "test_vectors.json",
-               "P-256": "test_vectors_p256.json",
-               "P-384": "test_vectors_p384.json"}.get(
-                   name, f"test_vectors_{name}.json")
+    tv_file = ("test_vectors.json" if name == "test256" else
+               f"test_vectors_{name.replace('-', '').lower()}.json")
     if maxciph:
         golden = golden.with_name(golden.name + "_precomp")
         tv_file = "test_vectors_precomp.json"
@@ -1574,6 +1639,13 @@ def multiexp_lines(path: str, wrapper: str, widths: list) -> None:
         phase("multiexp", group=path, wrapper=wrapper,
               **{k: (f"{v:.3f}" if k.endswith("ms") else v)
                  for k, v in r.items()})
+
+
+# The P-256 precomputation path's online mix at most (after a
+# precomputation for headroom(PC_EC_N) = 81920): its time is the plain
+# checks of its multi-exponentiations, cut so that the P-521 path fits
+# the run's limit; H6 is checked at 2^17 on the P-256 path (PERF.md §6).
+PC_EC_N = 1 << 16
 
 
 def headroom(n: int) -> int:
@@ -1975,9 +2047,6 @@ MIX_KERNELS = ("mont_mul", "mont_exp", "mont_fb_exp",
                "mont_expprod_positions", "mont_expprod_combine")
 EC_MIX_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
                   "ec_multiexp_combine", "ec_point_add")
-# The Montgomery kernels of the P-384 mix (W = 12): the field's and the
-# ring's products and powers.
-P384_MONT = ("mont_mul", "mont_exp")
 
 
 def cli_modp_phase(n: int, tmp: Path):
@@ -2324,7 +2393,7 @@ def main(argv=None) -> int:
                     help="ciphertexts in the modp2048, modp3072 and modp4096 "
                          "mixes (default 10000)")
     ap.add_argument("--ec-n", type=int, default=1 << 17,
-                    help="ciphertexts in the P-256 and P-384 mixes "
+                    help="ciphertexts in the P-256, P-384 and P-521 mixes "
                          "(default 131072)")
     ap.add_argument("--k3-n", type=int, default=10000,
                     help="ciphertexts in the modp2048 k=3 mix "
@@ -2332,7 +2401,7 @@ def main(argv=None) -> int:
     ap.add_argument("--k3i-n", type=int, default=1000,
                     help="ciphertexts in the modp2048 k=3 interactive mix "
                          "(default 1000)")
-    ap.add_argument("--profile", choices=["modp2048", "P-256", "P-384",
+    ap.add_argument("--profile", choices=["modp2048", *EC_PATH_CURVES,
                                           "modp2048-k3", "modp3072",
                                           "modp4096"],
                     action="append", default=[],
@@ -2359,43 +2428,35 @@ def main(argv=None) -> int:
         print("  ptxas " + line)
 
     t0 = time.perf_counter()
+    pc_ec_n = min(args.ec_n, PC_EC_N)
     checks = check_kernels(args.n, args.ec_n, headroom(args.n))
-    ec_small = check_ec_kernels(EC_CHECK_N)
-    checks.update(check_ec_kernels(args.ec_n))
-    checks["ec_scalar_mul_e64"] = check_ec_e64(headroom(args.ec_n))
-    for name, r in ec_small.items():
-        checks[name][f"at_{EC_CHECK_N}"] = r
-    checks.update(check_ec_tpis(
-        "ec_scalar_mul", {ec_small["ec_scalar_mul"]["tpi"],
-                          checks["ec_scalar_mul"]["tpi"]},
-        b"smoke-ec-tpi", smul_case))
-    checks.update(check_ec_tpis(
-        "ec_point_add", {ec_small["ec_point_add"]["tpi"],
-                         checks["ec_point_add"]["tpi"],
-                         checks["ec_point_add_b1"]["tpi"]},
-        b"smoke-ec-add-tpi", add_case))
-    # P-384 (W = 12): whole at 4096 points, on spread rows at --ec-n
-    p384_small = check_ec_kernels(EC_CHECK_N, "P-384")
-    checks.update(check_ec_kernels(args.ec_n, "P-384"))
-    for name, r in p384_small.items():
-        checks[name][f"at_{EC_CHECK_N}"] = r
-    checks.update(check_ec_tpis(
-        "ec_scalar_mul", {p384_small["ec_scalar_mul_p384"]["tpi"],
-                          checks["ec_scalar_mul_p384"]["tpi"]},
-        b"smoke-ec-tpi", smul_case, "P-384"))
-    checks.update(check_ec_tpis(
-        "ec_point_add", {p384_small["ec_point_add_p384"]["tpi"],
-                         checks["ec_point_add_p384"]["tpi"],
-                         checks["ec_point_add_b1_p384"]["tpi"]},
-        b"smoke-ec-add-tpi", add_case, "P-384"))
+    # each curve whole at 4096 points, and at --ec-n (P-384 and P-521 on
+    # spread rows); P-256 also at 64-bit scalars (the precomputation's)
+    for curve in EC_PATH_CURVES:
+        tag = curve_tag(curve)
+        small = check_ec_kernels(EC_CHECK_N, curve)
+        checks.update(check_ec_kernels(args.ec_n, curve))
+        if curve == "P-256":
+            checks["ec_scalar_mul_e64"] = check_ec_e64(headroom(pc_ec_n))
+        for name, r in small.items():
+            checks[name][f"at_{EC_CHECK_N}"] = r
+        checks.update(check_ec_tpis(
+            "ec_scalar_mul", {small[f"ec_scalar_mul{tag}"]["tpi"],
+                              checks[f"ec_scalar_mul{tag}"]["tpi"]},
+            b"smoke-ec-tpi", smul_case, curve))
+        checks.update(check_ec_tpis(
+            "ec_point_add", {small[f"ec_point_add{tag}"]["tpi"],
+                             checks[f"ec_point_add{tag}"]["tpi"],
+                             checks[f"ec_point_add_b1{tag}"]["tpi"]},
+            b"smoke-ec-add-tpi", add_case, curve))
     phase("kernels", checked=len(checks),
           phase_s=f"{time.perf_counter() - t0:.1f}")
 
     with tempfile.TemporaryDirectory(prefix="vmn_smoke_") as tmpname:
         tmp = Path(tmpname)
         golden_phase(tmp, "test256")
-        golden_phase(tmp, "P-256")
-        golden_phase(tmp, "P-384")
+        for curve in EC_PATH_CURVES:
+            golden_phase(tmp, curve)
         golden_phase(tmp, "test256", maxciph=8)
         golden_k3_phase(tmp)
         for group in WIDE_GROUPS:
@@ -2404,9 +2465,10 @@ def main(argv=None) -> int:
             "modp2048", args.n, tmp)
         wide_mix = {group: slice_phase(group, args.n, tmp)
                     for group in WIDE_GROUPS}
-        ec, ec_sizes, ec_widths, ec_s = slice_phase("P-256", args.ec_n, tmp)
-        p384, p384_sizes, p384_widths, _ = slice_phase("P-384", args.ec_n,
-                                                       tmp)
+        # curve: (launches, by batch, H6's calls, mix seconds)
+        ec_paths = {curve: slice_phase(curve, args.ec_n, tmp)
+                    for curve in EC_PATH_CURVES}
+        ec, ec_sizes, ec_widths, ec_s = ec_paths["P-256"]
         k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
         k3i, _, coins, _ = multiparty_phase(args.k3i_n, tmp,
                                             interactive=True)
@@ -2414,12 +2476,11 @@ def main(argv=None) -> int:
             "modp2048", 1, args.n, tmp, modp_s)
         pc3, pc3_mix, pc3_widths = precomp_phase(
             "modp2048", 3, args.k3_n, tmp, k3_s)
-        _, _, pc_ec_widths = precomp_phase("P-256", 1, args.ec_n, tmp, ec_s)
+        _, _, pc_ec_widths = precomp_phase("P-256", 1, pc_ec_n, tmp, ec_s)
         cli = cli_phase(args.n, args.k3_n, args.ec_n, VDEMO_N, tmp)
         for path in args.profile:
-            profile_phase(path, {"P-256": args.ec_n, "P-384": args.ec_n,
-                                 "modp2048-k3": args.k3_n}.get(path, args.n),
-                          tmp)
+            profile_phase(path, args.ec_n if path in EC_PATH_CURVES else
+                          {"modp2048-k3": args.k3_n}.get(path, args.n), tmp)
     compact = {"separators": (",", ":")}
     phase("launches", modp2048_mix=json.dumps(modp, **compact),
           p256_mix=json.dumps(ec, **compact),
@@ -2433,8 +2494,9 @@ def main(argv=None) -> int:
           modp2048_k3_by_batch=json.dumps(k3_sizes, **compact),
           modp2048_by_batch=json.dumps(modp_sizes, **compact),
           p256_by_batch=json.dumps(ec_sizes, **compact),
-          p384_mix=json.dumps(p384, **compact),
-          p384_by_batch=json.dumps(p384_sizes, **compact),
+          **{f"{curve_key(c)}_{part}": json.dumps(r[i], **compact)
+             for c, r in ec_paths.items() if c != "P-256"
+             for i, part in ((0, "mix"), (1, "by_batch"))},
           **{f"{g}_mix": json.dumps(r[0], **compact)
              for g, r in wide_mix.items()},
           **{f"{g}_by_batch": json.dumps(r[1], **compact)
@@ -2446,14 +2508,16 @@ def main(argv=None) -> int:
     # the precomputation path: each of H1-H4 and K7's combine in its
     # precomputation or its online mix
     missing += [k for k in K.KERNELS if pc[k] + pc_mix[k] == 0]
-    missing += [k for k in E.EC_KERNELS if ec[k] == 0 and k != "ec_fb_exp"]
-    # P-384: H5, H6, the EC combine and H8, and H1/H2 at W = 12 (every
-    # modulus of that mix, the field and the ring, has 24 limbs)
-    missing += [f"{k} (P-384)" for k in (*E.EC_KERNELS, *P384_MONT)
-                if p384[k] == 0 and k != "ec_fb_exp"]
+    # the curves: H5, H6, the EC combine and H8; at P-384 and P-521 also
+    # H1/H2 at the curve's width (every modulus of that mix, the field and
+    # the ring, has the curve's limb count)
+    for curve, (launches, *_) in ec_paths.items():
+        need = (*E.EC_KERNELS, *(CURVE_MONT if curve != "P-256" else ()))
+        missing += [k if curve == "P-256" else f"{k} ({curve})"
+                    for k in need if launches[k] == 0 and k != "ec_fb_exp"]
     if missing:
         raise AssertionError(f"not launched in their path's mix: {missing}")
-    for path, launches in (("P-256", ec), ("P-384", p384)):
+    for path, (launches, *_) in ec_paths.items():
         if (args.ec_n <= E.EP_SUPER and launches["ec_multiexp_combine"]
                 != launches["ec_multiexp_positions"]):
             # below EP_SUPER points H6 counts one launch a
@@ -2463,10 +2527,10 @@ def main(argv=None) -> int:
 
     torch.cuda.synchronize()
     kernels = []
+    # the wider curves' widths for the Montgomery kernels' check names
+    curve_w = {"P-384": "_w12", "P-521": "_w20"}
     for name in (*K.KERNELS, *E.EC_KERNELS):
         is_ec = name in E.EC_KERNELS
-        tag = "_p384" if is_ec else "_w12"
-        w12 = checks_at(checks, name, tag, (*K.KERNELS, *E.EC_KERNELS))
         kernels.append({
             "name": name, "route": "cuda",
             "source": "vmn_tpu_torch/csrc/"
@@ -2475,11 +2539,16 @@ def main(argv=None) -> int:
             "launches": (ec if is_ec else modp)[name],
             "path": "P-256 mix" if is_ec else "modp2048 mix",
             **checks[MAIN_CHECK[name]]})
-        # the same kernel at W = 12: its launches in the P-384 mix and its
-        # check at that path's batch (none where W = 12 has no kernel)
-        kernels[-1]["p384"] = {
-            "launches": p384[name], **checks.get(MAIN_CHECK[name] + tag, {}),
-            "checks": w12}
+        # the same kernel at P-384 (W = 12) and P-521 (W' = 20): its
+        # launches in that curve's mix and its check at that path's batch
+        # (none where the width has no kernel)
+        for curve, tag in curve_w.items():
+            tag = curve_tag(curve) if is_ec else tag
+            kernels[-1][curve_key(curve)] = {
+                "launches": ec_paths[curve][0][name],
+                **checks.get(MAIN_CHECK[name] + tag, {}),
+                "checks": checks_at(checks, name, tag,
+                                    (*K.KERNELS, *E.EC_KERNELS))}
         if not is_ec:
             kernels[-1]["launches_by_path"] = {
                 "modp2048 mix": modp[name], "modp2048 k=3 mix": k3[name],
@@ -2491,14 +2560,14 @@ def main(argv=None) -> int:
                 "modp2048 k=3 precomp online mix": pc3_mix[name],
                 **{path: launches[name] for path, launches in cli.items()},
                 **{f"{g} mix": r[0][name] for g, r in wide_mix.items()},
-                "P-384 mix": p384[name]}
+                **{f"{c} mix": ec_paths[c][0][name] for c in curve_w}}
             # the same kernel at W = 96 and 128: its checks there
             kernels[-1]["wide"] = {
                 g: checks_at(checks, name, f"_w{W}", K.KERNELS)
                 for g, W in WIDE_GROUPS.items()}
         else:
             kernels[-1]["launches_by_path"] = {
-                "P-256 mix": ec[name], "P-384 mix": p384[name],
+                **{f"{c} mix": r[0][name] for c, r in ec_paths.items()},
                 "cli P-256 mix": cli["cli P-256 mix"][name]}
     for name in ("mont_mul", "mont_exp"):
         kernels[K.KERNELS.index(name)].update(
@@ -2506,14 +2575,14 @@ def main(argv=None) -> int:
             w8_at_n=checks[f"{name}_w8_n"],
             w8_batch1=checks[f"{name}_w8_b1"],
             launches_by_batch={"modp2048 mix": modp_sizes[name],
-                               "P-256 mix": ec_sizes[name],
-                               "P-384 mix": p384_sizes[name],
+                               **{f"{c} mix": r[1][name]
+                                  for c, r in ec_paths.items()},
                                **{f"{g} mix": r[1][name]
                                   for g, r in wide_mix.items()}})
     ec_at = {name: len(K.KERNELS) + i for i, name in enumerate(E.EC_KERNELS)}
     for name in E.LAUNCH_SIZES:
         kernels[ec_at[name]]["launches_by_batch"] = {
-            "P-256 mix": ec_sizes[name], "P-384 mix": p384_sizes[name]}
+            f"{c} mix": r[1][name] for c, r in ec_paths.items()}
     kernels[K.KERNELS.index("mont_exp")]["precomp_e64"] = checks[
         "mont_exp_e64"]
     kernels[K.KERNELS.index("mont_expprod_positions")].update(
@@ -2531,7 +2600,7 @@ def main(argv=None) -> int:
                            if k.startswith("ec_point_add_tpi")])
     kernels[ec_at["ec_multiexp_positions"]].update(
         path_calls=ec_widths, precomp_path_calls=pc_ec_widths,
-        p384_path_calls=p384_widths)
+        **{f"{curve_key(c)}_path_calls": ec_paths[c][2] for c in curve_w})
     kernels[ec_at["ec_scalar_mul"]].update(
         precomp_e64=checks["ec_scalar_mul_e64"],
         at_first_n_of_tpi=[r for k, r in checks.items()

@@ -232,7 +232,12 @@ def test_mexp_order_is_the_kernels(n, npos, w):
 
 
 def test_mexp_shape_refuses_too_many_positions():
+    """The one-thread form folds at most a position a fold thread; the
+    cooperative form (P-521's inner width) takes the items in rounds."""
     for w, (_, folders) in E.MEXP_SHAPES.items():
+        if w in E.MEXP_TPI:
+            assert E.mexp_shape(1000, folders + 16, w) == (63, 1)
+            continue
         with pytest.raises(ValueError, match="digit positions"):
             E.mexp_shape(1000, folders + 16, w)
 
@@ -460,10 +465,12 @@ def test_bytetree_round_trip_with_infinity(arrays, tg):
 @pytest.mark.parametrize("name", ["P-224", "P-384", "P-521"])
 def test_other_curves_on_the_cpu(jx, name):
     """The other NIST curves run through the plain versions on the CPU,
-    P-521's odd L = 33 included (on the card P-224's and P-521's widths
-    have no kernel yet; P-384's are held in tests/test_torch_p384.py):
-    addition, doubling and P + (-P) against Python ints; the
-    message codec and the byte tree against vmn_tpu."""
+    P-521's odd L = 33 included (on the card P-384's kernels are held in
+    tests/test_torch_p384.py, P-521's at the inner width W' = 20 in
+    tests/test_torch_p521_kernels.py; P-224's width has no kernel yet,
+    test_p224_on_the_card_raises_by_width): addition, doubling and
+    P + (-P) against Python ints; the message codec and the byte tree
+    against vmn_tpu."""
     tg = TGroup.named(name, device="cpu")
     jg = jx.JEC.ECqPGroup.named(name)
     p, a, G = _host(tg)
@@ -477,6 +484,37 @@ def test_other_curves_on_the_cpu(jx, name):
     assert tg.decode_message(pt) == b"vmn"
     assert (tg.from_affine([pt, G]).to_bytetree().to_bytes()
             == jg.from_affine([pt, G]).to_bytetree().to_bytes())
+
+
+def test_p224_on_the_card_raises_by_width():
+    """P-224 (L = 14 limbs, W = 7 words) has no kernel instantiated: on a
+    tensor that is not on the CPU every wrapper of its path raises a
+    ValueError naming the width, before any launch and with no plain
+    fallback; P-521 maps to its inner width W' = 20 and P-384 to W = 12.
+    (A tensor on the "meta" device stands in for the card's: the wrappers
+    take the plain versions for CPU tensors alone.)"""
+    from vmn_tpu_torch.arith.ec import _CURVES
+
+    meta = torch.device("meta")
+    mod = E.K.Modulus.of(_CURVES["P-224"][0], 14, meta)
+    assert (mod.L, mod.W, mod.conv) == (14, 7, False)
+    x = torch.empty((4, 14), dtype=torch.int32, device=meta)
+    inf = torch.zeros(4, dtype=torch.bool, device=meta)
+    calls = {
+        "mont_mul": lambda: E.K.mont_mul(x, x, mod),
+        "mont_exp": lambda: E.K.mont_exp(x, x, mod, 224),
+        "ec_point_add": lambda: E.ec_point_add(x, x, x, x, x, x, mod),
+        "ec_scalar_mul": lambda: E.ec_scalar_mul(x, x, inf, x, mod, 224),
+        "ec_multiexp_positions": lambda: E.ec_multiexp_positions(
+            x, x, inf, x, mod, 224),
+        "ec_multiexp_combine": lambda: E.ec_multiexp_combine(x, x, x, mod),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=rf"{name}: no kernel "
+                           r"instantiated for L=14 \(W=7\)"):
+            call()
+    assert E.K.Modulus.of(_CURVES["P-521"][0], 33, "cpu").W == 20
+    assert E.K.Modulus.of(_CURVES["P-384"][0], 24, "cpu").W == 12
 
 
 def test_encode_decode_message_matches(jx, tg):

@@ -151,9 +151,10 @@ def test_coop_launch_covers_every_element(w):
     some N; the launch's threads cover every element's lanes in whole
     warps, with no block left idle (H4's launch, `ep_launch`, takes the
     TPI of its rule and whole warps of at most EP_BLOCK threads).  At
-    W = 12 (P-384) only H1 and H2 are built, and have rules."""
+    W = 12 (P-384) and W' = 20 (P-521) only H1 and H2 are built, and have
+    rules."""
     for kernel in ("mont_mul", "mont_exp", "mont_expprod_positions"):
-        if w == 12 and kernel == "mont_expprod_positions":
+        if w in (12, 20) and kernel == "mont_expprod_positions":
             with pytest.raises(ValueError, match="no kernel"):
                 K.threads_per_element(kernel, w, 1)
             continue
@@ -223,8 +224,9 @@ def test_fb_launch_fills_the_card(w):
     threads cover every element's lanes; up to 132·FB_BLOCK lanes the
     blocks fill every SM once (N = 10000 at W = 64: 132 blocks) and from
     32 elements an SM no fewer than 90 % of the SMs get a block.  At
-    W = 12 (P-384) H3 is not built, and its launch raises."""
-    if w == 12:
+    W = 12 (P-384) and W' = 20 (P-521) H3 is not built, and its launch
+    raises."""
+    if w in (12, 20):
         with pytest.raises(ValueError, match="no kernel"):
             K.fb_launch(w, 1, 132)
         return

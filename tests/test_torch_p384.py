@@ -14,8 +14,10 @@ limbs) against `vmn_tpu` on the CPU.
   them, at P-384 on small batches: H8 (K12), H5 (K9), H6 with the
   position combine (K10, compared after `normalize`, as at P-256), H7
   (K11), and H1 and H2 (K2, K3) on the field and on the scalar ring.
-* H6's shape at W = 12 (`MEXP_SHAPES`) against the kernel's (its launch
-  order: tests/test_torch_ec.py::test_mexp_order_is_the_kernels).
+* At each EC width (W = 8, 12 and P-521's inner 24): the TPI rules,
+  their instantiations and H6's shape (`MEXP_SHAPES`) against the
+  kernel's (its launch order: tests/test_torch_ec.py::
+  test_mexp_order_is_the_kernels), one parametrised test.
 * The carry-across of P-384 state from `vmn_tpu` (`interop`).
 * On a CUDA device only (skipped here): H1 and H2 at W = 12 at every TPI
   of their rules, and the golden mix on the card.
@@ -348,58 +350,9 @@ def test_multiexp_combine_plain_matches_python(tg):
     assert not inf.all()
 
 
-# --------------------------------------------------- H6's shape at W = 12
+# ------------------------------ the TPI rules and H6's shape at each width
 
-
-def test_mexp_shapes_fit_the_block():
-    """Each width's H6 shape as csrc/ec_kernels.cuh lays it out: the
-    kernel's MexpShape<W> is MEXP_SHAPES[W]; two chunks of 16-entry
-    tables (45·W + 4 words a point), a slot of 6·W + 1 words a folder and
-    the modulus and one (2·W words) within the 227 KB a block may use; a
-    builder a point of the chunk (two warps)."""
-    src = (CSRC / "ec_kernels.cuh").read_text()
-    built = {int(w): (int(c), int(f)) for w, f, c in re.findall(
-        r"struct MexpShape<(\d+)> \{\s*static constexpr int kBuilders = 64, "
-        r"kFolders = (\d+), kChunk = (\d+);", src)}
-    assert built == E.MEXP_SHAPES
-    for w, (chunk, folders) in E.MEXP_SHAPES.items():
-        words = 2 * chunk * (45 * w + 4) + folders * (6 * w + 1) + 2 * w
-        assert 4 * words <= 232448 and chunk <= 64 and folders % 32 == 0
-        # a larger chunk would not fit
-        assert 4 * (words + 2 * (45 * w + 4)) > 232448 or w == 8
-
-
-@pytest.mark.parametrize("kernel", ["mont_mul", "mont_exp", "ec_scalar_mul",
-                                    "ec_multiexp_combine", "ec_point_add"])
-def test_w12_rules_cover_every_batch(kernel):
-    """The TPI rules at W = 12: every N >= 1 has a TPI that divides 12 (a
-    power of two, so 1, 2 or 4), fewer lanes as N grows, each TPI reached
-    at its first N; every launch covers its elements' lanes in whole
-    warps of at most one block's threads.  The combine is one point.  H3
-    and H4 have no kernel at W = 12, and their rules raise."""
-    rule = K.COOP_TPI[kernel, 12]
-    assert rule[-1][0] == 1
-    assert [lo for lo, _ in rule] == sorted({lo for lo, _ in rule},
-                                            reverse=True)
-    if kernel == "ec_multiexp_combine":
-        assert len(rule) == 1
-    last = None
-    edges = {lo + d for lo, _ in rule for d in (-1, 0, 1) if lo + d}
-    for n in sorted({1, 2, 31, 4096, 1 << 17, 5 * 10**6, *edges}):
-        tpi, threads, blocks = K.coop_launch(kernel, 12, n)
-        assert tpi in (1, 2, 4) and threads % 32 == 0
-        assert 0 < threads <= K.COOP_BLOCK
-        assert (blocks - 1) * threads < n * tpi <= blocks * threads
-        assert last is None or tpi <= last
-        last = tpi
-    for lo, tpi in rule:
-        assert K.threads_per_element(kernel, 12, lo) == tpi
-    for other in ("mont_fb_exp", "mont_expprod_positions"):
-        with pytest.raises(ValueError, match="no kernel"):
-            K.threads_per_element(other, 12, 1)
-
-
-# (entry point, its source file) of each cooperative wrapper at W = 12
+# (entry point, its source file) of each cooperative wrapper
 _ENTRY = {"mont_mul": ("vmn_mont_mul", "mont_kernels.cu"),
           "mont_exp": ("vmn_mont_exp", "mont_kernels.cu"),
           "ec_scalar_mul": ("vmn_ec_smul", "ec_kernels.cu"),
@@ -408,31 +361,111 @@ _ENTRY = {"mont_mul": ("vmn_mont_mul", "mont_kernels.cu"),
 # the class template of ec_launch.cuh that each EC entry point reaches
 _LAUNCHER = {"ec_scalar_mul": "Smul", "ec_multiexp_combine": "Chain",
              "ec_point_add": "Add"}
+# each EC width (P-256's W = 8, P-384's 12, P-521's inner 24): its rules
+# cover every batch, each TPI of a rule is built, H6's shape fits
+_WIDTH_CASES = ([(w, "rules", k) for w in E._WIDTHS for k in _ENTRY]
+                + [(w, "built", k) for w in E._WIDTHS for k in _ENTRY]
+                + [(w, "mexp", None) for w in E._WIDTHS])
 
 
-@pytest.mark.parametrize("kernel", list(_ENTRY))
-def test_w12_rules_name_built_tpis(kernel):
-    """Each TPI of a W = 12 rule has its case in the entry point's
-    switch, and for the EC kernels an instantiation in ec_w12.cu; every
-    W = 12 case of the switch is one the rule can choose (an unchosen
-    instantiation is not built); H6 and H7 have their W = 12 case and
-    instantiation too."""
+def _rules_cover_every_batch(w, kernel):
+    """Every N >= 1 has a TPI that divides W (a power of two within a
+    warp), fewer lanes as N grows, each TPI reached at its first N; every
+    launch covers its elements' lanes in whole warps of at most one
+    block's threads.  The combine is one point.  H3 and H4 have kernels
+    at W = 8 alone, and their rules raise at the other EC widths."""
+    rule = K.COOP_TPI[kernel, w]
+    assert rule[-1][0] == 1
+    assert [lo for lo, _ in rule] == sorted({lo for lo, _ in rule},
+                                            reverse=True)
+    if kernel == "ec_multiexp_combine":
+        assert len(rule) == 1
+    last = None
+    edges = {lo + d for lo, _ in rule for d in (-1, 0, 1) if lo + d}
+    for n in sorted({1, 2, 31, 4096, 1 << 17, 5 * 10**6, *edges}):
+        tpi, threads, blocks = K.coop_launch(kernel, w, n)
+        assert w % tpi == 0 and 32 % tpi == 0 and threads % 32 == 0
+        assert 0 < threads <= K.COOP_BLOCK
+        assert (blocks - 1) * threads < n * tpi <= blocks * threads
+        assert last is None or tpi <= last
+        last = tpi
+    for lo, tpi in rule:
+        assert K.threads_per_element(kernel, w, lo) == tpi
+    for other in ("mont_fb_exp", "mont_expprod_positions"):
+        if w != 8:
+            with pytest.raises(ValueError, match="no kernel"):
+                K.threads_per_element(other, w, 1)
+
+
+def _rules_name_built_tpis(w, kernel):
+    """Each TPI of the rule has its case in the entry point's switch, and
+    for the EC kernels an instantiation in ec_w{W}.cu; every case of the
+    switch at W is one the rule can choose (an unchosen instantiation is
+    not built); H6 has its case and instantiation at every EC width, H7
+    at the unpadded ones (P-521's inner width has none: off the path)."""
     fn, name = _ENTRY[kernel]
     src = (CSRC / name).read_text()
     body = re.search(rf"int {fn}\(.*?\n\}}", src, re.S).group(0)
-    cases = {int(t) for w, t in re.findall(r"case (\d+) << 8 \| (\d+):",
-                                           body) if w == "12"}
-    assert cases == {t for _, t in K.COOP_TPI[kernel, 12]}
+    cases = {int(t) for w2, t in re.findall(r"case (\d+) << 8 \| (\d+):",
+                                            body) if int(w2) == w}
+    assert cases == {t for _, t in K.COOP_TPI[kernel, w]}
+    inst = (CSRC / f"ec_w{w}.cu").read_text()
     if kernel in _LAUNCHER:
-        inst = (CSRC / "ec_w12.cu").read_text()
         assert cases == {int(t) for t in re.findall(
-            rf"template struct {_LAUNCHER[kernel]}<12, (\d+)>;", inst)}
+            rf"template struct {_LAUNCHER[kernel]}<{w}, (\d+)>;", inst)}
     if kernel == "ec_point_add":
-        assert "template struct Mexp<12>;" in (
-            CSRC / "ec_mexp_w12.cu").read_text()
-        assert "template struct Fb<12>;" in (CSRC / "ec_w12.cu").read_text()
-        assert "case 12: return Mexp<12>::launch" in src
-        assert "case 12: return Fb<12>::launch" in src
+        assert f"template struct Mexp<{w}>;" in (
+            CSRC / f"ec_mexp_w{w}.cu").read_text()
+        assert f"case {w}: return Mexp<{w}>::launch" in src
+        padded = w in K.INNER_WORDS.values()
+        assert (f"template struct Fb<{w}>;" in inst) == (not padded)
+        assert (f"case {w}: return Fb<{w}>::launch" in src) == (not padded)
+
+
+def _mexp_shape_fits_the_block(w):
+    """H6's shape as csrc/ec_kernels.cuh lays it out: the kernel's
+    MexpShape<W> is MEXP_SHAPES[W] (and MEXP_TPI[W] lanes a group at the
+    padded widths).  One thread a builder and a folder: two chunks of
+    16-entry tables (45·W + 4 words a point), a slot of 6·W + 1 words a
+    folder and the modulus and one (2·W words) within the 227 KB a block
+    may use, a builder a point of the chunk (two warps), and a larger
+    chunk would not fit.  Groups of lanes: builders and folders in whole
+    warps sharing the chunk, at most 1024 threads, and the two chunks
+    with a running sum (3·W words) an item for a 521-bit scalar's 144
+    positions within the 227 KB."""
+    src = (CSRC / "ec_kernels.cuh").read_text()
+    built = {int(m[0]): tuple(map(int, m[1:])) for m in re.findall(
+        r"struct MexpShape<(\d+)> \{\s*static constexpr int kTPI = (\d+);"
+        r"\s*static constexpr int kBuilders = (\d+), kFolders = (\d+), "
+        r"kChunk = (\d+);", src)}
+    assert set(built) == set(E.MEXP_SHAPES) >= set(E._WIDTHS)
+    tpi, builders, folders, chunk = built[w]
+    assert (chunk, folders) == E.MEXP_SHAPES[w]
+    assert tpi == E.MEXP_TPI.get(w, 1)
+    tables = 2 * chunk * (45 * w + 4)
+    if tpi == 1:
+        words = tables + folders * (6 * w + 1) + 2 * w
+        assert 4 * words <= 232448 and chunk <= builders == 64
+        assert folders % 32 == 0
+        assert 4 * (words + 2 * (45 * w + 4)) > 232448 or w == 8
+    else:
+        assert builders * tpi % 32 == 0 and folders * tpi % 32 == 0
+        assert chunk % builders == 0
+        assert (builders + folders) * tpi <= 1024
+        rounds = -(-144 // folders)
+        assert 4 * (tables + rounds * folders * 3 * w) <= 232448
+
+
+@pytest.mark.parametrize("w,check,kernel", _WIDTH_CASES)
+def test_ec_width_rules_and_shapes(w, check, kernel):
+    """The launch rules and shapes of one EC width (see the three checks
+    above)."""
+    if check == "rules":
+        _rules_cover_every_batch(w, kernel)
+    elif check == "built":
+        _rules_name_built_tpis(w, kernel)
+    else:
+        _mexp_shape_fits_the_block(w)
 
 
 # ---------------------------------------------------------------- interop

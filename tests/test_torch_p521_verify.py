@@ -1,0 +1,45 @@
+"""The port's verifier at the NIST curve P-521 on the transcript that
+`vmn_tpu` wrote (tests/golden/nizkp_p521_k1, by
+tests/torch_make_wide_golden.py), on the CPU: accepted, with the 41 test
+vectors of tests/golden/test_vectors_p521.json, and rejected with one
+flipped reply byte.  (The port's own mix at P-521 is
+tests/test_torch_p521.py.)
+"""
+
+import json
+import shutil
+from pathlib import Path
+
+from torch_port_util import TV_NAMES
+from vmn_tpu_torch.arith.ec import ECqPGroup as TGroup
+
+GOLDEN = Path(__file__).parent / "golden" / "nizkp_p521_k1"
+
+
+def _params():
+    from vmn_tpu_torch.protocol.context import ProtocolParams
+
+    return ProtocolParams(sid="Golden", k=1, threshold=1,
+                          pgroup=TGroup.named("P-521", device="cpu"))
+
+
+def test_port_verifier_accepts_vmn_tpu_p521_transcript():
+    from vmn_tpu_torch.protocol.mixnet.verifier import FiatShamirVerifier
+
+    v = FiatShamirVerifier(_params(), GOLDEN, test_vectors=TV_NAMES)
+    assert v.verify(expected_type="mixing").ok
+    want = json.loads((GOLDEN.parent / "test_vectors_p521.json").read_text())
+    assert len(want) == 41 and v.tv == want
+
+
+def test_port_verifier_rejects_flipped_p521_reply_byte(tmp_path):
+    from vmn_tpu_torch.protocol.mixnet.verifier import FiatShamirVerifier
+
+    nizkp = tmp_path / "nizkp"
+    shutil.copytree(GOLDEN, nizkp)
+    reply = nizkp / "proofs" / "PoSReply01.bt"
+    raw = bytearray(reply.read_bytes())
+    raw[-1] ^= 0x01
+    reply.write_bytes(bytes(raw))
+    assert not FiatShamirVerifier(_params(), nizkp).verify(
+        expected_type="mixing").ok

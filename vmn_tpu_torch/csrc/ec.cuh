@@ -59,7 +59,9 @@ __device__ __forceinline__ void set_zero(uint32_t* r) {
   for (int k = 0; k < W; ++k) r[k] = 0;
 }
 
-// r = (a + b) mod m for canonical a, b < m; r may alias a or b.
+// r = (a + b) mod m for canonical a, b < m; r may alias a or b.  a + b <
+// 2m < 2R: one carry out of the top word, for any m < R (a padded modulus
+// too); every value stays canonical, so nothing is lazy.
 template <int W>
 __device__ __forceinline__ void fadd(uint32_t* r, const uint32_t* a,
                                      const uint32_t* b,

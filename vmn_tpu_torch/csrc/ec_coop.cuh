@@ -103,7 +103,9 @@ __device__ __forceinline__ uint32_t coop_sub_words(uint32_t* d,
   return top;
 }
 
-// r = (a + b) mod m for canonical a, b < m; r may alias a or b.
+// r = (a + b) mod m for canonical a, b < m; r may alias a or b.  As in
+// ec.cuh, a + b < 2m < 2R carries at most once out of the top lane, for
+// any m < R (a padded modulus too).
 template <int W, int TPI>
 __device__ __forceinline__ void coop_fadd(uint32_t* r, const uint32_t* a,
                                           const uint32_t* b,
@@ -182,6 +184,20 @@ __device__ __forceinline__ void point_double_as_add(const Fld& F, uint32_t* X,
   msel<S>(X, inf, X, dX);
   msel<S>(Y, inf, Y, dY);
   msel<S>(Z, inf, Z, dZ);
+}
+
+// A point's three coordinates through coop_rebase (mont_coop.cuh): to the
+// kernel's radix (c_in) or back (c_out) at a padded modulus; nothing where
+// c is NULL.  Zero stays zero, so Z == 0 (infinity) is kept.
+template <int W, int TPI>
+__device__ __forceinline__ void coop_rebase3(uint32_t* X, uint32_t* Y,
+                                             uint32_t* Z, const int32_t* c,
+                                             const uint32_t* m, uint32_t mp) {
+  if (c == nullptr) return;
+  uint32_t k[W / TPI];
+  load_slice<W, TPI>(k, c);
+  coop_mont_mul2<W, TPI>(X, X, k, Y, Y, k, m, mp);
+  coop_mont_mul<W, TPI>(Z, Z, k, m, mp);
 }
 
 }  // namespace vmn

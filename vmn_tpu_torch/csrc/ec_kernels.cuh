@@ -54,8 +54,10 @@ __device__ __forceinline__ void load_one(uint32_t* dst, const int32_t* one) {
 // pairs and three times slower on one; TPI 2 held to 96 or 80 registers
 // (20 or 24 warps an SM), slower at 2^17.  ptxas
 // (sm_90a) at W = 8: TPI 2 / 4 / 8 107 / 68 / 47 registers, at W = 12 TPI
-// 4 84; no stack frame, no spill.  At W = 12, TPI 2 (142 registers under a
-// bound of 255) was slower than TPI 4 at every batch and is not built.
+// 4 84, at W' = 20 (P-521) TPI 4 123; no stack frame, no spill.  At
+// W = 12, TPI 2 (142 registers under a bound of 255) was slower than TPI 4
+// at every batch and is not built; at W' = 20 TPI 2 spilled 492 bytes
+// under its bound of 128 registers and was slower at every batch.
 template <int W, int TPI>
 __global__ void __launch_bounds__(kThreads, 4)
     ec_add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
@@ -63,7 +65,8 @@ __global__ void __launch_bounds__(kThreads, 4)
                   const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
                   int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                   int32_t* __restrict__ oz, const int32_t* __restrict__ m,
-                  uint32_t mp, int64_t n) {
+                  uint32_t mp, const int32_t* __restrict__ c_in,
+                  const int32_t* __restrict__ c_out, int64_t n) {
   constexpr int S = W / TPI;
   bool live;
   const int64_t e = vmn::group_element<TPI>(n, &live);
@@ -75,8 +78,11 @@ __global__ void __launch_bounds__(kThreads, 4)
   vmn::load_slice<W, TPI>(X2, x2 + e * 2 * W);
   vmn::load_slice<W, TPI>(Y2, y2 + e * 2 * W);
   vmn::load_slice<W, TPI>(Z2, z2 + e * 2 * W);
+  vmn::coop_rebase3<W, TPI>(X1, Y1, Z1, c_in, mm, mp);
+  vmn::coop_rebase3<W, TPI>(X2, Y2, Z2, c_in, mm, mp);
   const vmn::CoopField<W, TPI> F{mm, mp};
   vmn::point_add(F, X1, Y1, Z1, X1, Y1, Z1, X2, Y2, Z2);
+  vmn::coop_rebase3<W, TPI>(X1, Y1, Z1, c_out, mm, mp);
   if (live) {
     vmn::store_slice<W, TPI>(ox + e * 2 * W, X1);
     vmn::store_slice<W, TPI>(oy + e * 2 * W, Y1);
@@ -89,11 +95,12 @@ int Add<W, TPI>::launch(const int32_t* x1, const int32_t* y1,
                         const int32_t* z1, const int32_t* x2,
                         const int32_t* y2, const int32_t* z2, int32_t* ox,
                         int32_t* oy, int32_t* oz, const int32_t* m,
-                        uint32_t mp, int64_t n, int threads, int64_t blocks,
-                        cudaStream_t s) {
+                        uint32_t mp, const int32_t* c_in,
+                        const int32_t* c_out, int64_t n, int threads,
+                        int64_t blocks, cudaStream_t s) {
   if (!vmn::coop_shape_ok<TPI>(threads, blocks)) return kBadShape;
   ec_add_kernel<W, TPI><<<(unsigned)blocks, threads, 0, s>>>(
-      x1, y1, z1, x2, y2, z2, ox, oy, oz, m, mp, n);
+      x1, y1, z1, x2, y2, z2, ox, oy, oz, m, mp, c_in, c_out, n);
   return (int)cudaGetLastError();
 }
 
@@ -127,7 +134,8 @@ int Add<W, TPI>::launch(const int32_t* x1, const int32_t* y1,
 // the one-thread kernel it replaced.  A one-thread form with its 1.5 KB
 // table in shared memory fits 4 warps an SM and spills (measured, PERF.md
 // §6).  ptxas (sm_90a) at W = 8: TPI 4 / 2 64 / 96 registers, at W = 12
-// TPI 4 84; no stack frame, no spill.  At W = 12 the table is 72 KB a
+// TPI 4 84, at W' = 20 TPI 4 128; no stack frame, no spill.  At W' = 20
+// the table is 120 KB a block of 128 threads (one block an SM).  At W = 12 the table is 72 KB a
 // block of 128 threads at TPI 4 (three blocks an SM) and 144 KB at TPI 2
 // (one), which measured slower at every batch (151.5 against 103.1 ms at
 // 2^17 points) and is not built; at TPI 1 it would be 288 KB, more than a
@@ -138,8 +146,10 @@ __global__ void __launch_bounds__(kThreads)
                    const uint8_t* __restrict__ inf, const int32_t* __restrict__ e,
                    int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                    int32_t* __restrict__ oz, const int32_t* __restrict__ m,
-                   const int32_t* __restrict__ one, uint32_t mp, int64_t n,
-                   int le, int ndig) {
+                   const int32_t* __restrict__ one, uint32_t mp,
+                   const int32_t* __restrict__ c_in,
+                   const int32_t* __restrict__ c_out, int64_t n, int le,
+                   int ndig) {
   constexpr int S = W / TPI;
   extern __shared__ uint32_t smul_tbl[];  // [kEntries][3][S][blockDim.x]
   bool live;
@@ -151,6 +161,8 @@ __global__ void __launch_bounds__(kThreads)
   vmn::load_slice<W, TPI>(o, one);
   vmn::load_slice<W, TPI>(X1, x + idx * 2 * W);
   vmn::load_slice<W, TPI>(Y1, y + idx * 2 * W);
+  vmn::coop_rebase<W, TPI>(X1, c_in, mm, mp);
+  vmn::coop_rebase<W, TPI>(Y1, c_in, mm, mp);
   const uint32_t pinf = 0u - (uint32_t)(inf[idx] != 0);
   const vmn::CoopField<W, TPI> F{mm, mp};
   uint32_t aX[S], aY[S], aZ[S];
@@ -205,6 +217,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     vmn::point_add(F, aX, aY, aZ, aX, aY, aZ, fX, fY, fZ);
   }
+  vmn::coop_rebase3<W, TPI>(aX, aY, aZ, c_out, mm, mp);
   if (live) {
     vmn::store_slice<W, TPI>(ox + idx * 2 * W, aX);
     vmn::store_slice<W, TPI>(oy + idx * 2 * W, aY);
@@ -224,14 +237,17 @@ __global__ void __launch_bounds__(kThreads)
 // throughput; the paired products of the formulas halve the rounds of a
 // point operation.  Launched as one warp: the groups past the first
 // (TPI < 32) compute the same chain and do not store.  ptxas (sm_90a):
-// 48 registers at TPI 8, no stack frame, no spill.
+// 48 registers at TPI 8, 124 at W' = 20 TPI 4 (with the boundary
+// conversion of each position), no stack frame, no spill.
 template <int W, int TPI>
 __global__ void __launch_bounds__(32)
     ec_chain_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                     const int32_t* __restrict__ pz, int32_t* __restrict__ ox,
                     int32_t* __restrict__ oy, int32_t* __restrict__ oz,
                     const int32_t* __restrict__ m,
-                    const int32_t* __restrict__ one, uint32_t mp, int npos) {
+                    const int32_t* __restrict__ one, uint32_t mp,
+                    const int32_t* __restrict__ c_in,
+                    const int32_t* __restrict__ c_out, int npos) {
   constexpr int S = W / TPI;
   uint32_t mm[S], aX[S], aY[S], aZ[S], fX[S], fY[S], fZ[S];
   vmn::load_slice<W, TPI>(mm, m);
@@ -244,10 +260,12 @@ __global__ void __launch_bounds__(32)
     vmn::load_slice<W, TPI>(fX, px + (int64_t)j * 2 * W);
     vmn::load_slice<W, TPI>(fY, py + (int64_t)j * 2 * W);
     vmn::load_slice<W, TPI>(fZ, pz + (int64_t)j * 2 * W);
+    vmn::coop_rebase3<W, TPI>(fX, fY, fZ, c_in, mm, mp);
 #pragma unroll 1
     for (int s = 0; s < 4; ++s) vmn::point_double_as_add(F, aX, aY, aZ);
     vmn::point_add(F, aX, aY, aZ, aX, aY, aZ, fX, fY, fZ);
   }
+  vmn::coop_rebase3<W, TPI>(aX, aY, aZ, c_out, mm, mp);
   if (threadIdx.x < TPI) {
     vmn::store_slice<W, TPI>(ox, aX);
     vmn::store_slice<W, TPI>(oy, aY);
@@ -259,10 +277,11 @@ template <int W, int TPI>
 int Chain<W, TPI>::launch(const int32_t* px, const int32_t* py,
                           const int32_t* pz, int32_t* ox, int32_t* oy,
                           int32_t* oz, const int32_t* m, const int32_t* one,
-                          uint32_t mp, int npos, cudaStream_t s) {
+                          uint32_t mp, const int32_t* c_in,
+                          const int32_t* c_out, int npos, cudaStream_t s) {
   if (npos < 1) return kBadShape;
   ec_chain_kernel<W, TPI><<<1, 32, 0, s>>>(px, py, pz, ox, oy, oz, m, one, mp,
-                                           npos);
+                                           c_in, c_out, npos);
   return (int)cudaGetLastError();
 }
 
@@ -320,19 +339,35 @@ int Chain<W, TPI>::launch(const int32_t* px, const int32_t* py,
 // registers (256 threads, 8 warps an SM), which it uses with no stack
 // frame and no spill, and 40 points a chunk fill what the slots leave of
 // the 227 KB (H100, PERF.md §6).
+//
+// At the padded widths (P-521: L = 33 limbs in W' words) one thread a
+// point cannot hold a product's operands: the addition's temporaries
+// alone are ~19·W words, past 255 registers from W = 14 on.  There H6 is
+// ec_mexp_coop_kernel below: the same builders and folders, each a group
+// of kTPI lanes with the cooperative field (ec_coop.cuh), kBuilders and
+// kFolders counting groups.
 template <int W>
 struct MexpShape;
 
 template <>
 struct MexpShape<8> {
+  static constexpr int kTPI = 1;
   static constexpr int kBuilders = 64, kFolders = 320, kChunk = 56;
   static constexpr int kThreads = kBuilders + kFolders;
 };
 
 template <>
 struct MexpShape<12> {
+  static constexpr int kTPI = 1;
   static constexpr int kBuilders = 64, kFolders = 192, kChunk = 40;
   static constexpr int kThreads = kBuilders + kFolders;
+};
+
+template <>
+struct MexpShape<20> {
+  static constexpr int kTPI = 4;
+  static constexpr int kBuilders = 16, kFolders = 80, kChunk = 16;
+  static constexpr int kThreads = (kBuilders + kFolders) * kTPI;
 };
 
 template <int W>
@@ -350,6 +385,15 @@ __host__ __device__ constexpr size_t mexp_shared_bytes() {
   using Sh = MexpShape<W>;
   return sizeof(uint32_t) * (2 * Sh::kChunk * mexp_point_words<W>() +
                              Sh::kFolders * mexp_slot_words<W>());
+}
+
+// The cooperative form's shared memory: the two chunk buffers and a
+// running sum (3·W words) for each of the `rounds`·kFolders items.
+template <int W>
+__host__ __device__ constexpr size_t mexp_coop_shared_bytes(int rounds) {
+  using Sh = MexpShape<W>;
+  return sizeof(uint32_t) * (2 * Sh::kChunk * mexp_point_words<W>() +
+                             (size_t)rounds * Sh::kFolders * 3 * W);
 }
 
 // dst[0..W) = src, as 16-byte stores (dst 16-byte aligned, W % 4 == 0).
@@ -492,25 +536,259 @@ __global__ void __launch_bounds__(MexpShape<W>::kThreads, 1)
   }
 }
 
+// ------------------------------ H6 at the padded widths: groups of lanes
+// The design of ec_mexp_kernel above with a group of kTPI lanes (the
+// cooperative field of ec_coop.cuh, S = W/kTPI words of every value a
+// lane) in place of each thread: builder group g builds points g, g +
+// kBuilders, ... of the next chunk into the other buffer, and folder
+// group f takes the items (position j, sub-chunk s) f, f + kFolders, ...
+// of the npos·subs items, `rounds` of them, where the one-thread form has
+// a folder an item: at 521-bit scalars 144 positions, more than the
+// groups a block can hold.  An item's running sum lives in shared memory
+// (3·W words, loaded into the group's registers while it folds a chunk);
+// the factor is selected over all 16 entries into registers.  Every
+// group of a warp takes the same steps, so that the shuffles and ballots
+// of the field stay full-warp: a builder past the last point builds a
+// copy of it (the folders never read it), a folder past the last item
+// folds a copy of the last item's sum and does not store it, a point past
+// the chunk's end is folded as digit 0 (the point at infinity, which an
+// addition returns unchanged, limb for limb), and a warp with no item in
+// a round leaves the round's loop.  The folding order is the one-thread
+// form's (_mexp_order in ops/ec_kernels.py repeats it).  At a padded
+// modulus the builders take each point to the kernel's radix (c_in) and
+// the folders their sums back (c_out).  Bound, like the one-thread form,
+// by its products; a cooperative product issues about twice the
+// instructions of a one-thread one (H5, PERF.md §6).  ptxas (sm_90a) at
+// W' = 20 (groups of 4 lanes, 384 threads, a bound of 170 registers): 160
+// registers, no stack frame, no spill; 143 ms at 2^17 points and 521-bit
+// scalars against 243 ms at W' = 24 (groups of 8, 448 threads, 124
+// registers; H100, PERF.md §6).
+template <int W>
+__global__ void __launch_bounds__(MexpShape<W>::kThreads, 1)
+    ec_mexp_coop_kernel(const int32_t* __restrict__ x,
+                        const int32_t* __restrict__ y,
+                        const uint8_t* __restrict__ inf,
+                        const int32_t* __restrict__ e,
+                        int32_t* __restrict__ out,
+                        const int32_t* __restrict__ m,
+                        const int32_t* __restrict__ one, uint32_t mp,
+                        const int32_t* __restrict__ c_in,
+                        const int32_t* __restrict__ c_out, int64_t n, int le,
+                        int npos, int subs, int rounds) {
+  using Sh = MexpShape<W>;
+  constexpr int TPI = Sh::kTPI;
+  constexpr int S = W / TPI;
+  constexpr int kChunk = Sh::kChunk;
+  constexpr int kPW = mexp_point_words<W>();
+  constexpr int kBuf = kChunk * kPW;
+  constexpr int kCW = 3 * W;  // words of one entry
+  static_assert(kChunk % Sh::kBuilders == 0, "builders share the chunk");
+  static_assert(Sh::kBuilders * TPI % 32 == 0 && Sh::kFolders * TPI % 32 == 0,
+                "builders and folders in whole warps");
+  // [2][kBuf] tables, then the items' running sums [rounds·kFolders][kCW]
+  extern __shared__ __align__(16) uint32_t mexp_tbl[];
+  const int tid = (int)threadIdx.x;
+  const int grp = tid / TPI;
+  const bool builder = grp < Sh::kBuilders;
+  const int f = grp - Sh::kBuilders;
+  const int f0 = (tid & ~31) / TPI - Sh::kBuilders;  // the warp's first
+  const int items = npos * subs;
+  const int off = vmn::group_lane<TPI>() * S;  // this lane's words
+  uint32_t mm[S], o[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(o, one);
+  const vmn::CoopField<W, TPI> F{mm, mp};
+  uint32_t* sums = mexp_tbl + 2 * kBuf;
+  const int64_t nchunks = (n + kChunk - 1) / kChunk;
+  const int G = (int)gridDim.x;
+
+  auto build = [&](int64_t k, uint32_t* buf) {
+#pragma unroll 1
+    for (int c = grp; c < kChunk; c += Sh::kBuilders) {
+      int64_t i = k * kChunk + c;
+      if (i >= n) i = n - 1;
+      uint32_t X1[S], Y1[S], Z1[S], aX[S], aY[S], aZ[S];
+      vmn::load_slice<W, TPI>(X1, x + i * 2 * W);
+      vmn::load_slice<W, TPI>(Y1, y + i * 2 * W);
+      vmn::coop_rebase<W, TPI>(X1, c_in, mm, mp);
+      vmn::coop_rebase<W, TPI>(Y1, c_in, mm, mp);
+      const uint32_t pinf = 0u - (uint32_t)(inf[i] != 0);
+      uint32_t* row = buf + c * kPW + off;
+#pragma unroll
+      for (int k2 = 0; k2 < S; ++k2) {
+        Z1[k2] = o[k2] & ~pinf;
+        aX[k2] = row[k2] = X1[k2];
+        aY[k2] = row[W + k2] = Y1[k2];
+        aZ[k2] = row[2 * W + k2] = Z1[k2];
+      }
+#pragma unroll 1
+      for (int d = 2; d < kEntries; ++d) {
+        vmn::point_add(F, aX, aY, aZ, aX, aY, aZ, X1, Y1, Z1);
+        uint32_t* r = row + (d - 1) * kCW;
+#pragma unroll
+        for (int k2 = 0; k2 < S; ++k2) {
+          r[k2] = aX[k2];
+          r[W + k2] = aY[k2];
+          r[2 * W + k2] = aZ[k2];
+        }
+      }
+    }
+  };
+
+  // The item of folder group f in round r (clamped to the last), and
+  // whether it is f's own.
+  auto item_of = [&](int r, bool* live) {
+    const int it = f + r * Sh::kFolders;
+    *live = it < items;
+    return *live ? it : items - 1;
+  };
+
+  auto fold = [&](int64_t k, const uint32_t* buf) {
+    const int64_t base = k * kChunk;
+    const int cnt = n - base < kChunk ? (int)(n - base) : kChunk;
+    const int steps = (kChunk + subs - 1) / subs;
+#pragma unroll 1
+    for (int r = 0; r < rounds; ++r) {
+      if (f0 + r * Sh::kFolders >= items) break;  // no item in the warp
+      bool live;
+      const int it = item_of(r, &live);
+      const int j = it % npos, s = it / npos;
+      uint32_t* A = sums + it * kCW + off;
+      uint32_t aX[S], aY[S], aZ[S];
+#pragma unroll
+      for (int k2 = 0; k2 < S; ++k2) {
+        aX[k2] = A[k2];
+        aY[k2] = A[W + k2];
+        aZ[k2] = A[2 * W + k2];
+      }
+#pragma unroll 1
+      for (int t = 0; t < steps; ++t) {
+        const int c = t * subs + s;
+        const bool valid = c < cnt;
+        const int cc = valid ? c : 0;
+        const uint32_t dig =
+            valid ? vmn::row_digit(e + (base + cc) * le, le, j) : 0u;
+        const uint32_t at0 = 0u - (uint32_t)(dig == 0u);  // infinity
+        uint32_t fX[S], fY[S], fZ[S];
+#pragma unroll
+        for (int k2 = 0; k2 < S; ++k2) {
+          fX[k2] = 0;
+          fY[k2] = o[k2] & at0;
+          fZ[k2] = 0;
+        }
+        const uint32_t* row = buf + cc * kPW + off;
+#pragma unroll 1
+        for (int d = 1; d < kEntries; ++d) {
+          const uint32_t mask = 0u - (uint32_t)(dig == (uint32_t)d);
+          const uint32_t* q = row + (d - 1) * kCW;
+#pragma unroll
+          for (int k2 = 0; k2 < S; ++k2) {
+            fX[k2] |= q[k2] & mask;
+            fY[k2] |= q[W + k2] & mask;
+            fZ[k2] |= q[2 * W + k2] & mask;
+          }
+        }
+        vmn::point_add(F, aX, aY, aZ, aX, aY, aZ, fX, fY, fZ);
+      }
+      if (live) {
+#pragma unroll
+        for (int k2 = 0; k2 < S; ++k2) {
+          A[k2] = aX[k2];
+          A[W + k2] = aY[k2];
+          A[2 * W + k2] = aZ[k2];
+        }
+      }
+    }
+  };
+
+  if (!builder) {  // every sum starts at infinity (0, one, 0)
+    for (int r = 0; r < rounds; ++r) {
+      bool live;
+      uint32_t* A = sums + item_of(r, &live) * kCW + off;
+      if (!live) continue;
+#pragma unroll
+      for (int k2 = 0; k2 < S; ++k2) {
+        A[k2] = 0;
+        A[W + k2] = o[k2];
+        A[2 * W + k2] = 0;
+      }
+    }
+  }
+  // Round `it` folds chunk k from buffer it mod 2 while chunk k + G is
+  // built into the other; round -1 only builds the block's first chunk.
+  int it = -1;
+#pragma unroll 1
+  for (int64_t k = (int64_t)blockIdx.x - G; k < nchunks; k += G, ++it) {
+    if (builder) {
+      if (k + G < nchunks) build(k + G, mexp_tbl + ((it + 1) & 1) * kBuf);
+    } else if (k >= 0) {
+      fold(k, mexp_tbl + (it & 1) * kBuf);
+    }
+    __syncthreads();
+  }
+  if (builder) return;  // whole warps
+  const int64_t parts = (int64_t)G * subs;
+  const int64_t plane = (int64_t)npos * parts * 2 * W;
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    if (f0 + r * Sh::kFolders >= items) break;
+    bool live;
+    const int itm = item_of(r, &live);
+    const uint32_t* A = sums + itm * kCW + off;
+    uint32_t aX[S], aY[S], aZ[S];
+#pragma unroll
+    for (int k2 = 0; k2 < S; ++k2) {
+      aX[k2] = A[k2];
+      aY[k2] = A[W + k2];
+      aZ[k2] = A[2 * W + k2];
+    }
+    vmn::coop_rebase3<W, TPI>(aX, aY, aZ, c_out, mm, mp);
+    if (live) {
+      const int j = itm % npos, s = itm / npos;
+      const int64_t q = (int64_t)blockIdx.x * subs + s;
+      int32_t* dst = out + ((int64_t)j * parts + q) * 2 * W;
+      vmn::store_slice<W, TPI>(dst, aX);
+      vmn::store_slice<W, TPI>(dst + plane, aY);
+      vmn::store_slice<W, TPI>(dst + 2 * plane, aZ);
+    }
+  }
+}
+
 template <int W>
 int Mexp<W>::launch(const int32_t* x, const int32_t* y, const uint8_t* inf,
                     const int32_t* e, int32_t* out, const int32_t* m,
-                    const int32_t* one, uint32_t mp, int64_t n, int le,
-                    int npos, int subs, int blocks, cudaStream_t s) {
+                    const int32_t* one, uint32_t mp, const int32_t* c_in,
+                    const int32_t* c_out, int64_t n, int le, int npos,
+                    int subs, int blocks, cudaStream_t s) {
   using Sh = MexpShape<W>;
-  static_assert(mexp_shared_bytes<W>() + 8 * W <= kBlockShared,
-                "H6's tables, slots and constants pass 227 KB");
-  if (n < 1 || le < 1 || npos < 1 || subs < 1 || npos * subs > Sh::kFolders ||
-      blocks < 1 || (int64_t)blocks * Sh::kChunk >= n + Sh::kChunk) {
+  if (n < 1 || le < 1 || npos < 1 || subs < 1 || blocks < 1 ||
+      (int64_t)blocks * Sh::kChunk >= n + Sh::kChunk) {
     return kBadShape;
   }
-  const size_t smem = mexp_shared_bytes<W>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ec_mexp_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ec_mexp_kernel<W><<<(unsigned)blocks, Sh::kThreads, smem, s>>>(
-      x, y, inf, e, out, m, one, mp, n, le, npos, subs);
+  if constexpr (Sh::kTPI == 1) {
+    static_assert(mexp_shared_bytes<W>() + 8 * W <= kBlockShared,
+                  "H6's tables, slots and constants pass 227 KB");
+    // one thread an item; no padded modulus at these widths
+    if (npos * subs > Sh::kFolders || c_in || c_out) return kBadShape;
+    const size_t smem = mexp_shared_bytes<W>();
+    cudaError_t err = cudaFuncSetAttribute(
+        ec_mexp_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ec_mexp_kernel<W><<<(unsigned)blocks, Sh::kThreads, smem, s>>>(
+        x, y, inf, e, out, m, one, mp, n, le, npos, subs);
+  } else {
+    const int rounds = (npos * subs + Sh::kFolders - 1) / Sh::kFolders;
+    const size_t smem = mexp_coop_shared_bytes<W>(rounds);
+    if (smem > (size_t)kBlockShared) return kBadShape;
+    cudaError_t err = cudaFuncSetAttribute(
+        ec_mexp_coop_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ec_mexp_coop_kernel<W><<<(unsigned)blocks, Sh::kThreads, smem, s>>>(
+        x, y, inf, e, out, m, one, mp, c_in, c_out, n, le, npos, subs,
+        rounds);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -593,9 +871,9 @@ template <int W, int TPI>
 int Smul<W, TPI>::launch(const int32_t* x, const int32_t* y,
                          const uint8_t* inf, const int32_t* e, int32_t* ox,
                          int32_t* oy, int32_t* oz, const int32_t* m,
-                         const int32_t* one, uint32_t mp, int64_t n, int le,
-                         int ndig, int threads, int64_t blocks,
-                         cudaStream_t s) {
+                         const int32_t* one, uint32_t mp, const int32_t* c_in,
+                         const int32_t* c_out, int64_t n, int le, int ndig,
+                         int threads, int64_t blocks, cudaStream_t s) {
   if (!vmn::coop_shape_ok<TPI>(threads, blocks) || le < 1 || ndig < 1) {
     return kBadShape;
   }
@@ -607,7 +885,7 @@ int Smul<W, TPI>::launch(const int32_t* x, const int32_t* y,
     if (err != cudaSuccess) return (int)err;
   }
   ec_smul_kernel<W, TPI><<<(unsigned)blocks, threads, smem, s>>>(
-      x, y, inf, e, ox, oy, oz, m, one, mp, n, le, ndig);
+      x, y, inf, e, ox, oy, oz, m, one, mp, c_in, c_out, n, le, ndig);
   return (int)cudaGetLastError();
 }
 

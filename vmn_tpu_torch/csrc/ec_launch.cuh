@@ -1,9 +1,11 @@
 // The launchers of the EC kernels, declared for the C entry points of
 // ec_kernels.cu: one class template a kernel, defined in ec_kernels.cuh and
 // instantiated at each (W, TPI) by the source file of its width (ec_w8.cu,
-// ec_mexp_w8.cu, ec_w12.cu, ec_mexp_w12.cu).  Each launches on stream s,
-// does not synchronise, allocates nothing and returns cudaGetLastError(),
-// or kBadShape for a launch shape the kernel cannot take.
+// ec_mexp_w8.cu, ec_w12.cu, ec_mexp_w12.cu, ec_w20.cu, ec_mexp_w20.cu).
+// Each launches on stream s, does not synchronise, allocates nothing and
+// returns cudaGetLastError(), or kBadShape for a launch shape the kernel
+// cannot take.  c_in and c_out: the boundary conversion of a padded
+// modulus (coop_rebase in mont_coop.cuh), NULL at every other.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,8 +23,8 @@ struct Add {
   static int launch(const int32_t* x1, const int32_t* y1, const int32_t* z1,
                     const int32_t* x2, const int32_t* y2, const int32_t* z2,
                     int32_t* ox, int32_t* oy, int32_t* oz, const int32_t* m,
-                    uint32_t mp, int64_t n, int threads, int64_t blocks,
-                    cudaStream_t s);
+                    uint32_t mp, const int32_t* c_in, const int32_t* c_out,
+                    int64_t n, int threads, int64_t blocks, cudaStream_t s);
 };
 
 // H5: batched scalar multiple on TPI lanes a point.
@@ -31,7 +33,8 @@ struct Smul {
   static int launch(const int32_t* x, const int32_t* y, const uint8_t* inf,
                     const int32_t* e, int32_t* ox, int32_t* oy, int32_t* oz,
                     const int32_t* m, const int32_t* one, uint32_t mp,
-                    int64_t n, int le, int ndig, int threads, int64_t blocks,
+                    const int32_t* c_in, const int32_t* c_out, int64_t n,
+                    int le, int ndig, int threads, int64_t blocks,
                     cudaStream_t s);
 };
 
@@ -40,8 +43,8 @@ template <int W, int TPI>
 struct Chain {
   static int launch(const int32_t* px, const int32_t* py, const int32_t* pz,
                     int32_t* ox, int32_t* oy, int32_t* oz, const int32_t* m,
-                    const int32_t* one, uint32_t mp, int npos,
-                    cudaStream_t s);
+                    const int32_t* one, uint32_t mp, const int32_t* c_in,
+                    const int32_t* c_out, int npos, cudaStream_t s);
 };
 
 // H6: the digit positions' partial sums over `blocks` blocks.
@@ -49,8 +52,9 @@ template <int W>
 struct Mexp {
   static int launch(const int32_t* x, const int32_t* y, const uint8_t* inf,
                     const int32_t* e, int32_t* out, const int32_t* m,
-                    const int32_t* one, uint32_t mp, int64_t n, int le,
-                    int npos, int subs, int blocks, cudaStream_t s);
+                    const int32_t* one, uint32_t mp, const int32_t* c_in,
+                    const int32_t* c_out, int64_t n, int le, int npos,
+                    int subs, int blocks, cudaStream_t s);
 };
 
 // H7: fixed-base multiples from an affine table.

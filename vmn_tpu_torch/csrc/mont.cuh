@@ -14,8 +14,10 @@
 // elements in one coalesced access (store_words, digit here).  Inside a
 // thread two limbs pack into one 32-bit word, W = L/2 words.  The radix
 // stays R = 2^(16·L) = 2^(32·W); the word-level m' = -m^-1 mod 2^32
-// replaces vmn_tpu's 16-bit one.  Odd L has no such packing and is
-// refused by the Python wrappers.
+// replaces vmn_tpu's 16-bit one.  An odd L (P-521's 33) has no such
+// packing: its wrappers pad the limbs to 2·W' and the kernels compute at
+// R' = 2^(32·W') > R, converting at their boundary (coop_rebase in
+// mont_coop.cuh, Modulus in ops/mont_kernels.py).
 #pragma once
 
 #include <cstdint>
@@ -66,6 +68,9 @@ __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a,
     t[W] = t[W + 1] + (uint32_t)(s >> 32);
   }
   // t < 2m: subtract m when t >= m, by mask (no branch on the value).
+  // The bound is (a·b + q·m)/R < (m² + R·m)/R < 2m for a, b < m < R, so
+  // it holds as well where m is far below R (a padded modulus: P-521's
+  // m < 2^521 against R' = 2^640), and t[W] is 0 or 1.
   uint32_t d[W];
   uint64_t borrow = 0;
 #pragma unroll

@@ -183,7 +183,9 @@ struct CoopMontSum {
     hh = 0;
   }
 
-  // r = t mod m, canonical: t < 2m after the last step.
+  // r = t mod m, canonical: t < 2m after the last step (for a, b < m < R,
+  // whatever the gap between m and R: a padded modulus too, mont.cuh).
+  // A lane's hi, the carry out of its slice, is at most 2 at any m.
   __device__ __forceinline__ void finish(uint32_t* r, const uint32_t* m,
                                          int lane) {
     const uint32_t hi = hl;  // at most 2
@@ -299,6 +301,23 @@ __device__ __forceinline__ void store_slice(int32_t* row, const uint32_t* x) {
   for (int j = 0; j < S; ++j) {
     p[j] = make_int2((int32_t)(x[j] & 0xFFFFu), (int32_t)(x[j] >> 16));
   }
+}
+
+// The boundary of a padded modulus (Modulus in ops/mont_kernels.py): x =
+// x·c·R^-1 mod m at the kernel's radix R = 2^(32·W), for this lane's slice
+// x of a canonical value and the constant c, 2W row-major 16-bit limbs;
+// nothing where c is NULL (a modulus whose L limbs are W words: every
+// width but the padded ones).  c = c_in takes an operand from the limbs'
+// radix R0 = 2^(16·L) to R (x·R0 -> x·R), c = c_out back (x·R -> x·R0).
+// The branch is uniform over the launch (a kernel argument), so every
+// lane of the warp takes the product's shuffles together.
+template <int W, int TPI>
+__device__ __forceinline__ void coop_rebase(uint32_t* x, const int32_t* c,
+                                            const uint32_t* m, uint32_t mp) {
+  if (c == nullptr) return;
+  uint32_t k[W / TPI];
+  load_slice<W, TPI>(k, c);
+  coop_mont_mul<W, TPI>(x, x, k, m, mp);
 }
 
 }  // namespace vmn

@@ -45,6 +45,8 @@
 //   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 22;
 //           mont_expprod TPI 1/4: 64/42.
 //   W = 12: mont_mul TPI 4: 32;   mont_exp TPI 1/2/4: 80/48/36; chain 34.
+//   W = 20: mont_mul TPI 4: 40;   mont_exp TPI 2/4: 64/46 (each with the
+//           boundary conversion of a padded modulus).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -67,7 +69,7 @@ template <int W, int TPI>
 __global__ void __launch_bounds__(kThreads)
     mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                     int32_t* __restrict__ out, const int32_t* __restrict__ m,
-                    uint32_t mp, int64_t n) {
+                    uint32_t mp, const int32_t* __restrict__ c_in, int64_t n) {
   constexpr int S = W / TPI;
   bool live;
   const int64_t e = vmn::group_element<TPI>(n, &live);
@@ -76,6 +78,8 @@ __global__ void __launch_bounds__(kThreads)
   vmn::load_slice<W, TPI>(x, a + e * 2 * W);
   vmn::load_slice<W, TPI>(y, b + e * 2 * W);
   vmn::coop_mont_mul<W, TPI>(x, x, y, mm, mp);
+  // A padded modulus: a·b·R^-1 = (a·b·R'^-1)·c_in·R'^-1, one product.
+  vmn::coop_rebase<W, TPI>(x, c_in, mm, mp);
   if (live) vmn::store_slice<W, TPI>(out + e * 2 * W, x);
 }
 
@@ -87,6 +91,9 @@ __global__ void __launch_bounds__(kThreads)
 // registers.  Shared layout [entry][word][thread of the block]: for one
 // (entry, word) the 32 lanes of a warp read 32 consecutive words, so no
 // bank conflicts, and each thread reads only what it wrote (no barrier).
+// A padded modulus (c_in, c_out not NULL) takes the base to the kernel's
+// radix on load and the power back on store, two products an element;
+// `one` is then the kernel's own (R' mod m).
 // A block of 128 threads holds 128/TPI elements at 16·4·W bytes each
 // (4 KB at W = 64): 64 KB at TPI = 8, 16 KB at TPI = 32; above 48 KB the
 // launcher opts in to the larger dynamic shared memory.  The table is
@@ -112,8 +119,10 @@ template <int W, int TPI>
 __global__ void __launch_bounds__(kThreads, 3)
     mont_exp_kernel(const int32_t* __restrict__ base, const int32_t* __restrict__ e,
                     int32_t* __restrict__ out, const int32_t* __restrict__ m,
-                    const int32_t* __restrict__ one, uint32_t mp, int64_t n,
-                    int le, int ndig) {
+                    const int32_t* __restrict__ one, uint32_t mp,
+                    const int32_t* __restrict__ c_in,
+                    const int32_t* __restrict__ c_out, int64_t n, int le,
+                    int ndig) {
   constexpr int S = W / TPI;
   extern __shared__ uint32_t exp_tbl[];  // [kExpEntries][S][blockDim.x]
   bool live;
@@ -123,6 +132,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   uint32_t mm[S], x[S], cur[S];
   vmn::load_slice<W, TPI>(mm, m);
   vmn::load_slice<W, TPI>(x, base + idx * 2 * W);
+  vmn::coop_rebase<W, TPI>(x, c_in, mm, mp);
   vmn::load_slice<W, TPI>(cur, one);
 #pragma unroll
   for (int j = 0; j < S; ++j) {
@@ -149,6 +159,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     select_entry<S>(fac, mine, stride, dig);
     vmn::coop_mont_mul<W, TPI>(acc, acc, fac, mm, mp);
   }
+  vmn::coop_rebase<W, TPI>(acc, c_out, mm, mp);
   if (live) vmn::store_slice<W, TPI>(out + idx * 2 * W, acc);
 }
 
@@ -539,19 +550,19 @@ int launch_fb(const uint32_t* table, const int32_t* e, int32_t* out,
 
 template <int W, int TPI>
 int launch_mul(const int32_t* a, const int32_t* b, int32_t* out,
-               const int32_t* m, uint32_t mp, int64_t n, int threads,
-               int64_t blocks, cudaStream_t s) {
+               const int32_t* m, uint32_t mp, const int32_t* c_in, int64_t n,
+               int threads, int64_t blocks, cudaStream_t s) {
   if (!vmn::coop_shape_ok<TPI>(threads, blocks)) return kBadShape;
   mont_mul_kernel<W, TPI><<<(unsigned)blocks, threads, 0, s>>>(a, b, out, m,
-                                                               mp, n);
+                                                               mp, c_in, n);
   return (int)cudaGetLastError();
 }
 
 template <int W, int TPI>
 int launch_exp(const int32_t* base, const int32_t* e, int32_t* out,
-               const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
-               int le, int ndig, int threads, int64_t blocks,
-               cudaStream_t s) {
+               const int32_t* m, const int32_t* one, uint32_t mp,
+               const int32_t* c_in, const int32_t* c_out, int64_t n, int le,
+               int ndig, int threads, int64_t blocks, cudaStream_t s) {
   if (!vmn::coop_shape_ok<TPI>(threads, blocks) || le < 1 || ndig < 1) {
     return kBadShape;
   }
@@ -563,7 +574,7 @@ int launch_exp(const int32_t* base, const int32_t* e, int32_t* out,
     if (err != cudaSuccess) return (int)err;
   }
   mont_exp_kernel<W, TPI><<<(unsigned)blocks, threads, smem, s>>>(
-      base, e, out, m, one, mp, n, le, ndig);
+      base, e, out, m, one, mp, c_in, c_out, n, le, ndig);
   return (int)cudaGetLastError();
 }
 
@@ -625,17 +636,22 @@ int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
 extern "C" {
 
 // H1 and H2 are instantiated at the (W, TPI) pairs that COOP_TPI in
-// ops/mont_kernels.py chooses: H1 at (8, 8), (12, 4), (64, 8), (64, 32),
-// (96, 16), (96, 32), (128, 32), H2 at (8, 1), (8, 8), (12, 1), (12, 2),
-// (12, 4), (64, 8), (64, 32) and at TPI 16 and 32 of W = 96 and 128.
+// ops/mont_kernels.py chooses: H1 at (8, 8), (12, 4), (20, 4), (64, 8),
+// (64, 32), (96, 16), (96, 32), (128, 32), H2 at (8, 1), (8, 8), (12, 1),
+// (12, 2), (12, 4), (20, 2), (20, 4), (64, 8), (64, 32) and at TPI 16 and
+// 32 of W = 96 and 128.  W = 20 is P-521's inner width (L = 33 limbs
+// padded to 40, c_in and c_out not NULL); H3, H4 and the chain have no
+// form there (off the P-521 path).
 int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
-                 int32_t* out, const int32_t* m, uint32_t mp, int64_t n,
-                 int threads, int64_t blocks, void* stream) {
+                 int32_t* out, const int32_t* m, uint32_t mp,
+                 const int32_t* c_in, int64_t n, int threads, int64_t blocks,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VMN_MUL_ARGS a, b, out, m, mp, n, threads, blocks, s
+#define VMN_MUL_ARGS a, b, out, m, mp, c_in, n, threads, blocks, s
   switch (w << 8 | tpi) {
     case 8 << 8 | 8: return launch_mul<8, 8>(VMN_MUL_ARGS);
     case 12 << 8 | 4: return launch_mul<12, 4>(VMN_MUL_ARGS);
+    case 20 << 8 | 4: return launch_mul<20, 4>(VMN_MUL_ARGS);
     case 64 << 8 | 8: return launch_mul<64, 8>(VMN_MUL_ARGS);
     case 64 << 8 | 32: return launch_mul<64, 32>(VMN_MUL_ARGS);
     case 96 << 8 | 16: return launch_mul<96, 16>(VMN_MUL_ARGS);
@@ -648,11 +664,15 @@ int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
 
 int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
                  int32_t* out, const int32_t* m, const int32_t* one,
-                 uint32_t mp, int64_t n, int le, int ndig, int threads,
-                 int64_t blocks, void* stream) {
+                 uint32_t mp, const int32_t* c_in, const int32_t* c_out,
+                 int64_t n, int le, int ndig, int threads, int64_t blocks,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VMN_EXP_ARGS base, e, out, m, one, mp, n, le, ndig, threads, blocks, s
+#define VMN_EXP_ARGS base, e, out, m, one, mp, c_in, c_out, n, le, ndig, \
+                     threads, blocks, s
   switch (w << 8 | tpi) {
+    case 20 << 8 | 2: return launch_exp<20, 2>(VMN_EXP_ARGS);
+    case 20 << 8 | 4: return launch_exp<20, 4>(VMN_EXP_ARGS);
     case 8 << 8 | 1: return launch_exp<8, 1>(VMN_EXP_ARGS);
     case 8 << 8 | 8: return launch_exp<8, 8>(VMN_EXP_ARGS);
     case 12 << 8 | 1: return launch_exp<12, 1>(VMN_EXP_ARGS);

@@ -43,7 +43,12 @@ inputs made on the card from fixed seeds:
 * where the tree instantiates W = 12 (the P-384 slice on): H1 and H2 at
   the P-384 field on --ec-n elements and on one (384-bit exponents,
   `_w12` keys), and H5-H8 and the EC combine at P-384 on --ec-n points
-  (`_p384` keys, the combine over 96 positions).
+  (`_p384` keys, the combine over 96 positions);
+* where the tree instantiates P-521's inner width (W' = 20: its L = 33
+  limbs padded, converted at the kernels' boundary): H1 and H2 at the
+  P-521 field (521-bit exponents, `_w20` keys), and H5, H6, H8 and the
+  EC combine at P-521 on --ec-n points (`_p521` keys, the combine over
+  144 positions; no H7).
 
 Every tree of the port since the EC slice has these wrappers with these
 signatures, so a commit and its parent, unpacked side by side, are timed
@@ -64,7 +69,14 @@ modp2048 at each (elements, exponent bits) of the path under every pair
 of its launch-shape constants EP_MIN_ELEMENTS and EP_ACC_BYTES (`--only
 ep_shape` for that alone).  `--widths` limits the sweep to those widths
 (e.g. `--widths 12`: H1, H2 at the P-384 field and the EC kernels at
-P-384).
+P-384; `--widths 20`: the same at P-521's inner width).
+
+--startup splits the start-up of a process that runs the port on the
+card (as each `vmn` process of the CLI does) into its steps, measured in
+a fresh Python process: the interpreter, `import torch`, the port's CLI
+modules, the CUDA context, `build_kernels()` (hashing every source;
+the library is built already) and the `ctypes` load, the modp2048 and
+P-256 groups' set-up, and the first launch.
 
 Prints the card's name and power limit, then one JSON object.
 """
@@ -92,7 +104,7 @@ SWEEP_N = {64: (1, 4, 16, 64, 256, 1024, 2048, 4096, 6144, 8192, 10000,
            8: (1, 16, 256, 1024, 4096, 8192, 16384, 32768, 65536, 131072,
                262144),
            96: WIDE_N, 128: WIDE_N}
-SWEEP_N[12] = SWEEP_N[8]
+SWEEP_N[12] = SWEEP_N[20] = SWEEP_N[24] = SWEEP_N[8]
 SWEEP_SMUL_N = (256, 1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
 SWEEP_FB_N = {64: (1, 16, 256, 1024, 2048, 4096, 8192, 10000, 16384),
               8: (1, 4, 16, 64, 256, 1024, 4096),
@@ -101,10 +113,15 @@ SWEEP_FB_N = {64: (1, 16, 256, 1024, 2048, 4096, 8192, 10000, 16384),
 # H3's (window, exponent bits) by width: the fixed-base powers of each
 # path (None: |q| bits, the full width)
 FB_CASES = {64: ((8, None), (4, 256)), 8: ((4, 256),), 96: ((8, None),),
-            128: ((8, None),), 12: ()}
+            128: ((8, None),), 12: (), 20: (), 24: ()}
 # The curves of the EC kernels by field width W, their scalars' bits and
 # the positions of the combine's sweep (the last: a scalar's).
-EC_CURVES = {8: ("P-256", 256, (16, 64)), 12: ("P-384", 384, (16, 96))}
+# P-521 at its inner width W' = 20 (L = 33 limbs padded to 40, Modulus):
+# 144 positions at a 521-bit scalar.
+EC_CURVES = {8: ("P-256", 256, (16, 64)), 12: ("P-384", 384, (16, 96)),
+             20: ("P-521", 521, (16, 144))}
+# The curves timed at --ec-n beside P-256 (W: key suffix).
+EC_TAGS = {12: "_p384", 20: "_p521"}
 SWEEP_MEXP_N = (4096, 16384, 65536, 131072, 262144)
 SWEEP_EP_N = {64: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
               8: (1, 16, 256, 1024, 4096, 10000),
@@ -191,7 +208,8 @@ def _limbs_of(x: int, dev) -> torch.Tensor:
 
 def _moduli(dev, widths=(64, 8)):
     """{W: MontCtx} of modp2048 (64), the P-256 field (8), the P-384 field
-    (12), modp3072 (96) and modp4096 (128), for the widths asked."""
+    (12), the P-521 field (its inner width 20), modp3072 (96) and modp4096
+    (128), for the widths asked."""
     from vmn_tpu_torch.arith.ec import _CURVES
     from vmn_tpu_torch.arith.mont import MontCtx
     from vmn_tpu_torch.arith.pgroup import (
@@ -199,15 +217,15 @@ def _moduli(dev, widths=(64, 8)):
     )
 
     moduli = {64: _RFC3526_2048, 8: _CURVES["P-256"][0],
-              12: _CURVES["P-384"][0], 96: _RFC3526_3072,
-              128: _RFC3526_4096}
+              12: _CURVES["P-384"][0], 20: _CURVES["P-521"][0],
+              96: _RFC3526_3072, 128: _RFC3526_4096}
     return {w: MontCtx(moduli[w], dev) for w in widths}
 
 
 def _tree_widths(K) -> list:
     """The widths that the tree of mont_kernels module K instantiates, in
     the order they are timed: modp2048 and the P-256 field first."""
-    return [w for w in (64, 8, 12, 96, 128) if w in K._WIDTHS]
+    return [w for w in (64, 8, 12, 20, 96, 128) if w in K._WIDTHS]
 
 
 def _full_bits(ctx) -> int:
@@ -253,7 +271,7 @@ def time_tree(n: int, ec_n: int) -> dict:
             out["mont_expprod_positions_w8"] = device_ms(
                 lambda: K.mont_expprod_positions(a_n, e256, ctx.mod, 256))
             continue
-        if w == 12:  # the P-384 path runs H1 and H2 alone at this width
+        if w in EC_TAGS:  # the EC paths run H1 and H2 alone there
             continue
         for count, bits in _ep_widths(ctx, n):
             eb = _exponents(gen, count, bits, dev)
@@ -267,8 +285,9 @@ def time_tree(n: int, ec_n: int) -> dict:
             lambda: _combine(K, P, ctx.mod))
     out.update(_time_ec(E, dev, 4096, "_4096"))
     out.update(_time_ec(E, dev, ec_n, ""))
-    if 12 in getattr(E, "_WIDTHS", ()):
-        out.update(_time_ec(E, dev, ec_n, "_p384", 12))
+    for w, tag in EC_TAGS.items():
+        if w in getattr(E, "_WIDTHS", ()):
+            out.update(_time_ec(E, dev, ec_n, tag, w))
     return out
 
 
@@ -303,8 +322,8 @@ def _ec_combine(E, P, mod):
 
 def _time_ec(E, dev, n: int, tag: str, w: int = 8) -> dict:
     """The EC wrappers on n points of the curve of width W (EC_CURVES);
-    at --ec-n (no tag, or P-384's) also the combine, H8 on one pair and
-    H8's and H6's kernels alone."""
+    at --ec-n (no tag, or EC_TAGS') also the combine, H8 on one pair and
+    H8's and H6's kernels alone; H7 where it is built (not at P-521)."""
     import numpy as np
 
     from vmn_tpu_torch.arith.ec import ECqPGroup, _ec_fb_table
@@ -324,7 +343,7 @@ def _time_ec(E, dev, n: int, tag: str, w: int = 8) -> dict:
     X, Y, Z = E.ec_scalar_mul(x, y, inf, e, mod, bits)
     X2, Y2, Z2 = (t.flip(0).contiguous() for t in (X, Y, Z))
     extra = {}
-    if tag in ("", "_p384"):
+    if tag != "_4096":
         P = [t[:positions[-1]].contiguous() for t in (X, Y, Z)]
         extra[f"ec_multiexp_combine{tag}"] = device_ms(
             lambda: _ec_combine(E, P, mod))
@@ -335,8 +354,11 @@ def _time_ec(E, dev, n: int, tag: str, w: int = 8) -> dict:
             lambda: E.ec_point_add(X, Y, Z, X2, Y2, Z2, mod), "ec_add_kernel")
         extra[f"ec_multiexp_positions_kernel_only{tag}"] = kernel_ms(
             lambda: E.ec_multiexp_positions(x, y, inf, e, mod, bits),
-            "ec_mexp_kernel", reps=3)
-    tbx, tby = _ec_fb_table(grp.curve, *grp.g._jac(), bits // 4)
+            "ec_mexp_", reps=3)  # ec_mexp_kernel, ec_mexp_coop_kernel
+    if not mod.conv:  # H7 is off the paths and not built at P-521
+        tbx, tby = _ec_fb_table(grp.curve, *grp.g._jac(), bits // 4)
+        extra[f"ec_fb_exp{tag}"] = device_ms(
+            lambda: E.ec_fb_exp(tbx, tby, e, mod))
     return {
         **extra,
         f"ec_scalar_mul{tag}": device_ms(
@@ -345,7 +367,6 @@ def _time_ec(E, dev, n: int, tag: str, w: int = 8) -> dict:
             lambda: E.ec_multiexp_positions(x, y, inf, e, mod, bits)),
         f"ec_point_add{tag}": device_ms(
             lambda: E.ec_point_add(X, Y, Z, X2, Y2, Z2, mod), reps=20),
-        f"ec_fb_exp{tag}": device_ms(lambda: E.ec_fb_exp(tbx, tby, e, mod)),
     }
 
 
@@ -409,7 +430,7 @@ def sweep(only=(), widths=()) -> dict:
             _sweep_kernel(K, kernel, w, SWEEP_N[w], run, rows, best,
                           only=only)
         if ("mont_expprod_positions", w) not in K.COOP_TPI:
-            continue  # W = 12: H1 and H2 alone (no H3, no H4)
+            continue  # W = 12, 20: H1 and H2 alone (no H3, no H4)
         ep_top = max(SWEEP_EP_N[w])
         a = _elements(gen, ep_top, ctx.L, dev)
         for bits in (ebits, 256) if w >= 64 else (256,):
@@ -512,7 +533,7 @@ def _sweep_ep_shape(K, ctx, gen, dev, rows: list) -> None:
 def _mexp_shape(E, n: int, w: int, bits: int) -> dict:
     """H6's launch shape at width W for n points at scalars of `bits`
     bits (64 positions at 256 bits)."""
-    npos = bits // 4
+    npos = -(-(-(-bits // 4)) // 16) * 16  # ndig_pad
     if hasattr(E, "MEXP_SHAPES"):
         chunk, folders = E.MEXP_SHAPES[w]
         blocks, subs = E.mexp_shape(n, npos, w)
@@ -521,6 +542,62 @@ def _mexp_shape(E, n: int, w: int, bits: int) -> dict:
         blocks, subs = E.mexp_shape(n, npos)
     return {"chunk": chunk, "folders": folders, "blocks": blocks,
             "subs": subs}
+
+
+# The child of --startup: marks (seconds since its first statement) after
+# each step of a card process's start-up, as one JSON line.
+STARTUP_CHILD = """
+import time
+t0 = time.perf_counter()
+marks = {}
+def mark(name):
+    marks[name] = time.perf_counter() - t0
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+mark("import_torch")
+import vmn_tpu_torch.cli.main  # noqa: F401 (the CLI's entry point)
+import vmn_tpu_torch.cli.vmn  # noqa: F401 (the mix-server tool's imports)
+mark("import_port_cli")
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+mark("cuda_context")
+from vmn_tpu_torch.ops import ec_kernels as E
+from vmn_tpu_torch.ops import mont_kernels as K
+K.build_kernels()
+mark("build_kernels_hash")
+E._library()
+mark("cdll_load")
+from vmn_tpu_torch.arith.ec import ECqPGroup
+from vmn_tpu_torch.arith.pgroup import ModPGroup
+g = ModPGroup.named("modp2048")
+ECqPGroup.named("P-256")
+torch.cuda.synchronize()
+mark("group_setup")
+one = g.ctx.one_mont[None]
+K.mont_mul(one, one, g.ctx.mod)
+torch.cuda.synchronize()
+mark("first_launch")
+print(json.dumps(marks))
+"""
+
+
+def startup(tree: Path) -> dict:
+    """The seconds of each step of a card process's start-up (STARTUP_CHILD
+    in a fresh process; `interpreter`: the process's wall time less the
+    child's own)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", STARTUP_CHILD, str(tree)],
+                         capture_output=True, text=True, check=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    marks = json.loads(res.stdout.strip().splitlines()[-1])
+    steps, last = {}, 0.0
+    for name, at in marks.items():
+        steps[name] = at - last
+        last = at
+    return {"wall_s": wall, "interpreter_and_exit_s": wall - last,
+            "steps_s": steps}
 
 
 def main(argv=None) -> int:
@@ -542,6 +619,9 @@ def main(argv=None) -> int:
                          "ep_shape: H4's launch-shape constants)")
     ap.add_argument("--widths", nargs="+", type=int, default=(), metavar="W",
                     help="with --sweep: only these widths (words), e.g. 12")
+    ap.add_argument("--startup", action="store_true",
+                    help="split a card process's start-up into its steps "
+                         "instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_timing: no CUDA device", file=sys.stderr)
@@ -555,7 +635,9 @@ def main(argv=None) -> int:
     from vmn_tpu_torch.ops import mont_kernels as K
 
     K.build_kernels()
-    if args.sweep:
+    if args.startup:
+        res = startup(args.tree.resolve())
+    elif args.sweep:
         res = sweep(frozenset(args.only), frozenset(args.widths))
     else:
         res = {"tree": str(args.tree), "ms": time_tree(args.n, args.ec_n)}

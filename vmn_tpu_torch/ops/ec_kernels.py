@@ -20,8 +20,10 @@ Points at this boundary are Jacobian ``(X, Y, Z)`` triples of ``(N, L)``
 int32 16-bit limb tensors in Montgomery form (infinity: Z == 0), or
 affine ``(x, y)`` with an ``(N,)`` bool infinity mask; exponents are
 ``(N, Le)`` standard-form limbs.  H5, H6, H8 and the combine read these
-row-major operands as they are; H7's wrapper transposes to the
-limb-major ``(L, N)`` layout its kernel reads.
+row-major operands as they are (P-521's, L = 33, padded to the inner
+width's 2·W' = 40 limbs, each coordinate taken to the kernel's radix and
+back inside the kernel: `Modulus` in ops/mont_kernels.py); H7's wrapper
+transposes to the limb-major ``(L, N)`` layout its kernel reads.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
@@ -54,10 +56,14 @@ design does about it):
   warps at W = 8, six at W = 12) fold the current one, each fold thread
   one digit position and every subs-th point (`mexp_shape`), with a
   masked select over all 16 entries; one-thread field, 12 warps an SM at
-  W = 8 (168 registers a thread), 8 at W = 12 (255).  Bound by its
-  products (14 table additions a point and one addition a point and
-  position, 24 products each).  An H8 tree joins the partials
-  (`_lane_tree`).
+  W = 8 (168 registers a thread), 8 at W = 12 (255).  At P-521's inner
+  width (W' = 20) one thread cannot hold a product's operands, so the
+  builders and folders are groups of MEXP_TPI lanes with the cooperative
+  field (16 builder and 80 fold groups of 4 lanes, 160 registers, no
+  spill), each fold group taking the 144 positions' items in rounds, its
+  running sums in shared memory.  Bound by its products (14 table
+  additions a point and one addition a point and position, 24 products
+  each).  An H8 tree joins the partials (`_lane_tree`).
 * `ec_multiexp_combine` is K10's position combine (:571-584),
   sum_j 2^(4j)·S_j, in one launch: one warp runs the 5·ndig_pad point
   operations back to back on the cooperative field, where a loop over
@@ -105,14 +111,17 @@ ENTRIES = 1 << WINDOW
 # Points per H6 launch; the partials of the launches are joined together.
 EP_SUPER = 1 << 20
 # H6's partition at each width W (MexpShape in csrc/ec_kernels.cuh):
-# chunks of `chunk` points, one builder thread a point, `folders` fold
-# threads a block; at most MEXP_BLOCKS blocks (one an SM of the H100 SXM),
-# at most EP_MAX_LANES partials a digit position.
-MEXP_SHAPES = {8: (56, 320), 12: (40, 192)}  # W: (chunk, folders)
+# chunks of `chunk` points, `folders` fold threads a block (at the padded
+# widths fold groups of MEXP_TPI[W] lanes, each taking `rounds` items);
+# at most MEXP_BLOCKS blocks (one an SM of the H100 SXM), at most
+# EP_MAX_LANES partials a digit position.
+MEXP_SHAPES = {8: (56, 320), 12: (40, 192), 20: (16, 80)}
+MEXP_TPI = {20: 4}  # the cooperative form's lanes a group
 MEXP_BLOCKS = 132
 EP_MAX_LANES = 2048
-# W = L/2 instantiated in the ec_*.cu files: P-256, P-384
-_WIDTHS = (8, 12)
+# The words the ec_*.cu files instantiate: P-256 (W = L/2 = 8), P-384
+# (12), P-521 (L = 33 at the inner width W' = 20, Modulus)
+_WIDTHS = (8, 12, 20)
 
 EC_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
               "ec_multiexp_combine", "ec_fb_exp", "ec_point_add")
@@ -207,10 +216,11 @@ def _point_add(F: _PlainField, X1, Y1, Z1, X2, Y2, Z2):
     h_zero, r_zero = _is_zero(H), _is_zero(R)
     same = h_zero & r_zero
     opp = h_zero & ~r_zero
-    dX, dY, dZ = _point_double(F, X1, Y1, Z1)
-    X3 = torch.where(same, dX, X3)
-    Y3 = torch.where(same, dY, Y3)
-    Z3 = torch.where(same, dZ, Z3)
+    if bool(same.any()):  # the doubling branch, where a row takes it
+        dX, dY, dZ = _point_double(F, X1, Y1, Z1)
+        X3 = torch.where(same, dX, X3)
+        Y3 = torch.where(same, dY, Y3)
+        Z3 = torch.where(same, dZ, Z3)
     Z3 = torch.where(opp & ~(p1_inf | p2_inf), torch.zeros_like(Z3), Z3)
     X3 = torch.where(p1_inf, X2, X3)
     Y3 = torch.where(p1_inf, Y2, Y3)
@@ -219,6 +229,16 @@ def _point_add(F: _PlainField, X1, Y1, Z1, X2, Y2, Z2):
     Y3 = torch.where(p2_inf, Y1, Y3)
     Z3 = torch.where(p2_inf, Z1, Z3)
     return X3, Y3, Z3
+
+
+def _double_as_add(F: _PlainField, X, Y, Z):
+    """P + P as `_point_add` gives it, at a doubling's cost: its doubling
+    branch, but P itself where Z = 0 (csrc/ec_coop.cuh,
+    point_double_as_add)."""
+    dX, dY, dZ = _point_double(F, X, Y, Z)
+    inf = _is_zero(Z)
+    return (torch.where(inf, X, dX), torch.where(inf, Y, dY),
+            torch.where(inf, Z, dZ))
 
 
 def ec_point_add_plain(x1, y1, z1, x2, y2, z2, mod: Modulus):
@@ -264,11 +284,13 @@ def ec_scalar_mul_plain(x, y, inf, e, mod: Modulus, nbits: int):
 
 def mexp_shape(n: int, npos: int, w: int):
     """(blocks, subs) of an H6 launch at width W over n >= 1 points and
-    npos digit positions: `subs` fold threads a position, each folding
-    every subs-th point of a chunk; blocks walk the chunks b, b + blocks,
-    ...; partial q = b·subs + s of each position."""
+    npos digit positions: `subs` fold threads (groups) a position, each
+    folding every subs-th point of a chunk; blocks walk the chunks b,
+    b + blocks, ...; partial q = b·subs + s of each position.  The
+    cooperative form (MEXP_TPI) takes more items than fold groups in
+    rounds."""
     chunk, folders = MEXP_SHAPES[w]
-    if npos > folders:
+    if npos > folders and w not in MEXP_TPI:
         raise ValueError(f"H6 folds at most {folders} digit positions, "
                          f"got {npos}")
     subs = max(1, folders // npos)
@@ -319,7 +341,7 @@ def ec_multiexp_positions_plain(x, y, inf, e, mod: Modulus, nbits: int):
     N, L = x.shape
     ndig_pad = _ndig_pad(nbits)
     one = mod.one_mont
-    w = L // 2
+    w = mod.W  # the kernel's shape, whose order this repeats
     parts = []
     for s0 in range(0, N, EP_SUPER):
         n = min(EP_SUPER, N - s0)
@@ -358,7 +380,7 @@ def ec_multiexp_combine_plain(PX, PY, PZ, mod: Modulus):
     acc = (zero, mod.one_mont.reshape(1, -1), zero)
     for j in range(PX.shape[0] - 1, -1, -1):
         for _ in range(WINDOW):
-            acc = _point_add(F, *acc, *acc)
+            acc = _double_as_add(F, *acc)
         acc = _point_add(F, *acc, PX[j : j + 1], PY[j : j + 1],
                          PZ[j : j + 1])
     return tuple(t[0].contiguous() for t in acc)
@@ -398,13 +420,13 @@ def _library() -> ctypes.CDLL:
             P, I64, I32, U32 = (ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.c_int, ctypes.c_uint32)
             sig = {
-                "vmn_ec_add": [I32, I32] + [P] * 10 + [U32, I64, I32, I64,
-                                                       P],
-                "vmn_ec_smul": [I32, I32] + [P] * 9 + [U32, I64, I32, I32,
-                                                       I32, I64, P],
-                "vmn_ec_chain": [I32, I32] + [P] * 8 + [U32, I32, P],
-                "vmn_ec_mexp": [I32] + [P] * 7 + [U32, I64, I32, I32, I32,
-                                                  I32, P],
+                "vmn_ec_add": [I32, I32] + [P] * 10 + [U32, P, P, I64, I32,
+                                                       I64, P],
+                "vmn_ec_smul": [I32, I32] + [P] * 9 + [U32, P, P, I64, I32,
+                                                       I32, I32, I64, P],
+                "vmn_ec_chain": [I32, I32] + [P] * 8 + [U32, P, P, I32, P],
+                "vmn_ec_mexp": [I32] + [P] * 7 + [U32, P, P, I64, I32, I32,
+                                                  I32, I32, P],
                 "vmn_ec_fb": [I32] + [P] * 8 + [U32, I64, I32, I32, P],
             }
             for name, args in sig.items():
@@ -415,11 +437,20 @@ def _library() -> ctypes.CDLL:
     return _bound
 
 
-def _words(mod: Modulus) -> int:
-    w = K._words(mod)
-    if w not in _WIDTHS:
-        raise ValueError(f"no EC kernel instantiated for L={mod.L}")
-    return w
+def _words(mod: Modulus, kernel: str) -> int:
+    return K._words(mod, kernel, _WIDTHS)
+
+
+def _operand(t, name, mod: Modulus, n: int) -> torch.Tensor:
+    """An (n, L) coordinate as the kernels read it: row-major, padded to
+    2W limbs at a padded modulus."""
+    return K._padded(K._rows(t, name, mod.limbs.device, n, mod.L), mod)
+
+
+def _results(n: int, mod: Modulus):
+    """The three (n, 2W) coordinates a kernel writes."""
+    return [torch.empty((n, 2 * mod.W), dtype=torch.int32,
+                        device=mod.limbs.device) for _ in range(3)]
 
 
 def _limb_major(x: torch.Tensor, name: str, device, cols: int
@@ -465,20 +496,19 @@ def ec_point_add(x1, y1, z1, x2, y2, z2, mod: Modulus):
     operands read as they lie (row-major)."""
     if x1.device.type == "cpu":
         return ec_point_add_plain(x1, y1, z1, x2, y2, z2, mod)
-    N, L = x1.shape[0], mod.L
-    w = _words(mod)
-    dev = mod.limbs.device
-    ins = [K._rows(t, name, dev, N, L) for t, name in zip(
+    N = x1.shape[0]
+    w = _words(mod, "ec_point_add")
+    ins = [_operand(t, name, mod, N) for t, name in zip(
         (x1, y1, z1, x2, y2, z2), ("x1", "y1", "z1", "x2", "y2", "z2"))]
-    out = [torch.empty((N, L), dtype=torch.int32, device=dev)
-           for _ in range(3)]
+    out = _results(N, mod)
     if N:
         t, threads, blocks = K.coop_launch("ec_point_add", w, N)
         K._check("ec_point_add", _library().vmn_ec_add(
-            w, t, *map(K._ptr, ins), *map(K._ptr, out), K._ptr(mod.limbs),
-            mod.mprime32, N, threads, blocks, K._stream(dev)))
+            w, t, *map(K._ptr, ins), *map(K._ptr, out),
+            K._ptr(mod.kernel_limbs), mod.mprime32, *K._conv_ptrs(mod), N,
+            threads, blocks, K._stream(mod.limbs.device)))
         _launched("ec_point_add", N)
-    return tuple(out)
+    return tuple(K._unpadded(o, mod) for o in out)
 
 
 def ec_scalar_mul(x, y, inf, e, mod: Modulus, nbits: int):
@@ -486,25 +516,24 @@ def ec_scalar_mul(x, y, inf, e, mod: Modulus, nbits: int):
     bool, e (N, Le) standard limbs below 2^nbits -> Jacobian (N, L) x3."""
     if x.device.type == "cpu":
         return ec_scalar_mul_plain(x, y, inf, e, mod, nbits)
-    N, L = x.shape[0], mod.L
-    w = _words(mod)
+    N = x.shape[0]
+    w = _words(mod, "ec_scalar_mul")
     dev = mod.limbs.device
     ndig = max(1, -(-nbits // WINDOW))
-    x = K._rows(x, "x", dev, N, L)
-    y = K._rows(y, "y", dev, N, L)
+    x = _operand(x, "x", mod, N)
+    y = _operand(y, "y", mod, N)
     e = K._rows(e, "e", dev, N)  # digits past its limbs read as zero
     im = _mask(inf, dev, N)
-    out = [torch.empty((N, L), dtype=torch.int32, device=dev)
-           for _ in range(3)]
+    out = _results(N, mod)
     if N:
         t, threads, blocks = K.coop_launch("ec_scalar_mul", w, N)
         K._check("ec_scalar_mul", _library().vmn_ec_smul(
             w, t, K._ptr(x), K._ptr(y), K._ptr(im), K._ptr(e),
-            *map(K._ptr, out), K._ptr(mod.limbs), K._ptr(mod.one_mont),
-            mod.mprime32, N, e.shape[1], ndig, threads, blocks,
-            K._stream(dev)))
+            *map(K._ptr, out), K._ptr(mod.kernel_limbs),
+            K._ptr(mod.kernel_one), mod.mprime32, *K._conv_ptrs(mod), N,
+            e.shape[1], ndig, threads, blocks, K._stream(dev)))
         _launched("ec_scalar_mul", N)
-    return tuple(out)
+    return tuple(K._unpadded(o, mod) for o in out)
 
 
 def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
@@ -513,11 +542,11 @@ def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
     if x.device.type == "cpu":
         return ec_multiexp_positions_plain(x, y, inf, e, mod, nbits)
     N, L = x.shape[0], mod.L
-    w = _words(mod)
+    w = _words(mod, "ec_multiexp_positions")
     dev = mod.limbs.device
     ndig_pad = _ndig_pad(nbits)
-    x = K._rows(x, "x", dev, N, L)
-    y = K._rows(y, "y", dev, N, L)
+    x = _operand(x, "x", mod, N)
+    y = _operand(y, "y", mod, N)
     e = K._rows(e, "e", dev, N)  # digits past its limbs read as zero
     im = _mask(inf, dev, N)
     lib = _library()
@@ -525,15 +554,15 @@ def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
     for s0 in range(0, N, EP_SUPER):
         n = min(EP_SUPER, N - s0)
         blocks, subs = mexp_shape(n, ndig_pad, w)
-        out = torch.empty((3, ndig_pad, blocks * subs, L), dtype=torch.int32,
-                          device=dev)
+        out = torch.empty((3, ndig_pad, blocks * subs, 2 * w),
+                          dtype=torch.int32, device=dev)
         K._check("ec_multiexp_positions", lib.vmn_ec_mexp(
             w, K._ptr(x[s0:]), K._ptr(y[s0:]), K._ptr(im[s0:]),
-            K._ptr(e[s0:]), K._ptr(out), K._ptr(mod.limbs),
-            K._ptr(mod.one_mont), mod.mprime32, n, e.shape[1], ndig_pad,
-            subs, blocks, K._stream(dev)))
+            K._ptr(e[s0:]), K._ptr(out), K._ptr(mod.kernel_limbs),
+            K._ptr(mod.kernel_one), mod.mprime32, *K._conv_ptrs(mod), n,
+            e.shape[1], ndig_pad, subs, blocks, K._stream(dev)))
         _launched("ec_multiexp_positions", n)
-        parts.append(out)
+        parts.append(out[..., :L] if mod.conv else out)
     if not parts:
         zero = torch.zeros((ndig_pad, L), dtype=torch.int32, device=dev)
         return zero, mod.one_mont.expand(ndig_pad, L).contiguous(), zero
@@ -548,21 +577,21 @@ def ec_multiexp_combine(PX, PY, PZ, mod: Modulus):
     if PX.device.type == "cpu":
         return ec_multiexp_combine_plain(PX, PY, PZ, mod)
     J, L = PX.shape[0], mod.L
-    w = _words(mod)
+    w = _words(mod, "ec_multiexp_combine")
     dev = mod.limbs.device
     if J == 0:
         zero = torch.zeros(L, dtype=torch.int32, device=dev)
         return zero, mod.one_mont.clone(), zero.clone()
-    ins = [K._rows(t, name, dev, J, L)
+    ins = [_operand(t, name, mod, J)
            for t, name in zip((PX, PY, PZ), ("PX", "PY", "PZ"))]
-    out = [torch.empty((1, L), dtype=torch.int32, device=dev)
-           for _ in range(3)]
+    out = _results(1, mod)
     K._check("ec_multiexp_combine", _library().vmn_ec_chain(
         w, K.threads_per_element("ec_multiexp_combine", w, 1),
-        *map(K._ptr, ins), *map(K._ptr, out), K._ptr(mod.limbs),
-        K._ptr(mod.one_mont), mod.mprime32, J, K._stream(dev)))
+        *map(K._ptr, ins), *map(K._ptr, out), K._ptr(mod.kernel_limbs),
+        K._ptr(mod.kernel_one), mod.mprime32, *K._conv_ptrs(mod), J,
+        K._stream(dev)))
     _launched("ec_multiexp_combine", 1)
-    return tuple(o[0] for o in out)
+    return tuple(K._unpadded(o, mod)[0] for o in out)
 
 
 def ec_multiexp(x, y, inf, e, mod: Modulus, nbits: int):
@@ -584,7 +613,7 @@ def ec_fb_exp(table_x, table_y, e, mod: Modulus):
     for t in (table_x, table_y):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev:
             raise ValueError("tables must be contiguous int32 on the card")
-    w = _words(mod)
+    w = _words(mod, "ec_fb_exp")
     N = e.shape[0]
     eT = _limb_major(_pad_exponent(e, ndig), "e", dev, N)
     out = _out(L, N, e.device)

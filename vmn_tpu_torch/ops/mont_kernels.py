@@ -11,18 +11,35 @@ ops/ec_kernels.py).  Each has three parts here:
   tensor goes to the plain version; a CUDA tensor goes to the kernel in
   `csrc/mont_kernels.cu` or raises — there is no fallback;
 * the plain PyTorch version (`*_plain`): exact integer arithmetic on
-  int64 tensors with log-depth carry resolution, any algorithm that
-  gives the same canonical limbs;
+  int64 tensors with log-depth carry resolution (and float64 products
+  whose sums stay below 2^53), any algorithm that gives the same
+  canonical limbs;
 * a launch counter per wrapper (`LAUNCHES[name]`), bumped only where the
   wrapper launches its kernel; H1 and H2 also count their launches by
   batch size (`LAUNCH_SIZES`).
 
 Arrays at this boundary are ``(N, L)`` int32 tensors of 16-bit limbs
-(arith/limbs.py), Montgomery radix ``R = 2^(16·L)``.
+(arith/limbs.py), Montgomery radix ``R = 2^(16·L)``.  The kernels pack
+limb pairs into 32-bit words: at an odd L (P-521: 33) they compute at an
+inner width of W' words, R' = 2^(32·W') > R, on operands padded with zero
+limbs, and convert at their boundary (`Modulus`); nothing outside the
+kernels changes.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
 
+* The kernel boundary at an odd L (P-521's field and ring, L = 33): the
+  wrappers pad the operands to 2·W' limbs (W' = INNER_WORDS[L] = 20) and
+  pack limb pairs into words as at every width; the kernels of the
+  P-521 path (`CONVERTS`) take each Montgomery operand from R to R' by
+  one product with c_in and each result back by one with c_out
+  (`coop_rebase` in csrc/mont_coop.cuh), a runtime switch that is off
+  (NULL constants) at every even width, whose launches, results and
+  instantiations do not change.  Two products an element against about
+  8000 in a 521-bit scalar multiple; H1 does one (a·b·R'^-1 times c_in).
+  W' = 20 against 24 on the H100 (`kernel_timing.py --sweep`, PERF.md
+  §6): faster at every kernel of the path but the combine, a chain of
+  dependent products where 8 lanes of 3 words beat 4 of 5.
 * H1 `mont_mul` replaces K2 `mont_mul_pallas`
   (vmn_tpu/ops/mont_kernels.py:182-216).  A W-word product (W = L/2) is
   4·W² + W 32-bit multiplies, so a large batch is bound by integer
@@ -146,9 +163,25 @@ def _launched(name: str, n: int) -> None:
 # ------------------------------------------------------------ constants
 
 
+# The inner width of a limb count whose R = 2^(16·L) is not 2^(32·W) for
+# any W (odd L): the kernels compute at W' words, R' = 2^(32·W') > R, and
+# convert at their boundary (Modulus).  L = 33: the P-521 field and its
+# scalar ring (PERF.md §6: W' = 20 against 24).
+INNER_WORDS = {33: 20}
+
+
 @dataclass(frozen=True)
 class Modulus:
-    """Device constants of one odd modulus, as every wrapper takes them."""
+    """Device constants of one odd modulus, as every wrapper takes them.
+
+    `W` is the kernels' word count.  Where 2·W = L (every even width) the
+    kernels compute at the limbs' own radix R = 2^(16·L).  Otherwise
+    (`conv`) they compute at R' = 2^(32·W) > R on operands padded with
+    zero limbs to 2·W: a Montgomery operand x·R is taken to x·R' on load
+    by one product with c_in = R'^2/R mod m, a result goes back to x·R on
+    store by one product with c_out = R mod m, and `kernel_one` (R' mod
+    m) is the one inside.  m' mod 2^32 does not depend on the radix.
+    Every limb array outside the kernels stays at L limbs and R."""
 
     m: int
     L: int
@@ -156,17 +189,31 @@ class Modulus:
     mprime32: int  # -m^-1 mod 2^32: the kernels' word-level m'
     mprime_limbs: torch.Tensor  # (L,) -m^-1 mod R: the plain REDC's m'
     one_mont: torch.Tensor  # (L,) R mod m
+    W: int  # words the kernels compute at
+    kernel_limbs: torch.Tensor  # (2W,) m
+    kernel_one: torch.Tensor  # (2W,) R' mod m
+    c_in: Optional[torch.Tensor]  # (2W,) R'^2/R mod m where conv, else None
+    c_out: Optional[torch.Tensor]  # (2W,) R mod m where conv, else None
+
+    @property
+    def conv(self) -> bool:
+        return 2 * self.W != self.L
 
     @classmethod
     def of(cls, m: int, L: int, device) -> "Modulus":
         R = 1 << (LIMB_BITS * L)
+        # at an odd L without an inner width the fewest words, which no
+        # kernel is built for (_words raises, naming them)
+        W = L // 2 if L % 2 == 0 else INNER_WORDS.get(L, L // 2 + 1)
+        R_in = 1 << (2 * LIMB_BITS * W)
 
-        def limbs(x):
+        def limbs(x, n=L):
             return torch.tensor(
-                [(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(L)],
+                [(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(n)],
                 dtype=torch.int32, device=device,
             )
 
+        conv = 2 * W != L
         return cls(
             m=m,
             L=L,
@@ -174,6 +221,12 @@ class Modulus:
             mprime32=(-pow(m, -1, 1 << 32)) & 0xFFFFFFFF,
             mprime_limbs=limbs((-pow(m, -1, R)) % R),
             one_mont=limbs(R % m),
+            W=W,
+            kernel_limbs=limbs(m, 2 * W),
+            kernel_one=limbs(R_in % m, 2 * W),
+            c_in=limbs(R_in * R_in * pow(R, -1, m) % m, 2 * W) if conv
+            else None,
+            c_out=limbs(R % m, 2 * W) if conv else None,
         )
 
 
@@ -239,35 +292,48 @@ def _neg_m(m64: torch.Tensor, width: int) -> torch.Tensor:
 _PLAIN_ELEMS = 1 << 26
 
 
+def _toeplitz(v: torch.Tensor, cols: int) -> torch.Tensor:
+    """(L,) limbs -> the (L, cols) float64 matrix M[i, k] = v[k - i]
+    (0 <= k - i < L): x @ M is the limb convolution x·v cut to cols
+    limbs."""
+    L = v.shape[-1]
+    d = (torch.arange(cols, device=v.device)[None, :]
+         - torch.arange(L, device=v.device)[:, None])
+    inside = (d >= 0) & (d < L)
+    return torch.where(inside, v[d.clamp(0, L - 1)], 0).to(torch.float64)
+
+
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
                    ) -> torch.Tensor:
     """a·b·R^-1 mod m by REDC with the full-width m' (exact integers).
 
-    T = a·b stays lazy (limb i at most (i+1)·(2^16-1)^2); q = T·m' mod R
-    is resolved from it while q's lazy limbs, at most L(L+1)/2·(2^16-1)^3,
-    stay below 2^63 (L <= 255), and from T's low half resolved first at
-    wider L (modp4096: L = 256); U = T + q·m is resolved together with
-    U + (2^(16(L+1)) - m)·R, whose carry out says whether U/R >= m."""
+    T = a·b stays lazy (limb i at most (i+1)·(2^16-1)^2); its low half is
+    resolved to 16-bit limbs, q = T·m' mod R and q·m are float64 products
+    with m' and m as Toeplitz matrices, exact because their sums of at
+    most L products below 2^32 stay below 2^53 (L <= 2^21); U = T + q·m
+    is resolved, and its high half U/R < 2m together with
+    U/R + 2^(16(L+1)) - m, whose carry out says whether U/R >= m."""
     L = mod.L
-    lazy_q = L * (L + 1) // 2 * LIMB_MASK**3 < 1 << 63
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
     shape = a.shape
     a = a.reshape(-1, L).to(torch.int64)
     b = b.reshape(-1, L).to(torch.int64)
     m64 = mod.limbs.to(a.device, torch.int64)
-    mp64 = mod.mprime_limbs.to(a.device, torch.int64)
-    sub_m = torch.constant_pad_nd(_neg_m(m64, L + 1), (L, 0))  # ·R
+    mq = _toeplitz(mod.mprime_limbs.to(a.device, torch.int64), L)
+    mm = _toeplitz(m64, 2 * L)
+    neg_m = torch.constant_pad_nd(_neg_m(m64, L + 1), (0, 1))
     rows = max(1, _PLAIN_ELEMS // (2 * L * L))
     outs = []
     for s in range(0, a.shape[0], rows):
         T = _mul_lazy(a[s : s + rows], b[s : s + rows])
-        T_lo = T[:, :L] if lazy_q else _resolve(T[:, :L], L)
-        q = _resolve(_mul_lazy(T_lo, mp64)[:, :L], L, passes=4)
-        U = torch.constant_pad_nd(T + _mul_lazy(q, m64)[:, : 2 * L], (0, 1))
-        V = _resolve(torch.stack([U, U + sub_m]), 2 * L + 2)
-        ge = V[1, :, 2 * L + 1 :] == 1
-        outs.append(torch.where(ge, V[1, :, L : 2 * L], V[0, :, L : 2 * L]))
+        T_lo = _resolve(T[:, :L], L).to(torch.float64)
+        q = _resolve((T_lo @ mq).to(torch.int64), L)
+        U = T + (q.to(torch.float64) @ mm).to(torch.int64)
+        hi = _resolve(U, 2 * L + 2)[:, L:]  # (L + 2) limbs, U/R < 2m
+        D = _resolve(hi + neg_m, L + 2, passes=1)
+        ge = D[:, L + 1 :] == 1
+        outs.append(torch.where(ge, D[:, :L], hi[:, :L]))
     out = torch.cat(outs) if outs else a[:0]
     return out.to(torch.int32).reshape(shape)
 
@@ -403,9 +469,10 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 _UNSUPPORTED_WIDTH = -1
 _BAD_SHAPE = -2
-# W = L/2 instantiated in mont_kernels.cu: test256 and the P-256 field,
-# the P-384 field and ring, modp2048, modp3072, modp4096
-_WIDTHS = (8, 12, 64, 96, 128)
+# The words (Modulus.W) instantiated in mont_kernels.cu: test256 and the
+# P-256 field, the P-384 field and ring, the P-521 field and ring (L = 33
+# at the inner width W' = 20), modp2048, modp3072, modp4096
+_WIDTHS = (8, 12, 20, 64, 96, 128)
 
 # Threads per element (TPI) of the cooperative kernels for n elements of W
 # words: TPI lanes of one warp share an element (H1-H4) or a point (H5, H8,
@@ -445,7 +512,14 @@ _WIDTHS = (8, 12, 64, 96, 128)
 # N but 262144 (by 2 %); H2 crosses to TPI 2 between 4096 and 8192 and to
 # TPI 1 between 16384 and 32768; H5 and H8 at TPI 4 at every N (H5 at TPI
 # 2 keeps a 144 KB table a block, one block an SM; at 2^17 151.5 against
-# 103.1 ms), so TPI 1 and 2 of H1, H5 and H8 are not built there.
+# 103.1 ms), so TPI 1 and 2 of H1, H5 and H8 are not built there.  At
+# W' = 20 (P-521's inner width; H1 and H2 over 1, 16, 256, ..., 262144
+# elements at TPI 1, 2, 4 and 521-bit exponents, H5 over 256 to 262144
+# points at TPI 4, H8 over 1 to 131072 pairs at TPI 2 and 4): H1 and H8
+# at TPI 4 at every N; H2 crosses to TPI 2 between 8192 and 16384 (TPI 4
+# won again at 262144, by 0.6 %), TPI 1 at no N; H5 at TPI 2 would need a
+# 246 KB table a block.  So H1, H5 and H8 are built at TPI 4 alone there,
+# H2 at 2 and 4.
 COOP_TPI = {
     ("mont_mul", 8): ((1, 8),),
     ("mont_mul", 64): ((4096, 8), (1, 32)),
@@ -471,6 +545,11 @@ COOP_TPI = {
     ("ec_scalar_mul", 12): ((1, 4),),
     ("ec_multiexp_combine", 12): ((1, 4),),
     ("ec_point_add", 12): ((1, 4),),
+    ("mont_mul", 20): ((1, 4),),
+    ("mont_exp", 20): ((16384, 2), (1, 4)),
+    ("ec_scalar_mul", 20): ((1, 4),),
+    ("ec_multiexp_combine", 20): ((1, 4),),
+    ("ec_point_add", 20): ((1, 4),),
 }
 COOP_BLOCK = 128  # threads a block at most (kThreads in mont_kernels.cu)
 
@@ -596,7 +675,7 @@ def fb_pack(table: torch.Tensor, tpi: int) -> torch.Tensor:
     lanes read their slices as vectors of consecutive words (csrc/
     mont_kernels.cu, H3)."""
     ndig, entries, L = table.shape
-    w = L // 2
+    w = L // 2  # H3 is built at even L alone (_words)
     s = w // tpi
     v = slice_vec(s)
     t = table.to(torch.int64)
@@ -664,10 +743,10 @@ def _library() -> ctypes.CDLL:
             P, I64, I32, U32 = (ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.c_int, ctypes.c_uint32)
             sig = {
-                "vmn_mont_mul": [I32, I32, P, P, P, P, U32, I64, I32, I64,
-                                 P],
-                "vmn_mont_exp": [I32, I32, P, P, P, P, P, U32, I64, I32, I32,
-                                 I32, I64, P],
+                "vmn_mont_mul": [I32, I32, P, P, P, P, U32, P, I64, I32,
+                                 I64, P],
+                "vmn_mont_exp": [I32, I32, P, P, P, P, P, U32, P, P, I64,
+                                 I32, I32, I32, I64, P],
                 "vmn_mont_chain": [I32, P, P, P, U32, I32, P],
                 "vmn_mont_fb_exp": [I32, I32, I32, P, P, P, P, P, U32, I64,
                                     I32, I32, I32, I64, P],
@@ -692,15 +771,45 @@ def _check(fn: str, rc: int) -> None:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
 
 
-def _words(mod: Modulus) -> int:
-    if mod.L % 2:
-        raise ValueError(
-            f"L={mod.L} is odd: the kernels pack limb pairs into 32-bit "
-            "words and keep R = 2^(16·L) only for even L"
-        )
-    if mod.L // 2 not in _WIDTHS:
-        raise ValueError(f"no kernel instantiated for L={mod.L}")
-    return mod.L // 2
+# The wrappers whose kernels convert at the boundary of a padded modulus
+# (Modulus.conv): the P-521 path's.  The others raise there.
+CONVERTS = frozenset({"mont_mul", "mont_exp", "ec_scalar_mul",
+                      "ec_multiexp_positions", "ec_multiexp_combine",
+                      "ec_point_add"})
+
+
+def _words(mod: Modulus, kernel: str, widths=None) -> int:
+    """The words `kernel` computes mod at (Modulus.W): the one place that
+    maps a modulus to an instantiated width; raises ValueError, naming
+    the width, where none is built (`widths`: the instantiated ones,
+    default _WIDTHS)."""
+    if mod.W not in (_WIDTHS if widths is None else widths):
+        raise ValueError(f"{kernel}: no kernel instantiated for L={mod.L} "
+                         f"(W={mod.W})")
+    if mod.conv and kernel not in CONVERTS:
+        raise ValueError(f"{kernel}: no kernel for L={mod.L} at its inner "
+                         f"width W={mod.W}")
+    return mod.W
+
+
+def _padded(x: torch.Tensor, mod: Modulus) -> torch.Tensor:
+    """(n, L) operand -> (n, 2W): zero limbs above the value (conv)."""
+    if not mod.conv:
+        return x
+    return torch.constant_pad_nd(x, (0, 2 * mod.W - mod.L))
+
+
+def _unpadded(out: torch.Tensor, mod: Modulus) -> torch.Tensor:
+    """(n, 2W) result -> (n, L): the limbs below R (the rest are 0)."""
+    return out[:, : mod.L].contiguous() if mod.conv else out
+
+
+def _conv_ptrs(mod: Modulus):
+    """(c_in, c_out) pointers of a padded modulus; NULL (None) where the
+    kernels compute at the limbs' own radix."""
+    if not mod.conv:
+        return None, None
+    return _ptr(mod.c_in), _ptr(mod.c_out)
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -729,22 +838,25 @@ def _rows(x: torch.Tensor, name: str, device, n: int, cols: int = 0
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
-    """H1: batched Montgomery product, (N, L) x (N, L) -> (N, L)."""
+    """H1: batched Montgomery product, (N, L) x (N, L) -> (N, L).  At a
+    padded modulus the kernel computes a·b·R'^-1, then one more product
+    with c_in = R'^2/R gives a·b·R^-1."""
     if a.device.type == "cpu":
         return mont_mul_plain(a, b, mod)
     N, L = a.shape[0], mod.L
-    w = _words(mod)
+    w = _words(mod, "mont_mul")
     dev = mod.limbs.device
-    a = _rows(a, "a", dev, N, L)
-    b = _rows(b, "b", dev, N, L)
-    out = torch.empty((N, L), dtype=torch.int32, device=dev)
+    a = _padded(_rows(a, "a", dev, N, L), mod)
+    b = _padded(_rows(b, "b", dev, N, L), mod)
+    out = torch.empty((N, 2 * w), dtype=torch.int32, device=dev)
     if N:
         t, threads, blocks = coop_launch("mont_mul", w, N)
         _check("mont_mul", _library().vmn_mont_mul(
-            w, t, _ptr(a), _ptr(b), _ptr(out), _ptr(mod.limbs),
-            mod.mprime32, N, threads, blocks, _stream(dev)))
+            w, t, _ptr(a), _ptr(b), _ptr(out), _ptr(mod.kernel_limbs),
+            mod.mprime32, _conv_ptrs(mod)[0], N, threads, blocks,
+            _stream(dev)))
         _launched("mont_mul", N)
-    return out
+    return _unpadded(out, mod)
 
 
 def mont_exp(base: torch.Tensor, e: torch.Tensor, mod: Modulus, nbits: int
@@ -754,20 +866,20 @@ def mont_exp(base: torch.Tensor, e: torch.Tensor, mod: Modulus, nbits: int
     if base.device.type == "cpu":
         return mont_exp_plain(base, e, mod, nbits)
     N, L = base.shape[0], mod.L
-    w = _words(mod)
+    w = _words(mod, "mont_exp")
     dev = mod.limbs.device
-    base = _rows(base, "base", dev, N, L)
+    base = _padded(_rows(base, "base", dev, N, L), mod)
     e = _rows(e, "e", dev, N)
     ndig = max(1, -(-nbits // WINDOW))
-    out = torch.empty((N, L), dtype=torch.int32, device=dev)
+    out = torch.empty((N, 2 * w), dtype=torch.int32, device=dev)
     if N:
         t, threads, blocks = coop_launch("mont_exp", w, N)
         _check("mont_exp", _library().vmn_mont_exp(
-            w, t, _ptr(base), _ptr(e), _ptr(out), _ptr(mod.limbs),
-            _ptr(mod.one_mont), mod.mprime32, N, e.shape[1], ndig, threads,
-            blocks, _stream(dev)))
+            w, t, _ptr(base), _ptr(e), _ptr(out), _ptr(mod.kernel_limbs),
+            _ptr(mod.kernel_one), mod.mprime32, *_conv_ptrs(mod), N,
+            e.shape[1], ndig, threads, blocks, _stream(dev)))
         _launched("mont_exp", N)
-    return out
+    return _unpadded(out, mod)
 
 
 def _sms(device) -> int:
@@ -789,7 +901,7 @@ def mont_fb_exp(table: torch.Tensor, e: torch.Tensor, mod: Modulus
     dev = mod.limbs.device
     if table.device != dev:
         raise ValueError(f"table is on {table.device}")
-    w = _words(mod)
+    w = _words(mod, "mont_fb_exp")
     N = e.shape[0]
     e = _rows(e, "e", dev, N)
     out = torch.empty((N, L), dtype=torch.int32, device=dev)
@@ -813,7 +925,7 @@ def mont_expprod_positions(bases: torch.Tensor, e: torch.Tensor,
     if bases.device.type == "cpu":
         return mont_expprod_positions_plain(bases, e, mod, nbits)
     N, L = bases.shape[0], mod.L
-    w = _words(mod)
+    w = _words(mod, "mont_expprod_positions")
     dev = mod.limbs.device
     bases = _rows(bases, "bases", dev, N, L)
     e = _rows(e, "e", dev, N)  # digits past its limbs read as zero
@@ -837,7 +949,7 @@ def mont_expprod_combine(P: torch.Tensor, mod: Modulus) -> torch.Tensor:
     if P.device.type == "cpu":
         return mont_expprod_combine_plain(P, mod)
     J, L = P.shape[0], mod.L
-    w = _words(mod)
+    w = _words(mod, "mont_expprod_combine")
     dev = mod.limbs.device
     if J == 0:
         return mod.one_mont.clone()
