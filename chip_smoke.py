@@ -22,14 +22,16 @@ Phases (one line each; any failure raises and the exit code is not 0):
      raised values); at the P-256 field (W=8) H1 and H2 on --ec-n, on N
      and on one, H3 at window 4 on N and on one, H4 on N; at the P-384
      field (W=12) H1 and H2 on --ec-n and on one, and K7's combine over
-     96 positions; at the P-521 field and ring (L = 33 limbs at the
-     inner width W' = 20, converted at the kernels' boundary) H1 and H2
-     on --ec-n, whole on 4096 and on one; then each of H1-H4 at the first
+     96 positions; at the P-224 and P-521 fields and rings (L = 14 and
+     33 limbs at the inner widths W' = 8 and 20, converted at the
+     kernels' boundary) H1 and H2 on --ec-n, whole on 4096 and on one;
+     then each of H1-H4 at the first
      N of any TPI of its
      rule that those miss, so that every TPI (lanes an element) the
      wrappers choose is checked (it fails otherwise).  Each against its
      plain PyTorch version on the card, exact equality of the whole
-     output, but H1-H3 at W=96 and 128, and H2 at W=12 and 20 on --ec-n, on 256
+     output, but H1-H3 at W=96 and 128, and H2 at W=12, P-224 and W'=20
+     on --ec-n, on 256
      rows spread over the batch (a full-width plain power takes seconds
      whatever the rows); a few rows (H4: its positions combined, at W=96
      and 128 those of 16 elements in a launch of their own) against
@@ -38,22 +40,23 @@ Phases (one line each; any failure raises and the exit code is not 0):
   4. check H5 ec_scalar_mul, H6 ec_multiexp_positions (with the rest of
      `ec_multiexp`), the position combine ec_multiexp_combine (64
      positions, a 256-bit multi-exponentiation), H7 ec_fb_exp and H8
-     ec_point_add at P-256 the same way (exact equality of Jacobian limbs
-     on the whole batch; after `normalize`, a few rows against Python EC
-     arithmetic), with infinity, P == Q, P == -Q, scalar 0 and scalar
-     n - 1 among the inputs, and H7 against H5 on the same fixed-base
-     batch: once on 4096 points and once on the EC path's batch (--ec-n),
+     ec_point_add at P-256 the same way (exact equality of Jacobian limbs;
+     after `normalize`, a few rows against Python EC arithmetic), with
+     infinity, P == Q, P == -Q, scalar 0 and scalar n - 1 among the
+     inputs, and H7 against H5 on the same fixed-base batch: once whole
+     on 4096 points and once on the EC path's batch (--ec-n; there H5, H7
+     and H8 on 256 rows spread over the batch with the edge rows, H6
+     whole on 16384 points of the batch's launch shape),
      H8 also on one pair; H5 and H8 also at the first N of any TPI (lanes
      a point) that those batches do not reach, so that every TPI their
      wrappers choose is checked; H5 also at 64-bit scalars on
-     1.25·min(--ec-n, 65536) points (the precomputation's raised values); then the same at P-384
-     (W=12: 384-bit scalars, the combine over 96 positions), whole on
-     4096 points, and at --ec-n H5, H7 and H8 on 256 rows spread over the
-     batch with the edge rows (each output row depends on its own inputs
-     alone), H6 whole on 16384 points of the batch's launch shape; then
-     the same at P-521 (W' = 20: 521-bit scalars, the combine over 144
-     positions, no H7: off its path and not built), one loop over the
-     curves;
+     1.25·min(--ec-n, 65536) points (the precomputation's raised
+     values); then the same at P-224 (the P-256 kernels at W' = 8 with
+     the boundary conversion: 224-bit scalars, the combine over 64
+     positions, no H7: off its path and not built at a padded modulus),
+     at P-384 (W=12: 384-bit scalars, the combine over 96 positions) and
+     at P-521 (W' = 20: 521-bit scalars, the combine over 144 positions,
+     no H7), one loop over the curves;
   5. the test256 and P-256 golden mixes on the card: each transcript must
      equal tests/golden/nizkp_{test256,p256}_k1 byte for byte, and the
      port's verifier must accept it and write the test vectors of
@@ -65,18 +68,18 @@ Phases (one line each; any failure raises and the exit code is not 0):
      tests/golden/nizkp_test256_k3_w2 and its test vectors
      test_vectors_k3w2.json; then the modp3072 and modp4096 goldens
      (nizkp_modp{3072,4096}_k1, test_vectors_modp{3072,4096}.json, written
-     by tests/torch_make_wide_golden.py), and the P-384 and P-521
-     goldens (nizkp_p{384,521}_k1, test_vectors_p{384,521}.json, the
-     same script);
+     by tests/torch_make_wide_golden.py), and the P-224, P-384 and P-521
+     goldens (nizkp_p{224,384,521}_k1, test_vectors_p{224,384,521}.json,
+     the same script);
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
      the same transcript with one flipped byte rejected; then each
      (N, exponent bits) at which the mix and the verify called H4 (H6 on
-     the EC path), with its calls and its time on random inputs of that
-     shape (`multiexp` lines); then the same at modp3072 and modp4096
-     with N ciphertexts, the same --n;
-  7. the EC paths: the same at P-256, P-384 and P-521 with --ec-n
+     the EC path) with its calls (`multiexp` lines; their times are
+     vmn_tpu_torch/kernel_timing.py's); then the same at modp3072 and
+     modp4096 with N ciphertexts, the same --n;
+  7. the EC paths: the same at P-256, P-224, P-384 and P-521 with --ec-n
      ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6);
   8. the multi-party path: modp2048, k=3 mix-servers, threshold 2, --k3-n
      ciphertexts (default 10000), Fiat–Shamir: the three parties (threads
@@ -122,7 +125,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
      included.  H1-H4 and the combine must launch in every modp2048
      `vmn -mix` process, H5, H6, the EC combine and H8 in the P-256 one.
 
---profile modp2048|P-256|P-384|P-521|modp2048-k3|modp3072|modp4096 profiles one more
+--profile modp2048|P-256|P-224|P-384|P-521|modp2048-k3|modp3072|modp4096
+profiles one more
 mix + verify of that path after the phases (host spans, device time by
 kernel, the device's idle share); it may be given more than once.
 
@@ -135,7 +139,8 @@ modp4096 mixes, in the k=3 mix
 and in the modp2048 k=1 precomputation path, H2 and H3 in the
 interactive mix's coin flipping, H5, H6, the EC combine (once per H6
 call) and H8 in the P-256 mix, and the same with H1 and H2 at W=12 in
-the P-384 mix and at W'=20 in the P-521 mix (H7 is off those paths, as
+the P-224 mix (W'=8), the P-384 mix and at W'=20 in the P-521 mix (H7
+is off those paths, as
 in vmn_tpu, and reports 0); the
 `launches` line also counts H1's, H2's, H3's, H5's
 and H8's launches in each mix by batch size (1, 2-127, >=128); the
@@ -147,9 +152,10 @@ error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
 stands under `at_4096`, and each kernel's launches in the P-384 mix with
-its check at W=12 under `p384`, in the P-521 mix with its check at
-W'=20 under `p521`.  The last three lines are that JSON object, the
-card's name and power limit, and a JSON status object.
+its check at W=12 under `p384`, in the P-224 and P-521 mixes with their
+checks at W'=8 and 20 under `p224` and `p521`.  The last three lines are
+that JSON object, the card's name and power limit, and a JSON status
+object.
 """
 
 from __future__ import annotations
@@ -254,7 +260,8 @@ def bound(products: int, words: int, nbytes: int) -> dict:
 
 def bound_words(nbits: int) -> int:
     """The 32-bit words of a modulus of nbits bits: the width of the bound
-    (the least work), P-521's 17 where its kernels compute at 24."""
+    (the least work): P-224's 7 and P-521's 17 where their kernels
+    compute at 8 and 20."""
     return -(-nbits // 32)
 
 
@@ -610,15 +617,16 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     widths[12] = [(d12, "_w12", None)]
     batch_cases(d12, "_w12", ec_n)
     combine_case(d12, "mont_expprod_combine_w12")
-    # the P-521 field and scalar ring (L = 33 limbs at the inner width
-    # W' = 20, converted at the kernels' boundary): H1 and H2 on ec_n (H2
-    # held on HELD_ROWS rows), whole on EC_CHECK_N elements, as the curve's
-    # kernels, and on one; K7's combine has no W' form
-    for ring in (False, True):
-        grp = _group("P-521")
+    # the P-224 and P-521 fields and scalar rings (L = 14 and 33 limbs at
+    # the inner widths W' = 8 and 20, converted at the kernels' boundary):
+    # H1 and H2 on ec_n (H2 held on HELD_ROWS rows), whole on EC_CHECK_N
+    # elements, as the curve's kernels, and on one; K7's combine has no
+    # converting form
+    for curve, ring in ((c, r) for c in PADDED_CURVES for r in (False, True)):
+        grp = _group(curve)
         ctx = grp.ring.ctx if ring else grp.ctx
         d = width(ctx, ctx.nbits, ec_n, held=True)
-        tag = f"_w{ctx.mod.W}" + ("_ring" if ring else "")
+        tag = CURVE_W_TAG[curve] + ("_ring" if ring else "")
         widths.setdefault(ctx.mod.W, []).append((d, tag, None))
         batch_cases(d, tag, ec_n)
         k = min(ec_n, EC_CHECK_N)
@@ -639,6 +647,8 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         if kernel not in COOP_MONT:
             continue
         for d, tag, window in widths[W]:
+            if d.mod.conv and kernel not in K.CONVERTS:
+                continue  # H3 and H4 raise at a padded modulus
             _tpi_cases(d, tag, window, kernel, rule,
                        reached.get((kernel, W, id(d.ctx)), set()))
 
@@ -747,10 +757,10 @@ def host_ec_mul(p: int, a: int, P, k: int):
 def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int,
               npos: int, W: int = 8, L: int = 0) -> dict:
     """Bounds of H5-H8 on n points of a curve of W-word coordinates
-    (P-256: 8, P-384: 12, P-521: 17, bound_words) held in L 16-bit limbs
-    (default 2W; P-521: 33) and exponents e of ndig 4-bit digits (the
-    fixed-base table of table_words words), and of the combine over npos
-    positions."""
+    (P-256: 8, P-224: 7, P-384: 12, P-521: 17, bound_words) held in L
+    16-bit limbs (default 2W; P-224: 14, P-521: 33) and exponents e of
+    ndig 4-bit digits (the fixed-base table of table_words words), and of
+    the combine over npos positions."""
     L = L or 2 * W
     nb = 4 * n * L  # one (n, L) int32 array
     nz = nonzero_digits(e, ndig, 4)
@@ -777,46 +787,56 @@ def ec_bounds(n: int, e: torch.Tensor, ndig: int, table_words: int,
 
 
 EC_CHECK_N = 4096  # the small EC check, beside the one at --ec-n
-# Points of P-384's and P-521's batch on which H6, a sum over the batch,
-# is held whole to its plain version, with the path batch's launch shape
+# Points of a curve's --ec-n batch on which H6, a sum over the batch, is
+# held whole to its plain version, with the path batch's launch shape
 # (132 blocks, each walking several chunks): on all 2^17 the plain fold at
 # P-384 took 41.7 s and left the run 44 s under its limit, less than the
 # spread between two runs (PERF.md §6); an eighth of the batch gives back
-# about 36 s.  At the whole batch H6 is timed and, with the combine, held
-# to Python EC arithmetic over H5's outputs.
+# about 36 s (at P-256 too, once P-224's checks took the run past 1100
+# s).  At the whole batch H6 is timed and, with the combine, held to
+# Python EC arithmetic over H5's outputs.
 MEXP_HELD_N = 16384
 # The NIST curves of the EC paths, each checked, mixed and verified the
-# same way: P-256 (W = 8), P-384 (W = 12), P-521 (L = 33 limbs at the
-# inner width W' = 20).
-EC_PATH_CURVES = ("P-256", "P-384", "P-521")
-# The Montgomery kernels of the P-384 and P-521 mixes: the field's and the
-# ring's products and powers.
+# same way: P-256 (W = 8), P-224 (L = 14 limbs at the inner width W' = 8,
+# P-256's kernels converting at their boundary), P-384 (W = 12), P-521
+# (L = 33 limbs at the inner width W' = 20).
+EC_PATH_CURVES = ("P-256", "P-224", "P-384", "P-521")
+# The curves whose field and ring the kernels compute at a padded width.
+PADDED_CURVES = ("P-224", "P-521")
+# The Montgomery kernels of the P-224, P-384 and P-521 mixes: the field's
+# and the ring's products and powers.
 CURVE_MONT = ("mont_mul", "mont_exp")
+# The suffix of the Montgomery kernels' check names at each curve but
+# P-256 (whose field is "_w8"): its width, or at P-224, whose W' is
+# P-256's, its name.
+CURVE_W_TAG = {"P-224": "_p224", "P-384": "_w12", "P-521": "_w20"}
 
 
 def curve_tag(curve: str) -> str:
-    """The suffix of a curve's check names: none at P-256, "_p384",
-    "_p521"."""
+    """The suffix of a curve's EC check names: none at P-256, "_p224",
+    "_p384", "_p521"."""
     return "" if curve == "P-256" else "_" + curve_key(curve)
 
 
 def curve_key(curve: str) -> str:
-    """"p256", "p384", "p521": a curve's key in the printed lines."""
+    """"p256", "p224", "p384", "p521": a curve's key in the printed
+    lines."""
     return curve.replace("-", "").lower()
 
 
 def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
     """H5-H8 on n points of `curve` (EC_PATH_CURVES): kernel == plain, a
     few rows against Python EC arithmetic, times; H7 also against H5 on
-    g (not at P-521, where H7 is not built: off the path); the combine on
-    the first ndig_pad of H5's Jacobian outputs (64 positions at P-256,
-    96 at P-384, 144 at P-521).  Run at 4096 points and at the EC path's
-    batch (--ec-n), where H6 splits the points into its widest lanes.
-    Held to the plain versions on the whole batch, but at P-384 and P-521
-    above EC_CHECK_N points H5, H7 and H8, whose output rows each depend
-    on their own inputs alone, on HELD_ROWS rows spread over the batch
-    with the edge rows (a P-384 plain scalar multiple on all 2^17 would
-    take minutes), and H6, a sum over the batch, whole on its first
+    g (not at P-224 and P-521, where H7 is not built: off the path); the
+    combine on the first ndig_pad of H5's Jacobian outputs (64 positions
+    at P-256 and P-224, whose 56 digits pad to 64, 96 at P-384, 144 at
+    P-521).  Run at 4096 points and at the EC path's batch (--ec-n),
+    where H6 splits the points into its widest lanes.  Held to the plain
+    versions on the whole batch, but above EC_CHECK_N points H5, H7 and
+    H8, whose output rows each depend on their own inputs alone, on
+    HELD_ROWS rows spread over the batch with the edge rows (a P-384
+    plain scalar multiple on all 2^17 would take minutes, P-256's took
+    50.6 s), and H6, a sum over the batch, whole on its first
     MEXP_HELD_N points in a launch of their own, of the batch's launch
     shape.  Results are keyed by kernel name, with curve_tag(curve)
     after it."""
@@ -877,7 +897,7 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
     Pj = [t[:J].contiguous() for t in (X, Y, Z)]
     h = None  # the rows of H5, H7 and H8 held to their plain versions
     m = n  # the points of H6's launch held to its plain version
-    if curve != "P-256" and n > EC_CHECK_N:
+    if n > EC_CHECK_N:
         h = torch.tensor(sorted(set(spread(n, HELD_ROWS)) | set(rows)),
                          device=dev)
         m = min(n, MEXP_HELD_N)
@@ -1247,12 +1267,12 @@ def same_test_vectors(tv: dict, name: str) -> int:
 
 def golden_phase(tmp: Path, name: str, maxciph: int = 0) -> None:
     """The golden k=1 mix of tools/make_golden.py on the card: test256,
-    modp3072 or modp4096 (5 messages), P-256, P-384 or P-521 (3
+    modp3072 or modp4096 (5 messages), P-256, P-224, P-384 or P-521 (3
     messages), or test256 after a precomputation for `maxciph`
     ciphertexts; transcript byte-equal, and the verifier's test vectors
     those vmn_tpu froze (tests/golden/test_vectors_{group}.json for the
-    wide groups, test_vectors_p384.json and test_vectors_p521.json for
-    P-384 and P-521, written by tests/torch_make_wide_golden.py)."""
+    wide groups, test_vectors_p{224,384,521}.json for the other curves,
+    written by tests/torch_make_wide_golden.py)."""
     t0 = time.perf_counter()
     group = _group(name)
     n, make = ((3, group.from_affine) if name.startswith("P-")
@@ -1547,10 +1567,11 @@ def calls_of(module, name: str, log: dict):
 def multiexp_widths(group, calls: dict, check: bool = False) -> list:
     """The (N, exponent bits) at which the path called its
     multi-exponentiation's positions (H4 or H6), `calls` holding the
-    counts of each part by its name ("mix", "verify", ...), each timed on
-    the card on random inputs of that shape (P-256 points from a seeded
-    PRG); with `check`, the output also held equal to its plain
-    version's (exact)."""
+    counts of each part by its name ("mix", "verify", ...); with `check`,
+    each also run on the card on random inputs of that shape (points from
+    a seeded PRG), held equal to its plain version's (exact) and timed.
+    (Without a check there is nothing to time here:
+    vmn_tpu_torch/kernel_timing.py times H4 and H6 at the paths' widths.)"""
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.kernel_timing import _elements, _exponents, device_ms
@@ -1562,10 +1583,13 @@ def multiexp_widths(group, calls: dict, check: bool = False) -> list:
     mod = group.ctx.mod
     out = []
     for N, bits in sorted(set().union(*calls.values())):
-        e = _exponents(gen, N, bits, "cuda")
         r = {"N": N, "bits": bits,
              **{f"{part}_calls": c.get((N, bits), 0)
                 for part, c in calls.items()}}
+        out.append(r)
+        if not check:
+            continue
+        e = _exponents(gen, N, bits, "cuda")
         if hasattr(group, "curve"):
             prg = PRGHeuristic(SHA256)
             prg.set_seed(SHA256.hash(b"smoke-multiexp-points"))
@@ -1577,13 +1601,10 @@ def multiexp_widths(group, calls: dict, check: bool = False) -> list:
             a = _elements(gen, N, mod.L, "cuda")
             run = lambda: K.mont_expprod_positions(a, e, mod, bits)
             plain = lambda: K.mont_expprod_positions_plain(a, e, mod, bits)
-        if check:
-            got = run()
-            want, plain_ms = timed(plain)
-            r.update(tolerance="exact", max_abs_err=max_abs_err(got, want),
-                     plain_ms=plain_ms)
-        r["ms"] = device_ms(run)
-        out.append(r)
+        got = run()
+        want, plain_ms = timed(plain)
+        r.update(tolerance="exact", max_abs_err=max_abs_err(got, want),
+                 plain_ms=plain_ms, ms=device_ms(run))
     return out
 
 
@@ -2393,8 +2414,8 @@ def main(argv=None) -> int:
                     help="ciphertexts in the modp2048, modp3072 and modp4096 "
                          "mixes (default 10000)")
     ap.add_argument("--ec-n", type=int, default=1 << 17,
-                    help="ciphertexts in the P-256, P-384 and P-521 mixes "
-                         "(default 131072)")
+                    help="ciphertexts in the P-256, P-224, P-384 and P-521 "
+                         "mixes (default 131072)")
     ap.add_argument("--k3-n", type=int, default=10000,
                     help="ciphertexts in the modp2048 k=3 mix "
                          "(default 10000)")
@@ -2430,8 +2451,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     pc_ec_n = min(args.ec_n, PC_EC_N)
     checks = check_kernels(args.n, args.ec_n, headroom(args.n))
-    # each curve whole at 4096 points, and at --ec-n (P-384 and P-521 on
-    # spread rows); P-256 also at 64-bit scalars (the precomputation's)
+    # each curve whole at 4096 points, and at --ec-n (every curve but
+    # P-256 on spread rows); P-256 also at 64-bit scalars (the
+    # precomputation's)
     for curve in EC_PATH_CURVES:
         tag = curve_tag(curve)
         small = check_ec_kernels(EC_CHECK_N, curve)
@@ -2508,9 +2530,9 @@ def main(argv=None) -> int:
     # the precomputation path: each of H1-H4 and K7's combine in its
     # precomputation or its online mix
     missing += [k for k in K.KERNELS if pc[k] + pc_mix[k] == 0]
-    # the curves: H5, H6, the EC combine and H8; at P-384 and P-521 also
-    # H1/H2 at the curve's width (every modulus of that mix, the field and
-    # the ring, has the curve's limb count)
+    # the curves: H5, H6, the EC combine and H8; at P-224, P-384 and
+    # P-521 also H1/H2 at the curve's width (every modulus of that mix,
+    # the field and the ring, has the curve's limb count)
     for curve, (launches, *_) in ec_paths.items():
         need = (*E.EC_KERNELS, *(CURVE_MONT if curve != "P-256" else ()))
         missing += [k if curve == "P-256" else f"{k} ({curve})"
@@ -2527,8 +2549,8 @@ def main(argv=None) -> int:
 
     torch.cuda.synchronize()
     kernels = []
-    # the wider curves' widths for the Montgomery kernels' check names
-    curve_w = {"P-384": "_w12", "P-521": "_w20"}
+    # the other curves' suffixes for the Montgomery kernels' check names
+    curve_w = CURVE_W_TAG
     for name in (*K.KERNELS, *E.EC_KERNELS):
         is_ec = name in E.EC_KERNELS
         kernels.append({
@@ -2539,9 +2561,9 @@ def main(argv=None) -> int:
             "launches": (ec if is_ec else modp)[name],
             "path": "P-256 mix" if is_ec else "modp2048 mix",
             **checks[MAIN_CHECK[name]]})
-        # the same kernel at P-384 (W = 12) and P-521 (W' = 20): its
-        # launches in that curve's mix and its check at that path's batch
-        # (none where the width has no kernel)
+        # the same kernel at P-224 (W' = 8), P-384 (W = 12) and P-521
+        # (W' = 20): its launches in that curve's mix and its check at
+        # that path's batch (none where the width has no kernel)
         for curve, tag in curve_w.items():
             tag = curve_tag(curve) if is_ec else tag
             kernels[-1][curve_key(curve)] = {

@@ -6,8 +6,9 @@
   H5, H7 and H8: Jacobian limbs equal.  H6 with the position combine
   (`ec_multiexp`): its Jacobian partials depend on how the points are
   split into lanes, which differs from the TPU's tiles, so the affine
-  result after `normalize` is compared.  The combine's plain version also
-  against Python EC arithmetic.
+  result after `normalize` is compared, once against K10 and once
+  against `exp_prod` on vmn_tpu's CPU route.  The combine's plain
+  version also against Python EC arithmetic.
 * `ECqPGroup` / `ECArray` against `vmn_tpu.arith.ec` (its XLA path on the
   CPU): affine Montgomery limbs, infinity masks and bytes equal.
 * The device default of the entry points (the card, never a silent CPU).
@@ -31,7 +32,7 @@ import pytest
 import torch
 
 from torch_port_util import (  # noqa: F401 (cuda_device: fixture)
-    as_np, cuda_device, host_ec_add, host_ec_mul, limbs_np,
+    as_np, cuda_device, host_ec_add, host_ec_mul, limbs_np, vmn_tpu_exp_prod,
 )
 from vmn_tpu_torch import interop
 from vmn_tpu_torch.arith import ec as TEC
@@ -149,18 +150,23 @@ def test_scalar_mul_plain_matches_pallas(jx, tg, interpret):
         for q, k in zip(pts, scalars)]
 
 
-@pytest.mark.parametrize("N,super_chunk,blocks", [
-    (70, 32, E.MEXP_BLOCKS),  # three launches, none a whole chunk
-    (120, 1 << 20, 1),        # one block walks three chunks, the last short
+@pytest.mark.parametrize("N,super_chunk,blocks,route", [
+    # three launches, none a whole chunk
+    pytest.param(70, 32, E.MEXP_BLOCKS, "pallas", id="70-32-132"),
+    # one block walks three chunks, the last short
+    pytest.param(120, 1 << 20, 1, "xla", id="120-1048576-1"),
 ])
 def test_multiexp_plain_matches_pallas(jx, tg, interpret, monkeypatch, N,
-                                       super_chunk, blocks):
+                                       super_chunk, blocks, route):
     """H6's plain version and the position combine (`ec_multiexp`)
-    against K10 `ec_multiexp_pallas`, compared after `normalize`.  The
-    batch holds a point at infinity, a pair P, -P, a repeated point and
-    scalar 0; N is no multiple of H6's chunk.  A small EP_SUPER splits it
-    into three launches; MEXP_BLOCKS = 1 makes one block fold every
-    chunk.  (Both N pad to one TILE_N, so K10 compiles once.)"""
+    against vmn_tpu, compared after `normalize`: the three-launch case
+    against K10 `ec_multiexp_pallas` (in interpret mode: the one pin on
+    the Pallas kernel's fold, the other curves' cases take the cheaper
+    route), the one-block case against `exp_prod` on vmn_tpu's CPU route
+    (its XLA scalar multiples and product tree).  The batch holds a point
+    at infinity, a pair P, -P, a repeated point and scalar 0; N is no
+    multiple of H6's chunk.  A small EP_SUPER splits it into three
+    launches; MEXP_BLOCKS = 1 makes one block fold every chunk."""
     monkeypatch.setattr(jx.JK, "_EP_JB", 4)  # small interpret-mode graphs
     monkeypatch.setattr(jx.JK, "TILE_N", 128)
     monkeypatch.setattr(E, "EP_SUPER", super_chunk)
@@ -180,10 +186,14 @@ def test_multiexp_plain_matches_pallas(jx, tg, interpret, monkeypatch, N,
     e = device_limbs(limbs_np(ks, 2), "cpu")
     got = tg.curve.normalize(*(t[None] for t in E.ec_multiexp(
         x, y, inf, e, tg.ctx.mod, nbits)))
-    want = jx.grp.curve.normalize(*jx.JK.ec_multiexp_pallas(
-        jx.grp.curve, _jnp(jx, x), _jnp(jx, y), jx.jnp.asarray(inf.numpy()),
-        _jnp(jx, e), nbits))
-    _assert_limbs_equal([t[0] for t in got], want)
+    if route == "pallas":
+        want = jx.grp.curve.normalize(*jx.JK.ec_multiexp_pallas(
+            jx.grp.curve, _jnp(jx, x), _jnp(jx, y),
+            jx.jnp.asarray(inf.numpy()), _jnp(jx, e), nbits))
+        _assert_limbs_equal([t[0] for t in got], want)
+    else:
+        want = vmn_tpu_exp_prod(jx.grp, x, y, inf, e, nbits)
+        _assert_limbs_equal([t.reshape(-1) for t in got], want)
     acc = None
     for q, k in zip(pts, ks):
         acc = host_ec_add(p, a, acc, None if q is None
@@ -467,7 +477,7 @@ def test_other_curves_on_the_cpu(jx, name):
     """The other NIST curves run through the plain versions on the CPU,
     P-521's odd L = 33 included (on the card P-384's kernels are held in
     tests/test_torch_p384.py, P-521's at the inner width W' = 20 in
-    tests/test_torch_p521_kernels.py; P-224's width has no kernel yet,
+    tests/test_torch_p521_kernels.py; P-224's inner width,
     test_p224_on_the_card_raises_by_width): addition, doubling and
     P + (-P) against Python ints; the message codec and the byte tree
     against vmn_tpu."""
@@ -487,31 +497,55 @@ def test_other_curves_on_the_cpu(jx, name):
 
 
 def test_p224_on_the_card_raises_by_width():
-    """P-224 (L = 14 limbs, W = 7 words) has no kernel instantiated: on a
-    tensor that is not on the CPU every wrapper of its path raises a
-    ValueError naming the width, before any launch and with no plain
-    fallback; P-521 maps to its inner width W' = 20 and P-384 to W = 12.
-    (A tensor on the "meta" device stands in for the card's: the wrappers
-    take the plain versions for CPU tensors alone.)"""
+    """P-224 (L = 14 limbs, whose 7 words have no kernel) maps to the
+    inner width W' = 8 of the P-256 instantiations, with the boundary
+    conversion: c_in = R'^2/R, c_out = R mod p, the kernel's one R' mod p
+    (R = 2^224, R' = 2^256).  On a tensor that is not on the CPU the
+    wrappers off its path (H3, H4, K7's combine, H7) raise a ValueError
+    naming that inner width, before any launch and with no plain
+    fallback; a width with no kernel at all (a 1024-bit ModP group, as
+    `vog -bitlen 1024` makes: L = 64, W = 32) raises naming L and W.
+    P-521 maps to its inner width W' = 20 and P-384 to W = 12.  (A tensor
+    on the "meta" device stands in for the card's: the wrappers take the
+    plain versions for CPU tensors alone.)"""
     from vmn_tpu_torch.arith.ec import _CURVES
 
+    p = _CURVES["P-224"][0]
+    R, Rp = 1 << 224, 1 << 256
+    mod = E.K.Modulus.of(p, 14, "cpu")
+    val = lambda t: sum(int(v) << (16 * i) for i, v in enumerate(t))  # noqa
+    assert (mod.L, mod.W, mod.conv) == (14, 8, True)
+    assert val(mod.c_in) == Rp * Rp * pow(R, -1, p) % p
+    assert val(mod.c_out) == R % p and val(mod.kernel_one) == Rp % p
+    assert mod.kernel_limbs.shape == (16,) and val(mod.kernel_limbs) == p
     meta = torch.device("meta")
-    mod = E.K.Modulus.of(_CURVES["P-224"][0], 14, meta)
-    assert (mod.L, mod.W, mod.conv) == (14, 7, False)
+    mod = E.K.Modulus.of(p, 14, meta)
     x = torch.empty((4, 14), dtype=torch.int32, device=meta)
-    inf = torch.zeros(4, dtype=torch.bool, device=meta)
+    tbl = torch.empty((56, 16, 14), dtype=torch.int32, device=meta)
     calls = {
-        "mont_mul": lambda: E.K.mont_mul(x, x, mod),
-        "mont_exp": lambda: E.K.mont_exp(x, x, mod, 224),
-        "ec_point_add": lambda: E.ec_point_add(x, x, x, x, x, x, mod),
-        "ec_scalar_mul": lambda: E.ec_scalar_mul(x, x, inf, x, mod, 224),
-        "ec_multiexp_positions": lambda: E.ec_multiexp_positions(
-            x, x, inf, x, mod, 224),
-        "ec_multiexp_combine": lambda: E.ec_multiexp_combine(x, x, x, mod),
+        "mont_fb_exp": lambda: E.K.mont_fb_exp(tbl, x, mod),
+        "mont_expprod_positions": lambda: E.K.mont_expprod_positions(
+            x, x, mod, 224),
+        "mont_expprod_combine": lambda: E.K.mont_expprod_combine(x, mod),
+        "ec_fb_exp": lambda: E.ec_fb_exp(tbl, tbl, x, mod),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=rf"{name}: no kernel for "
+                           r"L=14 at its inner width W=8"):
+            call()
+    m1024 = (1 << 1023) + 1155  # odd, 1024 bits
+    wide = E.K.Modulus.of(m1024, 64, meta)
+    assert (wide.L, wide.W, wide.conv) == (64, 32, False)
+    y = torch.empty((4, 64), dtype=torch.int32, device=meta)
+    calls = {
+        "mont_mul": lambda: E.K.mont_mul(y, y, wide),
+        "mont_exp": lambda: E.K.mont_exp(y, y, wide, 1024),
+        "mont_expprod_positions": lambda: E.K.mont_expprod_positions(
+            y, y, wide, 1024),
     }
     for name, call in calls.items():
         with pytest.raises(ValueError, match=rf"{name}: no kernel "
-                           r"instantiated for L=14 \(W=7\)"):
+                           r"instantiated for L=64 \(W=32\)"):
             call()
     assert E.K.Modulus.of(_CURVES["P-521"][0], 33, "cpu").W == 20
     assert E.K.Modulus.of(_CURVES["P-384"][0], 24, "cpu").W == 12

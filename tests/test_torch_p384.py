@@ -11,10 +11,11 @@ limbs) against `vmn_tpu` on the CPU.
   rejects it with one flipped reply byte.
 * The plain version of each kernel on this path against the Pallas
   kernel it ports, run in interpret mode as tests/test_kernels.py runs
-  them, at P-384 on small batches: H8 (K12), H5 (K9), H6 with the
-  position combine (K10, compared after `normalize`, as at P-256), H7
-  (K11), and H1 and H2 (K2, K3) on the field and on the scalar ring.
-* At each EC width (W = 8, 12 and P-521's inner 24): the TPI rules,
+  them, at P-384 on small batches: H8 (K12), H5 (K9), H7 (K11), and H1
+  and H2 (K2, K3) on the field and on the scalar ring; H6 with the
+  position combine (K10) against `vmn_tpu`'s `exp_prod` on its CPU
+  route, compared after `normalize`.
+* At each EC width (W = 8, 12 and P-521's inner 20): the TPI rules,
   their instantiations and H6's shape (`MEXP_SHAPES`) against the
   kernel's (its launch order: tests/test_torch_ec.py::
   test_mexp_order_is_the_kernels), one parametrised test.
@@ -39,7 +40,7 @@ import torch
 
 from torch_port_util import (  # noqa: F401 (cuda_device: fixture)
     TV_NAMES, as_np, cuda_device, edge_values, golden_files, host_ec_add,
-    host_ec_mul, limbs_np,
+    host_ec_mul, limbs_np, vmn_tpu_exp_prod,
 )
 from vmn_tpu_torch import interop
 from vmn_tpu_torch.arith import ec as TEC
@@ -280,21 +281,19 @@ def _multiexp_python(tg, pts, ks):
     return acc
 
 
-def test_multiexp_plain_matches_pallas(jx, tg, interpret, monkeypatch):
+def test_multiexp_plain_matches_pallas(jx, tg, monkeypatch):
     """H6's plain version at W = 12 (chunks of 40 points) and the position
-    combine (`ec_multiexp`) against K10 `ec_multiexp_pallas`, after
-    `normalize`, on 70 points split into three launches by a small
-    EP_SUPER, none a whole chunk."""
-    monkeypatch.setattr(jx.JK, "_EP_JB", 4)  # small interpret-mode graphs
-    monkeypatch.setattr(jx.JK, "TILE_N", 128)
+    combine (`ec_multiexp`) against vmn_tpu's `exp_prod` on its CPU route
+    (its XLA scalar multiples and product tree; K10's fold is pinned in
+    interpret mode at P-256, tests/test_torch_ec.py), after `normalize`,
+    on 70 points split into three launches by a small EP_SUPER, none a
+    whole chunk."""
     monkeypatch.setattr(E, "EP_SUPER", 32)
     x, y, inf, e, pts, ks = _multiexp_batch(tg, 70, 32)
     got = tg.curve.normalize(*(t[None] for t in E.ec_multiexp(
         x, y, inf, e, tg.ctx.mod, 32)))
-    want = jx.grp.curve.normalize(*jx.JK.ec_multiexp_pallas(
-        jx.grp.curve, _jnp(jx, x), _jnp(jx, y), jx.jnp.asarray(inf.numpy()),
-        _jnp(jx, e), 32))
-    _assert_limbs_equal([t[0] for t in got], want)
+    _assert_limbs_equal([t.reshape(-1) for t in got],
+                        vmn_tpu_exp_prod(jx.grp, x, y, inf, e, 32))
     assert tg.to_affine(TEC.ECArray(tg, *got)) == [
         _multiexp_python(tg, pts, ks)]
 
@@ -417,9 +416,17 @@ def _rules_name_built_tpis(w, kernel):
         assert f"template struct Mexp<{w}>;" in (
             CSRC / f"ec_mexp_w{w}.cu").read_text()
         assert f"case {w}: return Mexp<{w}>::launch" in src
-        padded = w in K.INNER_WORDS.values()
+        # a width that serves only padded moduli (P-521's W' = 20; W = 8
+        # serves P-256 beside P-224)
+        padded = w not in {L // 2 for L in map(_limb_count, TEC._CURVES)
+                           if L not in K.INNER_WORDS}
         assert (f"template struct Fb<{w}>;" in inst) == (not padded)
         assert (f"case {w}: return Fb<{w}>::launch" in src) == (not padded)
+
+
+def _limb_count(curve: str) -> int:
+    """The 16-bit limbs of a curve's field elements."""
+    return -(-TEC._CURVES[curve][0].bit_length() // 16)
 
 
 def _mexp_shape_fits_the_block(w):
@@ -427,7 +434,8 @@ def _mexp_shape_fits_the_block(w):
     MexpShape<W> is MEXP_SHAPES[W] (and MEXP_TPI[W] lanes a group at the
     padded widths).  One thread a builder and a folder: two chunks of
     16-entry tables (45·W + 4 words a point), a slot of 6·W + 1 words a
-    folder and the modulus and one (2·W words) within the 227 KB a block
+    folder and the modulus, one, c_in and c_out (4·W words) within the
+    227 KB a block
     may use, a builder a point of the chunk (two warps), and a larger
     chunk would not fit.  Groups of lanes: builders and folders in whole
     warps sharing the chunk, at most 1024 threads, and the two chunks
@@ -444,7 +452,7 @@ def _mexp_shape_fits_the_block(w):
     assert tpi == E.MEXP_TPI.get(w, 1)
     tables = 2 * chunk * (45 * w + 4)
     if tpi == 1:
-        words = tables + folders * (6 * w + 1) + 2 * w
+        words = tables + folders * (6 * w + 1) + 4 * w
         assert 4 * words <= 232448 and chunk <= builders == 64
         assert folders % 32 == 0
         assert 4 * (words + 2 * (45 * w + 4)) > 232448 or w == 8

@@ -7,20 +7,16 @@ tests/test_torch_p521.py.)
 """
 
 import json
-import shutil
-from pathlib import Path
 
-from torch_port_util import TV_NAMES
-from vmn_tpu_torch.arith.ec import ECqPGroup as TGroup
+from torch_port_util import (
+    TV_NAMES, curve_golden, curve_params, flipped_reply_copy,
+)
 
-GOLDEN = Path(__file__).parent / "golden" / "nizkp_p521_k1"
+GOLDEN, TV_FILE = curve_golden("P-521")
 
 
 def _params():
-    from vmn_tpu_torch.protocol.context import ProtocolParams
-
-    return ProtocolParams(sid="Golden", k=1, threshold=1,
-                          pgroup=TGroup.named("P-521", device="cpu"))
+    return curve_params("P-521")
 
 
 def test_port_verifier_accepts_vmn_tpu_p521_transcript():
@@ -28,18 +24,13 @@ def test_port_verifier_accepts_vmn_tpu_p521_transcript():
 
     v = FiatShamirVerifier(_params(), GOLDEN, test_vectors=TV_NAMES)
     assert v.verify(expected_type="mixing").ok
-    want = json.loads((GOLDEN.parent / "test_vectors_p521.json").read_text())
+    want = json.loads(TV_FILE.read_text())
     assert len(want) == 41 and v.tv == want
 
 
 def test_port_verifier_rejects_flipped_p521_reply_byte(tmp_path):
     from vmn_tpu_torch.protocol.mixnet.verifier import FiatShamirVerifier
 
-    nizkp = tmp_path / "nizkp"
-    shutil.copytree(GOLDEN, nizkp)
-    reply = nizkp / "proofs" / "PoSReply01.bt"
-    raw = bytearray(reply.read_bytes())
-    raw[-1] ^= 0x01
-    reply.write_bytes(bytes(raw))
+    nizkp = flipped_reply_copy(GOLDEN, tmp_path / "nizkp")
     assert not FiatShamirVerifier(_params(), nizkp).verify(
         expected_type="mixing").ok

@@ -6,6 +6,8 @@ port's limbs come back as uint32 numpy arrays so that a comparison with
 arithmetic, so every tolerance in these tests is exact equality.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,66 @@ def golden_files(root) -> list:
     """Relative paths of the files under a transcript directory."""
     return sorted(p.relative_to(root) for p in root.rglob("*")
                   if p.is_file())
+
+
+GOLDEN = Path(__file__).parent / "golden"
+
+
+def curve_golden(curve: str):
+    """(transcript directory, test-vector file) of a curve's k=1 golden
+    (tests/torch_make_wide_golden.py; P-256's by tools/make_golden.py)."""
+    tag = curve.replace("-", "").lower()
+    return GOLDEN / f"nizkp_{tag}_k1", GOLDEN / f"test_vectors_{tag}.json"
+
+
+def curve_params(curve: str, device="cpu"):
+    """The port's protocol parameters of the k=1 goldens over `curve`."""
+    from vmn_tpu_torch.arith.ec import ECqPGroup
+    from vmn_tpu_torch.protocol.context import ProtocolParams
+
+    return ProtocolParams(sid="Golden", k=1, threshold=1,
+                          pgroup=ECqPGroup.named(curve, device=device))
+
+
+def curve_golden_mix(curve: str, device, out, n: int = 3):
+    """The golden k=1 mix of tools/make_golden.py (its seeds) by the port
+    over `curve` on `device`: (nizkp dir, messages, plaintext points)."""
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol import elgamal
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+    from vmn_tpu_torch.protocol.mixnet.party import MixNetParty
+
+    params = curve_params(curve, device)
+    group = params.pgroup
+    party = MixNetParty(params, LocalBoardHub(1).board(1),
+                        SeededSource(b"golden-party"), str(out))
+    pk = party.keygen()
+    msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
+    r = group.ring.random((n,), SeededSource(b"golden-ciphs"), 0)
+    ciphs = elgamal.encrypt(pk, group.from_affine(msgs), r)
+    party.board = LocalBoardHub(1).board(1)
+    plain = party.session("golden", 1).mix(ciphs)
+    return Path(out) / "nizkp.golden", msgs, plain.to_affine()
+
+
+def assert_same_transcript(nizkp, golden) -> None:
+    """The transcript under nizkp holds golden's files, byte for byte."""
+    assert golden_files(nizkp) == golden_files(golden)
+    for rel in golden_files(golden):
+        assert (nizkp / rel).read_bytes() == (golden / rel).read_bytes(), rel
+
+
+def flipped_reply_copy(golden, dest):
+    """A copy of the transcript golden under dest with the last byte of
+    its proof-of-shuffle reply flipped."""
+    import shutil
+
+    shutil.copytree(golden, dest)
+    reply = Path(dest) / "proofs" / "PoSReply01.bt"
+    raw = bytearray(reply.read_bytes())
+    raw[-1] ^= 0x01
+    reply.write_bytes(bytes(raw))
+    return Path(dest)
 
 
 def run_parties(k: int, fn, parties=None) -> list:
@@ -134,6 +196,23 @@ def host_ec_mul(p: int, a: int, P, k: int):
         add = host_ec_add(p, a, add, add)
         k >>= 1
     return acc
+
+
+def vmn_tpu_exp_prod(jgrp, x, y, inf, e, nbits: int):
+    """vmn_tpu's `exp_prod` of port points (Montgomery limbs x, y and the
+    infinity mask) and exponent limbs e, on its CPU route: scalar
+    multiples on its XLA path and a product tree (Pallas serves it on the
+    TPU alone, vmn_tpu/arith/ec.py:922-953; its multi-exponentiation
+    kernel in interpret mode costs several times as long).  Its
+    normalized (x, y, inf) as numpy arrays, flattened."""
+    import jax.numpy as jnp
+    from vmn_tpu.arith.ec import ECArray
+    from vmn_tpu.arith.pgroup import FArray
+
+    pts = ECArray(jgrp, jnp.asarray(as_np(x)), jnp.asarray(as_np(y)),
+                  jnp.asarray(np.asarray(inf.cpu())))
+    out = pts.exp_prod(FArray(jgrp.ring, jnp.asarray(as_np(e))), nbits)
+    return tuple(np.asarray(t).reshape(-1) for t in (out.x, out.y, out.inf))
 
 
 @pytest.fixture

@@ -62,6 +62,13 @@ from vmn_tpu_torch.ops import ec_kernels as E
 # addition tree (vmn_tpu/arith/ec.py:933-943).
 MULTIEXP_MIN = 1 << 17
 WINDOW = 4
+# Points from which `random_array` evaluates its candidates in device
+# batches where p = 1 (mod 4) (P-224), with the constant-time Tonelli-
+# Shanks square root (`_sqrt_batch`): about a hundred batched powers a
+# call whatever the batch, against 2 ms of host Tonelli-Shanks a candidate
+# (two candidates a point) on a CPU core; at 2^17 points the host's would
+# take minutes.  Where p = 3 (mod 4) the batches serve every size.
+SQRT_BATCH_MIN = 256
 
 
 def _select(mask, a, b):
@@ -308,16 +315,18 @@ class ECqPGroup:
         curve, even y (reference: ECqPGroup.randomElementArray try-and-
         increment derivation).
 
-        For p = 3 (mod 4) (P-256, P-384) the candidates are evaluated in
-        device batches — the square root is rhs^((p+1)/4), one H2 power —
-        taking the first `nelem` valid candidates in stream order, which
-        gives exactly the sequential derivation's points."""
+        The candidates are evaluated in device batches (`_sqrt_batch`:
+        where p = 3 (mod 4), P-256, P-384 and P-521, one H2 power; else,
+        P-224, the constant-time Tonelli-Shanks, from SQRT_BATCH_MIN
+        points), taking the first `nelem` valid candidates in stream
+        order, which gives exactly the sequential derivation's points."""
         if nelem == 0:
             return self.one((0,))
         bits = self.p.bit_length() + rbitlen
         nbytes = (bits + 7) // 8
         extra = 8 * nbytes - bits
-        if self.p % 4 == 3 and hasattr(prg, "unread"):
+        batched = self.p % 4 == 3 or nelem >= SQRT_BATCH_MIN
+        if batched and hasattr(prg, "unread"):
             xs_parts, ys_parts, got = [], [], 0
             while got < nelem:
                 k = max(2 * (nelem - got) + 16, 64)
@@ -362,21 +371,60 @@ class ECqPGroup:
         return self.from_affine(pts)
 
     def _derive_candidates(self, raw: np.ndarray):
-        """Batched candidate evaluation (p = 3 mod 4): x = cand mod p,
-        rhs = x^3 + ax + b, s = rhs^((p+1)/4), valid iff s^2 == rhs;
-        y = s normalized to even (y -> p - y when odd)."""
+        """Batched candidate evaluation: x = cand mod p, rhs = x^3 + ax + b,
+        s = a square root of rhs (`_sqrt_batch`), valid iff s^2 == rhs;
+        y = s normalized to even (y -> p - y when odd), the one root the
+        sequential derivation keeps."""
         ctx = self.ctx
         c = self.curve
         Lw = max(ctx.L, num_limbs(8 * raw.shape[1]))
         wide = device_limbs(bytes_be_to_limbs(raw, Lw), self.device)
         x_m = ctx.to_mont(ctx.reduce_std(wide))
         rhs = c.add(c.add(c.mul(c.sq(x_m), x_m), c.mul(c.a_m, x_m)), c.b_m)
-        e_int = (self.p + 1) // 4
-        s = ctx.exp(rhs, ctx._const(e_int), e_int.bit_length())
+        s = self._sqrt_batch(rhs)
         valid = (ctx.mul(s, s) == rhs).all(dim=-1)
         odd = (ctx.from_mont(s)[..., 0] & 1).bool()
         y_m = torch.where(odd[..., None], ctx.neg(s), s)
         return x_m, y_m, valid
+
+    def _sqrt_batch(self, v: torch.Tensor) -> torch.Tensor:
+        """A square root of each Montgomery-form v that is a square (any
+        value elsewhere; the caller checks s^2 == v).  p = 3 (mod 4):
+        v^((p+1)/4), one H2 power.  Otherwise the constant-time
+        Tonelli-Shanks of RFC 9380 (appendix I.4), the same steps for
+        every element: p - 1 = 2^c1·c2 with c2 odd, z = v^((c2-1)/2), then
+        c1 - 1 rounds, each raising t to b = t^(2^(i-2)) (one power, i - 2
+        squarings) and, where b is not one, multiplying z and t by the
+        round's powers of the c2-th power of a non-square (masked,
+        `torch.where`); c1(c1-1)/2 squarings in c1 - 1 powers, 4,465 in
+        95 at P-224 (c1 = 96)."""
+        ctx, p = self.ctx, self.p
+        if p % 4 == 3:
+            e = (p + 1) // 4
+            return ctx.exp(v, ctx._const(e), e.bit_length())
+        c1 = ((p - 1) & (1 - p)).bit_length() - 1
+        c2 = (p - 1) >> c1
+        nonsq = 2
+        while pow(nonsq, (p - 1) // 2, p) != p - 1:
+            nonsq += 1
+        c3 = (c2 - 1) // 2
+        z = ctx.exp(v, ctx._const(c3), c3.bit_length())
+        t = ctx.mul(ctx.mul(z, z), v)
+        z = ctx.mul(z, v)
+        c = pow(nonsq, c2, p)
+        one = ctx.one_mont
+
+        def mont(x):  # a host constant in Montgomery form
+            return ctx._const(x * ctx.R % p)
+
+        for i in range(c1, 1, -1):
+            # b = t^(2^(i-2)): the i - 2 squarings in one H2 launch
+            b = ctx.exp(t, ctx._const(1 << (i - 2)), i - 1)
+            keep = (b == one).all(dim=-1, keepdim=True)
+            z = torch.where(keep, z, ctx.mul(z, mont(c)))
+            c = c * c % p
+            t = torch.where(keep, t, ctx.mul(t, mont(c)))
+        return z
 
     # --------------------------------------------------------- serialize
 

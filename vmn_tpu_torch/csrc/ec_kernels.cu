@@ -29,8 +29,10 @@
 // ec_w8.cu and ec_mexp_w8.cu, W = 12 (P-384, L = 24) in ec_w12.cu and
 // ec_mexp_w12.cu, W' = 20 (P-521, L = 33 limbs padded to 40, the
 // conversion of coop_rebase at the kernels' boundary) in ec_w20.cu and
-// ec_mexp_w20.cu.  H7 has no P-521 form (off the path).  P-224 (L = 14,
-// W = 7) gets its files with the first path that runs it.
+// ec_mexp_w20.cu.  P-224 (L = 14 limbs) runs on the W = 8
+// instantiations at the inner width W' = 8, converted at the boundary as
+// P-521 is (H6 in its one-thread form).  H7 has no padded form (off the
+// paths).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -110,7 +112,7 @@ int vmn_ec_chain(int w, int tpi, const int32_t* px, const int32_t* py,
 
 // H6 over G = `blocks` blocks of MexpShape<W>::kThreads threads; `subs`
 // folders a digit position (ec_multiexp_positions' mexp_shape); at W = 20
-// the cooperative form.
+// the cooperative form.  c_in and c_out: both NULL or both set.
 int vmn_ec_mexp(int w, const int32_t* x, const int32_t* y, const uint8_t* inf,
                 const int32_t* e, int32_t* out, const int32_t* m,
                 const int32_t* one, uint32_t mp, const int32_t* c_in,

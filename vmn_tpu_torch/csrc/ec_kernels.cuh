@@ -340,7 +340,20 @@ int Chain<W, TPI>::launch(const int32_t* px, const int32_t* py,
 // frame and no spill, and 40 points a chunk fill what the slots leave of
 // the 227 KB (H100, PERF.md §6).
 //
-// At the padded widths (P-521: L = 33 limbs in W' words) one thread a
+// A padded modulus (Modulus in ops/mont_kernels.py; c_in and c_out not
+// NULL) at a width of this form: P-224, L = 14 limbs on the P-256 shape
+// at W' = 8.  The constants lie in shared memory beside the modulus and
+// the kernel's one; each builder takes its point's x and y to the
+// kernel's radix (two products by c_in) before it builds the table, and
+// each folder its (X, Y, Z) sum back (three products by c_out) before it
+// stores: two products a point and three a partial, where a point's
+// table and folds take about 1000.  A point at infinity stays infinity
+// (Z = 0), and the sums keep the plain version's limbs.  The products
+// run on the same fenced field, so the register bound holds: ptxas
+// (sm_90a) gives ec_mexp_kernel<8> 166 registers, no stack frame, no
+// spill (PERF.md §6).
+//
+// At P-521's padded width (L = 33 limbs in W' words) one thread a
 // point cannot hold a product's operands: the addition's temporaries
 // alone are ~19·W words, past 255 registers from W = 14 on.  There H6 is
 // ec_mexp_coop_kernel below: the same builders and folders, each a group
@@ -425,8 +438,10 @@ __global__ void __launch_bounds__(MexpShape<W>::kThreads, 1)
     ec_mexp_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                    const uint8_t* __restrict__ inf, const int32_t* __restrict__ e,
                    int32_t* __restrict__ out, const int32_t* __restrict__ m,
-                   const int32_t* __restrict__ one, uint32_t mp, int64_t n,
-                   int le, int npos, int subs) {
+                   const int32_t* __restrict__ one, uint32_t mp,
+                   const int32_t* __restrict__ c_in,
+                   const int32_t* __restrict__ c_out, int64_t n, int le,
+                   int npos, int subs) {
   constexpr int kChunk = MexpShape<W>::kChunk;
   constexpr int kBuilders = MexpShape<W>::kBuilders;
   static_assert(kChunk <= kBuilders, "a builder a point of the chunk");
@@ -435,9 +450,15 @@ __global__ void __launch_bounds__(MexpShape<W>::kThreads, 1)
   constexpr int kCW = 3 * W;  // words of one entry
   // [2][kBuf] tables, then the folders' slots
   extern __shared__ __align__(16) uint32_t mexp_tbl[];
-  __shared__ uint32_t sm[W], so[W];
+  // the modulus, the kernel's one and, at a padded modulus, c_in, c_out
+  __shared__ uint32_t sm[W], so[W], sci[W], sco[W];
+  const bool conv = c_in != nullptr;  // uniform: c_out is set with c_in
   vmn::load_vec_shared<W>(sm, m);
   vmn::load_vec_shared<W>(so, one);
+  if (conv) {
+    vmn::load_vec_shared<W>(sci, c_in);
+    vmn::load_vec_shared<W>(sco, c_out);
+  }
   __syncthreads();
   const vmn::Field<W, true> F{sm, mp};
   const int64_t nchunks = (n + kChunk - 1) / kChunk;
@@ -456,6 +477,10 @@ __global__ void __launch_bounds__(MexpShape<W>::kThreads, 1)
     uint32_t X1[W], Y1[W], Z1[W], aX[W], aY[W], aZ[W];
     vmn::load_slice<W, 1>(X1, x + i * 2 * W);
     vmn::load_slice<W, 1>(Y1, y + i * 2 * W);
+    if (conv) {  // x·R0 -> x·R at the kernel's radix: two products
+      F.mul(X1, X1, sci);
+      F.mul(Y1, Y1, sci);
+    }
     const uint32_t pinf = 0u - (uint32_t)(inf[i] != 0);
 #pragma unroll
     for (int k2 = 0; k2 < W; ++k2) Z1[k2] = so[k2] & ~pinf;
@@ -526,6 +551,11 @@ __global__ void __launch_bounds__(MexpShape<W>::kThreads, 1)
     __syncthreads();
   }
   if (folder) {
+    if (conv) {  // the sum back to the limbs' radix: three products
+      F.mul(A, A, sco);
+      F.mul(A + W, A + W, sco);
+      F.mul(A + 2 * W, A + 2 * W, sco);
+    }
     const int64_t parts = (int64_t)G * subs;
     const int64_t q = (int64_t)blockIdx.x * subs + s;
     const int64_t plane = (int64_t)npos * parts * 2 * W;
@@ -765,18 +795,18 @@ int Mexp<W>::launch(const int32_t* x, const int32_t* y, const uint8_t* inf,
       (int64_t)blocks * Sh::kChunk >= n + Sh::kChunk) {
     return kBadShape;
   }
+  if ((c_in == nullptr) != (c_out == nullptr)) return kBadShape;
   if constexpr (Sh::kTPI == 1) {
-    static_assert(mexp_shared_bytes<W>() + 8 * W <= kBlockShared,
+    static_assert(mexp_shared_bytes<W>() + 16 * W <= kBlockShared,
                   "H6's tables, slots and constants pass 227 KB");
-    // one thread an item; no padded modulus at these widths
-    if (npos * subs > Sh::kFolders || c_in || c_out) return kBadShape;
+    if (npos * subs > Sh::kFolders) return kBadShape;  // one thread an item
     const size_t smem = mexp_shared_bytes<W>();
     cudaError_t err = cudaFuncSetAttribute(
         ec_mexp_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     ec_mexp_kernel<W><<<(unsigned)blocks, Sh::kThreads, smem, s>>>(
-        x, y, inf, e, out, m, one, mp, n, le, npos, subs);
+        x, y, inf, e, out, m, one, mp, c_in, c_out, n, le, npos, subs);
   } else {
     const int rounds = (npos * subs + Sh::kFolders - 1) / Sh::kFolders;
     const size_t smem = mexp_coop_shared_bytes<W>(rounds);

@@ -4,7 +4,7 @@ Usage (from any directory, on a machine with a card):
 
     python3 vmn_tpu_torch/kernel_timing.py [--tree DIR] [--n N] [--ec-n N]
     python3 vmn_tpu_torch/kernel_timing.py --sweep [--only WRAPPER ...]
-                                           [--widths W ...]
+                                           [--widths W ...] [--curve P-224]
 
 Without --sweep it times, with `device_ms`, the wrappers of the
 `vmn_tpu_torch` package under DIR (default: the tree this file is in) on
@@ -30,7 +30,11 @@ inputs made on the card from fixed seeds:
   and H8 `ec_point_add` at P-256 on 4096 and on --ec-n points, H8 also
   on one pair and, at --ec-n, H8's and H6's kernels alone (without H6's
   H8 lane tree): the device time of the launches whose name holds
-  `ec_add_kernel` or `ec_mexp_kernel`, from torch.profiler;
+  `ec_add_kernel` or `ec_mexp_kernel`, from torch.profiler; at --ec-n H6
+  also at 100- and (below the curve's own) 256-bit scalars, the widths
+  beside the full one at which the EC paths' mixes and verifies call it
+  (chip_smoke.py's `[multiexp]` lines count those calls; `_{bits}`
+  keys);
 * the EC position combine over 64 positions (a 256-bit
   multi-exponentiation): `ec_multiexp_combine` where the tree has it,
   else the loop of single-point H8 launches that `ec_multiexp` ran
@@ -48,7 +52,12 @@ inputs made on the card from fixed seeds:
   limbs padded, converted at the kernels' boundary): H1 and H2 at the
   P-521 field (521-bit exponents, `_w20` keys), and H5, H6, H8 and the
   EC combine at P-521 on --ec-n points (`_p521` keys, the combine over
-  144 positions; no H7).
+  144 positions; no H7);
+* where the tree maps P-224 (L = 14 limbs) to the inner width W' = 8
+  (the P-256 instantiations, converted at the kernels' boundary): H1 and
+  H2 at the P-224 field and ring (224-bit exponents, `_p224` and
+  `_p224_ring` keys), and H5, H6, H8 and the EC combine at P-224 on
+  --ec-n points (`_p224` keys, the combine over 64 positions; no H7).
 
 Every tree of the port since the EC slice has these wrappers with these
 signatures, so a commit and its parent, unpacked side by side, are timed
@@ -69,7 +78,10 @@ modp2048 at each (elements, exponent bits) of the path under every pair
 of its launch-shape constants EP_MIN_ELEMENTS and EP_ACC_BYTES (`--only
 ep_shape` for that alone).  `--widths` limits the sweep to those widths
 (e.g. `--widths 12`: H1, H2 at the P-384 field and the EC kernels at
-P-384; `--widths 20`: the same at P-521's inner width).
+P-384; `--widths 20`: the same at P-521's inner width).  `--curve P-224`
+sweeps P-224's padded moduli in its place: H1 and H2 at the field and
+the ring (224-bit exponents), H5, H8 and the combine (16 and 64
+positions) and H6 at the field, all at W' = 8 with the conversion on.
 
 --startup splits the start-up of a process that runs the port on the
 card (as each `vmn` process of the CLI does) into its steps, measured in
@@ -122,6 +134,10 @@ EC_CURVES = {8: ("P-256", 256, (16, 64)), 12: ("P-384", 384, (16, 96)),
              20: ("P-521", 521, (16, 144))}
 # The curves timed at --ec-n beside P-256 (W: key suffix).
 EC_TAGS = {12: "_p384", 20: "_p521"}
+# P-224 (L = 14 limbs at the inner width W' = 8, the P-256 instantiations
+# with the boundary conversion on): its W is P-256's, so it is timed under
+# its own key and swept with --curve.
+P224 = ("P-224", 224, (16, 64))
 SWEEP_MEXP_N = (4096, 16384, 65536, 131072, 262144)
 SWEEP_EP_N = {64: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
               8: (1, 16, 256, 1024, 4096, 10000),
@@ -288,7 +304,25 @@ def time_tree(n: int, ec_n: int) -> dict:
     for w, tag in EC_TAGS.items():
         if w in getattr(E, "_WIDTHS", ()):
             out.update(_time_ec(E, dev, ec_n, tag, w))
+    if getattr(K, "INNER_WORDS", {}).get(14) == 8:  # P-224 at W' = 8
+        for ctx, tag in _p224_moduli(dev):
+            a = _elements(gen, ec_n, ctx.L, dev)
+            b = _elements(gen, ec_n, ctx.L, dev)
+            e = _exponents(gen, ec_n, P224[1], dev)
+            out[f"mont_mul{tag}"] = device_ms(
+                lambda: K.mont_mul(a, b, ctx.mod))
+            out[f"mont_exp{tag}"] = device_ms(
+                lambda: K.mont_exp(a, e, ctx.mod, P224[1]))
+        out.update(_time_ec(E, dev, ec_n, "_p224", 8, P224))
     return out
+
+
+def _p224_moduli(dev):
+    """[(MontCtx, key suffix)] of P-224's field and scalar ring."""
+    from vmn_tpu_torch.arith.ec import ECqPGroup
+
+    grp = ECqPGroup.named("P-224", device=dev)
+    return [(grp.ctx, "_p224"), (grp.ring.ctx, "_p224_ring")]
 
 
 def _ep_widths(ctx, n: int) -> list:
@@ -320,17 +354,18 @@ def _ec_combine(E, P, mod):
     return tuple(t[0] for t in acc)
 
 
-def _time_ec(E, dev, n: int, tag: str, w: int = 8) -> dict:
-    """The EC wrappers on n points of the curve of width W (EC_CURVES);
-    at --ec-n (no tag, or EC_TAGS') also the combine, H8 on one pair and
-    H8's and H6's kernels alone; H7 where it is built (not at P-521)."""
+def _time_ec(E, dev, n: int, tag: str, w: int = 8, curve=None) -> dict:
+    """The EC wrappers on n points of the curve of width W (EC_CURVES, or
+    `curve`: P224); at --ec-n (no tag, or EC_TAGS' and P-224's) also the
+    combine, H8 on one pair and H8's and H6's kernels alone; H7 where it
+    is built (not at P-224 and P-521)."""
     import numpy as np
 
     from vmn_tpu_torch.arith.ec import ECqPGroup, _ec_fb_table
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
 
-    name, bits, positions = EC_CURVES[w]
+    name, bits, positions = curve or EC_CURVES[w]
     grp = ECqPGroup.named(name, device=dev)
     mod = grp.ctx.mod
     prg = PRGHeuristic(SHA256)
@@ -355,7 +390,13 @@ def _time_ec(E, dev, n: int, tag: str, w: int = 8) -> dict:
         extra[f"ec_multiexp_positions_kernel_only{tag}"] = kernel_ms(
             lambda: E.ec_multiexp_positions(x, y, inf, e, mod, bits),
             "ec_mexp_", reps=3)  # ec_mexp_kernel, ec_mexp_coop_kernel
-    if not mod.conv:  # H7 is off the paths and not built at P-521
+        for b in (w for w in (100, 256) if w < bits):  # the paths' others
+            eb = e[:, : -(-b // 16)].clone()
+            eb[:, -1] &= (1 << (b - 16 * (eb.shape[1] - 1))) - 1
+            extra[f"ec_multiexp_positions{tag}_{b}"] = device_ms(
+                lambda eb=eb, b=b: E.ec_multiexp_positions(x, y, inf, eb,
+                                                           mod, b))
+    if not mod.conv:  # H7: off the paths, not built at a padded modulus
         tbx, tby = _ec_fb_table(grp.curve, *grp.g._jac(), bits // 4)
         extra[f"ec_fb_exp{tag}"] = device_ms(
             lambda: E.ec_fb_exp(tbx, tby, e, mod))
@@ -402,13 +443,14 @@ def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
         K.COOP_TPI[kernel, w] = rule
 
 
-def sweep(only=(), widths=()) -> dict:
+def sweep(only=(), widths=(), curve=None) -> dict:
     """H1 and H2 at every instantiated TPI over SWEEP_N at each width the
     tree instantiates, H4 over SWEEP_EP_N, H3 over SWEEP_FB_N; H5 over
     SWEEP_SMUL_N points, H8 over SWEEP_ADD_N pairs and the EC combine
     over the positions of EC_CURVES at each curve's width; H6 over
     SWEEP_MEXP_N points.  Only the kernels (wrapper names) in `only`, and
-    the widths in `widths`, where they name any."""
+    the widths in `widths`, where they name any.  curve "P-224": the
+    same at P-224's padded moduli (W' = 8) alone."""
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
@@ -416,6 +458,21 @@ def sweep(only=(), widths=()) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows, best = [], {}
+    if curve == "P-224":
+        top = max(SWEEP_N[8])
+        moduli = _p224_moduli(dev)
+        for ctx, tag in moduli:
+            a = _elements(gen, top, ctx.L, dev)
+            b = _elements(gen, top, ctx.L, dev)
+            e = _exponents(gen, top, P224[1], dev)
+            runs = {"mont_mul": lambda k: K.mont_mul(a[:k], b[:k], ctx.mod),
+                    "mont_exp": lambda k: K.mont_exp(a[:k], e[:k], ctx.mod,
+                                                     P224[1])}
+            for kernel, run in runs.items():
+                _sweep_kernel(K, kernel, 8, SWEEP_N[8], run, rows, best,
+                              tag=tag, only=only)
+        _sweep_ec(K, E, 8, moduli[0][0], gen, dev, rows, best, only, P224)
+        return {"sweep": rows, "fastest_tpi": best}
     mont_widths = [w for w in _tree_widths(K) if not widths or w in widths]
     for w, ctx in _moduli(dev, mont_widths).items():
         ebits = _full_bits(ctx) if w >= 64 else EC_CURVES[w][1]
@@ -459,10 +516,12 @@ def sweep(only=(), widths=()) -> dict:
     return {"sweep": rows, "fastest_tpi": best}
 
 
-def _sweep_ec(K, E, w, ctx, gen, dev, rows: list, best: dict, only) -> None:
+def _sweep_ec(K, E, w, ctx, gen, dev, rows: list, best: dict, only,
+              curve=None) -> None:
     """H5, the EC combine and H8 at every TPI, H6 at its shape, on the
-    curve of width W (EC_CURVES)."""
-    _, bits, positions = EC_CURVES[w]
+    curve of width W (EC_CURVES, or `curve`: P224, its rows tagged)."""
+    _, bits, positions = curve or EC_CURVES[w]
+    tag = "" if curve is None else "_" + curve[0].replace("-", "").lower()
     top = max(SWEEP_SMUL_N)
     x, y = (_elements(gen, top, ctx.L, dev) for _ in range(2))
     inf = torch.zeros(top, dtype=torch.bool, device=dev)
@@ -470,25 +529,27 @@ def _sweep_ec(K, E, w, ctx, gen, dev, rows: list, best: dict, only) -> None:
     _sweep_kernel(K, "ec_scalar_mul", w, SWEEP_SMUL_N,
                   lambda k: E.ec_scalar_mul(x[:k], y[:k], inf[:k], e[:k],
                                             ctx.mod, bits), rows, best,
-                  only=only)
+                  tag=tag, only=only)
     P = [_elements(gen, max(positions), ctx.L, dev) for _ in range(3)]
     _sweep_kernel(K, "ec_multiexp_combine", w, positions,
                   lambda k: E.ec_multiexp_combine(*(t[:k] for t in P),
                                                   ctx.mod), rows, best,
-                  only=only)
+                  tag=tag, only=only)
     Z1, X2, Y2, Z2 = (_elements(gen, top, ctx.L, dev) for _ in range(4))
     _sweep_kernel(K, "ec_point_add", w, SWEEP_ADD_N,
                   lambda k: E.ec_point_add(x[:k], y[:k], Z1[:k], X2[:k],
                                            Y2[:k], Z2[:k], ctx.mod),
-                  rows, best, only=only)
+                  rows, best, tag=tag, only=only)
     mexp = not only or "ec_multiexp_positions" in only
     for n in SWEEP_MEXP_N if mexp else ():
         ms = device_ms(lambda: E.ec_multiexp_positions(
             x[:n], y[:n], inf[:n], e[:n], ctx.mod, bits), reps=5)
-        rows.append({"kernel": "ec_multiexp_positions", "W": w, "N": n,
-                     "shape": _mexp_shape(E, n, w, bits), "ms": ms})
-        print(f"[sweep] kernel=ec_multiexp_positions W={w} N={n} "
+        rows.append({"kernel": "ec_multiexp_positions" + tag, "W": w,
+                     "N": n, "shape": _mexp_shape(E, n, w, bits), "ms": ms})
+        print(f"[sweep] kernel=ec_multiexp_positions{tag} W={w} N={n} "
               f"shape={rows[-1]['shape']} ms={ms:.4f}", flush=True)
+
+
 def _sweep_ep_shape(K, ctx, gen, dev, rows: list) -> None:
     """H4 at W = 64 at each of EP_WIDTHS under every (EP_MIN_ELEMENTS,
     EP_ACC_BYTES) of the sweep, the TPI from its rule; the constants are
@@ -619,6 +680,9 @@ def main(argv=None) -> int:
                          "ep_shape: H4's launch-shape constants)")
     ap.add_argument("--widths", nargs="+", type=int, default=(), metavar="W",
                     help="with --sweep: only these widths (words), e.g. 12")
+    ap.add_argument("--curve", choices=["P-224"],
+                    help="with --sweep: this padded curve's moduli alone "
+                         "(P-224: L = 14 limbs at W' = 8)")
     ap.add_argument("--startup", action="store_true",
                     help="split a card process's start-up into its steps "
                          "instead")
@@ -638,7 +702,7 @@ def main(argv=None) -> int:
     if args.startup:
         res = startup(args.tree.resolve())
     elif args.sweep:
-        res = sweep(frozenset(args.only), frozenset(args.widths))
+        res = sweep(frozenset(args.only), frozenset(args.widths), args.curve)
     else:
         res = {"tree": str(args.tree), "ms": time_tree(args.n, args.ec_n)}
     print(card)

@@ -21,8 +21,9 @@ int32 16-bit limb tensors in Montgomery form (infinity: Z == 0), or
 affine ``(x, y)`` with an ``(N,)`` bool infinity mask; exponents are
 ``(N, Le)`` standard-form limbs.  H5, H6, H8 and the combine read these
 row-major operands as they are (P-521's, L = 33, padded to the inner
-width's 2·W' = 40 limbs, each coordinate taken to the kernel's radix and
-back inside the kernel: `Modulus` in ops/mont_kernels.py); H7's wrapper
+width's 2·W' = 40 limbs, and P-224's, L = 14, padded to P-256's 16, each
+coordinate taken to the kernel's radix and back inside the kernel:
+`Modulus` in ops/mont_kernels.py); H7's wrapper
 transposes to the limb-major ``(L, N)`` layout its kernel reads.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
@@ -56,7 +57,9 @@ design does about it):
   warps at W = 8, six at W = 12) fold the current one, each fold thread
   one digit position and every subs-th point (`mexp_shape`), with a
   masked select over all 16 entries; one-thread field, 12 warps an SM at
-  W = 8 (168 registers a thread), 8 at W = 12 (255).  At P-521's inner
+  W = 8 (168 registers a thread), 8 at W = 12 (255).  P-224 runs the
+  W = 8 form with the boundary conversion in its builders (x and y to
+  the kernel's radix) and folders (the sums back).  At P-521's inner
   width (W' = 20) one thread cannot hold a product's operands, so the
   builders and folders are groups of MEXP_TPI lanes with the cooperative
   field (16 builder and 80 fold groups of 4 lanes, 160 registers, no
@@ -119,8 +122,9 @@ MEXP_SHAPES = {8: (56, 320), 12: (40, 192), 20: (16, 80)}
 MEXP_TPI = {20: 4}  # the cooperative form's lanes a group
 MEXP_BLOCKS = 132
 EP_MAX_LANES = 2048
-# The words the ec_*.cu files instantiate: P-256 (W = L/2 = 8), P-384
-# (12), P-521 (L = 33 at the inner width W' = 20, Modulus)
+# The words the ec_*.cu files instantiate: P-256 (W = L/2 = 8; P-224's
+# L = 14 at the inner width W' = 8, Modulus), P-384 (12), P-521 (L = 33 at
+# the inner width W' = 20)
 _WIDTHS = (8, 12, 20)
 
 EC_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",

@@ -20,23 +20,27 @@ ops/ec_kernels.py).  Each has three parts here:
 
 Arrays at this boundary are ``(N, L)`` int32 tensors of 16-bit limbs
 (arith/limbs.py), Montgomery radix ``R = 2^(16·L)``.  The kernels pack
-limb pairs into 32-bit words: at an odd L (P-521: 33) they compute at an
-inner width of W' words, R' = 2^(32·W') > R, on operands padded with zero
+limb pairs into 32-bit words: at an odd L (P-521: 33), or where L/2 words
+have no kernel (P-224: 14 limbs, 7 words), they compute at an inner
+width of W' words, R' = 2^(32·W') > R, on operands padded with zero
 limbs, and convert at their boundary (`Modulus`); nothing outside the
 kernels changes.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
 
-* The kernel boundary at an odd L (P-521's field and ring, L = 33): the
-  wrappers pad the operands to 2·W' limbs (W' = INNER_WORDS[L] = 20) and
+* The kernel boundary at a padded modulus (P-521's field and ring, L =
+  33, and P-224's, L = 14): the wrappers pad the operands to 2·W' limbs
+  (W' = INNER_WORDS[L]: 20 and 8, P-224 on the P-256 instantiations) and
   pack limb pairs into words as at every width; the kernels of the
-  P-521 path (`CONVERTS`) take each Montgomery operand from R to R' by
-  one product with c_in and each result back by one with c_out
-  (`coop_rebase` in csrc/mont_coop.cuh), a runtime switch that is off
-  (NULL constants) at every even width, whose launches, results and
+  P-224 and P-521 paths (`CONVERTS`) take each Montgomery operand from R
+  to R' by one product with c_in and each result back by one with c_out
+  (`coop_rebase` in csrc/mont_coop.cuh; H6's one-thread form at W = 8
+  does the same on its own field), a runtime switch that is off (NULL
+  constants) at every other modulus, whose launches, results and
   instantiations do not change.  Two products an element against about
-  8000 in a 521-bit scalar multiple; H1 does one (a·b·R'^-1 times c_in).
+  8000 in a 521-bit scalar multiple; H1 does one (a·b·R'^-1 times c_in),
+  so at P-224 it runs two products an element where P-256 runs one.
   W' = 20 against 24 on the H100 (`kernel_timing.py --sweep`, PERF.md
   §6): faster at every kernel of the path but the combine, a chain of
   dependent products where 8 lanes of 3 words beat 4 of 5.
@@ -113,6 +117,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
@@ -163,11 +168,13 @@ def _launched(name: str, n: int) -> None:
 # ------------------------------------------------------------ constants
 
 
-# The inner width of a limb count whose R = 2^(16·L) is not 2^(32·W) for
-# any W (odd L): the kernels compute at W' words, R' = 2^(32·W') > R, and
-# convert at their boundary (Modulus).  L = 33: the P-521 field and its
-# scalar ring (PERF.md §6: W' = 20 against 24).
-INNER_WORDS = {33: 20}
+# The kernels' words at a limb count whose own L/2 words have no kernel:
+# an odd L (R = 2^(16·L) is then 2^(32·W) for no W) or an even one whose
+# L/2 is not instantiated.  The kernels compute at W' words, R' =
+# 2^(32·W') > R, and convert at their boundary (Modulus).  L = 14: the
+# P-224 field and its scalar ring on the P-256 instantiations (W' = 8);
+# L = 33: the P-521 field and ring (PERF.md §6: W' = 20 against 24).
+INNER_WORDS = {14: 8, 33: 20}
 
 
 @dataclass(frozen=True)
@@ -202,9 +209,10 @@ class Modulus:
     @classmethod
     def of(cls, m: int, L: int, device) -> "Modulus":
         R = 1 << (LIMB_BITS * L)
-        # at an odd L without an inner width the fewest words, which no
-        # kernel is built for (_words raises, naming them)
-        W = L // 2 if L % 2 == 0 else INNER_WORDS.get(L, L // 2 + 1)
+        # elsewhere the fewest words: L/2, or at an odd L the words of
+        # L + 1 limbs, which no kernel is built for (_words raises,
+        # naming them)
+        W = INNER_WORDS.get(L, -(-L // 2))
         R_in = 1 << (2 * LIMB_BITS * W)
 
         def limbs(x, n=L):
@@ -248,17 +256,18 @@ def _shift_up(x: torch.Tensor, d: int) -> torch.Tensor:
     return torch.constant_pad_nd(x[..., :-d], (d, 0))
 
 
-def _resolve(t: torch.Tensor, width: int, passes: int = 3) -> torch.Tensor:
+def _resolve(t: torch.Tensor, width: int, passes: int = 2) -> torch.Tensor:
     """Lazy limbs -> canonical limbs of the value mod 2^(16·width).
-    One split pass covers limbs < 2^17 + 2^16, three limbs < 2^40 and
-    four limbs < 2^63."""
+    The carry scan takes limbs of at most 2^17 - 2, which one split pass
+    leaves of limbs below 2^32, two of limbs below 2^47 and three of any
+    below 2^63 (a pass takes a bound B to 2^16 - 1 + B/2^16)."""
     if t.shape[-1] < width:
         t = torch.constant_pad_nd(t, (0, width - t.shape[-1]))
     elif t.shape[-1] > width:
         t = t[..., :width]
     for _ in range(passes):
         t = (t & LIMB_MASK) + _shift_up(t >> LIMB_BITS, 1)
-    pos = torch.arange(width, device=t.device)
+    pos = _positions(width, t.device)
     stop = torch.where(t == LIMB_MASK, -1, pos)
     below = _shift_up(torch.cummax(stop, dim=-1).values + 1, 1) - 1
     cin = (t >> LIMB_BITS).gather(-1, below.clamp(min=0)) * (below >= 0)
@@ -287,6 +296,37 @@ def _neg_m(m64: torch.Tensor, width: int) -> torch.Tensor:
     return comp
 
 
+# The plain versions' constants, made once: a plain product of a few
+# elements is about a hundred small torch calls, and building these at
+# every product took a tenth of its time on the CPU.  Keyed by the limb tensor
+# of the modulus (its id; the entry goes when the tensor does) and the
+# name and device asked for.
+_PLAIN_CONSTS: dict = {}
+_POSITIONS: dict = {}
+
+
+def _positions(width: int, device) -> torch.Tensor:
+    key = (width, str(device))
+    pos = _POSITIONS.get(key)
+    if pos is None:
+        pos = _POSITIONS[key] = torch.arange(width, device=device)
+    return pos
+
+
+def _plain_const(m: torch.Tensor, name: str, device, make):
+    """make(m as int64 on `device`), cached under (name, device) for the
+    modulus limbs m."""
+    per = _PLAIN_CONSTS.get(id(m))
+    if per is None:
+        per = _PLAIN_CONSTS[id(m)] = {}
+        weakref.finalize(m, _PLAIN_CONSTS.pop, id(m), None)
+    key = (name, str(device))
+    c = per.get(key)
+    if c is None:
+        c = per[key] = make(m.to(device, torch.int64))
+    return c
+
+
 # Rows per plain-product chunk: bounds the (rows, L, 2L) int64 outer
 # product at 2^26 entries (512 MB).
 _PLAIN_ELEMS = 1 << 26
@@ -312,17 +352,22 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
     with m' and m as Toeplitz matrices, exact because their sums of at
     most L products below 2^32 stay below 2^53 (L <= 2^21); U = T + q·m
     is resolved, and its high half U/R < 2m together with
-    U/R + 2^(16(L+1)) - m, whose carry out says whether U/R >= m."""
+    U/R + 2^(16(L+1)) - m, whose carry out says whether U/R >= m.  The
+    limbs of T, T_lo·m' and U stay below 2L·2^32 <= 2^47 (L <= 2^14), so
+    two split passes resolve each."""
     L = mod.L
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
     shape = a.shape
     a = a.reshape(-1, L).to(torch.int64)
     b = b.reshape(-1, L).to(torch.int64)
-    m64 = mod.limbs.to(a.device, torch.int64)
-    mq = _toeplitz(mod.mprime_limbs.to(a.device, torch.int64), L)
-    mm = _toeplitz(m64, 2 * L)
-    neg_m = torch.constant_pad_nd(_neg_m(m64, L + 1), (0, 1))
+    dev = a.device
+    mq = _plain_const(mod.mprime_limbs, "toeplitz", dev,
+                      lambda v: _toeplitz(v, L))
+    mm = _plain_const(mod.limbs, "toeplitz2", dev,
+                      lambda v: _toeplitz(v, 2 * L))
+    neg_m = _plain_const(mod.limbs, "neg_m_pad", dev, lambda v:
+                         torch.constant_pad_nd(_neg_m(v, L + 1), (0, 1)))
     rows = max(1, _PLAIN_ELEMS // (2 * L * L))
     outs = []
     for s in range(0, a.shape[0], rows):
@@ -334,7 +379,7 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
         D = _resolve(hi + neg_m, L + 2, passes=1)
         ge = D[:, L + 1 :] == 1
         outs.append(torch.where(ge, D[:, :L], hi[:, :L]))
-    out = torch.cat(outs) if outs else a[:0]
+    out = (outs[0] if len(outs) == 1 else torch.cat(outs)) if outs else a[:0]
     return out.to(torch.int32).reshape(shape)
 
 
@@ -346,8 +391,8 @@ def add_mod(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor
     a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
     L = a.shape[-1]
     s = torch.constant_pad_nd(a + b, (0, 1))
-    v = _resolve(torch.stack([s, s + _neg_m(m.to(a.device, torch.int64),
-                                            L + 1)]), L + 2, passes=1)
+    neg_m = _plain_const(m, "neg_m", a.device, lambda v: _neg_m(v, L + 1))
+    v = _resolve(torch.stack([s, s + neg_m]), L + 2, passes=1)
     return torch.where(v[1, ..., L + 1 :] == 1, v[1, ..., :L],
                        v[0, ..., :L]).to(torch.int32)
 
@@ -361,8 +406,8 @@ def sub_mod(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor
     L = a.shape[-1]
     d = a + (LIMB_MASK - b)
     d[..., 0] += 1
-    v = _resolve(torch.stack([d, d + m.to(a.device, torch.int64)]), L + 1,
-                 passes=1)
+    m64 = _plain_const(m, "int64", a.device, lambda v: v)
+    v = _resolve(torch.stack([d, d + m64]), L + 1, passes=1)
     return torch.where(v[0, ..., L:] == 1, v[0, ..., :L],
                        v[1, ..., :L]).to(torch.int32)
 
@@ -470,8 +515,9 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _UNSUPPORTED_WIDTH = -1
 _BAD_SHAPE = -2
 # The words (Modulus.W) instantiated in mont_kernels.cu: test256 and the
-# P-256 field, the P-384 field and ring, the P-521 field and ring (L = 33
-# at the inner width W' = 20), modp2048, modp3072, modp4096
+# P-256 field (and P-224's field and ring, L = 14 at the inner width
+# W' = 8), the P-384 field and ring, the P-521 field and ring (L = 33 at
+# the inner width W' = 20), modp2048, modp3072, modp4096
 _WIDTHS = (8, 12, 20, 64, 96, 128)
 
 # Threads per element (TPI) of the cooperative kernels for n elements of W
@@ -772,7 +818,7 @@ def _check(fn: str, rc: int) -> None:
 
 
 # The wrappers whose kernels convert at the boundary of a padded modulus
-# (Modulus.conv): the P-521 path's.  The others raise there.
+# (Modulus.conv): the P-224 and P-521 paths'.  The others raise there.
 CONVERTS = frozenset({"mont_mul", "mont_exp", "ec_scalar_mul",
                       "ec_multiexp_positions", "ec_multiexp_combine",
                       "ec_point_add"})
