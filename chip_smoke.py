@@ -62,11 +62,14 @@ Phases (one line each; any failure raises and the exit code is not 0):
      port's verifier must accept it and write the test vectors of
      tests/golden/test_vectors{,_p256}.json; the same for the test256
      golden with precomputation for 8 ciphertexts
-     (nizkp_test256_k1_precomp, test_vectors_precomp.json); then the
-     k=3, t=2, width-2 golden mix (three parties in threads over one
+     (nizkp_test256_k1_precomp, test_vectors_precomp.json), and once
+     more with out-of-core arrays (arrays=file, every array spilled:
+     the spill files' count and bytes on its line); then the k=3, t=2,
+     width-2 golden mix (three parties in threads over one
      LocalBoardHub): party 1's transcript must equal
      tests/golden/nizkp_test256_k3_w2 and its test vectors
-     test_vectors_k3w2.json; then the modp3072 and modp4096 goldens
+     test_vectors_k3w2.json, and the k=3, t=2 golden over P-224 (width
+     1, 3 messages: nizkp_p224_k3, test_vectors_p224_k3.json); then the modp3072 and modp4096 goldens
      (nizkp_modp{3072,4096}_k1, test_vectors_modp{3072,4096}.json, written
      by tests/torch_make_wide_golden.py), and the P-224, P-384 and P-521
      goldens (nizkp_p{224,384,521}_k1, test_vectors_p{224,384,521}.json,
@@ -79,8 +82,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
      the EC path) with its calls (`multiexp` lines; their times are
      vmn_tpu_torch/kernel_timing.py's); then the same at modp3072 and
      modp4096 with N ciphertexts, the same --n;
-  7. the EC paths: the same at P-256, P-224, P-384 and P-521 with --ec-n
-     ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6);
+  7. the EC paths: the same at P-256, P-384 and P-521 with --ec-n
+     ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6)
+     and at P-224 with min(--ec-n, 65536) (P224_SLICE_N: its H6 and
+     combine at 2^17 are the P-224 k=3 mix's, phase 8);
   8. the multi-party path: modp2048, k=3 mix-servers, threshold 2, --k3-n
      ciphertexts (default 10000), Fiat–Shamir: the three parties (threads
      of this process on this one card) agree on the public key and on
@@ -88,7 +93,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
      party 1's transcript and rejects it with one flipped byte; then the
      same at --k3i-n ciphertexts (default 1000) with interactive
      challenges (jointly flipped coins), agreement and multiset only,
-     with the launches of H2 and H3 made inside the coin flipping;
+     with the launches of H2 and H3 made inside the coin flipping; then
+     k=3, t=2, Fiat–Shamir over P-224 with --ec-n ciphertexts, checked
+     as the modp2048 one (H1, H2, H5, H6, the EC combine and H8 must
+     launch);
   9. the precomputation path (`[precomp]` lines): modp2048 with k=1 and
      with k=3, t=2 (Fiat–Shamir), precomputation (PoSC) for 1.25·N
      ciphertexts (N and --k3-n: 12500 by default), then the online mix
@@ -111,7 +119,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
      byte-equal nizkp directories, public key, ciphertexts and
      plaintexts and equal -t output; modp2048, k=1, N ciphertexts, then
      vmn -precomp for 1.25·N and vmn -mix in a second process on a new
-     auxsid: vmnv accepts both and rejects one flipped byte in
+     auxsid, both with out-of-core arrays (arrays=file in the private
+     info; the spill files under <dir>/arrays counted): vmnv accepts both and rejects one flipped byte in
      PoSReply01.bt / CCPoSReply01.bt, the plaintexts decode to vmnd's
      messages; modp2048, k=3, t=2, --k3-n ciphertexts, three concurrent
      `vmn -keygen` and then three concurrent `vmn -mix` processes over
@@ -139,9 +148,9 @@ modp4096 mixes, in the k=3 mix
 and in the modp2048 k=1 precomputation path, H2 and H3 in the
 interactive mix's coin flipping, H5, H6, the EC combine (once per H6
 call) and H8 in the P-256 mix, and the same with H1 and H2 at W=12 in
-the P-224 mix (W'=8), the P-384 mix and at W'=20 in the P-521 mix (H7
-is off those paths, as
-in vmn_tpu, and reports 0); the
+the P-224 mix (W'=8; its H6 and combine in the P-224 k=3 mix), the
+P-384 mix and at W'=20 in the P-521 mix (H7 is off those paths, as in
+vmn_tpu, and reports 0); the
 `launches` line also counts H1's, H2's, H3's, H5's
 and H8's launches in each mix by batch size (1, 2-127, >=128); the
 `kernels` line reports each kernel's launches in its own path's mix
@@ -1230,7 +1239,8 @@ def tampered_rejected(params, nizkp: Path, tmp: Path,
                       name: str = "PoSReply01.bt") -> bool:
     """Whether the verifier rejects the transcript with one byte of
     proofs/`name` flipped."""
-    bad = tmp / f"tampered_{params.sid}_{name}"
+    bad = Path(tempfile.mkdtemp(prefix=f"tampered_{params.sid}_",
+                                dir=tmp)) / name
     shutil.copytree(nizkp, bad)
     reply = bad / "proofs" / name
     raw = bytearray(reply.read_bytes())
@@ -1265,14 +1275,37 @@ def same_test_vectors(tv: dict, name: str) -> int:
     return len(tv)
 
 
-def golden_phase(tmp: Path, name: str, maxciph: int = 0) -> None:
+def golden_phase(tmp: Path, name: str, maxciph: int = 0,
+                 arrays_file: bool = False) -> None:
     """The golden k=1 mix of tools/make_golden.py on the card: test256,
     modp3072 or modp4096 (5 messages), P-256, P-224, P-384 or P-521 (3
     messages), or test256 after a precomputation for `maxciph`
     ciphertexts; transcript byte-equal, and the verifier's test vectors
     those vmn_tpu froze (tests/golden/test_vectors_{group}.json for the
     wide groups, test_vectors_p{224,384,521}.json for the other curves,
-    written by tests/torch_make_wide_golden.py)."""
+    written by tests/torch_make_wide_golden.py).  With `arrays_file`,
+    out-of-core arrays with every array spilled (MIN_SPILL_BYTES = 0):
+    the spill files' count and bytes go on the line."""
+    if arrays_file:
+        from vmn_tpu_torch.arith import storage
+
+        work = tmp / f"arrays_file_{name}_{maxciph}"  # a fresh party
+        spill = work / "arrays"
+        saved = storage.MIN_SPILL_BYTES
+        storage.set_backend("file", spill)
+        storage.MIN_SPILL_BYTES = 0
+        try:
+            golden_phase(work, name, maxciph, False)
+        finally:
+            storage.MIN_SPILL_BYTES = saved
+            storage.set_backend("ram")
+        files = list(spill.glob("spill*.npy"))
+        if not files:
+            raise AssertionError("arrays=file golden: no spill files")
+        phase("golden", group=name + ("-precomp" if maxciph else ""),
+              arrays="file", byte_equal=True, spill_files=len(files),
+              spill_bytes=sum(f.stat().st_size for f in files))
+        return
     t0 = time.perf_counter()
     group = _group(name)
     n, make = ((3, group.from_affine) if name.startswith("P-")
@@ -1425,38 +1458,52 @@ def seconds_in(owner, names, log: dict):
             setattr(owner, name, fn)
 
 
-def golden_k3_phase(tmp: Path) -> dict:
-    """tools/make_golden.py's k=3, t=2, width-2 mix on the card (test256,
-    5 messages, three parties in threads): party 1's transcript and the
-    verifier's test vectors as vmn_tpu froze them.  Returns the mix's
-    launches."""
+K3_GOLDENS = {  # group: (width, messages, transcript, test vectors)
+    "test256": (2, 5, "nizkp_test256_k3_w2", "test_vectors_k3w2.json"),
+    "P-224": (1, 3, "nizkp_p224_k3", "test_vectors_p224_k3.json"),
+}
+
+
+def golden_k3_phase(tmp: Path, name: str = "test256") -> dict:
+    """tools/make_golden.py's k=3, t=2 mix on the card (three parties in
+    threads): test256 at width 2 with 5 messages, or P-224 at width 1
+    with 3 (tests/torch_make_wide_golden.py's "P-224-k3"); party 1's
+    transcript and the verifier's test vectors as vmn_tpu froze them.
+    Returns the mix's launches."""
     from vmn_tpu_torch.arith.pgroup import PPArray
     from vmn_tpu_torch.crypto.randomsource import SeededSource
     from vmn_tpu_torch.protocol import elgamal
 
     t0 = time.perf_counter()
-    group = _group("test256")
+    width, n, golden, tv_file = K3_GOLDENS[name]
+    group = _group(name)
     params = _params("Golden", group, k=3, threshold=2)
+    work = tmp / f"golden_k3_{name}"
     parties, keygen_s = keygen_k(params, lambda j: f"golden-party{j}".encode(),
-                                 tmp / "golden_k3")
-    msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(5)]
-    plain = elgamal.plain_group(group, 2)
-    m = PPArray(plain, (group.from_ints(msgs),) * 2)
-    r = plain.ring.random((5,), SeededSource(b"golden-ciphs"), 0)
-    ciphs = elgamal.encrypt(parties[1].full_public_key().widen(2), m, r)
-    outs, mix_s, launches, _ = run_mix_k(parties, ciphs, "golden", 2)
-    nizkp = tmp / "golden_k3" / "P01" / "nizkp.golden"
-    files = same_transcript(nizkp, GOLDEN / "nizkp_test256_k3_w2")
+                                 work)
+    msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
+    m = group.from_affine(msgs) if name.startswith("P-") else \
+        group.from_ints(msgs)
+    plain = elgamal.plain_group(group, width)
+    if width > 1:
+        m = PPArray(plain, (m,) * width)
+    r = plain.ring.random((n,), SeededSource(b"golden-ciphs"), 0)
+    ciphs = elgamal.encrypt(parties[1].full_public_key().widen(width), m, r)
+    outs, mix_s, launches, _ = run_mix_k(parties, ciphs, "golden", width)
+    nizkp = work / "P01" / "nizkp.golden"
+    files = same_transcript(nizkp, GOLDEN / golden)
     if not all(outs[j].equals(outs[1]) for j in (2, 3)):
-        raise AssertionError("k=3 golden: the parties' plaintexts differ")
-    for w in range(2):
-        if sorted(outs[1].project(w).to_ints()) != sorted(msgs):
-            raise AssertionError("k=3 golden plaintext multiset differs")
+        raise AssertionError(f"k=3 golden {name}: the plaintexts differ")
+    for w in range(width):
+        out = outs[1].project(w) if width > 1 else outs[1]
+        if sorted(_points(group, out)) != sorted(msgs):
+            raise AssertionError(f"k=3 golden {name}: multiset differs")
     ok, _, tv = verify(params, nizkp, TV_NAMES)
     if not ok:
-        raise AssertionError("port verifier rejected the k=3 golden")
-    tvs = same_test_vectors(tv, "test_vectors_k3w2.json")
-    phase("golden", group="test256-k3w2", k=3, threshold=2, width=2,
+        raise AssertionError(f"port verifier rejected the k=3 golden {name}")
+    tvs = same_test_vectors(tv, tv_file)
+    phase("golden", group=f"{name}-k3" + (f"w{width}" if width > 1 else ""),
+          k=3, threshold=2, width=width,
           files=files, byte_equal=True, verify_ok=True, test_vectors=tvs,
           keygen_s=f"{keygen_s:.3f}", mix_s=f"{mix_s:.3f}",
           launches=json.dumps({k: v for k, v in launches.items() if v},
@@ -1465,35 +1512,45 @@ def golden_k3_phase(tmp: Path) -> dict:
     return launches
 
 
-def multiparty_phase(n: int, tmp: Path, interactive: bool = False):
-    """modp2048, k=3 mix-servers, threshold 2, N ciphertexts: keygen,
-    encryption, the mix of the three parties in threads, agreement on
-    the key and the plaintexts, the plaintext multiset; Fiat–Shamir: the
-    verifier on party 1's transcript, and a flipped byte rejected;
-    interactive: the launches made inside the coin flipping.  Returns
-    (launches in the mix, by batch size, inside the coin flipping)."""
+# the kernels a k=3 mix must launch, by group
+K3_KERNELS = {"modp2048": ("mont_mul", "mont_exp", "mont_fb_exp",
+                           "mont_expprod_positions", "mont_expprod_combine"),
+              "P-224": ("mont_mul", "mont_exp", "ec_scalar_mul",
+                        "ec_multiexp_positions", "ec_multiexp_combine",
+                        "ec_point_add")}
+
+
+def multiparty_phase(n: int, tmp: Path, interactive: bool = False,
+                     name: str = "modp2048"):
+    """k=3 mix-servers, threshold 2, N ciphertexts over modp2048 or
+    P-224: keygen, encryption, the mix of the three parties in threads,
+    agreement on the key and the plaintexts, the plaintext multiset;
+    Fiat–Shamir: the verifier on party 1's transcript, and a flipped byte
+    rejected; interactive: the launches made inside the coin flipping.
+    Returns (launches in the mix, by batch size, inside the coin
+    flipping, mix seconds)."""
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.crypto.randomsource import SeededSource
-    from vmn_tpu_torch.ops import mont_kernels as K
     from vmn_tpu_torch.protocol import elgamal
 
     t0 = time.perf_counter()
     tag = "interactive" if interactive else "multiparty"
-    group = _group("modp2048")
+    group = _group(name)
     params = _params(f"Smoke{tag}", group, k=3, threshold=2,
                      noninteractive=not interactive)
     prg = PRGHeuristic(SHA256)
     prg.set_seed(SHA256.hash(b"smoke-msgs"))
     m = group.random_array(n, prg, params.rbitlen)
-    msgs = m.to_ints()
+    msgs = _points(group, m)
     from vmn_tpu_torch.protocol.distr.plainkeys import PlainKeysCipher
 
     torch.cuda.reset_peak_memory_stats()
     ny_keygen, ny_mix = {}, {}  # host seconds in Naor–Yung, all parties
     with seconds_in(PlainKeysCipher, ("encrypt", "decrypt"), ny_keygen):
         parties, keygen_s = keygen_k(
-            params, lambda j: f"smoke-party{j}".encode(), tmp / tag)
+            params, lambda j: f"smoke-party{j}".encode(),
+            tmp / f"{tag}_{name}")
     if len({p.full_public_key().to_bytetree().to_bytes()
             for p in parties[1:]}) != 1:
         raise AssertionError(f"{tag}: the parties' public keys differ")
@@ -1507,7 +1564,7 @@ def multiparty_phase(n: int, tmp: Path, interactive: bool = False):
                 if interactive else None))
     if not all(outs[j].equals(outs[1]) for j in (2, 3)):
         raise AssertionError(f"{tag}: the parties' plaintexts differ")
-    if sorted(outs[1].to_ints()) != sorted(msgs):
+    if sorted(_points(group, outs[1])) != sorted(msgs):
         raise AssertionError(f"{tag}: plaintext multiset not preserved")
     peak = torch.cuda.max_memory_allocated()
     checks = {}
@@ -1515,19 +1572,19 @@ def multiparty_phase(n: int, tmp: Path, interactive: bool = False):
         missing = [w for w in ("mont_exp", "mont_fb_exp") if not coins.get(w)]
         checks["coinflip_launches"] = json.dumps(coins, separators=(",", ":"))
     else:
-        nizkp = tmp / tag / "P01" / f"nizkp.{tag}"
+        nizkp = tmp / f"{tag}_{name}" / "P01" / f"nizkp.{tag}"
         ok, verify_s = verify(params, nizkp)
         if not ok:
             raise AssertionError("port verifier rejected the k=3 transcript")
         if not tampered_rejected(params, nizkp, tmp):
             raise AssertionError("tampered k=3 transcript accepted")
-        missing = [w for w in K.KERNELS if launches[w] == 0]
+        missing = [w for w in K3_KERNELS[name] if launches[w] == 0]
         checks.update(verify_ok=True, tampered_rejected=True,
                       verify_s=f"{verify_s:.3f}",
                       verify_cps=f"{n / verify_s:.1f}")
     if missing:
         raise AssertionError(f"{tag}: not launched: {missing}")
-    phase(tag, group="modp2048", k=3, threshold=2, N=n,
+    phase(tag, group=name, k=3, threshold=2, N=n,
           parties="'3 threads of one interpreter on one card'",
           keys_agree=True, plaintexts_agree=True, multiset=True, **checks,
           keygen_s=f"{keygen_s:.3f}", mix_s=f"{mix_s:.3f}",
@@ -1667,6 +1724,9 @@ def multiexp_lines(path: str, wrapper: str, widths: list) -> None:
 # checks of its multi-exponentiations, cut so that the P-521 path fits
 # the run's limit; H6 is checked at 2^17 on the P-256 path (PERF.md §6).
 PC_EC_N = 1 << 16
+# P-224's k=1 mix: below MULTIEXP_MIN, so its mix takes H5 and an H8
+# tree where the P-224 k=3 mix at --ec-n takes H6 and the combine
+P224_SLICE_N = 1 << 16
 
 
 def headroom(n: int) -> int:
@@ -1815,8 +1875,16 @@ class Procs:
         self.workdir = workdir
         self.live = []
         self.n = 0
-        self.env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-            [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])])}
+        # one bytecode cache, in this run's temporary directory, for every
+        # process of the phase: where the environment says not to write
+        # bytecode, each process compiles its packages' modules from
+        # source again (5-6 s of a profiled `vmn -mix` step on the H100
+        # machine)
+        env = {k: v for k, v in os.environ.items()
+               if k != "PYTHONDONTWRITEBYTECODE"}
+        self.env = {**env, "PYTHONPATH": os.pathsep.join(
+            [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]),
+            "PYTHONPYCACHEPREFIX": str(workdir.parent / "pycache")}
 
     def start(self, args, cwd=None, party=False):
         self.n += 1
@@ -2070,10 +2138,18 @@ EC_MIX_KERNELS = ("ec_scalar_mul", "ec_multiexp_positions",
                   "ec_multiexp_combine", "ec_point_add")
 
 
+def spill_files(directory: Path):
+    """(count, bytes) of the out-of-core arrays' files in directory."""
+    files = list(directory.glob("spill*.npy"))
+    return len(files), sum(f.stat().st_size for f in files)
+
+
 def cli_modp_phase(n: int, tmp: Path):
     """modp2048, k=1, n ciphertexts: the flow as processes, then a
     precomputation for headroom(n) and its online mix in a second
-    process on a new auxsid; returns the launches of the two mixes."""
+    process on a new auxsid, both with out-of-core arrays (arrays=file;
+    the spill files counted after each); returns the launches of the two
+    mixes."""
     from vmn_tpu_torch.arith.pgroup import ModPGroup
 
     group = ModPGroup.named("modp2048", device="cuda")
@@ -2094,12 +2170,21 @@ def cli_modp_phase(n: int, tmp: Path):
             procs, dirs[1] / "nizkp.default", "PoSReply01.bt")
         if decoded(group, w / "plaintexts.bt") != want:
             raise AssertionError("CLI modp2048: plaintext multiset differs")
+        # the precomputation and its online mix with out-of-core arrays:
+        # the arrays past storage.MIN_SPILL_BYTES spill to <dir>/arrays
+        info = Path(priv)
+        info.write_text(info.read_text().replace("<arrays>ram</arrays>",
+                                                 "<arrays>file</arrays>"))
         pre, steps["precomp"] = procs.run(
             "-precomp", priv, "protInfo.xml", "-auxsid", "pc",
             "-maxciph", str(headroom(n)), party=True)
+        spills = {"precomp": spill_files(dirs[1] / "arrays")}
         pc_mix, steps["precomp_mix"] = procs.run(
             "-mix", priv, "protInfo.xml", "ciphertexts.bt", "pc_plain.bt",
             "-auxsid", "pc", party=True)
+        spills["precomp_mix"] = spill_files(dirs[1] / "arrays")
+        if not all(count for count, _ in spills.values()):
+            raise AssertionError(f"CLI arrays=file: no spill files {spills}")
         nizkp = dirs[1] / "nizkp.pc"
         if not (nizkp / "proofs" / "CCPoSCommitment01.bt").exists():
             raise AssertionError("CLI precomp: the mix took no CCPoS chain")
@@ -2118,7 +2203,8 @@ def cli_modp_phase(n: int, tmp: Path):
         raise AssertionError(f"CLI modp2048 -mix: not launched: {bad}")
     compact = {"separators": (",", ":")}
     phase("cli", run="modp2048 k=1", N=n, maxciph=headroom(n),
-          multiset=True, vmnv_ok="plain,precomp",
+          multiset=True, vmnv_ok="plain,precomp", precomp_arrays="file",
+          spill_files_bytes=json.dumps(spills, **compact),
           tampered_rejected="PoSReply01,CCPoSReply01",
           vmnd_encode_s=f"{encode_s:.3f}", steps_s=fmt_steps(steps),
           board=json.dumps(mix["board"], **compact),
@@ -2441,7 +2527,8 @@ def main(argv=None) -> int:
     card = card_line()
     phase("env", python=sys.version.split()[0], torch=torch.__version__,
           cuda=torch.version.cuda, card=f"'{card}'",
-          devices=torch.cuda.device_count())
+          devices=torch.cuda.device_count(),
+          dont_write_bytecode=sys.flags.dont_write_bytecode)
 
     so = K.build_kernels()
     phase("build", seconds=f"{K.BUILD_INFO['seconds']:.1f}", lib=so.name)
@@ -2480,18 +2567,25 @@ def main(argv=None) -> int:
         for curve in EC_PATH_CURVES:
             golden_phase(tmp, curve)
         golden_phase(tmp, "test256", maxciph=8)
+        golden_phase(tmp, "test256", maxciph=8, arrays_file=True)
         golden_k3_phase(tmp)
+        golden_k3_phase(tmp, "P-224")
         for group in WIDE_GROUPS:
             golden_phase(tmp, group)
         modp, modp_sizes, modp_widths, modp_s = slice_phase(
             "modp2048", args.n, tmp)
         wide_mix = {group: slice_phase(group, args.n, tmp)
                     for group in WIDE_GROUPS}
-        # curve: (launches, by batch, H6's calls, mix seconds)
-        ec_paths = {curve: slice_phase(curve, args.ec_n, tmp)
+        # curve: (launches, by batch, H6's calls, mix seconds); P-224's
+        # k=1 mix at P224_SLICE_N, its H6 at --ec-n in the k=3 mix below
+        ec_paths = {curve: slice_phase(curve, min(args.ec_n, P224_SLICE_N)
+                                       if curve == "P-224" else args.ec_n,
+                                       tmp)
                     for curve in EC_PATH_CURVES}
         ec, ec_sizes, ec_widths, ec_s = ec_paths["P-256"]
         k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
+        ec3, ec3_sizes, _, _ = multiparty_phase(args.ec_n, tmp,
+                                                name="P-224")
         k3i, _, coins, _ = multiparty_phase(args.k3i_n, tmp,
                                             interactive=True)
         pc, pc_mix, pc_widths = precomp_phase(
@@ -2514,6 +2608,8 @@ def main(argv=None) -> int:
           modp2048_k3_precomp=json.dumps(pc3, **compact),
           modp2048_k3_precomp_online_mix=json.dumps(pc3_mix, **compact),
           modp2048_k3_by_batch=json.dumps(k3_sizes, **compact),
+          p224_k3_mix=json.dumps(ec3, **compact),
+          p224_k3_by_batch=json.dumps(ec3_sizes, **compact),
           modp2048_by_batch=json.dumps(modp_sizes, **compact),
           p256_by_batch=json.dumps(ec_sizes, **compact),
           **{f"{curve_key(c)}_{part}": json.dumps(r[i], **compact)
@@ -2535,6 +2631,9 @@ def main(argv=None) -> int:
     # the field and the ring, has the curve's limb count)
     for curve, (launches, *_) in ec_paths.items():
         need = (*E.EC_KERNELS, *(CURVE_MONT if curve != "P-256" else ()))
+        if curve == "P-224":  # H6 and its combine: the k=3 mix's, at 2^17
+            launches = {**launches, **{k: ec3[k] for k in (
+                "ec_multiexp_positions", "ec_multiexp_combine")}}
         missing += [k if curve == "P-256" else f"{k} ({curve})"
                     for k in need if launches[k] == 0 and k != "ec_fb_exp"]
     if missing:
@@ -2582,7 +2681,8 @@ def main(argv=None) -> int:
                 "modp2048 k=3 precomp online mix": pc3_mix[name],
                 **{path: launches[name] for path, launches in cli.items()},
                 **{f"{g} mix": r[0][name] for g, r in wide_mix.items()},
-                **{f"{c} mix": ec_paths[c][0][name] for c in curve_w}}
+                **{f"{c} mix": ec_paths[c][0][name] for c in curve_w},
+                "P-224 k=3 mix": ec3[name]}
             # the same kernel at W = 96 and 128: its checks there
             kernels[-1]["wide"] = {
                 g: checks_at(checks, name, f"_w{W}", K.KERNELS)
@@ -2590,6 +2690,7 @@ def main(argv=None) -> int:
         else:
             kernels[-1]["launches_by_path"] = {
                 **{f"{c} mix": r[0][name] for c, r in ec_paths.items()},
+                "P-224 k=3 mix": ec3[name],
                 "cli P-256 mix": cli["cli P-256 mix"][name]}
     for name in ("mont_mul", "mont_exp"):
         kernels[K.KERNELS.index(name)].update(

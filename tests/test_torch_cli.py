@@ -528,19 +528,26 @@ def test_vmnd_batched_encoding_matches_encode_message():
 
 
 def test_arrays_file_refused(tmp_path, monkeypatch):
-    """A private info with arrays=file makes vmn exit with an error that
-    names out-of-core arrays, instead of running in memory."""
+    """A private info with arrays=file is no longer refused (the port has
+    its out-of-core arrays, `arith/storage.py`): vmn -keygen runs and
+    selects the file backend under <dir>/arrays, as vmn_tpu's vmn does
+    (vmn_tpu/cli/vmn.py:64-70)."""
+    from vmn_tpu_torch.arith import storage
+
+    monkeypatch.setattr(storage, "_BACKEND", storage._BACKEND)
+    monkeypatch.setattr(storage, "_SPILL_DIR", storage._SPILL_DIR)
     monkeypatch.chdir(tmp_path)
     _cli_protinfo(tmp_path, extra=[])
     priv = (tmp_path / "privInfo.xml").read_text()
     assert "<arrays>ram</arrays>" in priv
     (tmp_path / "privInfo.xml").write_text(
         priv.replace("<arrays>ram</arrays>", "<arrays>file</arrays>"))
-    with pytest.raises(SystemExit) as e:
-        _cli(vmn, ["-keygen", "privInfo.xml", "protInfo.xml",
-                   "publicKey.bt"])
-    assert "out-of-core arrays" in str(e.value.code)
-    assert not (tmp_path / "p1" / "state").exists()
+    assert _cli(vmn, ["-keygen", "privInfo.xml", "protInfo.xml",
+                      "publicKey.bt"]) == 0
+    assert (tmp_path / "publicKey.bt").exists()
+    assert storage.backend() == "file"
+    assert storage._SPILL_DIR == tmp_path / "p1" / "arrays"
+    assert storage._SPILL_DIR.is_dir()
 
 
 def test_wrong_private_info_refused_f4(tmp_path, monkeypatch):

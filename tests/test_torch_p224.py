@@ -21,33 +21,15 @@ CUDA device only (skipped here): the golden mix on the card.
 Tolerance: exact equality of bytes.
 """
 
-import sys
-
 import pytest
 
 from torch_port_util import (  # noqa: F401 (cuda_device: fixture)
     assert_same_transcript, cuda_device, curve_golden, curve_golden_mix,
+    record_calls,
 )
-from vmn_tpu_torch.ops import ec_kernels as E
 from vmn_tpu_torch.ops import mont_kernels as K
 
 GOLDEN, _ = curve_golden("P-224")
-
-
-def _record_calls(mp, calls: dict) -> None:
-    """Count each kernel wrapper's calls into `calls`, through every
-    loaded module that holds the wrapper under its name."""
-    for owner, names in ((K, K.KERNELS), (E, E.EC_KERNELS)):
-        for name in names:
-            fn = getattr(owner, name)
-
-            def counted(*args, _fn=fn, _name=name, **kw):
-                calls[_name] = calls.get(_name, 0) + 1
-                return _fn(*args, **kw)
-
-            for m in list(sys.modules.values()):
-                if getattr(m, name, None) is fn:
-                    mp.setattr(m, name, counted)
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +38,7 @@ def port_mix(tmp_path_factory):
     plaintext points, the kernel wrappers' calls in it)."""
     calls = {}
     with pytest.MonkeyPatch.context() as mp:
-        _record_calls(mp, calls)
+        record_calls(mp, calls)
         mix = curve_golden_mix("P-224", "cpu",
                                tmp_path_factory.mktemp("port_golden_p224"))
     return (*mix, calls)
@@ -111,7 +93,7 @@ def test_p224_exp_clamp_and_exp_prod_floor_match_vmn_tpu(monkeypatch):
 
     same(tp.exp_bits(te, 256), jp.exp_bits(je, 256))
     calls = {}
-    _record_calls(monkeypatch, calls)
+    record_calls(monkeypatch, calls)
     monkeypatch.setattr(TEC, "MULTIEXP_MIN", 2)
     same(tp.exp_prod(te), jp.exp_prod(je))
     assert calls["ec_multiexp_positions"] == calls["ec_multiexp_combine"] == 1

@@ -1,4 +1,4 @@
-"""Write the wide-group golden fixtures of the port's tests with vmn_tpu.
+"""Write the golden fixtures of the port's tests with vmn_tpu.
 
 The k=1 golden mix of tools/make_golden.py (its seeds b"golden-party"
 and b"golden-ciphs") on the CPU: five messages over RFC 3526 modp3072
@@ -11,8 +11,18 @@ tests/test_torch_p224.py, tests/test_torch_p384.py and
 tests/test_torch_p521.py hold the port to them on the CPU, and
 chip_smoke.py's golden phase rewrites them byte for byte on the card.
 
-Usage (from the repo root, about 2 minutes for the two ModP groups, 1 for
-P-224, 1.5 for P-384 and 2 for P-521):
+Two more fixtures over P-224 with three mix-servers, threshold 2:
+"P-224-k3", the k=3 golden mix of tools/make_golden.py (seeds
+b"golden-party{j}" and b"golden-ciphs", width 1, three messages) to
+tests/golden/nizkp_p224_k3 and test_vectors_p224_k3.json; and
+"P-224-coins", the jointly flipped coins of vmn_tpu's EC coin-flipping
+test (tests/test_mixnet_ec.py: session "ECCoin", interactive, seeds
+b"ec{j}", eight coin bytes) to tests/golden/coinflip_p224_k3.json.
+tests/test_torch_p224_k3.py holds the port to both.
+
+Usage (from the repo root; minutes on one CPU core's worth of a
+recent x86 server: about 2 for the two ModP groups, 1 for P-224, 1.5
+for P-384, 2 for P-521, 1.5 for P-224-k3 and P-224-coins together):
     JAX_PLATFORMS=cpu python tests/torch_make_wide_golden.py [GROUP ...]
 """
 
@@ -24,25 +34,63 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
-GROUPS = ("modp3072", "modp4096", "P-224", "P-384", "P-521")
+GROUPS = ("modp3072", "modp4096", "P-224", "P-384", "P-521", "P-224-k3",
+          "P-224-coins")
+# The coin-flipping run of vmn_tpu's tests/test_mixnet_ec.py.
+COIN_SID, COIN_K, COIN_T, COIN_BYTES = "ECCoin", 3, 2, 8
+COINS_FILE = "coinflip_p224_k3.json"
 
 
 def fixture_names(group: str):
-    """(transcript directory, test-vector file) of a wide group's golden."""
+    """(transcript directory, test-vector file) of a golden: "P-224-k3"
+    is the k=3, t=2 mix over P-224, every other name a k=1 mix."""
+    if group.endswith("-k3"):
+        tag = group[:-3].replace("-", "").lower()
+        return f"nizkp_{tag}_k3", f"test_vectors_{tag}_k3.json"
     tag = group.replace("-", "").lower()
     return f"nizkp_{tag}_k1", f"test_vectors_{tag}.json"
 
 
+def write_coins(path: Path) -> None:
+    """vmn_tpu's coins of the EC coin-flipping run, as hex, to `path`."""
+    from torch_port_util import run_parties
+    from vmn_tpu.arith.ec import ECqPGroup
+    from vmn_tpu.crypto.randomsource import SeededSource
+    from vmn_tpu.protocol.coinflip import CoinFlipPRingSource
+    from vmn_tpu.protocol.com.board import LocalBoardHub
+    from vmn_tpu.protocol.context import ProtocolContext, ProtocolParams
+
+    params = ProtocolParams(sid=COIN_SID, k=COIN_K, threshold=COIN_T,
+                            noninteractive=False,
+                            pgroup=ECqPGroup.named("P-224"))
+    hub = LocalBoardHub(COIN_K)
+
+    def flip(j):
+        src = CoinFlipPRingSource(ProtocolContext(params), hub.board(j),
+                                  SeededSource(f"ec{j}".encode()))
+        return src.coin_bytes(COIN_BYTES)
+
+    coins = run_parties(COIN_K, flip)[1:]
+    assert len(set(coins)) == 1, coins
+    path.write_text(json.dumps({"coins": coins[0].hex()}, indent=1) + "\n")
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
     from tools.make_golden import generate
 
     for group in argv or GROUPS:
         if group not in GROUPS:
             raise SystemExit(f"unknown group {group}; one of {GROUPS}")
+        if group == "P-224-coins":
+            write_coins(GOLDEN / COINS_FILE)
+            print(f"wrote {COINS_FILE}")
+            continue
         dirname, tvname = fixture_names(group)
+        kw = {"k": 3, "threshold": 2} if group.endswith("-k3") else {}
         with tempfile.TemporaryDirectory() as tmp:
-            nizkp, tv = generate(Path(tmp), group)
+            nizkp, tv = generate(Path(tmp), group.removesuffix("-k3"), **kw)
             dest = GOLDEN / dirname
             if dest.exists():
                 shutil.rmtree(dest)

@@ -102,6 +102,28 @@ def flipped_reply_copy(golden, dest):
     return Path(dest)
 
 
+def record_calls(mp, calls: dict) -> None:
+    """Count each kernel wrapper's calls into `calls`, through every
+    loaded module that holds the wrapper under its name (mp: a pytest
+    MonkeyPatch, which puts the wrappers back)."""
+    import sys
+
+    from vmn_tpu_torch.ops import ec_kernels as E
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    for owner, names in ((K, K.KERNELS), (E, E.EC_KERNELS)):
+        for name in names:
+            fn = getattr(owner, name)
+
+            def counted(*args, _fn=fn, _name=name, **kw):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*args, **kw)
+
+            for m in list(sys.modules.values()):
+                if getattr(m, name, None) is fn:
+                    mp.setattr(m, name, counted)
+
+
 def run_parties(k: int, fn, parties=None) -> list:
     """fn(j) in one thread for each party j in `parties` (default
     1..k), as the mix-servers of one process; 1-based results.  A

@@ -18,7 +18,7 @@ the on-curve test, point derivation) is `MontCtx`'s.
 
 `ECqPGroup` / `ECArray` mirror `ModPGroup` / `GArray`, so the protocol
 layer runs unchanged over EC groups.  Left out of the JAX version: the
-sharded (`shard_map`) routes and `spill` (ROADMAP queue 1 item 7).
+sharded (`shard_map`) routes (ROADMAP queue 1).
 
 Element byte-tree format: node(leaf(x), leaf(y)) with fixed-size
 unsigned big-endian coordinates of ``p.bit_length()//8 + 1`` bytes; the
@@ -39,7 +39,13 @@ from vmn_tpu_torch.arith.limbs import (
     limbs_to_bytes_be,
     num_limbs,
 )
-from vmn_tpu_torch.arith.mont import MontCtx, device_limbs, host_limbs
+from vmn_tpu_torch.arith import storage
+from vmn_tpu_torch.arith.mont import (
+    MontCtx,
+    broadcast_shapes,
+    device_limbs,
+    host_limbs,
+)
 from vmn_tpu_torch.arith.pgroup import (
     _DEFER_TLS,
     PField,
@@ -163,7 +169,7 @@ def _scalar_mul(curve: _Curve, x, y, inf, e, nbits: int):
 
     x, y: (..., L) affine Montgomery coords; inf: (...,) bool;
     e: (..., Le) standard-form scalar limbs."""
-    shape = torch.broadcast_shapes(x.shape[:-1], e.shape[:-1])
+    shape = broadcast_shapes(x.shape[:-1], e.shape[:-1])
     L = x.shape[-1]
     x2 = x.expand(shape + (L,)).reshape(-1, L)
     y2 = y.expand(shape + (L,)).reshape(-1, L)
@@ -628,6 +634,18 @@ class ECArray:
     def to_affine(self):
         return self.grp.to_affine(self)
 
+    def spill(self) -> "ECArray":
+        """The array with x, y and the infinity mask on disk when
+        arrays=file; an op loads them whole onto the curve's device
+        (`arith/storage.py`)."""
+        if isinstance(self, _SpilledECArray):
+            return self
+        x, y, inf = (storage.maybe_spill(t) for t in (self.x, self.y,
+                                                      self.inf))
+        if x is self.x and y is self.y and inf is self.inf:
+            return self
+        return _SpilledECArray(self.grp, x, y, inf)
+
     # --------------------------------------------------------------- ops
 
     def _jac(self):
@@ -639,7 +657,7 @@ class ECArray:
     def mul(self, other: "ECArray") -> "ECArray":
         c = self.grp.curve
         coords = (*self._jac(), *other._jac())
-        shape = torch.broadcast_shapes(*(t.shape for t in coords))
+        shape = broadcast_shapes(*(t.shape for t in coords))
         x, y, inf = c.normalize(*c.point_add(*(t.expand(shape)
                                                 for t in coords)))
         return ECArray(self.grp, x, y, inf)
@@ -750,6 +768,9 @@ class ECArray:
 
     def __repr__(self):
         return f"ECArray(shape={self.shape}, {self.grp})"
+
+
+_SpilledECArray = storage.spilled_class(ECArray, ("x", "y", "inf"))
 
 
 # ====================================================================

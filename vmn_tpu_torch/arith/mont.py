@@ -51,9 +51,16 @@ def host_limbs(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.uint16)
 
 
+def broadcast_shapes(*shapes) -> tuple:
+    """The broadcast of `shapes`, as torch.broadcast_shapes gives it
+    without that function's first-call import of torch._refs (and sympy
+    with it: some 4.5 s in every process that reaches it)."""
+    return np.broadcast_shapes(*shapes)
+
+
 def _flatten_pair(a, e):
     """Broadcast the leading dims of (.., L) x (.., Le) and flatten to 2D."""
-    shape = torch.broadcast_shapes(a.shape[:-1], e.shape[:-1])
+    shape = broadcast_shapes(a.shape[:-1], e.shape[:-1])
     a = a.expand(shape + a.shape[-1:]).reshape(-1, a.shape[-1])
     e = e.expand(shape + e.shape[-1:]).reshape(-1, e.shape[-1])
     return shape, a.contiguous(), e.contiguous()

@@ -33,6 +33,7 @@ from vmn_tpu_torch.arith.limbs import (
     limbs_to_ints,
     num_limbs,
 )
+from vmn_tpu_torch.arith import storage
 from vmn_tpu_torch.arith.mont import MontCtx, device_limbs, host_limbs
 from vmn_tpu_torch.eio.bytetree import (
     ByteTree,
@@ -307,6 +308,16 @@ class FArray:
     def to_ints(self) -> List[int]:
         return limbs_to_ints(host_limbs(self.limbs))
 
+    def spill(self) -> "FArray":
+        """The array with its limbs on disk when arrays=file; an op loads
+        them whole onto the field's device (`arith/storage.py`)."""
+        if isinstance(self, _SpilledFArray):
+            return self
+        limbs = storage.maybe_spill(self.limbs)
+        if limbs is self.limbs:
+            return self
+        return _SpilledFArray(self.field, limbs)
+
     def to_int(self) -> int:
         if self.limbs.dim() != 1:
             raise ValueError("not a scalar")
@@ -390,6 +401,9 @@ class FArray:
 
     def __repr__(self):
         return f"FArray(shape={self.shape}, {self.field})"
+
+
+_SpilledFArray = storage.spilled_class(FArray, ("limbs",))
 
 
 # =====================================================================
@@ -669,6 +683,16 @@ class GArray:
     def broadcast(self, n: int) -> "GArray":
         return GArray(self.grp, self.limbs.expand((n,) + self.limbs.shape))
 
+    def spill(self) -> "GArray":
+        """The array with its limbs on disk when arrays=file; an op loads
+        them whole onto the group's device (`arith/storage.py`)."""
+        if isinstance(self, _SpilledGArray):
+            return self
+        limbs = storage.maybe_spill(self.limbs)
+        if limbs is self.limbs:
+            return self
+        return _SpilledGArray(self.grp, limbs)
+
     def to_ints(self) -> List[int]:
         arr = host_limbs(self.grp.ctx.from_mont(self.limbs))
         if arr.ndim == 1:
@@ -742,6 +766,9 @@ class GArray:
 
     def __repr__(self):
         return f"GArray(shape={self.shape}, {self.grp})"
+
+
+_SpilledGArray = storage.spilled_class(GArray, ("limbs",))
 
 
 # =====================================================================
@@ -902,6 +929,11 @@ class PPArray:
     def project(self, i: int):
         return self.components[i]
 
+    def spill(self) -> "PPArray":
+        """Each component spilled (arrays=file)."""
+        return PPArray(self.parent,
+                       tuple(c.spill() for c in self.components))
+
     mul = _zip_op("mul")
     div = _zip_op("div")
 
@@ -984,6 +1016,11 @@ class PPFArray:
 
     def project(self, i: int):
         return self.components[i]
+
+    def spill(self) -> "PPFArray":
+        """Each component spilled (arrays=file)."""
+        return PPFArray(self.parent,
+                        tuple(c.spill() for c in self.components))
 
     def _zip_or_map(self, other, name):
         """Zip with a matching product-ring element, otherwise apply the

@@ -1,10 +1,10 @@
 """Port of `vmn_tpu.cli.vmn`: the same modes, files and postlude.
 
 The party's groups and arrays live on `device` (the card from the
-command line).  Out-of-core arrays (`arrays=file` in the private info)
-are not ported: the tool refuses them rather than keep the arrays in
-memory unasked.  A file that is not a private (or protocol) info file
-is refused with its reason (fault F4 of `vmn_tpu`).
+command line).  With out-of-core arrays (`arrays=file` in the private
+info) the large resident arrays spill to `<dir>/arrays`
+(`arith/storage.py`).  A file that is not a private (or protocol) info
+file is refused with its reason (fault F4 of `vmn_tpu`).
 
 `vmn` — the mix-server tool.
 
@@ -70,13 +70,12 @@ def _mk_party(prot, priv, device, silent=False, offline=False):
         else Log.tee(stdout=not silent)
     )
     if priv.arrays == "file":
-        # Out-of-core arrays (reference: file-mapped LargeIntegerArray
-        # toggled by the `arrays` private-info field,
-        # ProtocolElGamal.java:332-345) wait for the port's storage
-        # module (ROADMAP queue 1 item 7).
-        raise SystemExit(
-            "vmn: out-of-core arrays (arrays=file in the private info) "
-            "are not ported yet; set arrays=ram")
+        # Out-of-core arrays: spill large cached arrays to disk (reference:
+        # file-mapped LargeIntegerArray toggled by the `arrays`
+        # private-info field, ProtocolElGamal.java:332-345).
+        from vmn_tpu_torch.arith import storage
+
+        storage.set_backend("file", Path(priv.dir) / "arrays")
     if priv.seed:
         # Each invocation reads the seed file and leaves its successor
         # there (fault F12: vmn_tpu restarts the same stream every time,

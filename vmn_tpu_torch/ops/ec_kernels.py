@@ -6,12 +6,14 @@ functions.  Each has three parts here, as in ops/mont_kernels.py:
 
 * the wrapper (`ec_scalar_mul`, `ec_multiexp_positions`,
   `ec_multiexp_combine`, `ec_fb_exp`, `ec_point_add`, plus `ec_multiexp`
-  on top of them).  A CPU tensor goes to the plain version; a CUDA tensor
-  goes to the kernel in `csrc/ec_kernels.cu` or raises — there is no
-  fallback;
+  on top of them).  CPU operands with a modulus there go to the plain
+  version; CUDA operands go to the kernel in `csrc/ec_kernels.cu` or
+  raise, and so does an operand on another device than the modulus —
+  there is no fallback;
 * the plain PyTorch version (`*_plain`): exact integer arithmetic through
   `mont_mul_plain`, `add_mod` and `sub_mod`, the same formulas as the
-  kernels, so that both give the same canonical limbs;
+  kernels, so that both give the same canonical limbs (H5 and H8 on a
+  few rows of a CPU tensor: the same formulas over `K.HostField`);
 * a launch counter per wrapper (`LAUNCHES[name]`), bumped only where the
   wrapper launches its kernel; H5 and H8 also count their launches by
   batch size (`LAUNCH_SIZES`, the buckets of ops/mont_kernels.py).
@@ -97,6 +99,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from vmn_tpu_torch.ops import mont_kernels as K
@@ -176,9 +179,12 @@ class _PlainField:
         b = torch.stack([p[1] for p in pairs])
         return sub_mod(a, b, self.mod.limbs).unbind(0)
 
+    @staticmethod
+    def is_zero(x: torch.Tensor) -> torch.Tensor:
+        return (x == 0).all(dim=-1, keepdim=True)
 
-def _is_zero(x: torch.Tensor) -> torch.Tensor:
-    return (x == 0).all(dim=-1, keepdim=True)
+    where = staticmethod(torch.where)
+    zeros_like = staticmethod(torch.zeros_like)
 
 
 def _point_double(F: _PlainField, X, Y, Z):
@@ -216,22 +222,22 @@ def _point_add(F: _PlainField, X1, Y1, Z1, X2, Y2, Z2):
     rvx, sh = F.mul((R, vx), (S1, HHH))
     (Y3,) = F.sub((rvx, sh))
 
-    p1_inf, p2_inf = _is_zero(Z1), _is_zero(Z2)
-    h_zero, r_zero = _is_zero(H), _is_zero(R)
+    p1_inf, p2_inf = F.is_zero(Z1), F.is_zero(Z2)
+    h_zero, r_zero = F.is_zero(H), F.is_zero(R)
     same = h_zero & r_zero
     opp = h_zero & ~r_zero
     if bool(same.any()):  # the doubling branch, where a row takes it
         dX, dY, dZ = _point_double(F, X1, Y1, Z1)
-        X3 = torch.where(same, dX, X3)
-        Y3 = torch.where(same, dY, Y3)
-        Z3 = torch.where(same, dZ, Z3)
-    Z3 = torch.where(opp & ~(p1_inf | p2_inf), torch.zeros_like(Z3), Z3)
-    X3 = torch.where(p1_inf, X2, X3)
-    Y3 = torch.where(p1_inf, Y2, Y3)
-    Z3 = torch.where(p1_inf, Z2, Z3)
-    X3 = torch.where(p2_inf, X1, X3)
-    Y3 = torch.where(p2_inf, Y1, Y3)
-    Z3 = torch.where(p2_inf, Z1, Z3)
+        X3 = F.where(same, dX, X3)
+        Y3 = F.where(same, dY, Y3)
+        Z3 = F.where(same, dZ, Z3)
+    Z3 = F.where(opp & ~(p1_inf | p2_inf), F.zeros_like(Z3), Z3)
+    X3 = F.where(p1_inf, X2, X3)
+    Y3 = F.where(p1_inf, Y2, Y3)
+    Z3 = F.where(p1_inf, Z2, Z3)
+    X3 = F.where(p2_inf, X1, X3)
+    Y3 = F.where(p2_inf, Y1, Y3)
+    Z3 = F.where(p2_inf, Z1, Z3)
     return X3, Y3, Z3
 
 
@@ -240,13 +246,16 @@ def _double_as_add(F: _PlainField, X, Y, Z):
     branch, but P itself where Z = 0 (csrc/ec_coop.cuh,
     point_double_as_add)."""
     dX, dY, dZ = _point_double(F, X, Y, Z)
-    inf = _is_zero(Z)
-    return (torch.where(inf, X, dX), torch.where(inf, Y, dY),
-            torch.where(inf, Z, dZ))
+    inf = F.is_zero(Z)
+    return F.where(inf, X, dX), F.where(inf, Y, dY), F.where(inf, Z, dZ)
 
 
 def ec_point_add_plain(x1, y1, z1, x2, y2, z2, mod: Modulus):
     """Plain version of H8: (N, L) Jacobian + Jacobian -> Jacobian."""
+    if K.host_route(x1, x1.shape[0]):
+        F = K.HostField(mod)
+        out = _point_add(F, *(F.ints(t) for t in (x1, y1, z1, x2, y2, z2)))
+        return tuple(F.tensor(t) for t in out)
     return _point_add(_PlainField(mod), x1, y1, z1, x2, y2, z2)
 
 
@@ -270,9 +279,11 @@ def ec_scalar_mul_plain(x, y, inf, e, mod: Modulus, nbits: int):
     """Plain version of H5: e·P per point.  x, y (N, L) affine Montgomery
     form, inf (N,) bool, e (N, Le) standard limbs below 2^nbits.
     Returns Jacobian (X, Y, Z), each (N, L)."""
-    F = _PlainField(mod)
     N = x.shape[0]
     ndig = max(1, -(-nbits // WINDOW))
+    if K.host_route(x, N):
+        return _scalar_mul_host(x, y, inf, e, mod, ndig)
+    F = _PlainField(mod)
     tX, tY, tZ = _multiples_plain(F, x, y, inf, mod)
     digits = _digits(e, ndig, WINDOW)
     rows = torch.arange(N, device=x.device)
@@ -284,6 +295,32 @@ def ec_scalar_mul_plain(x, y, inf, e, mod: Modulus, nbits: int):
         d = digits[j]
         acc = _point_add(F, *acc, tX[d, rows], tY[d, rows], tZ[d, rows])
     return tuple(t.contiguous() for t in acc)
+
+
+def _scalar_mul_host(x, y, inf, e, mod: Modulus, ndig: int):
+    """ec_scalar_mul_plain's steps on Python integers (`K.HostField`)."""
+    F = K.HostField(mod)
+    xs, ys = F.ints(x), F.ints(y)
+    zero = F.zeros_like(xs)
+    one = np.full(len(xs), F.one, dtype=object)
+    z1 = np.where(inf.numpy(), zero, one)
+    tX, tY, tZ = [zero, xs], [one, ys], [zero, z1]
+    aX, aY, aZ = xs, ys, z1
+    for _ in range(2, ENTRIES):
+        aX, aY, aZ = _point_add(F, aX, aY, aZ, xs, ys, z1)
+        tX.append(aX)
+        tY.append(aY)
+        tZ.append(aZ)
+    tX, tY, tZ = np.stack(tX), np.stack(tY), np.stack(tZ)
+    digits = _digits(e, ndig, WINDOW).numpy()
+    rows = np.arange(len(xs))
+    acc = (zero, one, zero)
+    for j in range(ndig - 1, -1, -1):
+        for _ in range(WINDOW):
+            acc = _point_double(F, *acc)
+        d = digits[j]
+        acc = _point_add(F, *acc, tX[d, rows], tY[d, rows], tZ[d, rows])
+    return tuple(F.tensor(t) for t in acc)
 
 
 def mexp_shape(n: int, npos: int, w: int):
@@ -498,7 +535,7 @@ def _rows(ts):
 def ec_point_add(x1, y1, z1, x2, y2, z2, mod: Modulus):
     """H8: batched Jacobian + Jacobian, six (N, L) -> three (N, L), the
     operands read as they lie (row-major)."""
-    if x1.device.type == "cpu":
+    if K.on_host("ec_point_add", mod, x1, y1, z1, x2, y2, z2):
         return ec_point_add_plain(x1, y1, z1, x2, y2, z2, mod)
     N = x1.shape[0]
     w = _words(mod, "ec_point_add")
@@ -518,7 +555,7 @@ def ec_point_add(x1, y1, z1, x2, y2, z2, mod: Modulus):
 def ec_scalar_mul(x, y, inf, e, mod: Modulus, nbits: int):
     """H5: e·P per point; x, y (N, L) affine Montgomery form, inf (N,)
     bool, e (N, Le) standard limbs below 2^nbits -> Jacobian (N, L) x3."""
-    if x.device.type == "cpu":
+    if K.on_host("ec_scalar_mul", mod, x, y, inf, e):
         return ec_scalar_mul_plain(x, y, inf, e, mod, nbits)
     N = x.shape[0]
     w = _words(mod, "ec_scalar_mul")
@@ -543,7 +580,7 @@ def ec_scalar_mul(x, y, inf, e, mod: Modulus, nbits: int):
 def ec_multiexp_positions(x, y, inf, e, mod: Modulus, nbits: int):
     """H6: per-digit-position sums S_j = sum_i d_ij·P_i, Jacobian
     (ndig_pad, L) x3 (see ec_multiexp_positions_plain)."""
-    if x.device.type == "cpu":
+    if K.on_host("ec_multiexp_positions", mod, x, y, inf, e):
         return ec_multiexp_positions_plain(x, y, inf, e, mod, nbits)
     N, L = x.shape[0], mod.L
     w = _words(mod, "ec_multiexp_positions")
@@ -578,7 +615,7 @@ def ec_multiexp_combine(PX, PY, PZ, mod: Modulus):
     """sum_j 2^(4j)·S_j of (J, L) Jacobian positions -> one Jacobian
     point, (L,) x3, as one chain on one warp (see
     ec_multiexp_combine_plain)."""
-    if PX.device.type == "cpu":
+    if K.on_host("ec_multiexp_combine", mod, PX, PY, PZ):
         return ec_multiexp_combine_plain(PX, PY, PZ, mod)
     J, L = PX.shape[0], mod.L
     w = _words(mod, "ec_multiexp_combine")
@@ -608,7 +645,7 @@ def ec_multiexp(x, y, inf, e, mod: Modulus, nbits: int):
 def ec_fb_exp(table_x, table_y, e, mod: Modulus):
     """H7: fixed-base e·P from the affine table (ndig, 16, L) of
     d·2^(4j)·P, e (N, Le) standard limbs -> Jacobian (N, L) x3."""
-    if table_x.device.type == "cpu":
+    if K.on_host("ec_fb_exp", mod, table_x, table_y, e):
         return ec_fb_exp_plain(table_x, table_y, e, mod)
     ndig, entries, L = table_x.shape
     if entries != ENTRIES or L != mod.L or table_y.shape != table_x.shape:

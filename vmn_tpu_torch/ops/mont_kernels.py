@@ -7,13 +7,15 @@ ops/ec_kernels.py).  Each has three parts here:
 
 * the wrapper (`mont_mul`, `mont_exp`, `mont_fb_exp`,
   `mont_expprod_positions`, `mont_expprod_combine`, and `mont_expprod`,
-  the last two in sequence).  A CPU
-  tensor goes to the plain version; a CUDA tensor goes to the kernel in
-  `csrc/mont_kernels.cu` or raises — there is no fallback;
+  the last two in sequence).  Operands on the CPU with a modulus there
+  go to the plain version; CUDA operands go to the kernel in
+  `csrc/mont_kernels.cu` or raise, and so does an operand on another
+  device than the modulus (`on_host`) — there is no fallback;
 * the plain PyTorch version (`*_plain`): exact integer arithmetic on
   int64 tensors with log-depth carry resolution (and float64 products
   whose sums stay below 2^53), any algorithm that gives the same
-  canonical limbs;
+  canonical limbs; on a few rows of a CPU tensor the same steps on
+  Python integers (`HostField`);
 * a launch counter per wrapper (`LAUNCHES[name]`), bumped only where the
   wrapper launches its kernel; H1 and H2 also count their launches by
   batch size (`LAUNCH_SIZES`).
@@ -122,6 +124,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 LIMB_BITS = 16
@@ -328,8 +331,11 @@ def _plain_const(m: torch.Tensor, name: str, device, make):
 
 
 # Rows per plain-product chunk: bounds the (rows, L, 2L) int64 outer
-# product at 2^26 entries (512 MB).
-_PLAIN_ELEMS = 1 << 26
+# product at 2^26 entries (512 MB) on the host and 2^28 (2 GB) on a
+# card, where each chunk's few dozen launches, not its bytes, set the
+# time (the plain H4 at W = 128 over 10^4 elements and full-width
+# exponents is 2·10^4 chunks at 2^26).
+_PLAIN_ELEMS = {"cpu": 1 << 26, "cuda": 1 << 28}
 
 
 def _toeplitz(v: torch.Tensor, cols: int) -> torch.Tensor:
@@ -341,6 +347,96 @@ def _toeplitz(v: torch.Tensor, cols: int) -> torch.Tensor:
          - torch.arange(L, device=v.device)[:, None])
     inside = (d >= 0) & (d < L)
     return torch.where(inside, v[d.clamp(0, L - 1)], 0).to(torch.float64)
+
+
+# ------------------------------------------ plain versions on few rows
+# On up to HOST_ROWS rows of a CPU tensor the plain versions run the same
+# steps on Python integers (numpy object vectors): the same REDC (one
+# conditional subtraction), the same modular sums and differences, so
+# the same limbs as the torch ops, at a few microseconds a step in place
+# of a torch call's hundreds.  CUDA tensors always take the torch ops.
+HOST_ROWS = 32
+
+
+def host_route(t: torch.Tensor, rows: int) -> bool:
+    """Whether a plain version runs on Python integers here."""
+    return t.device.type == "cpu" and rows <= HOST_ROWS
+
+
+class HostField:
+    """Limb rows of one modulus as Python integers, and the plain
+    versions' field steps on them (vectors: numpy object arrays)."""
+
+    def __init__(self, mod: Modulus):
+        self.m, self.L = mod.m, mod.L
+        self.bits = LIMB_BITS * mod.L
+        self.mask = (1 << self.bits) - 1
+        self.mprime = (-pow(mod.m, -1, 1 << self.bits)) & self.mask
+        self.one = (1 << self.bits) % mod.m
+
+    def ints(self, t: torch.Tensor) -> np.ndarray:
+        """(..., L) canonical limbs -> flat object vector of integers."""
+        raw = t.reshape(-1, self.L).to(torch.int32).numpy().astype("<u2")
+        out = np.empty(raw.shape[0], dtype=object)
+        out[:] = [int.from_bytes(r.tobytes(), "little") for r in raw]
+        return out
+
+    def tensor(self, v: np.ndarray) -> torch.Tensor:
+        """Object vector of integers below 2^(16·L) -> (n, L) int32."""
+        nb = 2 * self.L
+        raw = b"".join(int(x).to_bytes(nb, "little") for x in v)
+        return torch.from_numpy(np.frombuffer(raw, "<u2").reshape(
+            len(v), self.L).astype(np.int32))
+
+    def redc(self, a, b):
+        """a·b·R^-1 as mont_mul_plain computes it: REDC with one
+        conditional subtraction."""
+        t = a * b
+        u = (t + ((t & self.mask) * self.mprime & self.mask) * self.m) \
+            >> self.bits
+        return np.where(u >= self.m, u - self.m, u)
+
+    def add_mod(self, a, b):
+        s = a + b
+        return np.where(s >= self.m, s - self.m, s) & self.mask
+
+    def sub_mod(self, a, b):
+        d = a - b
+        return np.where(a >= b, d, (d + self.m) & self.mask)
+
+    # the point formulas' interface (ops/ec_kernels.py `_PlainField`)
+    def mul(self, *pairs):
+        return self._stacked(self.redc, pairs)
+
+    def add(self, *pairs):
+        return self._stacked(self.add_mod, pairs)
+
+    def sub(self, *pairs):
+        return self._stacked(self.sub_mod, pairs)
+
+    @staticmethod
+    def _stacked(op, pairs):
+        out = op(np.concatenate([p[0] for p in pairs]),
+                 np.concatenate([p[1] for p in pairs]))
+        return np.split(out, len(pairs))
+
+    @staticmethod
+    def is_zero(x):
+        return x == 0
+
+    @staticmethod
+    def where(mask, a, b):
+        return np.where(mask, a, b)
+
+    @staticmethod
+    def zeros_like(x):
+        return np.zeros(x.shape, dtype=object)
+
+
+def _mont_mul_host(a: torch.Tensor, b: torch.Tensor, mod: Modulus
+                   ) -> torch.Tensor:
+    F = HostField(mod)
+    return F.tensor(F.redc(F.ints(a), F.ints(b)))
 
 
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
@@ -359,6 +455,8 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
     shape = a.shape
+    if host_route(a, a.numel() // L):
+        return _mont_mul_host(a, b, mod).reshape(shape)
     a = a.reshape(-1, L).to(torch.int64)
     b = b.reshape(-1, L).to(torch.int64)
     dev = a.device
@@ -368,7 +466,7 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, mod: Modulus
                       lambda v: _toeplitz(v, 2 * L))
     neg_m = _plain_const(mod.limbs, "neg_m_pad", dev, lambda v:
                          torch.constant_pad_nd(_neg_m(v, L + 1), (0, 1)))
-    rows = max(1, _PLAIN_ELEMS // (2 * L * L))
+    rows = max(1, _PLAIN_ELEMS[dev.type] // (2 * L * L))
     outs = []
     for s in range(0, a.shape[0], rows):
         T = _mul_lazy(a[s : s + rows], b[s : s + rows])
@@ -431,6 +529,8 @@ def mont_exp_plain(base: torch.Tensor, e: torch.Tensor, mod: Modulus,
     Montgomery form, e (N, Le) standard limbs < 2^nbits."""
     N = base.shape[0]
     ndig = max(1, -(-nbits // WINDOW))
+    if host_route(base, N):
+        return _mont_exp_host(base, e, mod, ndig)
     one = mod.one_mont.expand(N, mod.L)
     table = [one, base]
     for _ in range(2, 1 << WINDOW):
@@ -444,6 +544,25 @@ def mont_exp_plain(base: torch.Tensor, e: torch.Tensor, mod: Modulus,
             acc = mont_mul_plain(acc, acc, mod)
         acc = mont_mul_plain(acc, table[digits[j], rows], mod)
     return acc.contiguous()
+
+
+def _mont_exp_host(base: torch.Tensor, e: torch.Tensor, mod: Modulus,
+                   ndig: int) -> torch.Tensor:
+    """mont_exp_plain's steps on Python integers."""
+    F = HostField(mod)
+    b = F.ints(base)
+    table = [np.full(len(b), F.one, dtype=object), b]
+    for _ in range(2, 1 << WINDOW):
+        table.append(F.redc(table[-1], b))
+    table = np.stack(table)
+    digits = _digits(e, ndig, WINDOW).numpy()
+    rows = np.arange(len(b))
+    acc = table[0]
+    for j in range(ndig - 1, -1, -1):
+        for _ in range(WINDOW):
+            acc = F.redc(acc, acc)
+        acc = F.redc(acc, table[digits[j], rows])
+    return F.tensor(acc)
 
 
 def mont_fb_exp_plain(table: torch.Tensor, e: torch.Tensor, mod: Modulus
@@ -883,11 +1002,24 @@ def _rows(x: torch.Tensor, name: str, device, n: int, cols: int = 0
     return x.clone() if x.data_ptr() % 8 else x
 
 
+def on_host(name: str, mod: Modulus, *operands) -> bool:
+    """Whether a wrapper takes its plain version: the modulus and every
+    operand on the CPU.  An operand on another device than the modulus
+    raises, so that a host tensor handed to a wrapper on the card is
+    never computed by the plain version on the host."""
+    dev = mod.limbs.device
+    for t in operands:
+        if t.device != dev:
+            raise ValueError(
+                f"{name}: an operand is on {t.device}, the modulus on {dev}")
+    return dev.type == "cpu"
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
     """H1: batched Montgomery product, (N, L) x (N, L) -> (N, L).  At a
     padded modulus the kernel computes a·b·R'^-1, then one more product
     with c_in = R'^2/R gives a·b·R^-1."""
-    if a.device.type == "cpu":
+    if on_host("mont_mul", mod, a, b):
         return mont_mul_plain(a, b, mod)
     N, L = a.shape[0], mod.L
     w = _words(mod, "mont_mul")
@@ -909,7 +1041,7 @@ def mont_exp(base: torch.Tensor, e: torch.Tensor, mod: Modulus, nbits: int
              ) -> torch.Tensor:
     """H2: base^e per element; base (N, L) Montgomery form, e (N, Le)
     standard limbs below 2^nbits."""
-    if base.device.type == "cpu":
+    if on_host("mont_exp", mod, base, e):
         return mont_exp_plain(base, e, mod, nbits)
     N, L = base.shape[0], mod.L
     w = _words(mod, "mont_exp")
@@ -936,7 +1068,7 @@ def mont_fb_exp(table: torch.Tensor, e: torch.Tensor, mod: Modulus
                 ) -> torch.Tensor:
     """H3: prod_j table[j][digit_j(e)]; table (ndig, 2^w, L) Montgomery
     form with w in {4, 8}, e (N, Le) standard limbs."""
-    if table.device.type == "cpu":
+    if on_host("mont_fb_exp", mod, table, e):
         return mont_fb_exp_plain(table, e, mod)
     ndig, entries, L = table.shape
     window = entries.bit_length() - 1
@@ -968,7 +1100,7 @@ def mont_expprod_positions(bases: torch.Tensor, e: torch.Tensor,
     (ndig_pad, L) Montgomery form (see mont_expprod_positions_plain): one
     launch gives `ep_launch(..).parts` partials a position, an H1 lane
     tree multiplies them."""
-    if bases.device.type == "cpu":
+    if on_host("mont_expprod_positions", mod, bases, e):
         return mont_expprod_positions_plain(bases, e, mod, nbits)
     N, L = bases.shape[0], mod.L
     w = _words(mod, "mont_expprod_positions")
@@ -992,7 +1124,7 @@ def mont_expprod_positions(bases: torch.Tensor, e: torch.Tensor,
 def mont_expprod_combine(P: torch.Tensor, mod: Modulus) -> torch.Tensor:
     """K7's combine prod_j P_j^(2^(4j)) of (J, L) Montgomery-form
     positions -> (L,), as one chain on one warp."""
-    if P.device.type == "cpu":
+    if on_host("mont_expprod_combine", mod, P):
         return mont_expprod_combine_plain(P, mod)
     J, L = P.shape[0], mod.L
     w = _words(mod, "mont_expprod_combine")

@@ -12,9 +12,10 @@ the previous party's verification (`_OptimisticOutput`), `decrypt` and
 permutation commitments for up to `maxciph` ciphertexts, persisted in
 the session's state directory under the `.precomp` marker), the
 commitment-consistent chain (`committed_shuffle`: the keep-list
-`_shrink`, then CCPoS, `_verify_ccpos`).  Left out of `vmn_tpu`'s
-version: the JAX-only `backpressure` and the file-backed spill of the
-resident arrays (ROADMAP queue 1 item 7).
+`_shrink`, then CCPoS, `_verify_ccpos`).  With arrays=file
+(`arith/storage.py`) the precomputation's resident arrays and each
+shuffle's output list spill to disk, as in `vmn_tpu`.  Left out of
+`vmn_tpu`'s version: the JAX-only `backpressure`.
 
 Proof-directory layout (reference: MixNetElGamalSession.java:381-446):
 
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from vmn_tpu_torch import VCR_COMPAT_VERSION
+from vmn_tpu_torch.arith import storage
 from vmn_tpu_torch.arith.pgroup import Permutation, PPArray, PPGroup
 from vmn_tpu_torch.crypto.randomsource import SeededSource
 from vmn_tpu_torch.eio.bytetree import (
@@ -495,6 +497,22 @@ class MixSession:
                 party.full_public_key().widen(self.width),
                 st.reenc_exponents,
             )
+        if storage.backend() == "file":
+            # Out-of-core: the big resident arrays go to disk (reference:
+            # file-mapped arrays for N beyond memory,
+            # ProtocolElGamal.java:332-345).
+            st.generators = st.generators.spill()
+            st.raised_generators = st.raised_generators.spill()
+            st.commitments = {
+                l: c.spill() for l, c in st.commitments.items()
+            }
+            st.raised_commitments = {
+                l: (c.spill() if c is not None else None)
+                for l, c in st.raised_commitments.items()
+            }
+            if st.reenc_exponents is not None:
+                st.reenc_exponents = st.reenc_exponents.spill()
+                st.reenc_factors = st.reenc_factors.spill()
         self._save_precomp(st)
         self._precomp = st
 
@@ -717,6 +735,8 @@ class MixSession:
                 else:
                     self._export(self._pf("Ciphertexts", l),
                                  out.to_bytetree())
+            if storage.backend() == "file":
+                out = out.spill()
             inp = out
 
         if valid_proofs < party.par.threshold:
@@ -868,6 +888,8 @@ class MixSession:
                 else:
                     self._export(self._pf("Ciphertexts", l),
                                  out.to_bytetree())
+            if storage.backend() == "file":
+                out = out.spill()
             inp = out
 
         if valid_proofs < party.par.threshold:
