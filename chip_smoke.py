@@ -9,7 +9,11 @@ Usage:  python3 chip_smoke.py [--n N] [--ec-n N] [--k3-n N] [--k3i-n N]
 Phases (one line each; any failure raises and the exit code is not 0):
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build the Hopper kernels from vmn_tpu_torch/csrc with nvcc (one nvcc
-     per source file, all started together);
+     per source file, all started together), and beside them the
+     Montgomery libraries of the widths this run builds on demand
+     (ON_DEMAND_WIDTHS: W = 32 for the fresh groups, W = 12 and W' = 20
+     for H3, H4 and the chain; one nvcc each, started with the rest),
+     each with its seconds, TPIs and ptxas lines;
   3. check H1 mont_mul, H2 mont_exp, H3 mont_fb_exp, H4
      mont_expprod_positions and K7's combine mont_expprod_combine at each
      width a path runs: modp2048 (W=64), modp3072 (W=96) and modp4096
@@ -24,8 +28,14 @@ Phases (one line each; any failure raises and the exit code is not 0):
      field (W=12) H1 and H2 on --ec-n and on one, and K7's combine over
      96 positions; at the P-224 and P-521 fields and rings (L = 14 and
      33 limbs at the inner widths W' = 8 and 20, converted at the
-     kernels' boundary) H1 and H2 on --ec-n, whole on 4096 and on one;
-     then each of H1-H4 at the first
+     kernels' boundary) H1 and H2 on --ec-n, whole on 4096 and on one,
+     and H3 at window 4, H4 and K7's combine (on no curve's path, from
+     the on-demand libraries at W = 12 and 20) on 1000 elements
+     (SMALL_N), the same at the P-384 field; at the fresh groups vog1024
+     (W = 32) and vog1000 (63 limbs at W' = 32, converting) as at the
+     wide groups, and H3 at window 4 on 1000 elements; H3 at window 4
+     at W = 96 and 128 on N at 256-bit exponents (a group with a short
+     q); then each of H1-H4 at the first
      N of any TPI of its
      rule that those miss, so that every TPI (lanes an element) the
      wrappers choose is checked (it fails otherwise).  Each against its
@@ -71,9 +81,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
      test_vectors_k3w2.json, and the k=3, t=2 golden over P-224 (width
      1, 3 messages: nizkp_p224_k3, test_vectors_p224_k3.json); then the modp3072 and modp4096 goldens
      (nizkp_modp{3072,4096}_k1, test_vectors_modp{3072,4096}.json, written
-     by tests/torch_make_wide_golden.py), and the P-224, P-384 and P-521
-     goldens (nizkp_p{224,384,521}_k1, test_vectors_p{224,384,521}.json,
-     the same script);
+     by tests/torch_make_wide_golden.py), the fresh groups' goldens
+     (nizkp_vog{1024,1000}_k1, test_vectors_vog{1024,1000}.json, the
+     groups in group_vog{1024,1000}.json, the same script), and the
+     P-224, P-384 and P-521 goldens (nizkp_p{224,384,521}_k1,
+     test_vectors_p{224,384,521}.json, the same script);
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
@@ -81,7 +93,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
      (N, exponent bits) at which the mix and the verify called H4 (H6 on
      the EC path) with its calls (`multiexp` lines; their times are
      vmn_tpu_torch/kernel_timing.py's); then the same at modp3072 and
-     modp4096 with N ciphertexts, the same --n;
+     modp4096 with N ciphertexts, the same --n, and at the fresh groups
+     vog1024 and vog1000 (every Montgomery launch of their mixes at
+     W = 32, converting at vog1000's 63 limbs: the `slice` line's
+     `launches_at_w`);
   7. the EC paths: the same at P-256, P-384 and P-521 with --ec-n
      ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6)
      and at P-224 with min(--ec-n, 65536) (P224_SLICE_N: its H6 and
@@ -134,7 +149,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
      included.  H1-H4 and the combine must launch in every modp2048
      `vmn -mix` process, H5, H6, the EC combine and H8 in the P-256 one.
 
---profile modp2048|P-256|P-224|P-384|P-521|modp2048-k3|modp3072|modp4096
+--profile modp2048|P-256|P-224|P-384|P-521|modp2048-k3|modp3072|modp4096|
+          vog1024|vog1000
 profiles one more
 mix + verify of that path after the phases (host spans, device time by
 kernel, the device's idle share); it may be given more than once.
@@ -143,8 +159,8 @@ Each mix zeroes the wrappers' launch counters just before `session.mix`
 (all three parties' in the k=3 runs: the counts are totals over the
 parties) and reads them just after it; a precomputation path does the
 same around its precomputation, and then around its online mix.  H1-H4
-and the combine must have launched in the modp2048, modp3072 and
-modp4096 mixes, in the k=3 mix
+and the combine must have launched in the modp2048, modp3072,
+modp4096, vog1024 and vog1000 mixes, in the k=3 mix
 and in the modp2048 k=1 precomputation path, H2 and H3 in the
 interactive mix's coin flipping, H5, H6, the EC combine (once per H6
 call) and H8 in the P-256 mix, and the same with H1 and H2 at W=12 in
@@ -162,7 +178,8 @@ time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
 stands under `at_4096`, and each kernel's launches in the P-384 mix with
 its check at W=12 under `p384`, in the P-224 and P-521 mixes with their
-checks at W'=8 and 20 under `p224` and `p521`.  The last three lines are
+checks at W'=8 and 20 under `p224` and `p521`, each Montgomery kernel's
+launches in the fresh groups' mixes with its checks there under `vog`.  The last three lines are
 that JSON object, the card's name and power limit, and a JSON status
 object.
 """
@@ -313,6 +330,43 @@ def ptxas_summary(text: str):
     return out
 
 
+_HOST_MODS: dict = {}
+
+
+def host_args(*args):
+    """args with each tensor copied to the host and each Modulus remade
+    there (kept a run, by the card modulus's identity)."""
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, K.Modulus):
+            if id(x) not in _HOST_MODS:
+                _HOST_MODS[id(x)] = (x, K.Modulus.of(x.m, x.L, "cpu"))
+            return _HOST_MODS[id(x)][1]
+        if isinstance(x, (tuple, list)):
+            return type(x)(one(y) for y in x)
+        return x
+
+    return tuple(one(x) for x in args)
+
+
+def plain_on_host(fn, *args):
+    """fn(*args), a plain version, on host copies of its inputs
+    (host_args), its output copied back to the card.  For a chain on one
+    row (a batch of one, K7's and the EC combine) the plain version then
+    runs its steps on Python integers (mont_kernels.host_route, at most
+    HOST_ROWS rows): the same function and limbs as on the card, in
+    milliseconds where the card's thousands of dependent torch launches
+    took seconds."""
+    out = fn(*host_args(*args))
+    dev = torch.device("cuda", 0)
+    if isinstance(out, tuple):
+        return tuple(t.to(dev) for t in out)
+    return out.to(dev)
+
+
 def timed(fn):
     """(result, milliseconds) of one run of fn(), host launch work
     included, timed with CUDA events on the current stream."""
@@ -330,6 +384,23 @@ def timed(fn):
 
 # The wide RFC 3526 groups and their widths W = L/2 (32-bit words).
 WIDE_GROUPS = {"modp3072": 96, "modp4096": 128}
+# Fresh groups, as `vog -gen ModPGroup -bitlen n` makes them
+# (tests/golden/group_{name}.json, vmn_tpu's random_group by
+# tests/torch_make_wide_golden.py), and the tags of their kernels'
+# checks: 1024 bits (L = 64 limbs, W = 32) and 1000 bits (L = 63, an odd
+# count: W' = 32 with the boundary conversion), each field and scalar
+# ring on the width-32 library built on demand.
+VOG_GROUPS = {"vog1024": "_vog1024", "vog1000": "_vog1000"}
+VOG_WORDS = 32
+# The widths built on demand in the build phase beside the main library
+# (ops/mont_kernels.py build_widths): W = 32 for the fresh groups, and
+# W = 12 and W' = 20 for H3, H4 (and K7's combine at 20), which the
+# P-384 and P-521 fields' checks run.
+ON_DEMAND_WIDTHS = (VOG_WORDS, 12, 20)
+# Elements of the one small shape at which a kernel that no path
+# launches at a width is held to its plain version (H3 at window 4 at
+# W = 32, H3 and H4 at W = 12 and at the padded moduli).
+SMALL_N = 1000
 # Rows of a wide batch (W = 96, 128) at which H1-H3 are held to their
 # plain versions, spread from row 0 to row N-1 so that every block of the
 # launch holds some: a full-width plain power takes about as long on 256
@@ -457,9 +528,11 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
             held = torch.tensor(sorted(set(spread(count, HELD_ROWS))
                                        | set(rows)), device=dev)
             held_in = tuple(t[held] for t in rows_in)
+        plain_args = (*pre, *held_in, *post)
         cases[name] = (
             d.ctx, lambda: kern(*pre, *rows_in, *post), held,
-            lambda: plain(*pre, *held_in, *post),
+            (lambda: plain_on_host(plain, *plain_args)) if count == 1
+            else (lambda: plain(*plain_args)),
             lambda got: d.ctx.decode(got[rows]) == [py(i) for i in rows],
             count, bnd, products)
 
@@ -513,10 +586,12 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         # each base's table, then per position one product per digit that
         # is not 0, less the first; a batch of one runs the table's four
         # levels and one fold product back to back
+        plain = ((lambda: plain_on_host(K.mont_expprod_positions_plain, x, e,
+                                        d.mod, bits)) if count == 1 else
+                 (lambda: K.mont_expprod_positions_plain(x, e, d.mod, bits)))
         cases[name] = (
             d.ctx, lambda: K.mont_expprod_positions(x, e, d.mod, bits), None,
-            lambda: K.mont_expprod_positions_plain(x, e, d.mod, bits),
-            truth, count,
+            plain, truth, count,
             bound(count * 14 + max(nonzero_digits(e, ndig, 4) - ndig, 0),
                   d.W, 4 * count * d.L + 4 * e.numel()
                   + 4 * K._ndig_pad(bits) * d.L),
@@ -536,8 +611,20 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         # 4 squarings and one product per position below the top
         cases[name] = (
             d.ctx, lambda: K.mont_expprod_combine(P, d.mod)[None], None,
-            lambda: K.mont_expprod_combine_plain(P, d.mod)[None], truth, J,
+            lambda: plain_on_host(K.mont_expprod_combine_plain, P,
+                                  d.mod)[None], truth, J,
             bound(5 * (J - 1), d.W, 4 * J * d.L + 4 * d.L), 5 * (J - 1))
+
+    def small_cases(d, tag):
+        """H3 at window 4, H4 and K7's combine at d's width, where no
+        path launches them, on SMALL_N elements at full-width exponents
+        (the combine over their positions)."""
+        d.tbl = d.ctx.fixed_base_table(g, d.bits, 4)
+        fb_case(d, f"mont_fb_exp4{tag}", d.tbl, d.e, d.e_int, SMALL_N)
+        ep_case(d, f"mont_expprod_positions{tag}", d.e, d.e_int, d.bits,
+                SMALL_N)
+        if f"mont_expprod_combine{tag}" not in cases:
+            combine_case(d, f"mont_expprod_combine{tag}")
 
     def batch_cases(d, tag, count):
         """H1 and H2 on `count` elements and on one (row 3), the batch-1
@@ -594,6 +681,11 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         ep_case(d, f"mont_expprod_positions{tag}_b1", d.e, d.e_int, d.bits,
                 1, at=3)
         combine_case(d, f"mont_expprod_combine{tag}")
+        if d.wide:
+            # window 4 at 256-bit exponents: the fixed-base powers of a
+            # group with a short q (FIPS 186-4 §4.2's (3072, 256))
+            tbl4 = ctx.fixed_base_table(g, 256, 4)
+            fb_case(d, f"mont_fb_exp4{tag}", tbl4, d.e256, d.e256_int, n)
         if W == 64:
             # the precomputation's raised values: pc_maxciph bases,
             # exponents of 64 bits in the field's L limbs, as
@@ -605,6 +697,28 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
                      pc_e_int, 64)
             tbl4 = ctx.fixed_base_table(g, 256, 4)
             fb_case(d, "mont_fb_exp4", tbl4, d.e256, d.e256_int, n)
+    # the fresh groups (W = 32; vog1000 at W' = 32, converting): as the
+    # wide groups, H1-H3 held on HELD_ROWS spread rows and H4 also at
+    # full width; H3 at window 4 (on no path: their fixed-base exponents
+    # are full width) on SMALL_N elements
+    for group, tag in VOG_GROUPS.items():
+        ctx = MontCtx(vog_group(group)[0], dev)
+        d = width(ctx, ctx.nbits - 1, n)
+        d.wide = True
+        d.tbl = ctx.fixed_base_table(g, d.bits, 8)
+        widths.setdefault(ctx.mod.W, []).append((d, tag, 8))
+        batch_cases(d, tag, n)
+        fb_case(d, f"mont_fb_exp8{tag}", d.tbl, d.e, d.e_int, n)
+        fb_case(d, f"mont_fb_exp8{tag}_b1", d.tbl, d.e, d.e_int, 1, at=3)
+        fb_case(d, f"mont_fb_exp4{tag}", ctx.fixed_base_table(g, d.bits, 4),
+                d.e, d.e_int, SMALL_N)
+        ep_case(d, f"mont_expprod_positions{tag}", d.e256, d.e256_int, 256,
+                n)
+        ep_case(d, f"mont_expprod_positions{tag}_full", d.e, d.e_int,
+                d.bits, n)
+        ep_case(d, f"mont_expprod_positions{tag}_b1", d.e, d.e_int, d.bits,
+                1, at=3)
+        combine_case(d, f"mont_expprod_combine{tag}")
     # the P-256 field (the EC path's and the test256 golden's width): H1
     # and H2 on ec_n and on n, H3 at window 4 and H4 on n
     ctx8 = MontCtx(_CURVES["P-256"][0], dev)
@@ -623,20 +737,22 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     # take seconds a row block, so H2 is held on HELD_ROWS rows
     ctx12 = MontCtx(_CURVES["P-384"][0], dev)
     d12 = width(ctx12, 384, ec_n, held=True)
-    widths[12] = [(d12, "_w12", None)]
+    widths[12] = [(d12, "_w12", 4)]
     batch_cases(d12, "_w12", ec_n)
     combine_case(d12, "mont_expprod_combine_w12")
+    small_cases(d12, "_w12")
     # the P-224 and P-521 fields and scalar rings (L = 14 and 33 limbs at
     # the inner widths W' = 8 and 20, converted at the kernels' boundary):
     # H1 and H2 on ec_n (H2 held on HELD_ROWS rows), whole on EC_CHECK_N
-    # elements, as the curve's kernels, and on one; K7's combine has no
-    # converting form
+    # elements, as the curve's kernels, and on one; H3, H4 and K7's
+    # combine, converting too, on no curve's path: on SMALL_N elements
     for curve, ring in ((c, r) for c in PADDED_CURVES for r in (False, True)):
         grp = _group(curve)
         ctx = grp.ring.ctx if ring else grp.ctx
         d = width(ctx, ctx.nbits, ec_n, held=True)
         tag = CURVE_W_TAG[curve] + ("_ring" if ring else "")
-        widths.setdefault(ctx.mod.W, []).append((d, tag, None))
+        widths.setdefault(ctx.mod.W, []).append((d, tag, 4))
+        small_cases(d, tag)
         batch_cases(d, tag, ec_n)
         k = min(ec_n, EC_CHECK_N)
         mul_case(d, f"mont_mul{tag}_{k}", k)
@@ -652,13 +768,11 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         if kernel in COOP_MONT:
             reached.setdefault((kernel, W, id(cx)), set()).add(
                 K.threads_per_element(kernel, W, count))
-    for (kernel, W), rule in K.COOP_TPI.items():
+    for kernel, W in sorted({*K.COOP_TPI, *((k, w) for k, w, _ in reached)}):
         if kernel not in COOP_MONT:
             continue
-        for d, tag, window in widths[W]:
-            if d.mod.conv and kernel not in K.CONVERTS:
-                continue  # H3 and H4 raise at a padded modulus
-            _tpi_cases(d, tag, window, kernel, rule,
+        for d, tag, window in widths.get(W, ()):
+            _tpi_cases(d, tag, window, kernel, K.coop_rule(kernel, W),
                        reached.get((kernel, W, id(d.ctx)), set()))
 
 
@@ -689,9 +803,12 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
                      "latency-bound: four table levels and one product")
         results[name] = r
         kernel_line(name, r)
-    built = {(k, w, t) for (k, w), rule in K.COOP_TPI.items()
-             if k in COOP_MONT for _, t in rule}
-    if tpis != built:
+    # every TPI of every measured rule, and of the rule taken at each
+    # width checked without one (coop_rule: W = 12 and 20 for H3, H4)
+    rules = {*K.COOP_TPI, *((k, w) for k, w, _ in tpis)}
+    built = {(k, w, t) for k, w in rules if k in COOP_MONT
+             for _, t in K.coop_rule(k, w)}
+    if built - tpis:
         raise AssertionError(f"H1-H4 instantiations not checked: "
                              f"{sorted(built - tpis)}")
     return results
@@ -935,8 +1052,8 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
             None),
         "ec_multiexp_combine": (
             lambda: tuple(t[None] for t in E.ec_multiexp_combine(*Pj, mod)),
-            lambda: tuple(t[None]
-                          for t in E.ec_multiexp_combine_plain(*Pj, mod)),
+            lambda: tuple(t[None] for t in plain_on_host(
+                E.ec_multiexp_combine_plain, *Pj, mod)),
             None),
     }
     results = {}
@@ -1007,7 +1124,8 @@ def check_ec_kernels(n: int, curve: str = "P-256") -> dict:
     # single-point additions and doublings call it
     one = [t[4:5].contiguous() for t in (*j1, *j2)]
     got, _ = timed(lambda: E.ec_point_add(*one, mod))
-    want, plain_ms = timed(lambda: E.ec_point_add_plain(*one, mod))
+    want, plain_ms = timed(lambda: plain_on_host(E.ec_point_add_plain,
+                                                 *one, mod))
     err = max_abs_err(got, want)
     s3 = smul_aff[idx[4].item()]
     if affine(got) != [host_ec_add(p, a, smul_aff[4], s3)]:
@@ -1197,14 +1315,23 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
     return session.nizkp, plain, mix_s, launches, sizes
 
 
+def vog_group(name: str) -> tuple:
+    """(p, q, g) of a fresh group of VOG_GROUPS."""
+    f = json.loads((GOLDEN / f"group_{name}.json").read_text())
+    return int(f["p"], 16), int(f["q"], 16), int(f["g"], 16)
+
+
 def _group(name: str):
-    """A named group on the card: an NIST curve or a ModP group."""
+    """A group on the card: an NIST curve, a named ModP group or a fresh
+    one of VOG_GROUPS."""
     if name.startswith("P-"):
         from vmn_tpu_torch.arith.ec import ECqPGroup
 
         return ECqPGroup.named(name, device="cuda")
     from vmn_tpu_torch.arith.pgroup import ModPGroup
 
+    if name in VOG_GROUPS:
+        return ModPGroup(*vog_group(name), device="cuda")
     return ModPGroup.named(name, device="cuda")
 
 
@@ -1411,8 +1538,8 @@ def launches_inside(module_file: str, log: dict):
 
     launched = K._launched
 
-    def counted(name, n):
-        launched(name, n)
+    def counted(name, n, mod=None):
+        launched(name, n, mod)
         f = sys._getframe(1)
         while f is not None:
             if f.f_code.co_filename.endswith(module_file):
@@ -1691,8 +1818,22 @@ def slice_phase(name: str, n: int, tmp: Path):
         nizkp, plain, mix_s, launches, sizes = run_mix(
             params, m, tmp / f"slice_{name}", b"smoke-party",
             b"smoke-ciphs")
+    by_width = dict(K.LAUNCH_WIDTHS)  # the mix's, before the verify's
     if sorted(_points(group, plain)) != sorted(msgs):
         raise AssertionError("plaintext multiset not preserved")
+    extra = {}
+    if name in VOG_GROUPS:
+        # every Montgomery launch of the mix at W = 32, converting at
+        # the odd limb count (the field and the scalar ring alike)
+        conv = group.ctx.L % 2 == 1
+        want = {(k, VOG_WORDS, conv) for k in K.KERNELS}
+        if set(by_width) != want:
+            raise AssertionError(f"{name} mix launched at {sorted(by_width)}"
+                                 f", expected {sorted(want)}")
+        extra = {"W": VOG_WORDS, "conv": conv, "L": group.ctx.L,
+                 "launches_at_w": json.dumps(
+                     {k: c for (k, _, _), c in sorted(by_width.items())},
+                     separators=(",", ":"))}
     with calls_of(owner, wrapper, {}) as verify_calls:
         ok, verify_s = verify(params, nizkp)
     if not ok:
@@ -1701,7 +1842,7 @@ def slice_phase(name: str, n: int, tmp: Path):
     if not tampered_rejected(params, nizkp, tmp):
         raise AssertionError("tampered transcript accepted")
     phase("slice", group=name, k=1, N=n, multiset=True,
-          verify_ok=True, tampered_rejected=True,
+          verify_ok=True, tampered_rejected=True, **extra,
           mix_s=f"{mix_s:.3f}", verify_s=f"{verify_s:.3f}",
           mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
           max_memory_allocated=peak,
@@ -2510,7 +2651,7 @@ def main(argv=None) -> int:
                          "(default 1000)")
     ap.add_argument("--profile", choices=["modp2048", *EC_PATH_CURVES,
                                           "modp2048-k3", "modp3072",
-                                          "modp4096"],
+                                          "modp4096", *VOG_GROUPS],
                     action="append", default=[],
                     help="after the phases, profile one more mix + verify "
                          "of this path (host spans, device time by kernel, "
@@ -2530,10 +2671,24 @@ def main(argv=None) -> int:
           devices=torch.cuda.device_count(),
           dont_write_bytecode=sys.flags.dont_write_bytecode)
 
-    so = K.build_kernels()
-    phase("build", seconds=f"{K.BUILD_INFO['seconds']:.1f}", lib=so.name)
+    so = K.build_kernels(ON_DEMAND_WIDTHS)
+    phase("build", seconds=f"{K.BUILD_INFO['seconds']:.1f}", lib=so.name,
+          widths=",".join(map(str, ON_DEMAND_WIDTHS)))
     for line in ptxas_summary(K.BUILD_INFO["ptxas"]):
         print("  ptxas " + line)
+    # the on-demand widths, compiled beside the main library: each
+    # library's own seconds (its last object, then its link)
+    compiled = K.BUILD_INFO.get("compiled", {})
+    for w, info in K.BUILD_INFO["widths"].items():
+        lib = Path(info["path"]).name
+        obj_s, link_s = compiled.get(lib, (0.0, 0.0))
+        phase("build", width=w, lib=lib, built=lib in compiled,
+              compile_s=f"{obj_s:.1f}", linked_s=f"{link_s:.1f}",
+              tpis=json.dumps({k: list(v) for k, v in
+                               K.width_tpis(w).items()},
+                              separators=(",", ":")))
+        for line in ptxas_summary(info["ptxas"]):
+            print(f"  ptxas w{w} " + line)
 
     t0 = time.perf_counter()
     pc_ec_n = min(args.ec_n, PC_EC_N)
@@ -2570,12 +2725,12 @@ def main(argv=None) -> int:
         golden_phase(tmp, "test256", maxciph=8, arrays_file=True)
         golden_k3_phase(tmp)
         golden_k3_phase(tmp, "P-224")
-        for group in WIDE_GROUPS:
+        for group in (*WIDE_GROUPS, *VOG_GROUPS):
             golden_phase(tmp, group)
         modp, modp_sizes, modp_widths, modp_s = slice_phase(
             "modp2048", args.n, tmp)
         wide_mix = {group: slice_phase(group, args.n, tmp)
-                    for group in WIDE_GROUPS}
+                    for group in (*WIDE_GROUPS, *VOG_GROUPS)}
         # curve: (launches, by batch, H6's calls, mix seconds); P-224's
         # k=1 mix at P224_SLICE_N, its H6 at --ec-n in the k=3 mix below
         ec_paths = {curve: slice_phase(curve, min(args.ec_n, P224_SLICE_N)
@@ -2687,6 +2842,12 @@ def main(argv=None) -> int:
             kernels[-1]["wide"] = {
                 g: checks_at(checks, name, f"_w{W}", K.KERNELS)
                 for g, W in WIDE_GROUPS.items()}
+            # at W = 32 (vog1000: W' = 32, converting): its launches in
+            # the fresh groups' mixes and its checks there
+            kernels[-1]["vog"] = {
+                g: {"launches": wide_mix[g][0][name],
+                    "checks": checks_at(checks, name, tag, K.KERNELS)}
+                for g, tag in VOG_GROUPS.items()}
         else:
             kernels[-1]["launches_by_path"] = {
                 **{f"{c} mix": r[0][name] for c, r in ec_paths.items()},

@@ -500,14 +500,16 @@ def test_p224_on_the_card_raises_by_width():
     """P-224 (L = 14 limbs, whose 7 words have no kernel) maps to the
     inner width W' = 8 of the P-256 instantiations, with the boundary
     conversion: c_in = R'^2/R, c_out = R mod p, the kernel's one R' mod p
-    (R = 2^224, R' = 2^256).  On a tensor that is not on the CPU the
-    wrappers off its path (H3, H4, K7's combine, H7) raise a ValueError
-    naming that inner width, before any launch and with no plain
-    fallback; a width with no kernel at all (a 1024-bit ModP group, as
-    `vog -bitlen 1024` makes: L = 64, W = 32) raises naming L and W.
-    P-521 maps to its inner width W' = 20 and P-384 to W = 12.  (A tensor
-    on the "meta" device stands in for the card's: the wrappers take the
-    plain versions for CPU tensors alone.)"""
+    (R = 2^224, R' = 2^256).  Every Montgomery wrapper converts there
+    (`CONVERTS`); on a tensor that is not on the CPU H7 alone, off every
+    path, raises a ValueError naming that inner width, before any build
+    or launch and with no plain fallback.  A ModP group past the
+    kernels' cap of 128 words (8192 bits: L = 512) gets no modulus off
+    the CPU: `Modulus.of` raises naming the cap, before any build; a
+    1024-bit one (`vog -bitlen 1024`) maps to W = 32, built on demand.
+    P-521 maps to its inner width W' = 20 and P-384 to W = 12.  (A
+    tensor on the "meta" device stands in for the card's: the wrappers
+    take the plain versions for CPU tensors alone.)"""
     from vmn_tpu_torch.arith.ec import _CURVES
 
     p = _CURVES["P-224"][0]
@@ -518,35 +520,22 @@ def test_p224_on_the_card_raises_by_width():
     assert val(mod.c_in) == Rp * Rp * pow(R, -1, p) % p
     assert val(mod.c_out) == R % p and val(mod.kernel_one) == Rp % p
     assert mod.kernel_limbs.shape == (16,) and val(mod.kernel_limbs) == p
+    assert set(E.K.KERNELS) <= E.K.CONVERTS
+    assert set(E.EC_KERNELS) - E.K.CONVERTS == {"ec_fb_exp"}
     meta = torch.device("meta")
     mod = E.K.Modulus.of(p, 14, meta)
     x = torch.empty((4, 14), dtype=torch.int32, device=meta)
     tbl = torch.empty((56, 16, 14), dtype=torch.int32, device=meta)
-    calls = {
-        "mont_fb_exp": lambda: E.K.mont_fb_exp(tbl, x, mod),
-        "mont_expprod_positions": lambda: E.K.mont_expprod_positions(
-            x, x, mod, 224),
-        "mont_expprod_combine": lambda: E.K.mont_expprod_combine(x, mod),
-        "ec_fb_exp": lambda: E.ec_fb_exp(tbl, tbl, x, mod),
-    }
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match=rf"{name}: no kernel for "
-                           r"L=14 at its inner width W=8"):
-            call()
-    m1024 = (1 << 1023) + 1155  # odd, 1024 bits
+    with pytest.raises(ValueError, match=r"ec_fb_exp: no kernel for "
+                       r"L=14 at its inner width W=8"):
+        E.ec_fb_exp(tbl, tbl, x, mod)
+    m8192 = (1 << 8191) + 1155  # odd, 8192 bits
+    with pytest.raises(ValueError, match=r"no kernel for L=512 limbs: 256 "
+                       r"words pass the cap of 128 words \(4096 bits\)"):
+        E.K.Modulus.of(m8192, 512, meta)
+    m1024 = (1 << 1023) + 1155
     wide = E.K.Modulus.of(m1024, 64, meta)
     assert (wide.L, wide.W, wide.conv) == (64, 32, False)
-    y = torch.empty((4, 64), dtype=torch.int32, device=meta)
-    calls = {
-        "mont_mul": lambda: E.K.mont_mul(y, y, wide),
-        "mont_exp": lambda: E.K.mont_exp(y, y, wide, 1024),
-        "mont_expprod_positions": lambda: E.K.mont_expprod_positions(
-            y, y, wide, 1024),
-    }
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match=rf"{name}: no kernel "
-                           r"instantiated for L=64 \(W=32\)"):
-            call()
     assert E.K.Modulus.of(_CURVES["P-521"][0], 33, "cpu").W == 20
     assert E.K.Modulus.of(_CURVES["P-384"][0], 24, "cpu").W == 12
 

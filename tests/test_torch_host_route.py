@@ -4,7 +4,8 @@ the same inputs: H1 (also on limbs of values in [m, R), where REDC's one
 conditional subtraction leaves them above m), H2, H5 and H8 over the
 ModP fields test256 and modp2048 and the curves P-224, P-256, P-384 and
 P-521, with infinity, P + P, P + (-P), scalar 0 and scalar n - 1 among
-the inputs.  The routes must give the same limbs.
+the inputs, and the EC position combine (one point's chain) at each
+curve.  The routes must give the same limbs.
 
 Tolerance: exact equality of limbs.
 """
@@ -72,3 +73,18 @@ def test_ec_routes_agree(monkeypatch, curve):
     Y2 = torch.where(torch.tensor([[True]] + [[False]] * 4), negY, Y)
     _both(monkeypatch, lambda: E.ec_point_add_plain(
         X, Y, Z, X[order], Y2[order], Z[order], mod))
+
+
+@pytest.mark.parametrize("curve", ["P-224", "P-256", "P-384", "P-521"])
+def test_ec_combine_routes_agree(monkeypatch, curve):
+    """The combine over 16 positions, one of them infinity."""
+    from vmn_tpu_torch.arith.ec import ECqPGroup
+
+    g = ECqPGroup.named(curve, device="cpu")
+    mod = g.curve.ctx.mod
+    P = g.g.exp_bits(g.ring.from_ints(list(range(3, 19))), 8)
+    X, Y, Z = E.ec_scalar_mul_plain(P.x, P.y, P.inf, g.ring.from_ints(
+        [2 * i + 1 for i in range(16)]).limbs, mod, 8)
+    Z = Z.clone()
+    Z[5] = 0
+    _both(monkeypatch, lambda: E.ec_multiexp_combine_plain(X, Y, Z, mod))

@@ -142,7 +142,7 @@ _LAUNCH_NS = sorted({*range(1, 300), 10000, 131072, 5 * 10**6,
 
 def _first_n(kernel, w, tpi):
     """The fewest elements for which H1 or H2 runs at this TPI."""
-    return min(lo for lo, t in K.COOP_TPI[kernel, w] if t == tpi)
+    return min(lo for lo, t in K.coop_rule(kernel, w) if t == tpi)
 
 
 @pytest.mark.parametrize("w", K._WIDTHS)
@@ -151,14 +151,13 @@ def test_coop_launch_covers_every_element(w):
     some N; the launch's threads cover every element's lanes in whole
     warps, with no block left idle (H4's launch, `ep_launch`, takes the
     TPI of its rule and whole warps of at most EP_BLOCK threads).  At
-    W = 12 (P-384) and W' = 20 (P-521) only H1 and H2 are built, and have
-    rules."""
+    W = 12 (P-384) and W' = 20 (P-521) H4 has no measured rule: it takes
+    that of the nearest width at or above with one (`coop_rule`), its
+    TPIs taken down to those dividing W."""
     for kernel in ("mont_mul", "mont_exp", "mont_expprod_positions"):
-        if w in (12, 20) and kernel == "mont_expprod_positions":
-            with pytest.raises(ValueError, match="no kernel"):
-                K.threads_per_element(kernel, w, 1)
-            continue
-        rule = K.COOP_TPI[kernel, w]
+        assert ((kernel, w) in K.COOP_TPI) == (
+            w not in (12, 20) or kernel != "mont_expprod_positions")
+        rule = K.coop_rule(kernel, w)
         tpis = {t for _, t in rule}
         assert rule[-1][0] == 1  # every N >= 1 has a TPI
         assert [lo for lo, _ in rule] == sorted(
@@ -187,10 +186,11 @@ def test_coop_launch_covers_every_element(w):
             assert K.threads_per_element(kernel, w, n) == tpi
 
 
-# (W, window) of H3's instantiations: window 4 at W = 96 and 128 is not
-# on their paths and not built
+# (W, window) of H3's instantiations: both windows at W = 64, 96, 128
+# and 32 (built on demand), window 4 at W = 8
 _FB_SHAPES = [(w, window, t) for w, window in ((64, 8), (64, 4), (8, 4),
-                                               (96, 8), (128, 8))
+                                               (96, 8), (128, 8), (96, 4),
+                                               (128, 4), (32, 8), (32, 4))
               for t in sorted({t for _, t in K.COOP_TPI["mont_fb_exp", w]})]
 
 
@@ -224,13 +224,10 @@ def test_fb_launch_fills_the_card(w):
     threads cover every element's lanes; up to 132·FB_BLOCK lanes the
     blocks fill every SM once (N = 10000 at W = 64: 132 blocks) and from
     32 elements an SM no fewer than 90 % of the SMs get a block.  At
-    W = 12 (P-384) and W' = 20 (P-521) H3 is not built, and its launch
-    raises."""
-    if w in (12, 20):
-        with pytest.raises(ValueError, match="no kernel"):
-            K.fb_launch(w, 1, 132)
-        return
-    rule = K.COOP_TPI["mont_fb_exp", w]
+    W = 12 (P-384) and W' = 20 (P-521) H3 has no measured rule and takes
+    the nearest wider one's (`coop_rule`)."""
+    assert (("mont_fb_exp", w) in K.COOP_TPI) == (w not in (12, 20))
+    rule = K.coop_rule("mont_fb_exp", w)
     assert rule[-1][0] == 1
     for n in sorted({1, 2, 5, 31, 33, 131, 132, 133, 4224, 5000, 10000,
                      65536, 1 << 20, *(lo + d for lo, _ in rule

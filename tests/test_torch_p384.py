@@ -371,8 +371,9 @@ def _rules_cover_every_batch(w, kernel):
     """Every N >= 1 has a TPI that divides W (a power of two within a
     warp), fewer lanes as N grows, each TPI reached at its first N; every
     launch covers its elements' lanes in whole warps of at most one
-    block's threads.  The combine is one point.  H3 and H4 have kernels
-    at W = 8 alone, and their rules raise at the other EC widths."""
+    block's threads.  The combine is one point.  H3 and H4 have measured
+    rules at W = 8 alone; at the other EC widths they take W = 32's
+    (`coop_rule`), each TPI taken down to one dividing W."""
     rule = K.COOP_TPI[kernel, w]
     assert rule[-1][0] == 1
     assert [lo for lo, _ in rule] == sorted({lo for lo, _ in rule},
@@ -392,8 +393,11 @@ def _rules_cover_every_batch(w, kernel):
         assert K.threads_per_element(kernel, w, lo) == tpi
     for other in ("mont_fb_exp", "mont_expprod_positions"):
         if w != 8:
-            with pytest.raises(ValueError, match="no kernel"):
-                K.threads_per_element(other, w, 1)
+            assert (other, w) not in K.COOP_TPI
+            rule = K.coop_rule(other, w)
+            assert rule[-1][0] == 1
+            assert {t for _, t in rule} == {
+                min(t, w & -w) for _, t in K.COOP_TPI[other, 32]}
 
 
 def _rules_name_built_tpis(w, kernel):

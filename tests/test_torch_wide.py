@@ -173,8 +173,8 @@ ENTRY = {"mont_mul": "vmn_mont_mul", "mont_exp": "vmn_mont_exp",
 def test_coop_rule_names_built_tpis(kernel, w):
     """Each TPI of the kernel's COOP_TPI rule at W = 96 and 128 divides W,
     fits a warp, and has its case in the entry point's switch (H3 at
-    window 8, the window of the wide paths); nothing reaches a width
-    with no case (K._WIDTHS)."""
+    window 8, the window of the wide paths, and at window 4, a group
+    with a short q); these widths are the main library's (K._WIDTHS)."""
     assert w in K._WIDTHS
     src = CSRC.read_text()
     cases = _cases(ENTRY[kernel], src)
@@ -182,9 +182,11 @@ def test_coop_rule_names_built_tpis(kernel, w):
     assert rule[-1][0] == 1
     for _, tpi in rule:
         assert w % tpi == 0 and 32 % tpi == 0
-        key = (w, 8, tpi) if kernel == "mont_fb_exp" else (w, tpi)
-        assert key in cases, (kernel, key)
-    assert re.search(rf"case {w}: \{{", src)  # K7's combine (VMN_FOR_W)
+        keys = ([(w, 8, tpi), (w, 4, tpi)] if kernel == "mont_fb_exp"
+                else [(w, tpi)])
+        for key in keys:
+            assert key in cases, (kernel, key)
+    assert f"case {w}: return launch_chain<{w}>" in src  # K7's combine
 
 
 @pytest.mark.parametrize("w", sorted(WIDE.values()))

@@ -20,9 +20,19 @@ test (tests/test_mixnet_ec.py: session "ECCoin", interactive, seeds
 b"ec{j}", eight coin bytes) to tests/golden/coinflip_p224_k3.json.
 tests/test_torch_p224_k3.py holds the port to both.
 
+Two fresh groups, as `vog -gen ModPGroup -bitlen n` makes them:
+"vog1024" and "vog1000", vmn_tpu's `random_group` of 1024 and 1000 bits
+from SeededSource(b"golden-group-1024") and (b"golden-group-1000") (a
+1000-bit p has 63 limbs, an odd count), each with the k=1 golden mix
+above (five messages) to tests/golden/nizkp_vog{1024,1000}_k1 and
+test_vectors_vog{1024,1000}.json, and the group (p, q, g in hex, the
+seed and the bit length) to tests/golden/group_vog{1024,1000}.json.
+tests/test_torch_vog_groups.py holds the port to them.
+
 Usage (from the repo root; minutes on one CPU core's worth of a
 recent x86 server: about 2 for the two ModP groups, 1 for P-224, 1.5
-for P-384, 2 for P-521, 1.5 for P-224-k3 and P-224-coins together):
+for P-384, 2 for P-521, 1.5 for P-224-k3 and P-224-coins together, 1.5
+for vog1024 and vog1000 together, their safe-prime searches included):
     JAX_PLATFORMS=cpu python tests/torch_make_wide_golden.py [GROUP ...]
 """
 
@@ -35,7 +45,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
 GROUPS = ("modp3072", "modp4096", "P-224", "P-384", "P-521", "P-224-k3",
-          "P-224-coins")
+          "P-224-coins", "vog1024", "vog1000")
+# The fresh groups: name -> (bits, seed of vmn_tpu's random_group).
+VOG = {"vog1024": (1024, b"golden-group-1024"),
+       "vog1000": (1000, b"golden-group-1000")}
 # The coin-flipping run of vmn_tpu's tests/test_mixnet_ec.py.
 COIN_SID, COIN_K, COIN_T, COIN_BYTES = "ECCoin", 3, 2, 8
 COINS_FILE = "coinflip_p224_k3.json"
@@ -49,6 +62,28 @@ def fixture_names(group: str):
         return f"nizkp_{tag}_k3", f"test_vectors_{tag}_k3.json"
     tag = group.replace("-", "").lower()
     return f"nizkp_{tag}_k1", f"test_vectors_{tag}.json"
+
+
+def group_file(name: str) -> str:
+    """The file of a fresh group's p, q, g (tests/golden/)."""
+    return f"group_{name}.json"
+
+
+def vog_group(name: str):
+    """vmn_tpu's fresh group `name` (VOG), registered under that name
+    with vmn_tpu's ModPGroup.named, as tools.make_golden.generate looks
+    its groups up; its p, q, g written to tests/golden/group_{name}.json."""
+    from vmn_tpu.arith.pgroup import ModPGroup
+    from vmn_tpu.crypto.primes import random_group
+    from vmn_tpu.crypto.randomsource import SeededSource
+
+    bits, seed = VOG[name]
+    grp = random_group(bits, SeededSource(seed))
+    ModPGroup._NAMED[name] = grp
+    (GOLDEN / group_file(name)).write_text(json.dumps(
+        {"p": hex(grp.p), "q": hex(grp.q), "g": hex(grp.g_int),
+         "seed": seed.decode(), "bits": bits}, indent=1) + "\n")
+    return grp
 
 
 def write_coins(path: Path) -> None:
@@ -87,6 +122,8 @@ def main(argv) -> int:
             write_coins(GOLDEN / COINS_FILE)
             print(f"wrote {COINS_FILE}")
             continue
+        if group in VOG:
+            vog_group(group)
         dirname, tvname = fixture_names(group)
         kw = {"k": 3, "threshold": 2} if group.endswith("-k3") else {}
         with tempfile.TemporaryDirectory() as tmp:

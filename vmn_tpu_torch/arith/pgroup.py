@@ -477,8 +477,11 @@ class ModPGroup:
         Lw = max(self.L, num_limbs(bits))
         wide = device_limbs(bytes_be_to_limbs(raw, Lw), self.device)
         base = self.ctx.to_mont(self.ctx.reduce_std(wide))
-        e = device_limbs(int_to_limbs(self.coorder, num_limbs(64)),
-                         self.device)
+        # the co-order's own limbs (vmn_tpu takes 64 bits, and raises for
+        # a co-order above them: README, the port's deviations)
+        e = device_limbs(int_to_limbs(
+            self.coorder, num_limbs(max(64, self.coorder.bit_length()))),
+            self.device)
         return GArray(self, self.ctx.exp(base, e, self.coorder.bit_length()))
 
     # --------------------------------------------------------- serialize

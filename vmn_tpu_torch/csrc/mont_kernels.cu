@@ -9,6 +9,15 @@
 //                                                          (:552-727)
 //   vmn_mont_chain      the combine of K7 mont_expprod_pallas (:730-750)
 //
+// Every entry point takes and returns limbs at the modulus's own L limbs
+// and radix R = 2^(16·L).  Where L/2 is not the kernel's W (an odd L, or
+// a width rounded up to a built one: Modulus in ops/mont_kernels.py)
+// the operands come padded with zero limbs and c_in, c_out not NULL: each
+// kernel takes its Montgomery inputs to R' = 2^(32·W) on load
+// (coop_rebase, a product with c_in) and its results back on store (c_out);
+// H3 converts its table once a launch (mont_rebase_table_kernel), H4 its
+// bases and partials around its launch (mont_rebase_rows_kernel).
+//
 // Every kernel here spreads one element over TPI lanes of a warp with
 // the cooperative product of mont_coop.cuh; the caller picks TPI from
 // (W, N) among the instantiated pairs (vmn_mont_mul, vmn_mont_exp,
@@ -35,21 +44,28 @@
 // latency of W steps of three shuffles and two row chains.
 //
 // ptxas (sm_90a, -O3, from chip_smoke.py's `ptxas` lines): registers,
-// with no stack frame and no spill at any instantiation --
-//   W = 64: mont_mul TPI 8/32: 48/28;       mont_exp 56/32;    chain 26;
+// with no stack frame and no spill at any instantiation (the chain's
+// registers rose with its conversion's paired product; one warp) --
+//   W = 64: mont_mul TPI 8/32: 48/28;       mont_exp 56/30;    chain 38;
 //           mont_expprod TPI 8/16: 64/53.
-//   W = 96: mont_mul TPI 16/32: 39/32;      mont_exp 48/36;    chain 32;
+//   W = 96: mont_mul TPI 16/32: 42/31;      mont_exp 47/36;    chain 44;
 //           mont_expprod TPI 16: 61.
-//   W = 128: mont_mul TPI 32: 32;  mont_exp TPI 16/32: 56/40;  chain 38;
+//   W = 128: mont_mul TPI 32: 32;  mont_exp TPI 16/32: 56/38;  chain 50;
 //           mont_expprod TPI 16: 64.
-//   W = 8:  mont_mul TPI 8: 21;   mont_exp TPI 1/8: 56/26;    chain 22;
+//   W = 8:  mont_mul TPI 8: 26;   mont_exp TPI 1/8: 64/28;    chain 27;
 //           mont_expprod TPI 1/4: 64/42.
-//   W = 12: mont_mul TPI 4: 32;   mont_exp TPI 1/2/4: 80/48/36; chain 34.
-//   W = 20: mont_mul TPI 4: 40;   mont_exp TPI 2/4: 64/46 (each with the
-//           boundary conversion of a padded modulus).
+//   W = 12: mont_mul TPI 4: 32;   mont_exp TPI 1/2/4: 91/48/38; chain 44;
+//           built on demand: mont_fb_exp TPI 4: 34, mont_expprod 52.
+//   W = 20: mont_mul TPI 4: 40;   mont_exp TPI 2/4: 64/46; on demand:
+//           chain 53, mont_fb_exp TPI 4: 40, mont_expprod 58.
+//   W = 32 (on demand): mont_mul TPI 8/16: 32/30; mont_exp 39/32;
+//           mont_fb_exp 36/26 (either window); mont_expprod TPI 8: 53;
+//           chain 26.
+//   The boundary passes (mont_rebase_table_kernel, _rows_kernel): 26-48.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "mont.cuh"
 #include "mont_coop.cuh"
@@ -169,21 +185,37 @@ __global__ void __launch_bounds__(kThreads, 3)
 // products back to back on one warp.  The accumulator stays in registers;
 // P_j is read once, before its 4 squarings.  Launched as one warp: the
 // groups past the first (W < 32) compute the same chain and do not store.
+// A padded modulus (c_in, c_out not NULL): the top position is taken to
+// the kernel's radix before the chain, each later P_j by a product run
+// beside its step's first squaring (coop_mont_mul2: independent, so its
+// latency hides behind the squaring's), the result back on store; two
+// products' latency in all.
 template <int W, int TPI>
 __global__ void __launch_bounds__(32)
     mont_chain_kernel(const int32_t* __restrict__ P, int32_t* __restrict__ out,
-                      const int32_t* __restrict__ m, uint32_t mp, int npos) {
+                      const int32_t* __restrict__ m, uint32_t mp,
+                      const int32_t* __restrict__ c_in,
+                      const int32_t* __restrict__ c_out, int npos) {
   constexpr int S = W / TPI;
   uint32_t mm[S], acc[S], fac[S];
   vmn::load_slice<W, TPI>(mm, m);
   vmn::load_slice<W, TPI>(acc, P + (int64_t)(npos - 1) * 2 * W);
+  vmn::coop_rebase<W, TPI>(acc, c_in, mm, mp);
 #pragma unroll 1
   for (int j = npos - 2; j >= 0; --j) {
     vmn::load_slice<W, TPI>(fac, P + (int64_t)j * 2 * W);
+    int s0 = 0;
+    if (c_in != nullptr) {  // uniform over the launch
+      uint32_t k[S];
+      vmn::load_slice<W, TPI>(k, c_in);
+      vmn::coop_mont_mul2<W, TPI>(acc, acc, acc, fac, fac, k, mm, mp);
+      s0 = 1;
+    }
 #pragma unroll 1
-    for (int s = 0; s < 4; ++s) vmn::coop_mont_mul<W, TPI>(acc, acc, acc, mm, mp);
+    for (int s = s0; s < 4; ++s) vmn::coop_mont_mul<W, TPI>(acc, acc, acc, mm, mp);
     vmn::coop_mont_mul<W, TPI>(acc, acc, fac, mm, mp);
   }
+  vmn::coop_rebase<W, TPI>(acc, c_out, mm, mp);
   if (threadIdx.x < TPI) vmn::store_slice<W, TPI>(out, acc);
 }
 
@@ -204,7 +236,11 @@ __global__ void __launch_bounds__(32)
 // the warp reads the same ones (a broadcast), so no bank conflict.  Two
 // buffers: the copy of the next piece (cp.async, 16 bytes a thread at a
 // time) runs under this piece's select and product, as K4 overlapped its
-// two VMEM buffers; one barrier a piece.  A piece is a digit's 2^WB
+// two VMEM buffers; one barrier a piece.  A padded modulus: the entry
+// point first takes the packed table's entries to the kernel's radix, one
+// product an entry in a launch of its own (mont_rebase_table_kernel; the
+// entries are few beside the batch's products), and the kernel takes the
+// result back on store (c_out).  A piece is a digit's 2^WB
 // entries where two of them fit the 227 KB a block may use (every window
 // at W <= 96: 192 KB at window 8, W = 96), else half of them (window 8
 // at W = 128: two 64 KB halves, staged in turn, where two whole digits
@@ -220,7 +256,7 @@ __global__ void __launch_bounds__(32)
 // select, which reads 2^WB·W words an element a digit, one AND-OR each:
 // at window 8 about as many integer instructions as the product it feeds,
 // and about half of the kernel's time on the H100 (PERF.md §6).  ptxas
-// (sm_90a): 56 / 38 / 26 registers at W = 64, TPI 8 / 16 / 32 (either
+// (sm_90a): 56 / 36 / 26 registers at W = 64, TPI 8 / 16 / 32 (either
 // window), 26 at W = 8, TPI 4; 32 / 36 at W = 96 / 128, TPI 32 (window
 // 8); no stack frame, no spill.  At W = 96 and 128 only TPI 32 is built:
 // TPI 16 measured slower on the paths' 10000 elements, and a block of
@@ -276,8 +312,9 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
     mont_fb_exp_kernel(const uint32_t* __restrict__ table,
                        const int32_t* __restrict__ e, int32_t* __restrict__ out,
                        const int32_t* __restrict__ m,
-                       const int32_t* __restrict__ one, uint32_t mp, int64_t n,
-                       int le, int ndig) {
+                       const int32_t* __restrict__ one, uint32_t mp,
+                       const int32_t* __restrict__ c_out, int64_t n, int le,
+                       int ndig) {
   constexpr int S = W / TPI;
   constexpr int V = slice_vec<S>();
   constexpr int kPieces = fb_pieces<W, WB>();
@@ -333,6 +370,7 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
       for (int k = 0; k < S; ++k) fac[k] = 0;
     }
   }
+  vmn::coop_rebase<W, TPI>(acc, c_out, mm, mp);
   if (live) vmn::store_slice<W, TPI>(out + idx * 2 * W, acc);
 }
 
@@ -382,7 +420,12 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
 // product from shared memory, 32·S loads and masks a lane against the
 // product's 4·W·S multiply-adds (an eighth at W = 64).  One block of up to 1024 threads an SM (the table fills
 // the shared memory), registers held at 64 by __launch_bounds__ (used in
-// full at W = 64, TPI 8, with no stack frame and no spill).  TPI by N
+// full at W = 64, TPI 8, with no stack frame and no spill).  A padded
+// modulus: the entry point takes the bases to the kernel's radix before
+// the launch and the partials back after it (mont_rebase_rows_kernel, one
+// product a row each: a conversion inside the kernel, as each block
+// loads its bases, cost a product a base and position block and made
+// ptxas spill at W = 64, TPI 8).  TPI by N
 // (COOP_TPI): 16 for a few elements, 8 from 1024 at W = 64; at every N
 // 32 lanes were slower, their groups too few for the positions.  At
 // W = 96 and 128, TPI 16 at every N (ptxas: 61 and 64 registers, no
@@ -525,13 +568,69 @@ __global__ void __launch_bounds__(kEpBlock, 1)
   }
 }
 
+// H3's table at a padded modulus: out = in·c·R^-1 for each of n entries
+// of W words in fb_pack's layout (a group of TPI lanes an entry, the lanes'
+// slices where H3 reads them), at the kernel's radix R = 2^(32·W).
+template <int W, int TPI>
+__global__ void __launch_bounds__(kThreads)
+    mont_rebase_table_kernel(const uint32_t* __restrict__ in,
+                             uint32_t* __restrict__ out,
+                             const int32_t* __restrict__ m, uint32_t mp,
+                             const int32_t* __restrict__ c, int64_t n) {
+  constexpr int S = W / TPI;
+  bool live;
+  const int64_t idx = vmn::group_element<TPI>(n, &live);
+  uint32_t mm[S], x[S], k[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(k, c);
+  get_slice<W, TPI>(x, in + idx * W);
+  vmn::coop_mont_mul<W, TPI>(x, x, k, mm, mp);
+  if (live) put_slice<W, TPI>(out + idx * W, x);
+}
+
+// H4's boundary at a padded modulus: out = in·c·R^-1 for each of n rows
+// of 2W 16-bit limbs (a group of TPI lanes a row), in place where out is
+// in.
+template <int W, int TPI>
+__global__ void __launch_bounds__(kThreads)
+    mont_rebase_rows_kernel(const int32_t* in, int32_t* out,
+                            const int32_t* __restrict__ m, uint32_t mp,
+                            const int32_t* __restrict__ c, int64_t n) {
+  constexpr int S = W / TPI;
+  bool live;
+  const int64_t idx = vmn::group_element<TPI>(n, &live);
+  uint32_t mm[S], x[S], k[S];
+  vmn::load_slice<W, TPI>(mm, m);
+  vmn::load_slice<W, TPI>(k, c);
+  vmn::load_slice<W, TPI>(x, in + idx * 2 * W);
+  vmn::coop_mont_mul<W, TPI>(x, x, k, mm, mp);
+  if (live) vmn::store_slice<W, TPI>(out + idx * 2 * W, x);
+}
+
+template <int W, int TPI>
+void launch_rebase_rows(const int32_t* in, int32_t* out, const int32_t* m,
+                        uint32_t mp, const int32_t* c, int64_t n,
+                        cudaStream_t s) {
+  const int64_t blocks = (n * TPI + kThreads - 1) / kThreads;
+  mont_rebase_rows_kernel<W, TPI><<<(unsigned)blocks, kThreads, 0, s>>>(
+      in, out, m, mp, c, n);
+}
+
 template <int W, int WB, int TPI>
-int launch_fb(const uint32_t* table, const int32_t* e, int32_t* out,
-              const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
-              int le, int ndig, int threads, int64_t blocks, cudaStream_t s) {
+int launch_fb(const uint32_t* table, uint32_t* conv, const int32_t* e,
+              int32_t* out, const int32_t* m, const int32_t* one, uint32_t mp,
+              const int32_t* c_in, const int32_t* c_out, int64_t n, int le,
+              int ndig, int threads, int64_t blocks, cudaStream_t s) {
   if (!vmn::coop_shape_ok<TPI>(threads, blocks, vmn::kFbBlock) || le < 1 ||
-      ndig < 1) {
+      ndig < 1 || (c_in != nullptr && conv == nullptr)) {
     return kBadShape;
+  }
+  if (c_in != nullptr) {  // the table's entries to the kernel's radix
+    const int64_t entries = (int64_t)ndig << WB;
+    const int64_t tb = (entries * TPI + kThreads - 1) / kThreads;
+    mont_rebase_table_kernel<W, TPI><<<(unsigned)tb, kThreads, 0, s>>>(
+        table, conv, m, mp, c_in, entries);
+    table = conv;
   }
   const size_t smem =
       sizeof(uint32_t) * 2 * (size_t)((1 << WB) / fb_pieces<W, WB>()) * W;
@@ -544,7 +643,7 @@ int launch_fb(const uint32_t* table, const int32_t* e, int32_t* out,
     if (err != cudaSuccess) return (int)err;
   }
   mont_fb_exp_kernel<W, WB, TPI><<<(unsigned)blocks, threads, smem, s>>>(
-      table, e, out, m, one, mp, n, le, ndig);
+      table, e, out, m, one, mp, c_out, n, le, ndig);
   return (int)cudaGetLastError();
 }
 
@@ -578,16 +677,19 @@ int launch_exp(const int32_t* base, const int32_t* e, int32_t* out,
   return (int)cudaGetLastError();
 }
 
+// H4; at a padded modulus `conv` (n rows) receives the converted bases.
 template <int W, int TPI>
-int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
-              const int32_t* m, const int32_t* one, uint32_t mp, int64_t n,
-              int le, int jb, int subs, int64_t per_block, int chunk,
-              int threads, int eblocks, int pblocks, cudaStream_t s) {
+int launch_ep(const int32_t* bases, int32_t* conv, const int32_t* e,
+              int32_t* out, const int32_t* m, const int32_t* one, uint32_t mp,
+              const int32_t* c_in, const int32_t* c_out, int64_t n, int le,
+              int jb, int subs, int64_t per_block, int chunk, int threads,
+              int eblocks, int pblocks, cudaStream_t s) {
   const size_t smem = sizeof(uint32_t) * ((size_t)chunk * ep_stride<W>() +
                                           (size_t)jb * subs * W);
   if (!vmn::coop_shape_ok<TPI>(threads, eblocks, kEpBlock) || n < 1 ||
       le < 1 || jb < 1 || subs < 1 || chunk < 1 || per_block < 1 ||
-      pblocks < 1 || pblocks > 65535 || smem > (size_t)kEpShared) {
+      pblocks < 1 || pblocks > 65535 || smem > (size_t)kEpShared ||
+      (c_in != nullptr && (conv == nullptr || c_out == nullptr))) {
     return kBadShape;
   }
   if (smem > 48 * 1024) {
@@ -596,43 +698,58 @@ int launch_ep(const int32_t* bases, const int32_t* e, int32_t* out,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  if (c_in != nullptr) {  // the bases to the kernel's radix
+    launch_rebase_rows<W, TPI>(bases, conv, m, mp, c_in, n, s);
+    bases = conv;
+  }
   mont_expprod_kernel<W, TPI>
       <<<dim3((unsigned)eblocks, (unsigned)pblocks), threads, smem, s>>>(
           bases, e, out, m, one, mp, n, le, jb, subs, per_block, chunk);
+  if (c_out != nullptr) {  // the partials back, in place
+    launch_rebase_rows<W, TPI>(out, out, m, mp, c_out,
+                               (int64_t)pblocks * jb * eblocks * subs, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One warp: TPI the largest power of two that divides W, at most 32 (8
+// at W = 8, 4 at W = 12 and 20, 32 at the ModP widths).
+template <int W>
+int launch_chain(const int32_t* P, int32_t* out, const int32_t* m,
+                 uint32_t mp, const int32_t* c_in, const int32_t* c_out,
+                 int npos, cudaStream_t s) {
+  if (npos < 1) return kBadShape;
+  mont_chain_kernel<W, ((W & -W) < 32 ? (W & -W) : 32)>
+      <<<1, 32, 0, s>>>(P, out, m, mp, c_in, c_out, npos);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Instantiated widths (W = L/2): test256 and P-256 (L=16), P-384 (L=24),
-// modp2048 (L=128), modp3072 (L=192) and modp4096 (L=256), the widths that
-// the tests and chip_smoke.py check against the plain versions.
-#define VMN_FOR_W(w, ...)                          \
-  switch (w) {                                     \
-    case 8: {                                      \
-      constexpr int W = 8;                         \
-      __VA_ARGS__;                                 \
-    } break;                                       \
-    case 12: {                                     \
-      constexpr int W = 12;                        \
-      __VA_ARGS__;                                 \
-    } break;                                       \
-    case 64: {                                     \
-      constexpr int W = 64;                        \
-      __VA_ARGS__;                                 \
-    } break;                                       \
-    case 96: {                                     \
-      constexpr int W = 96;                        \
-      __VA_ARGS__;                                 \
-    } break;                                       \
-    case 128: {                                    \
-      constexpr int W = 128;                       \
-      __VA_ARGS__;                                 \
-    } break;                                       \
-    default:                                       \
-      return kUnsupportedWidth;                    \
-  }
+#define VMN_MUL_ARGS a, b, out, m, mp, c_in, n, threads, blocks, s
+#define VMN_EXP_ARGS base, e, out, m, one, mp, c_in, c_out, n, le, ndig, \
+                     threads, blocks, s
+#define VMN_FB_ARGS table, conv, e, out, m, one, mp, c_in, c_out, n, le, \
+                    ndig, threads, blocks, s
+#define VMN_EP_ARGS bases, conv, e, out, m, one, mp, c_in, c_out, n, le, jb, \
+                    subs, per_block, chunk, threads, eblocks, pblocks, s
+#define VMN_CHAIN_ARGS P, out, m, mp, c_in, c_out, npos, s
 
+// The C entry points, each returning kUnsupportedWidth for a (W, TPI[,
+// window]) it has no case for, before it launches anything.  Built in
+// two ways from this one file:
+//  * without VMN_W, the main library (ops/mont_kernels.py build_kernels):
+//    the fixed switches below, at the widths of the paths checked since
+//    they were written (_WIDTHS);
+//  * with -DVMN_W=w, a width's own library, built on demand at the first
+//    use of a width the switches lack (any other ModP size, e.g. 1024
+//    bits: W = 32, or 1000 bits: 63 limbs at W' = 32) or of a kernel they
+//    lack at a width they have (H3, H4 at W = 12 and W' = 20): every
+//    entry point at W = VMN_W alone, each kernel at the TPIs of the bit
+//    mask VMN_{MUL,EXP,FB,EP}_TPIS (bit t for TPI t, from the rule at W,
+//    coop_rule; 0 leaves the kernel out), H3 at windows 4 and 8, the
+//    chain at its one TPI (build_widths).
+#ifndef VMN_W  // the main library
 extern "C" {
 
 // H1 and H2 are instantiated at the (W, TPI) pairs that COOP_TPI in
@@ -640,14 +757,13 @@ extern "C" {
 // (64, 32), (96, 16), (96, 32), (128, 32), H2 at (8, 1), (8, 8), (12, 1),
 // (12, 2), (12, 4), (20, 2), (20, 4), (64, 8), (64, 32) and at TPI 16 and
 // 32 of W = 96 and 128.  W = 20 is P-521's inner width (L = 33 limbs
-// padded to 40, c_in and c_out not NULL); H3, H4 and the chain have no
-// form there (off the P-521 path).
+// padded to 40, c_in and c_out not NULL); H3, H4 and the chain there, and
+// H3 and H4 at W = 12, come from the width's own library.
 int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
                  int32_t* out, const int32_t* m, uint32_t mp,
                  const int32_t* c_in, int64_t n, int threads, int64_t blocks,
                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VMN_MUL_ARGS a, b, out, m, mp, c_in, n, threads, blocks, s
   switch (w << 8 | tpi) {
     case 8 << 8 | 8: return launch_mul<8, 8>(VMN_MUL_ARGS);
     case 12 << 8 | 4: return launch_mul<12, 4>(VMN_MUL_ARGS);
@@ -659,7 +775,6 @@ int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
     case 128 << 8 | 32: return launch_mul<128, 32>(VMN_MUL_ARGS);
     default: return kUnsupportedWidth;
   }
-#undef VMN_MUL_ARGS
 }
 
 int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
@@ -668,8 +783,6 @@ int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
                  int64_t n, int le, int ndig, int threads, int64_t blocks,
                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VMN_EXP_ARGS base, e, out, m, one, mp, c_in, c_out, n, le, ndig, \
-                     threads, blocks, s
   switch (w << 8 | tpi) {
     case 20 << 8 | 2: return launch_exp<20, 2>(VMN_EXP_ARGS);
     case 20 << 8 | 4: return launch_exp<20, 4>(VMN_EXP_ARGS);
@@ -686,32 +799,39 @@ int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
     case 128 << 8 | 32: return launch_exp<128, 32>(VMN_EXP_ARGS);
     default: return kUnsupportedWidth;
   }
-#undef VMN_EXP_ARGS
 }
 
-// One warp: TPI the largest power of two that divides W, at most 32 (8
-// at W = 8, 4 at W = 12, 32 at the ModP widths).
 int vmn_mont_chain(int w, const int32_t* P, int32_t* out, const int32_t* m,
-                   uint32_t mp, int npos, void* stream) {
+                   uint32_t mp, const int32_t* c_in, const int32_t* c_out,
+                   int npos, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (npos < 1) return kBadShape;
-  VMN_FOR_W(w, mont_chain_kernel<W, ((W & -W) < 32 ? (W & -W) : 32)>
-                   <<<1, 32, 0, s>>>(P, out, m, mp, npos));
-  return (int)cudaGetLastError();
+  switch (w) {
+    case 8: return launch_chain<8>(VMN_CHAIN_ARGS);
+    case 12: return launch_chain<12>(VMN_CHAIN_ARGS);
+    case 64: return launch_chain<64>(VMN_CHAIN_ARGS);
+    case 96: return launch_chain<96>(VMN_CHAIN_ARGS);
+    case 128: return launch_chain<128>(VMN_CHAIN_ARGS);
+    default: return kUnsupportedWidth;
+  }
 }
 
-// H3 at (W, window, TPI): (64, 8), (64, 4) and (8, 4) -- the modp2048
-// path, 256-bit exponents at modp2048 and the test256 golden -- and
-// (96, 8), (128, 8), the modp3072 and modp4096 paths, at the TPIs that
-// COOP_TPI["mont_fb_exp", W] can choose.  Window 4 at W = 96 and 128 is
-// on no path (every fixed-base power there has a full-width exponent)
-// and is not built.
+// H3 (`conv`, as large as `table`, receives the converted table where
+// c_in is not NULL) at (W, window, TPI): (64, 8), (64, 4) and (8, 4) --
+// the modp2048 path, 256-bit exponents at modp2048 and the test256
+// golden -- and (96, 8), (128, 8), the modp3072 and modp4096 paths, at
+// the TPIs that
+// COOP_TPI["mont_fb_exp", W] can choose; window 4 there too, which a
+// group with a short q (a 256-bit one beside a 3072-bit p, FIPS 186-4
+// §4.2) gives its fixed-base powers (the RFC 3526 groups' are full
+// width): 2·16 entries of 128 words are 16 KB of staged table, far below
+// the 227 KB.
 int vmn_mont_fb_exp(int w, int wb, int tpi, const uint32_t* table,
-                    const int32_t* e, int32_t* out, const int32_t* m,
-                    const int32_t* one, uint32_t mp, int64_t n, int le,
-                    int ndig, int threads, int64_t blocks, void* stream) {
+                    uint32_t* conv, const int32_t* e, int32_t* out,
+                    const int32_t* m, const int32_t* one, uint32_t mp,
+                    const int32_t* c_in, const int32_t* c_out, int64_t n,
+                    int le, int ndig, int threads, int64_t blocks,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VMN_FB_ARGS table, e, out, m, one, mp, n, le, ndig, threads, blocks, s
   switch (w << 16 | wb << 8 | tpi) {
     case 64 << 16 | 8 << 8 | 8: return launch_fb<64, 8, 8>(VMN_FB_ARGS);
     case 64 << 16 | 8 << 8 | 16: return launch_fb<64, 8, 16>(VMN_FB_ARGS);
@@ -722,21 +842,23 @@ int vmn_mont_fb_exp(int w, int wb, int tpi, const uint32_t* table,
     case 8 << 16 | 4 << 8 | 4: return launch_fb<8, 4, 4>(VMN_FB_ARGS);
     case 96 << 16 | 8 << 8 | 32: return launch_fb<96, 8, 32>(VMN_FB_ARGS);
     case 128 << 16 | 8 << 8 | 32: return launch_fb<128, 8, 32>(VMN_FB_ARGS);
+    case 96 << 16 | 4 << 8 | 32: return launch_fb<96, 4, 32>(VMN_FB_ARGS);
+    case 128 << 16 | 4 << 8 | 32: return launch_fb<128, 4, 32>(VMN_FB_ARGS);
     default: return kUnsupportedWidth;
   }
-#undef VMN_FB_ARGS
 }
 
 // H4 at the (W, TPI) pairs that COOP_TPI["mont_expprod_positions", W]
-// can choose, in the launch shape of ep_launch (ops/mont_kernels.py).
-int vmn_mont_expprod(int w, int tpi, const int32_t* bases, const int32_t* e,
-                     int32_t* out, const int32_t* m, const int32_t* one,
-                     uint32_t mp, int64_t n, int le, int jb, int subs,
-                     int64_t per_block, int chunk, int threads, int eblocks,
-                     int pblocks, void* stream) {
+// can choose, in the launch shape of ep_launch (ops/mont_kernels.py);
+// `conv` (as large as `bases`) receives the converted bases where c_in
+// is not NULL.
+int vmn_mont_expprod(int w, int tpi, const int32_t* bases, int32_t* conv,
+                     const int32_t* e, int32_t* out, const int32_t* m,
+                     const int32_t* one, uint32_t mp, const int32_t* c_in,
+                     const int32_t* c_out, int64_t n, int le, int jb,
+                     int subs, int64_t per_block, int chunk, int threads,
+                     int eblocks, int pblocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VMN_EP_ARGS bases, e, out, m, one, mp, n, le, jb, subs, per_block, \
-                    chunk, threads, eblocks, pblocks, s
   switch (w << 8 | tpi) {
     case 8 << 8 | 1: return launch_ep<8, 1>(VMN_EP_ARGS);
     case 8 << 8 | 4: return launch_ep<8, 4>(VMN_EP_ARGS);
@@ -746,7 +868,92 @@ int vmn_mont_expprod(int w, int tpi, const int32_t* bases, const int32_t* e,
     case 128 << 8 | 16: return launch_ep<128, 16>(VMN_EP_ARGS);
     default: return kUnsupportedWidth;
   }
-#undef VMN_EP_ARGS
 }
 
 }  // extern "C"
+
+
+#else  // a width's own library
+
+namespace {
+
+// launch(std::integral_constant<int, T>) at the TPI T = tpi where bit T of
+// kMask is set and T divides VMN_W; kUnsupportedWidth elsewhere.
+template <unsigned kMask, int T = 1, class F>
+int at_tpi(int tpi, const F& launch) {
+  if constexpr (T > 32) {
+    return kUnsupportedWidth;
+  } else {
+    if constexpr ((kMask & T) != 0 && VMN_W % T == 0) {
+      if (tpi == T) return launch(std::integral_constant<int, T>{});
+    }
+    return at_tpi<kMask, 2 * T>(tpi, launch);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int vmn_mont_mul(int w, int tpi, const int32_t* a, const int32_t* b,
+                 int32_t* out, const int32_t* m, uint32_t mp,
+                 const int32_t* c_in, int64_t n, int threads, int64_t blocks,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w != VMN_W) return kUnsupportedWidth;
+  return at_tpi<VMN_MUL_TPIS>(tpi, [&](auto t) {
+    return launch_mul<VMN_W, decltype(t)::value>(VMN_MUL_ARGS);
+  });
+}
+
+int vmn_mont_exp(int w, int tpi, const int32_t* base, const int32_t* e,
+                 int32_t* out, const int32_t* m, const int32_t* one,
+                 uint32_t mp, const int32_t* c_in, const int32_t* c_out,
+                 int64_t n, int le, int ndig, int threads, int64_t blocks,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w != VMN_W) return kUnsupportedWidth;
+  return at_tpi<VMN_EXP_TPIS>(tpi, [&](auto t) {
+    return launch_exp<VMN_W, decltype(t)::value>(VMN_EXP_ARGS);
+  });
+}
+
+int vmn_mont_chain(int w, const int32_t* P, int32_t* out, const int32_t* m,
+                   uint32_t mp, const int32_t* c_in, const int32_t* c_out,
+                   int npos, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w != VMN_W) return kUnsupportedWidth;
+  return launch_chain<VMN_W>(VMN_CHAIN_ARGS);
+}
+
+int vmn_mont_fb_exp(int w, int wb, int tpi, const uint32_t* table,
+                    uint32_t* conv, const int32_t* e, int32_t* out,
+                    const int32_t* m, const int32_t* one, uint32_t mp,
+                    const int32_t* c_in, const int32_t* c_out, int64_t n,
+                    int le, int ndig, int threads, int64_t blocks,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w != VMN_W || (wb != 4 && wb != 8)) return kUnsupportedWidth;
+  return at_tpi<VMN_FB_TPIS>(tpi, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    return wb == 8 ? launch_fb<VMN_W, 8, T>(VMN_FB_ARGS)
+                   : launch_fb<VMN_W, 4, T>(VMN_FB_ARGS);
+  });
+}
+
+int vmn_mont_expprod(int w, int tpi, const int32_t* bases, int32_t* conv,
+                     const int32_t* e, int32_t* out, const int32_t* m,
+                     const int32_t* one, uint32_t mp, const int32_t* c_in,
+                     const int32_t* c_out, int64_t n, int le, int jb,
+                     int subs, int64_t per_block, int chunk, int threads,
+                     int eblocks, int pblocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w != VMN_W) return kUnsupportedWidth;
+  return at_tpi<VMN_EP_TPIS>(tpi, [&](auto t) {
+    return launch_ep<VMN_W, decltype(t)::value>(VMN_EP_ARGS);
+  });
+}
+
+}  // extern "C"
+
+#endif  // VMN_W

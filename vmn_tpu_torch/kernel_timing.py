@@ -78,7 +78,12 @@ modp2048 at each (elements, exponent bits) of the path under every pair
 of its launch-shape constants EP_MIN_ELEMENTS and EP_ACC_BYTES (`--only
 ep_shape` for that alone).  `--widths` limits the sweep to those widths
 (e.g. `--widths 12`: H1, H2 at the P-384 field and the EC kernels at
-P-384; `--widths 20`: the same at P-521's inner width).  `--curve P-224`
+P-384; `--widths 20`: the same at P-521's inner width).  `--widths 32`
+sweeps a width built on demand (Oakley's 1024-bit group, RFC 2409
+§6.2): H1-H4 at TPI 8, 16 and 32 from a width library built for the
+sweep, H3 at both windows; at W = 96 and 128 H3 also at window 4
+(256-bit exponents) from such a library at TPI 16 and 32 (`--widths 96
+128 --only mont_fb_exp` for that alone).  `--curve P-224`
 sweeps P-224's padded moduli in its place: H1 and H2 at the field and
 the ring (224-bit exponents), H5, H8 and the combine (16 and 64
 positions) and H6 at the field, all at W' = 8 with the conversion on.
@@ -126,6 +131,26 @@ SWEEP_FB_N = {64: (1, 16, 256, 1024, 2048, 4096, 8192, 10000, 16384),
 # path (None: |q| bits, the full width)
 FB_CASES = {64: ((8, None), (4, 256)), 8: ((4, 256),), 96: ((8, None),),
             128: ((8, None),), 12: (), 20: (), 24: ()}
+# The sweep's: window 4 at 256 bits too at W = 32, 96 and 128 (a group
+# with a 256-bit q, FIPS 186-4 §4.2's (L, N) = (3072, 256)).
+SWEEP_FB_CASES = {**FB_CASES, 32: ((8, None), (4, 256)),
+                  96: ((8, None), (4, 256)), 128: ((8, None), (4, 256))}
+# The on-demand width swept beside the main library's (a 1024-bit group,
+# `vog -bitlen 1024`: W = 32), at W = 64's grids and TPIs.
+SWEEP_N[32] = SWEEP_N[64]
+SWEEP_FB_N[32] = SWEEP_FB_N[64]
+# Per width, the kernels whose sweep needs TPIs that the main library
+# lacks: a width library of every candidate TPI (`_sweep_tpis`) is built
+# for them first (ops/mont_kernels.py width_library).
+SWEEP_LIBS = {32: ("mont_mul", "mont_exp", "mont_fb_exp",
+                   "mont_expprod_positions"),
+              96: ("mont_fb_exp",), 128: ("mont_fb_exp",)}
+# RFC 2409 §6.2, the Oakley 1024-bit MODP group's prime: W = 32.
+_OAKLEY_1024 = int(
+    "FFFFFFFFFFFFFFFFC90FDAA22168C234C4C6628B80DC1CD129024E088A67CC74"
+    "020BBEA63B139B22514A08798E3404DDEF9519B3CD3A431B302B0A6DF25F1437"
+    "4FE1356D6D51C245E485B576625E7EC6F44C42E9A637ED6B0BFF5CB6F406B7ED"
+    "EE386BFB5A899FA5AE9F24117C4B1FE649286651ECE65381FFFFFFFFFFFFFFFF", 16)
 # The curves of the EC kernels by field width W, their scalars' bits and
 # the positions of the combine's sweep (the last: a scalar's).
 # P-521 at its inner width W' = 20 (L = 33 limbs padded to 40, Modulus):
@@ -141,6 +166,7 @@ P224 = ("P-224", 224, (16, 64))
 SWEEP_MEXP_N = (4096, 16384, 65536, 131072, 262144)
 SWEEP_EP_N = {64: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
               8: (1, 16, 256, 1024, 4096, 10000),
+              32: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
               96: (1, 6, 16, 64, 256, 1024, 4096, 10000),
               128: (1, 6, 16, 64, 256, 1024, 4096, 10000)}
 SWEEP_ADD_N = (1, 128, 1024, 4096, 16384, 131072)
@@ -224,8 +250,8 @@ def _limbs_of(x: int, dev) -> torch.Tensor:
 
 def _moduli(dev, widths=(64, 8)):
     """{W: MontCtx} of modp2048 (64), the P-256 field (8), the P-384 field
-    (12), the P-521 field (its inner width 20), modp3072 (96) and modp4096
-    (128), for the widths asked."""
+    (12), the P-521 field (its inner width 20), Oakley's 1024-bit group
+    (32), modp3072 (96) and modp4096 (128), for the widths asked."""
     from vmn_tpu_torch.arith.ec import _CURVES
     from vmn_tpu_torch.arith.mont import MontCtx
     from vmn_tpu_torch.arith.pgroup import (
@@ -234,7 +260,7 @@ def _moduli(dev, widths=(64, 8)):
 
     moduli = {64: _RFC3526_2048, 8: _CURVES["P-256"][0],
               12: _CURVES["P-384"][0], 20: _CURVES["P-521"][0],
-              96: _RFC3526_3072, 128: _RFC3526_4096}
+              32: _OAKLEY_1024, 96: _RFC3526_3072, 128: _RFC3526_4096}
     return {w: MontCtx(moduli[w], dev) for w in widths}
 
 
@@ -411,14 +437,23 @@ def _time_ec(E, dev, n: int, tag: str, w: int = 8, curve=None) -> dict:
     }
 
 
+def _sweep_tpis(w: int) -> tuple:
+    """The TPIs a width library for a sweep holds: 8, 16 and 32 where
+    they divide W and leave a lane at most 8 words (kernel_words)."""
+    return tuple(t for t in (8, 16, 32) if w % t == 0 and w // t <= 8)
+
+
 def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
                   best: dict, tag: str = "", only=()) -> None:
     """Time run(n) at every TPI that divides W and has a kernel, forcing it
-    through COOP_TPI[kernel, w]; the rule is restored after.  Nothing
-    where `only` names other kernels."""
-    if (only and kernel not in only) or (kernel, w) not in K.COOP_TPI:
+    through COOP_TPI[kernel, w]; the rule is restored after (taken out
+    where W had none: an on-demand width).  Nothing where `only` names
+    other kernels."""
+    if only and kernel not in only:
         return
-    rule = K.COOP_TPI[kernel, w]
+    rule = K.COOP_TPI.get((kernel, w))
+    if rule is None and kernel not in getattr(K, "COOP_MONT", ()):
+        return
     tpis = []
     try:
         for tpi in (t for t in TPI_CANDIDATES if w % t == 0):
@@ -440,7 +475,10 @@ def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
             print(f"[sweep] kernel={kernel}{tag} W={w} N={n} " + " ".join(
                 f"tpi{t}_ms={ms:.4f}" for t, ms in times.items()), flush=True)
     finally:
-        K.COOP_TPI[kernel, w] = rule
+        if rule is None:
+            del K.COOP_TPI[kernel, w]
+        else:
+            K.COOP_TPI[kernel, w] = rule
 
 
 def sweep(only=(), widths=(), curve=None) -> dict:
@@ -473,9 +511,14 @@ def sweep(only=(), widths=(), curve=None) -> dict:
                               tag=tag, only=only)
         _sweep_ec(K, E, 8, moduli[0][0], gen, dev, rows, best, only, P224)
         return {"sweep": rows, "fastest_tpi": best}
-    mont_widths = [w for w in _tree_widths(K) if not widths or w in widths]
+    on_demand = tuple(SWEEP_LIBS) if hasattr(K, "width_library") else ()
+    mont_widths = [w for w in dict.fromkeys((*_tree_widths(K), *on_demand))
+                   if not widths or w in widths]
     for w, ctx in _moduli(dev, mont_widths).items():
-        ebits = _full_bits(ctx) if w >= 64 else EC_CURVES[w][1]
+        if w in on_demand:
+            K.width_library(w, {k: _sweep_tpis(w) for k in SWEEP_LIBS[w]
+                                if not only or k in only})
+        ebits = _full_bits(ctx) if w not in EC_CURVES else EC_CURVES[w][1]
         top = max(SWEEP_N[w])
         a = _elements(gen, top, ctx.L, dev)
         b = _elements(gen, top, ctx.L, dev)
@@ -486,11 +529,11 @@ def sweep(only=(), widths=(), curve=None) -> dict:
         for kernel, run in runs.items():
             _sweep_kernel(K, kernel, w, SWEEP_N[w], run, rows, best,
                           only=only)
-        if ("mont_expprod_positions", w) not in K.COOP_TPI:
-            continue  # W = 12, 20: H1 and H2 alone (no H3, no H4)
+        if w in EC_TAGS:
+            continue  # W = 12, 20: their paths run H1 and H2 alone
         ep_top = max(SWEEP_EP_N[w])
         a = _elements(gen, ep_top, ctx.L, dev)
-        for bits in (ebits, 256) if w >= 64 else (256,):
+        for bits in (ebits, 256) if w not in EC_CURVES else (256,):
             e = _exponents(gen, ep_top, bits, dev)
             _sweep_kernel(K, "mont_expprod_positions", w, SWEEP_EP_N[w],
                           lambda k: K.mont_expprod_positions(
@@ -498,7 +541,7 @@ def sweep(only=(), widths=(), curve=None) -> dict:
                           tag=f" bits={bits}", only=only)
         fb_n = max(SWEEP_FB_N[w])
         a = _elements(gen, fb_n, ctx.L, dev)
-        for window, bits in FB_CASES[w]:
+        for window, bits in SWEEP_FB_CASES[w]:
             bits = bits or ebits
             tbl = ctx.fixed_base_table(5, bits, window)
             e = _exponents(gen, fb_n, bits, dev)

@@ -253,7 +253,7 @@ def _double_as_add(F: _PlainField, X, Y, Z):
 def ec_point_add_plain(x1, y1, z1, x2, y2, z2, mod: Modulus):
     """Plain version of H8: (N, L) Jacobian + Jacobian -> Jacobian."""
     if K.host_route(x1, x1.shape[0]):
-        F = K.HostField(mod)
+        F = K.host_field(mod)
         out = _point_add(F, *(F.ints(t) for t in (x1, y1, z1, x2, y2, z2)))
         return tuple(F.tensor(t) for t in out)
     return _point_add(_PlainField(mod), x1, y1, z1, x2, y2, z2)
@@ -299,7 +299,7 @@ def ec_scalar_mul_plain(x, y, inf, e, mod: Modulus, nbits: int):
 
 def _scalar_mul_host(x, y, inf, e, mod: Modulus, ndig: int):
     """ec_scalar_mul_plain's steps on Python integers (`K.HostField`)."""
-    F = K.HostField(mod)
+    F = K.host_field(mod)
     xs, ys = F.ints(x), F.ints(y)
     zero = F.zeros_like(xs)
     one = np.full(len(xs), F.one, dtype=object)
@@ -415,7 +415,18 @@ def ec_multiexp_combine_plain(PX, PY, PZ, mod: Modulus):
     """Plain version of the combine: sum_j 2^(4j)·S_j of (J, L) Jacobian
     positions -> one Jacobian point, (L,) x3.  Horner from the top
     position, from infinity (X = 0, Y = one, Z = 0): 4 doublings as
-    P + P, then one addition, per position."""
+    P + P, then one addition, per position.  A chain on one point: on a
+    CPU tensor its steps run on Python integers (K.host_route)."""
+    if K.host_route(PX, 1):
+        F = K.host_field(mod)
+        P = [F.ints(t) for t in (PX, PY, PZ)]
+        zero = np.zeros(1, dtype=object)
+        acc = (zero, np.full(1, F.one, dtype=object), zero)
+        for j in range(PX.shape[0] - 1, -1, -1):
+            for _ in range(WINDOW):
+                acc = _double_as_add(F, *acc)
+            acc = _point_add(F, *acc, *(t[j : j + 1] for t in P))
+        return tuple(F.tensor(t)[0] for t in acc)
     F = _PlainField(mod)
     zero = torch.zeros((1, mod.L), dtype=PX.dtype, device=PX.device)
     acc = (zero, mod.one_mont.reshape(1, -1), zero)

@@ -22,25 +22,35 @@ ops/ec_kernels.py).  Each has three parts here:
 
 Arrays at this boundary are ``(N, L)`` int32 tensors of 16-bit limbs
 (arith/limbs.py), Montgomery radix ``R = 2^(16·L)``.  The kernels pack
-limb pairs into 32-bit words: at an odd L (P-521: 33), or where L/2 words
-have no kernel (P-224: 14 limbs, 7 words), they compute at an inner
-width of W' words, R' = 2^(32·W') > R, on operands padded with zero
-limbs, and convert at their boundary (`Modulus`); nothing outside the
-kernels changes.
+limb pairs into 32-bit words: at an odd L (P-521: 33; a 1000-bit group:
+63), or where L/2 words have no kernel (P-224: 14 limbs, 7 words), they
+compute at an inner width of W' words, R' = 2^(32·W') > R, on operands
+padded with zero limbs, and convert at their boundary (`Modulus`);
+nothing outside the kernels changes.  `kernel_words` maps L to the
+kernels' words: a width of the main library (_WIDTHS) where L/2 is one,
+else ⌈L/2⌉ rounded up to 8 words (16 above 64), to at most MAX_WORDS =
+128 (4096 bits).  A width, or a kernel at a width, that the main
+library lacks is built at its first use (`width_library`: one nvcc of
+csrc/mont_kernels.cu with -DVMN_W=w, the TPIs of `coop_rule`), so every
+ModP group up to 4096 bits runs on the card, as `vog -bitlen n` makes
+them.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
 
 * The kernel boundary at a padded modulus (P-521's field and ring, L =
-  33, and P-224's, L = 14): the wrappers pad the operands to 2·W' limbs
-  (W' = INNER_WORDS[L]: 20 and 8, P-224 on the P-256 instantiations) and
-  pack limb pairs into words as at every width; the kernels of the
-  P-224 and P-521 paths (`CONVERTS`) take each Montgomery operand from R
-  to R' by one product with c_in and each result back by one with c_out
-  (`coop_rebase` in csrc/mont_coop.cuh; H6's one-thread form at W = 8
-  does the same on its own field), a runtime switch that is off (NULL
-  constants) at every other modulus, whose launches, results and
-  instantiations do not change.  Two products an element against about
+  33, P-224's, L = 14, a 1000-bit group's, L = 63): the wrappers pad the
+  operands to 2·W' limbs (W' = INNER_WORDS[L]: 20 and 8, P-224 on the
+  P-256 instantiations; else kernel_words) and pack limb pairs into
+  words as at every width; every kernel but H7 (`CONVERTS`) takes each
+  Montgomery operand from R to R' by one product with c_in and each
+  result back by one with c_out (`coop_rebase` in csrc/mont_coop.cuh;
+  H6's one-thread form at W = 8 does the same on its own field; H3
+  converts its packed table once a launch, H4 each base as its chunk
+  loads it and each partial as it stores it, K7's combine each position
+  beside its first squaring), a runtime switch that is off (NULL
+  constants) at every other modulus, whose launches and results do not
+  change.  Two products an element against about
   8000 in a 521-bit scalar multiple; H1 does one (a·b·R'^-1 times c_in),
   so at P-224 it runs two products an element where P-256 runs one.
   W' = 20 against 24 on the H100 (`kernel_timing.py --sweep`, PERF.md
@@ -141,6 +151,9 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 SIZE_BUCKETS = ("1", "2-127", ">=128")
 LAUNCH_SIZES = {k: dict.fromkeys(SIZE_BUCKETS, 0)
                 for k in ("mont_mul", "mont_exp", "mont_fb_exp")}
+# Launches by (wrapper, the kernels' words W, whether the modulus is
+# converted at their boundary: Modulus.conv).
+LAUNCH_WIDTHS: dict = {}
 
 
 def reset_launches() -> None:
@@ -149,6 +162,7 @@ def reset_launches() -> None:
     for sizes in LAUNCH_SIZES.values():
         for b in sizes:
             sizes[b] = 0
+    LAUNCH_WIDTHS.clear()
 
 
 def size_bucket(n: int) -> str:
@@ -161,11 +175,14 @@ def size_bucket(n: int) -> str:
 COUNT_LOCK = threading.Lock()
 
 
-def _launched(name: str, n: int) -> None:
+def _launched(name: str, n: int, mod: Optional["Modulus"] = None) -> None:
     with COUNT_LOCK:
         LAUNCHES[name] += 1
         if name in LAUNCH_SIZES:
             LAUNCH_SIZES[name][size_bucket(n)] += 1
+        if mod is not None:
+            key = (name, mod.W, mod.conv)
+            LAUNCH_WIDTHS[key] = LAUNCH_WIDTHS.get(key, 0) + 1
 
 
 # ------------------------------------------------------------ constants
@@ -178,6 +195,40 @@ def _launched(name: str, n: int) -> None:
 # P-224 field and its scalar ring on the P-256 instantiations (W' = 8);
 # L = 33: the P-521 field and ring (PERF.md §6: W' = 20 against 24).
 INNER_WORDS = {14: 8, 33: 20}
+# The words the main library is built at (mont_kernels.cu's fixed
+# switches): test256 and the P-256 field (and P-224's field and ring at
+# W' = 8), the P-384 field and ring, the P-521 field and ring (W' = 20),
+# modp2048, modp3072, modp4096.  Every other width a modulus asks for is
+# built on demand (`build_widths`).
+_WIDTHS = (8, 12, 20, 64, 96, 128)
+# The widest modulus the kernels take: 128 words, 4096 bits.  Wider (a
+# 6144- or 8192-bit group) would need H3's window-8 digit staged in
+# quarters; no kernel is built there.
+MAX_WORDS = 128
+
+
+def kernel_words(L: int) -> int:
+    """The words the kernels compute a modulus of L limbs at (Modulus.W):
+    INNER_WORDS[L]; else L/2 where the main library is built at it; else
+    ⌈L/2⌉ rounded up to a multiple of 8 words (of 16 above 64), built on
+    demand, with the boundary conversion where that is not L/2.  The
+    rounding keeps a lane's slice within 8 words: the cooperative
+    product needs TPI | W (`CoopMontSum`), and H3's and H4's blocks of up
+    to 1024 threads (kFbBlock, kEpBlock) cap a thread at 64 registers,
+    which W/TPI = 8 words fill (W = 64, TPI 8: 56 and 64 registers, no
+    spill); W a multiple of 8 (16) has TPI 8 (16) among its divisors
+    (`coop_rule`).  Raises a ValueError above MAX_WORDS."""
+    if L in INNER_WORDS:
+        return INNER_WORDS[L]
+    if L % 2 == 0 and L // 2 in _WIDTHS:
+        return L // 2
+    w = -(-L // 2)
+    step = 8 if w <= 64 else 16
+    w = -(-w // step) * step
+    if w > MAX_WORDS:
+        raise ValueError(f"no kernel for L={L} limbs: {w} words pass the "
+                         f"cap of {MAX_WORDS} words ({32 * MAX_WORDS} bits)")
+    return w
 
 
 @dataclass(frozen=True)
@@ -211,11 +262,15 @@ class Modulus:
 
     @classmethod
     def of(cls, m: int, L: int, device) -> "Modulus":
+        """The constants of m at L limbs on `device`; off the CPU W is
+        `kernel_words(L)`, which raises above MAX_WORDS.  On the CPU,
+        where only the plain versions run (at any L), a modulus past the
+        cap keeps ⌈L/2⌉ words."""
         R = 1 << (LIMB_BITS * L)
-        # elsewhere the fewest words: L/2, or at an odd L the words of
-        # L + 1 limbs, which no kernel is built for (_words raises,
-        # naming them)
-        W = INNER_WORDS.get(L, -(-L // 2))
+        if torch.device(device).type == "cpu" and -(-L // 2) > MAX_WORDS:
+            W = -(-L // 2)
+        else:
+            W = kernel_words(L)
         R_in = 1 << (2 * LIMB_BITS * W)
 
         def limbs(x, n=L):
@@ -433,9 +488,17 @@ class HostField:
         return np.zeros(x.shape, dtype=object)
 
 
+def host_field(mod: Modulus) -> HostField:
+    """mod's HostField, made once a modulus (its m' is a full-width
+    modular inverse, most of a one-row product's time where made at each
+    call)."""
+    return _plain_const(mod.limbs, "host_field", "cpu",
+                        lambda _: HostField(mod))
+
+
 def _mont_mul_host(a: torch.Tensor, b: torch.Tensor, mod: Modulus
                    ) -> torch.Tensor:
-    F = HostField(mod)
+    F = host_field(mod)
     return F.tensor(F.redc(F.ints(a), F.ints(b)))
 
 
@@ -549,7 +612,7 @@ def mont_exp_plain(base: torch.Tensor, e: torch.Tensor, mod: Modulus,
 def _mont_exp_host(base: torch.Tensor, e: torch.Tensor, mod: Modulus,
                    ndig: int) -> torch.Tensor:
     """mont_exp_plain's steps on Python integers."""
-    F = HostField(mod)
+    F = host_field(mod)
     b = F.ints(base)
     table = [np.full(len(b), F.one, dtype=object), b]
     for _ in range(2, 1 << WINDOW):
@@ -633,11 +696,6 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 _UNSUPPORTED_WIDTH = -1
 _BAD_SHAPE = -2
-# The words (Modulus.W) instantiated in mont_kernels.cu: test256 and the
-# P-256 field (and P-224's field and ring, L = 14 at the inner width
-# W' = 8), the P-384 field and ring, the P-521 field and ring (L = 33 at
-# the inner width W' = 20), modp2048, modp3072, modp4096
-_WIDTHS = (8, 12, 20, 64, 96, 128)
 
 # Threads per element (TPI) of the cooperative kernels for n elements of W
 # words: TPI lanes of one warp share an element (H1-H4) or a point (H5, H8,
@@ -684,7 +742,22 @@ _WIDTHS = (8, 12, 20, 64, 96, 128)
 # at TPI 4 at every N; H2 crosses to TPI 2 between 8192 and 16384 (TPI 4
 # won again at 262144, by 0.6 %), TPI 1 at no N; H5 at TPI 2 would need a
 # 246 KB table a block.  So H1, H5 and H8 are built at TPI 4 alone there,
-# H2 at 2 and 4.
+# H2 at 2 and 4.  At W = 32 (a 1024- or 1000-bit group, built on demand;
+# `kernel_timing.py --sweep --widths 32` on Oakley's 1024-bit group at
+# W = 64's N grids and at TPI 8, 16 and 32, H3 at both windows, H4 at
+# 1023- and 256-bit exponents; NVIDIA H100 80GB HBM3, 700 W): H1 and H2
+# at TPI 16 up to 1024 elements, TPI 8 from 2048 (TPI 32 at no N); H4 at
+# TPI 8 at every N and both exponent widths; H3⟨8⟩ at TPI 16 up to 2048
+# but for 256 (TPI 32 by 11 %), TPI 8 from 4096 (at 10000 2.215 against
+# 4.498 ms: TPI 16's 1024-thread blocks take two waves); H3⟨4⟩ at TPI 8
+# from 2048 already (by 9 % there), so one rule for both windows costs
+# it that at 2048-4095.  At W = 96 and 128 H3⟨4⟩ (256-bit exponents, the
+# same sweep, `--widths 96 128 --only mont_fb_exp`) keeps the window-8
+# rule, TPI 32: it was the faster at N <= 256 and at the 10000 a path
+# gives (4.823 / 7.000 ms against 4.907 / 8.384 at TPI 16), TPI 16 from
+# 1024 to 8192 (by up to 24 %), an N no path sends at those widths.
+# Every other width of `kernel_words` takes the nearest rule at or above
+# it (`coop_rule`).
 COOP_TPI = {
     ("mont_mul", 8): ((1, 8),),
     ("mont_mul", 64): ((4096, 8), (1, 32)),
@@ -702,6 +775,10 @@ COOP_TPI = {
     ("mont_fb_exp", 128): ((1, 32),),
     ("mont_expprod_positions", 96): ((1, 16),),
     ("mont_expprod_positions", 128): ((1, 16),),
+    ("mont_mul", 32): ((2048, 8), (1, 16)),
+    ("mont_exp", 32): ((2048, 8), (1, 16)),
+    ("mont_fb_exp", 32): ((4096, 8), (1, 16)),
+    ("mont_expprod_positions", 32): ((1, 8),),
     ("ec_scalar_mul", 8): ((16384, 2), (1, 4)),
     ("ec_multiexp_combine", 8): ((1, 8),),
     ("ec_point_add", 8): ((16384, 2), (4096, 4), (1, 8)),
@@ -717,14 +794,43 @@ COOP_TPI = {
     ("ec_point_add", 20): ((1, 4),),
 }
 COOP_BLOCK = 128  # threads a block at most (kThreads in mont_kernels.cu)
+# The Montgomery kernels whose TPI a width without a measured rule takes
+# from another width's (`coop_rule`), and the bit mask of its TPIs that a
+# width's library is built with (csrc/mont_kernels.cu, VMN_W).
+COOP_MONT = {"mont_mul": "VMN_MUL_TPIS", "mont_exp": "VMN_EXP_TPIS",
+             "mont_fb_exp": "VMN_FB_TPIS",
+             "mont_expprod_positions": "VMN_EP_TPIS"}
+
+
+def coop_rule(kernel: str, w: int) -> tuple:
+    """The (from n elements, TPI) pairs of a cooperative kernel at W
+    words: COOP_TPI's where it has one; for a Montgomery kernel at a
+    width it lacks (one built on demand), the rule of the nearest width
+    at or above W that has one, each TPI t taken down to the largest
+    power of two dividing W where t does not (TPI must divide W; with
+    kernel_words' rounding that keeps 8 or 16 lanes), equal neighbours
+    merged.  A launch shape, the same kernel; raises where neither is
+    there."""
+    if (kernel, w) in COOP_TPI:
+        return COOP_TPI[kernel, w]
+    above = sorted(v for k, v in COOP_TPI if k == kernel and v >= w)
+    if kernel not in COOP_MONT or not above:
+        raise ValueError(f"{kernel}: no kernel instantiated for W={w}")
+    top = min(w & -w, 32)
+    rule = []
+    for lo, t in COOP_TPI[kernel, above[0]]:
+        t = min(t, top)
+        if rule and rule[-1][1] == t:
+            rule[-1] = (lo, t)
+        else:
+            rule.append((lo, t))
+    return tuple(rule)
 
 
 def threads_per_element(kernel: str, w: int, n: int) -> int:
     """A cooperative kernel's TPI for n >= 1 elements of W words
-    (COOP_TPI); raises where no rule (and so no kernel) is built."""
-    if (kernel, w) not in COOP_TPI:
-        raise ValueError(f"{kernel}: no kernel instantiated for W={w}")
-    return next(t for lo, t in COOP_TPI[kernel, w] if n >= lo)
+    (`coop_rule`); raises where no rule (and so no kernel) is built."""
+    return next(t for lo, t in coop_rule(kernel, w) if n >= lo)
 
 
 def coop_launch(kernel: str, w: int, n: int):
@@ -834,13 +940,13 @@ def slice_vec(s: int) -> int:
 
 
 def fb_pack(table: torch.Tensor, tpi: int) -> torch.Tensor:
-    """H3's copy of a fixed-base table (ndig, 2^w, L) int32 limbs: per
+    """H3's copy of a fixed-base table (ndig, 2^w, 2W) int32 limbs: per
     entry W packed 32-bit words, word k of lane r's slice (S = W/TPI
     words) at [k // V][r][k % V], V = slice_vec(S), so that a group's
     lanes read their slices as vectors of consecutive words (csrc/
     mont_kernels.cu, H3)."""
     ndig, entries, L = table.shape
-    w = L // 2  # H3 is built at even L alone (_words)
+    w = L // 2  # the kernel's words (a padded table at a padded modulus)
     s = w // tpi
     v = slice_vec(s)
     t = table.to(torch.int64)
@@ -852,6 +958,10 @@ def fb_pack(table: torch.Tensor, tpi: int) -> torch.Tensor:
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
+# The width libraries loaded (W: library) and, per entry point and
+# (W, TPI, window), the library that holds it.
+_width_libs: dict = {}
+_route: dict = {}
 
 
 def _nvcc() -> str:
@@ -859,77 +969,211 @@ def _nvcc() -> str:
     return str(cuda) if cuda.exists() else (shutil.which("nvcc") or "nvcc")
 
 
-def build_kernels() -> Path:
-    """Compile csrc/ with nvcc into one shared library in _build/ (cached
-    by a hash of the sources and flags) and return its path: one `nvcc -c`
-    per `.cu` file, all started together, then one link.  Records the
-    build seconds and ptxas's register/spill report in BUILD_INFO."""
-    sources = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+def _sources() -> list:
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _source_hash(*extra: str):
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra)).encode())
+    for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    so = _BUILD / f"libvmn_mont_{h.hexdigest()[:16]}.so"
-    report = so.with_suffix(".ptxas.txt")
+    return h.hexdigest()[:16]
+
+
+def width_tpis(w: int) -> dict:
+    """{kernel: TPIs} a width's library holds: those of each Montgomery
+    kernel's rule at W (`coop_rule`)."""
+    return {k: tuple(sorted({t for _, t in coop_rule(k, w)}))
+            for k in COOP_MONT}
+
+
+def _width_flags(w: int, tpis: dict) -> tuple:
+    """nvcc's defines for the library of width w holding `tpis`: VMN_W
+    and, per kernel, the bit mask of its TPIs (bit t for TPI t; 0: the
+    kernel is not built)."""
+    masks = {COOP_MONT[k]: sum(set(tpis.get(k, ()))) for k in COOP_MONT}
+    return (f"-DVMN_W={w}",
+            *(f"-D{name}={mask}" for name, mask in sorted(masks.items())))
+
+
+@dataclass
+class _Job:
+    """One `nvcc -c` of a library's source, its object and log."""
+
+    so: Path
+    tmp: Path
+    obj: Path
+    log: Path
+    proc: subprocess.Popen
+    done_s: Optional[float] = None
+
+
+def _compile(libs: list) -> None:
+    """Build each (library path, [(source, extra nvcc flags)]) that does
+    not exist yet: one `nvcc -c` per source, all of every library started
+    together, then one link each.  A temporary name per process and
+    os.replace, so that concurrent builders do not collide.  Records each
+    library's seconds (its last object's and its link) and ptxas's
+    register/spill report beside it (`*.ptxas.txt`); raises with nvcc's
+    log where a build fails."""
     t0 = time.perf_counter()
-    if not so.exists():
+    jobs = []
+    for so, units in libs:
+        if so.exists():
+            continue
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        units = [s for s in sources if s.suffix == ".cu"]
-        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in units]
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
-                                   str(s)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for s, o in zip(units, objs)]
-        outs = [p.communicate() for p in procs]
-        log = "".join(out + err for out, err in outs)
-        if any(p.returncode != 0 for p in procs):
-            raise RuntimeError(f"nvcc failed:\n{log}")
-        res = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
-                              *map(str, objs)], capture_output=True, text=True)
+        for src, flags in units:
+            obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+            log = obj.with_suffix(".log")
+            with open(log, "w") as out:
+                proc = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj),
+                     str(src)], stdout=out, stderr=subprocess.STDOUT)
+            jobs.append(_Job(so, tmp, obj, log, proc))
+    while any(j.done_s is None for j in jobs):
+        for j in jobs:
+            if j.done_s is None and j.proc.poll() is not None:
+                j.done_s = time.perf_counter() - t0
+        time.sleep(0.05)
+    for so, _ in libs:
+        mine = [j for j in jobs if j.so == so]
+        if not mine:
+            continue
+        log = "".join(j.log.read_text() for j in mine)
+        if any(j.proc.returncode != 0 for j in mine):
+            raise RuntimeError(f"nvcc failed for {so.name}:\n{log}")
+        res = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o",
+                              str(mine[0].tmp), *(str(j.obj) for j in mine)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
                 f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}"
             )
-        for o in objs:
-            o.unlink()
-        report.write_text(log)
-        os.replace(tmp, so)
-    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0,
-                      ptxas=report.read_text() if report.exists() else "")
-    return so
+        for j in mine:
+            j.obj.unlink()
+            j.log.unlink()
+        so.with_suffix(".ptxas.txt").write_text(log)
+        os.replace(mine[0].tmp, so)
+        BUILD_INFO.setdefault("compiled", {})[so.name] = (
+            max(j.done_s for j in mine), time.perf_counter() - t0)
+
+
+def _info(so: Path, seconds: float) -> dict:
+    report = so.with_suffix(".ptxas.txt")
+    return {"path": str(so), "seconds": seconds,
+            "ptxas": report.read_text() if report.exists() else ""}
+
+
+def _main_unit() -> tuple:
+    so = _BUILD / f"libvmn_mont_{_source_hash()}.so"
+    return so, [(s, ()) for s in _sources() if s.suffix == ".cu"]
+
+
+def _width_unit(w: int, tpis: dict) -> tuple:
+    flags = _width_flags(w, tpis)
+    so = _BUILD / f"libvmn_mont_w{w}_{_source_hash(*flags)}.so"
+    return so, [(_CSRC / "mont_kernels.cu", flags)]
+
+
+def build_kernels(widths=()) -> Path:
+    """Compile csrc/ with nvcc into one shared library in _build/ (cached
+    by a hash of the sources and flags) and return its path: one `nvcc -c`
+    per `.cu` file, then one link; with `widths`, the libraries of those
+    widths too (`build_widths`), every nvcc of both started together.
+    Records the build seconds and ptxas's register/spill report in
+    BUILD_INFO (the widths' under BUILD_INFO["widths"][w])."""
+    t0 = time.perf_counter()
+    main = _main_unit()
+    specs = {w: _width_unit(w, width_tpis(w)) for w in widths}
+    _compile([main, *specs.values()])
+    seconds = time.perf_counter() - t0
+    BUILD_INFO.update(_info(main[0], seconds))
+    for w, (so, _) in specs.items():
+        BUILD_INFO.setdefault("widths", {})[w] = _info(so, seconds)
+    return main[0]
+
+
+def build_widths(widths, tpis: Optional[dict] = None) -> dict:
+    """{W: path} of the library of each width in `widths`: every
+    Montgomery entry point at W alone (mont_kernels.cu with -DVMN_W=w),
+    each kernel at the TPIs of its rule (`width_tpis`, or {kernel: TPIs}
+    `tpis`), the chain at its one TPI; one nvcc per width, all started
+    together, cached by a hash of the sources, the flags and the width."""
+    t0 = time.perf_counter()
+    specs = {w: _width_unit(w, width_tpis(w) if tpis is None else tpis)
+             for w in widths}
+    _compile(list(specs.values()))
+    seconds = time.perf_counter() - t0
+    for w, (so, _) in specs.items():
+        BUILD_INFO.setdefault("widths", {})[w] = _info(so, seconds)
+    return {w: so for w, (so, _) in specs.items()}
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I64, I32, U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_uint32)
+    sig = {
+        "vmn_mont_mul": [I32, I32, P, P, P, P, U32, P, I64, I32, I64, P],
+        "vmn_mont_exp": [I32, I32, P, P, P, P, P, U32, P, P, I64, I32, I32,
+                         I32, I64, P],
+        "vmn_mont_chain": [I32, P, P, P, U32, P, P, I32, P],
+        "vmn_mont_fb_exp": [I32, I32, I32, P, P, P, P, P, P, U32, P, P,
+                            I64, I32, I32, I32, I64, P],
+        "vmn_mont_expprod": [I32, I32, P, P, P, P, P, P, U32, P, P, I64,
+                             I32, I32, I32, I64, I32, I32, I32, I32, P],
+    }
+    for name, args in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_kernels()))
-            P, I64, I32, U32 = (ctypes.c_void_p, ctypes.c_int64,
-                                ctypes.c_int, ctypes.c_uint32)
-            sig = {
-                "vmn_mont_mul": [I32, I32, P, P, P, P, U32, P, I64, I32,
-                                 I64, P],
-                "vmn_mont_exp": [I32, I32, P, P, P, P, P, U32, P, P, I64,
-                                 I32, I32, I32, I64, P],
-                "vmn_mont_chain": [I32, P, P, P, U32, I32, P],
-                "vmn_mont_fb_exp": [I32, I32, I32, P, P, P, P, P, U32, I64,
-                                    I32, I32, I32, I64, P],
-                "vmn_mont_expprod": [I32, I32, P, P, P, P, P, U32, I64,
-                                     I32, I32, I32, I64, I32, I32, I32, I32,
-                                     P],
-            }
-            for name, args in sig.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = _bind(ctypes.CDLL(str(build_kernels())))
     return _lib
 
 
-def _check(fn: str, rc: int) -> None:
+def width_library(w: int, tpis: Optional[dict] = None) -> ctypes.CDLL:
+    """The library of width w, built at its first use (`build_widths`);
+    with `tpis`, that build in place of the rule's (a sweep of other
+    TPIs), which the wrappers then use at w."""
+    with _lib_lock:
+        if tpis is not None or w not in _width_libs:
+            so = build_widths([w], tpis)[w]
+            _width_libs[w] = _bind(ctypes.CDLL(str(so)))
+            for key in [k for k in _route if k[1] == w]:
+                del _route[key]
+        return _width_libs[w]
+
+
+def _launch(entry: str, key: tuple, *args) -> int:
+    """entry(*args) of the library that holds (W, TPI, window) `key`: the
+    main one where its switch has the case, else the width's own, built
+    at its first use.  An entry point with no case returns
+    kUnsupportedWidth before it launches anything."""
+    lib = _route.get((entry, *key))
+    if lib is not None:
+        return getattr(lib, entry)(*args)
+    for get in (_library, lambda: width_library(key[0])):
+        lib = get()
+        rc = getattr(lib, entry)(*args)
+        if rc != _UNSUPPORTED_WIDTH:
+            if rc == 0:
+                _route[(entry, *key)] = lib
+            return rc
+    return rc
+
+
+def _check(fn: str, rc: int, w: Optional[int] = None) -> None:
     if rc == _UNSUPPORTED_WIDTH:
-        raise ValueError(f"{fn}: no kernel instantiated for this width")
+        raise ValueError(f"{fn}: no kernel instantiated for this width"
+                         + ("" if w is None else f" (W={w})"))
     if rc == _BAD_SHAPE:
         raise ValueError(f"{fn}: launch shape refused by the kernel")
     if rc != 0:
@@ -937,18 +1181,19 @@ def _check(fn: str, rc: int) -> None:
 
 
 # The wrappers whose kernels convert at the boundary of a padded modulus
-# (Modulus.conv): the P-224 and P-521 paths'.  The others raise there.
-CONVERTS = frozenset({"mont_mul", "mont_exp", "ec_scalar_mul",
-                      "ec_multiexp_positions", "ec_multiexp_combine",
-                      "ec_point_add"})
+# (Modulus.conv): every Montgomery wrapper, and every EC one but H7
+# (ec_fb_exp, off every path), which raises there.
+CONVERTS = frozenset({*KERNELS, "ec_scalar_mul", "ec_multiexp_positions",
+                      "ec_multiexp_combine", "ec_point_add"})
 
 
 def _words(mod: Modulus, kernel: str, widths=None) -> int:
-    """The words `kernel` computes mod at (Modulus.W): the one place that
-    maps a modulus to an instantiated width; raises ValueError, naming
-    the width, where none is built (`widths`: the instantiated ones,
-    default _WIDTHS)."""
-    if mod.W not in (_WIDTHS if widths is None else widths):
+    """The words `kernel` computes mod at (Modulus.W, `kernel_words`):
+    any width of a Montgomery kernel (one outside _WIDTHS is built at
+    its first use), one of `widths` (the EC kernels' instantiated ones)
+    where given; raises ValueError, naming the width, where none is
+    built."""
+    if widths is not None and mod.W not in widths:
         raise ValueError(f"{kernel}: no kernel instantiated for L={mod.L} "
                          f"(W={mod.W})")
     if mod.conv and kernel not in CONVERTS:
@@ -958,15 +1203,15 @@ def _words(mod: Modulus, kernel: str, widths=None) -> int:
 
 
 def _padded(x: torch.Tensor, mod: Modulus) -> torch.Tensor:
-    """(n, L) operand -> (n, 2W): zero limbs above the value (conv)."""
+    """(..., L) operand -> (..., 2W): zero limbs above the value (conv)."""
     if not mod.conv:
         return x
     return torch.constant_pad_nd(x, (0, 2 * mod.W - mod.L))
 
 
 def _unpadded(out: torch.Tensor, mod: Modulus) -> torch.Tensor:
-    """(n, 2W) result -> (n, L): the limbs below R (the rest are 0)."""
-    return out[:, : mod.L].contiguous() if mod.conv else out
+    """(..., 2W) result -> (..., L): the limbs below R (the rest are 0)."""
+    return out[..., : mod.L].contiguous() if mod.conv else out
 
 
 def _conv_ptrs(mod: Modulus):
@@ -1029,11 +1274,11 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, mod: Modulus) -> torch.Tensor:
     out = torch.empty((N, 2 * w), dtype=torch.int32, device=dev)
     if N:
         t, threads, blocks = coop_launch("mont_mul", w, N)
-        _check("mont_mul", _library().vmn_mont_mul(
-            w, t, _ptr(a), _ptr(b), _ptr(out), _ptr(mod.kernel_limbs),
-            mod.mprime32, _conv_ptrs(mod)[0], N, threads, blocks,
-            _stream(dev)))
-        _launched("mont_mul", N)
+        _check("mont_mul", _launch(
+            "vmn_mont_mul", (w, t, None), w, t, _ptr(a), _ptr(b),
+            _ptr(out), _ptr(mod.kernel_limbs), mod.mprime32,
+            _conv_ptrs(mod)[0], N, threads, blocks, _stream(dev)), w)
+        _launched("mont_mul", N, mod)
     return _unpadded(out, mod)
 
 
@@ -1052,11 +1297,12 @@ def mont_exp(base: torch.Tensor, e: torch.Tensor, mod: Modulus, nbits: int
     out = torch.empty((N, 2 * w), dtype=torch.int32, device=dev)
     if N:
         t, threads, blocks = coop_launch("mont_exp", w, N)
-        _check("mont_exp", _library().vmn_mont_exp(
-            w, t, _ptr(base), _ptr(e), _ptr(out), _ptr(mod.kernel_limbs),
-            _ptr(mod.kernel_one), mod.mprime32, *_conv_ptrs(mod), N,
-            e.shape[1], ndig, threads, blocks, _stream(dev)))
-        _launched("mont_exp", N)
+        _check("mont_exp", _launch(
+            "vmn_mont_exp", (w, t, None), w, t, _ptr(base), _ptr(e),
+            _ptr(out), _ptr(mod.kernel_limbs), _ptr(mod.kernel_one),
+            mod.mprime32, *_conv_ptrs(mod), N, e.shape[1], ndig, threads,
+            blocks, _stream(dev)), w)
+        _launched("mont_exp", N, mod)
     return _unpadded(out, mod)
 
 
@@ -1067,7 +1313,10 @@ def _sms(device) -> int:
 def mont_fb_exp(table: torch.Tensor, e: torch.Tensor, mod: Modulus
                 ) -> torch.Tensor:
     """H3: prod_j table[j][digit_j(e)]; table (ndig, 2^w, L) Montgomery
-    form with w in {4, 8}, e (N, Le) standard limbs."""
+    form with w in {4, 8}, e (N, Le) standard limbs.  At a padded
+    modulus the kernel's entry point first takes the packed table's
+    entries to R' in a launch of their own (one product an entry, into
+    `conv`), and the result back to R on store."""
     if on_host("mont_fb_exp", mod, table, e):
         return mont_fb_exp_plain(table, e, mod)
     ndig, entries, L = table.shape
@@ -1082,16 +1331,19 @@ def mont_fb_exp(table: torch.Tensor, e: torch.Tensor, mod: Modulus
     w = _words(mod, "mont_fb_exp")
     N = e.shape[0]
     e = _rows(e, "e", dev, N)
-    out = torch.empty((N, L), dtype=torch.int32, device=dev)
+    out = torch.empty((N, 2 * w), dtype=torch.int32, device=dev)
     if N:
         t, threads, blocks = fb_launch(w, N, _sms(dev))
-        packed = fb_pack(table, t)
-        _check("mont_fb_exp", _library().vmn_mont_fb_exp(
-            w, window, t, _ptr(packed), _ptr(e), _ptr(out), _ptr(mod.limbs),
-            _ptr(mod.one_mont), mod.mprime32, N, e.shape[1], ndig, threads,
-            blocks, _stream(dev)))
-        _launched("mont_fb_exp", N)
-    return out
+        packed = fb_pack(_padded(table, mod), t)
+        conv = torch.empty_like(packed) if mod.conv else None
+        _check("mont_fb_exp", _launch(
+            "vmn_mont_fb_exp", (w, t, window), w, window, t, _ptr(packed),
+            None if conv is None else _ptr(conv), _ptr(e), _ptr(out),
+            _ptr(mod.kernel_limbs), _ptr(mod.kernel_one), mod.mprime32,
+            *_conv_ptrs(mod), N, e.shape[1], ndig, threads, blocks,
+            _stream(dev)), w)
+        _launched("mont_fb_exp", N, mod)
+    return _unpadded(out, mod)
 
 
 def mont_expprod_positions(bases: torch.Tensor, e: torch.Tensor,
@@ -1099,31 +1351,39 @@ def mont_expprod_positions(bases: torch.Tensor, e: torch.Tensor,
     """H4: per-digit-position products P_j = prod_i bases_i^(d_ij),
     (ndig_pad, L) Montgomery form (see mont_expprod_positions_plain): one
     launch gives `ep_launch(..).parts` partials a position, an H1 lane
-    tree multiplies them."""
+    tree multiplies them.  At a padded modulus the entry point takes the
+    bases to R' before the launch (into `conv`) and the partials back
+    after it."""
     if on_host("mont_expprod_positions", mod, bases, e):
         return mont_expprod_positions_plain(bases, e, mod, nbits)
     N, L = bases.shape[0], mod.L
     w = _words(mod, "mont_expprod_positions")
     dev = mod.limbs.device
-    bases = _rows(bases, "bases", dev, N, L)
+    bases = _padded(_rows(bases, "bases", dev, N, L), mod)
     e = _rows(e, "e", dev, N)  # digits past its limbs read as zero
     ndig_pad = _ndig_pad(nbits)
     if not N:
         return mod.one_mont.expand(ndig_pad, L).contiguous()
     sh = ep_launch(w, N, ndig_pad, _sms(dev))
-    out = torch.empty((ndig_pad, sh.parts, L), dtype=torch.int32, device=dev)
-    _check("mont_expprod_positions", _library().vmn_mont_expprod(
-        w, sh.tpi, _ptr(bases), _ptr(e), _ptr(out), _ptr(mod.limbs),
-        _ptr(mod.one_mont), mod.mprime32, N, e.shape[1], sh.jb, sh.subs,
+    out = torch.empty((ndig_pad, sh.parts, 2 * w), dtype=torch.int32,
+                      device=dev)
+    conv = torch.empty_like(bases) if mod.conv else None
+    _check("mont_expprod_positions", _launch(
+        "vmn_mont_expprod", (w, sh.tpi, None), w, sh.tpi, _ptr(bases),
+        None if conv is None else _ptr(conv), _ptr(e), _ptr(out),
+        _ptr(mod.kernel_limbs), _ptr(mod.kernel_one),
+        mod.mprime32, *_conv_ptrs(mod), N, e.shape[1], sh.jb, sh.subs,
         sh.per_block, sh.chunk, sh.threads, sh.eblocks, sh.pblocks,
-        _stream(dev)))
-    _launched("mont_expprod_positions", N)
-    return _lane_tree(out, mod, mont_mul)
+        _stream(dev)), w)
+    _launched("mont_expprod_positions", N, mod)
+    return _lane_tree(_unpadded(out, mod), mod, mont_mul)
 
 
 def mont_expprod_combine(P: torch.Tensor, mod: Modulus) -> torch.Tensor:
     """K7's combine prod_j P_j^(2^(4j)) of (J, L) Montgomery-form
-    positions -> (L,), as one chain on one warp."""
+    positions -> (L,), as one chain on one warp.  At a padded modulus the
+    chain takes each P_j to R' (the product beside the first squaring of
+    its step) and the result back to R."""
     if on_host("mont_expprod_combine", mod, P):
         return mont_expprod_combine_plain(P, mod)
     J, L = P.shape[0], mod.L
@@ -1131,13 +1391,14 @@ def mont_expprod_combine(P: torch.Tensor, mod: Modulus) -> torch.Tensor:
     dev = mod.limbs.device
     if J == 0:
         return mod.one_mont.clone()
-    P = _rows(P, "P", dev, J, L)
-    out = torch.empty((1, L), dtype=torch.int32, device=dev)
-    _check("mont_expprod_combine", _library().vmn_mont_chain(
-        w, _ptr(P), _ptr(out), _ptr(mod.limbs), mod.mprime32, J,
-        _stream(dev)))
-    _launched("mont_expprod_combine", J)
-    return out[0]
+    P = _padded(_rows(P, "P", dev, J, L), mod)
+    out = torch.empty((1, 2 * w), dtype=torch.int32, device=dev)
+    _check("mont_expprod_combine", _launch(
+        "vmn_mont_chain", (w, None, None), w, _ptr(P), _ptr(out),
+        _ptr(mod.kernel_limbs), mod.mprime32, *_conv_ptrs(mod), J,
+        _stream(dev)), w)
+    _launched("mont_expprod_combine", J, mod)
+    return _unpadded(out, mod)[0]
 
 
 def mont_expprod(bases: torch.Tensor, e: torch.Tensor, mod: Modulus,
