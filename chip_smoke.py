@@ -12,8 +12,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
      per source file, all started together), and beside them the
      Montgomery libraries of the widths this run builds on demand
      (ON_DEMAND_WIDTHS: W = 32 for the fresh groups, W = 12 and W' = 20
-     for H3, H4 and the chain; one nvcc each, started with the rest),
-     each with its seconds, TPIs and ptxas lines;
+     for H3, H4 and the chain, W = 192 and 256 for RFC 3526's modp6144
+     and modp8192; one nvcc each, started with the rest),
+     each with its seconds, TPIs, registers and spill bytes on its
+     `[build] width=` line, and its ptxas lines;
   3. check H1 mont_mul, H2 mont_exp, H3 mont_fb_exp, H4
      mont_expprod_positions and K7's combine mont_expprod_combine at each
      width a path runs: modp2048 (W=64), modp3072 (W=96) and modp4096
@@ -35,7 +37,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
      (W = 32) and vog1000 (63 limbs at W' = 32, converting) as at the
      wide groups, and H3 at window 4 on 1000 elements; H3 at window 4
      at W = 96 and 128 on N at 256-bit exponents (a group with a short
-     q); then each of H1-H4 at the first
+     q); at modp6144 (W = 192) and modp8192 (W = 256) as at the wide
+     groups, but H4 at full width on 16 elements spread over the batch in
+     a launch of their own (PY_ELEMENTS), with H3 at window 4 on N at
+     256-bit exponents; then each of H1-H4 at the first
      N of any TPI of its
      rule that those miss, so that every TPI (lanes an element) the
      wrappers choose is checked (it fails otherwise).  Each against its
@@ -83,7 +88,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
      (nizkp_modp{3072,4096}_k1, test_vectors_modp{3072,4096}.json, written
      by tests/torch_make_wide_golden.py), the fresh groups' goldens
      (nizkp_vog{1024,1000}_k1, test_vectors_vog{1024,1000}.json, the
-     groups in group_vog{1024,1000}.json, the same script), and the
+     groups in group_vog{1024,1000}.json, the same script), the modp6144
+     and modp8192 goldens (nizkp_modp{6144,8192}_k1,
+     test_vectors_modp{6144,8192}.json, the groups in
+     group_modp{6144,8192}.json, the same script), and the
      P-224, P-384 and P-521 goldens (nizkp_p{224,384,521}_k1,
      test_vectors_p{224,384,521}.json, the same script);
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
@@ -96,7 +104,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
      modp4096 with N ciphertexts, the same --n, and at the fresh groups
      vog1024 and vog1000 (every Montgomery launch of their mixes at
      W = 32, converting at vog1000's 63 limbs: the `slice` line's
-     `launches_at_w`);
+     `launches_at_w`), and at modp6144 and modp8192 (every launch at
+     W = 192 and 256);
   7. the EC paths: the same at P-256, P-384 and P-521 with --ec-n
      ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6)
      and at P-224 with min(--ec-n, 65536) (P224_SLICE_N: its H6 and
@@ -150,7 +159,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
      `vmn -mix` process, H5, H6, the EC combine and H8 in the P-256 one.
 
 --profile modp2048|P-256|P-224|P-384|P-521|modp2048-k3|modp3072|modp4096|
-          vog1024|vog1000
+          vog1024|vog1000|modp6144|modp8192
 profiles one more
 mix + verify of that path after the phases (host spans, device time by
 kernel, the device's idle share); it may be given more than once.
@@ -160,7 +169,7 @@ Each mix zeroes the wrappers' launch counters just before `session.mix`
 parties) and reads them just after it; a precomputation path does the
 same around its precomputation, and then around its online mix.  H1-H4
 and the combine must have launched in the modp2048, modp3072,
-modp4096, vog1024 and vog1000 mixes, in the k=3 mix
+modp4096, vog1024, vog1000, modp6144 and modp8192 mixes, in the k=3 mix
 and in the modp2048 k=1 precomputation path, H2 and H3 in the
 interactive mix's coin flipping, H5, H6, the EC combine (once per H6
 call) and H8 in the P-256 mix, and the same with H1 and H2 at W=12 in
@@ -179,7 +188,9 @@ of its check at that path's batch; the EC kernels' check at 4096 points
 stands under `at_4096`, and each kernel's launches in the P-384 mix with
 its check at W=12 under `p384`, in the P-224 and P-521 mixes with their
 checks at W'=8 and 20 under `p224` and `p521`, each Montgomery kernel's
-launches in the fresh groups' mixes with its checks there under `vog`.  The last three lines are
+launches in the fresh groups' mixes with its checks there under `vog`,
+in the modp6144 and modp8192 mixes with its checks at W = 192 and 256
+under `rfc`.  The last three lines are
 that JSON object, the card's name and power limit, and a JSON status
 object.
 """
@@ -189,6 +200,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -196,6 +208,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -392,11 +405,19 @@ WIDE_GROUPS = {"modp3072": 96, "modp4096": 128}
 # ring on the width-32 library built on demand.
 VOG_GROUPS = {"vog1024": "_vog1024", "vog1000": "_vog1000"}
 VOG_WORDS = 32
+# RFC 3526's groups past 4096 bits, loaded from their group files as the
+# fresh ones are (tests/golden/group_{name}.json: p by the RFC's formula,
+# written by tests/torch_make_wide_golden.py), and their widths W = L/2,
+# each built on demand: modp6144 (§6, group 17) at W = 192, modp8192
+# (§7, group 18) at W = 256.
+RFC_GROUPS = {"modp6144": 192, "modp8192": 256}
+# The groups read from a group file (`file_group`).
+FILE_GROUPS = (*VOG_GROUPS, *RFC_GROUPS)
 # The widths built on demand in the build phase beside the main library
-# (ops/mont_kernels.py build_widths): W = 32 for the fresh groups, and
-# W = 12 and W' = 20 for H3, H4 (and K7's combine at 20), which the
-# P-384 and P-521 fields' checks run.
-ON_DEMAND_WIDTHS = (VOG_WORDS, 12, 20)
+# (ops/mont_kernels.py build_widths): W = 32 for the fresh groups, W = 12
+# and W' = 20 for H3, H4 (and K7's combine at 20), which the P-384 and
+# P-521 fields' checks run, and W = 192 and 256 for RFC_GROUPS.
+ON_DEMAND_WIDTHS = (VOG_WORDS, 12, 20, *RFC_GROUPS.values())
 # Elements of the one small shape at which a kernel that no path
 # launches at a width is held to its plain version (H3 at window 4 at
 # W = 32, H3 and H4 at W = 12 and at the padded moduli).
@@ -506,6 +527,14 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     # of the kernel's output, elements, bound, products run where latency
     # bounds the call)
     cases = {}
+    pool = None  # the host processes of the Python checks (below)
+
+    def pows(pairs, m):
+        """pow(b, e, m) of each (b, e) pair, in a pool of host processes:
+        a full-width Python pow takes about a second at 8192 bits, and a
+        check holds up to PY_ELEMENTS of them."""
+        bs, es = zip(*pairs)
+        return list(pool.map(pow, bs, es, [m] * len(bs)))
 
     def exp_products(count, e, ndig):
         # the table's 14 products, 4 squarings a digit below the top and,
@@ -519,7 +548,7 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         """K.fn(*pre, *rows_in, *post), whose output row i depends on row
         i of rows_in alone: held to K.fn_plain on HELD_ROWS rows at the
         wide widths (and H2 where d.held), else on all; py(i) is row i's
-        Python value."""
+        (base, exponent), its Python value pow(base, exponent, m)."""
         kern, plain = getattr(K, fn), getattr(K, fn + "_plain")
         rows = py_rows(count)
         held, held_in = None, rows_in
@@ -533,13 +562,13 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
             d.ctx, lambda: kern(*pre, *rows_in, *post), held,
             (lambda: plain_on_host(plain, *plain_args)) if count == 1
             else (lambda: plain(*plain_args)),
-            lambda got: d.ctx.decode(got[rows]) == [py(i) for i in rows],
+            lambda got: d.ctx.decode(got[rows]) == pows(map(py, rows), d.m),
             count, bnd, products)
 
     def mul_case(d, name, count, at=0):
         s = slice(at, at + count)
         elementwise(name, d, "mont_mul", (), (d.a[s], d.b[s]), (d.mod,),
-                    lambda i: d.a_int[at + i] * d.b_int[at + i] % d.m,
+                    lambda i: (d.a_int[at + i] * d.b_int[at + i], 1),
                     count, bound(count, d.BW, 3 * 4 * count * d.L),
                     1 if count == 1 else None)
 
@@ -547,7 +576,7 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
                  whole=False):
         count = x.shape[0]
         elementwise(name, d, "mont_exp", (), (x, e), (d.mod, bits),
-                    lambda i: pow(x_int[i], e_int[i], d.m), count,
+                    lambda i: (x_int[i], e_int[i]), count,
                     bound(exp_products(count, e, -(-bits // 4)), d.BW,
                           2 * 4 * count * d.L + 4 * e.numel()), products,
                     whole)
@@ -556,16 +585,23 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         window = tbl.shape[1].bit_length() - 1
         e = e[at : at + count].contiguous()
         elementwise(name, d, "mont_fb_exp", (tbl,), (e,), (d.mod,),
-                    lambda i: pow(g, e_int[at + i], d.m), count,
+                    lambda i: (g, e_int[at + i]), count,
                     bound(nonzero_digits(e, tbl.shape[0], window), d.W,
                           4 * tbl.numel() + 4 * e.numel() + 4 * count * d.L),
                     tbl.shape[0] if count == 1 else None)
 
-    def ep_case(d, name, e, e_int, bits, count, at=0):
-        """H4 on elements at .. at + count; its positions, combined (K7's
-        combine), against Python pow: those of the batch, or at the wide
-        widths those of PY_ELEMENTS of its elements in their own launch."""
-        x, e = d.a[at : at + count], e[at : at + count].contiguous()
+    def ep_case(d, name, e, e_int, bits, count, at=0, rows=None):
+        """H4 on elements at .. at + count, or on the batch's `rows` in a
+        launch of their own; its positions, combined (K7's combine),
+        against Python pow: those of the launch, or at the wide widths
+        those of PY_ELEMENTS of its elements in their own launch."""
+        if rows is None:
+            rows = list(range(at, at + count))
+            x, e = d.a[at : at + count], e[at : at + count].contiguous()
+        else:
+            t = torch.tensor(rows, device=dev)
+            x, e = d.a[t], e[t].contiguous()
+        at_int = [(d.a_int[r], e_int[r]) for r in rows]
         ix = list(range(count))
         launch = (lambda ix: K.mont_expprod_positions(x[ix], e[ix], d.mod,
                                                       bits))
@@ -577,8 +613,8 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
 
         def truth(got):
             want = 1
-            for i in ix:
-                want = want * pow(d.a_int[at + i], e_int[at + i], d.m) % d.m
+            for v in pows((at_int[i] for i in ix), d.m):
+                want = want * v % d.m
             return d.ctx.decode(
                 K.mont_expprod_combine(py_out(got), d.mod)[None]) == [want]
 
@@ -702,7 +738,7 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     # full width; H3 at window 4 (on no path: their fixed-base exponents
     # are full width) on SMALL_N elements
     for group, tag in VOG_GROUPS.items():
-        ctx = MontCtx(vog_group(group)[0], dev)
+        ctx = MontCtx(file_group(group)[0], dev)
         d = width(ctx, ctx.nbits - 1, n)
         d.wide = True
         d.tbl = ctx.fixed_base_table(g, d.bits, 8)
@@ -716,6 +752,30 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
                 n)
         ep_case(d, f"mont_expprod_positions{tag}_full", d.e, d.e_int,
                 d.bits, n)
+        ep_case(d, f"mont_expprod_positions{tag}_b1", d.e, d.e_int, d.bits,
+                1, at=3)
+        combine_case(d, f"mont_expprod_combine{tag}")
+    # RFC 3526's groups past 4096 bits (W = 192, 256; built on demand): as
+    # the wide groups, but H4 at full width on PY_ELEMENTS elements spread
+    # over the batch in a launch of their own, held to its plain version
+    # and, combined, to Python pow (its plain version grows with W³: on
+    # all N at W = 128 it took 53.6 s)
+    for group, W in RFC_GROUPS.items():
+        ctx = MontCtx(file_group(group)[0], dev)
+        d = width(ctx, ctx.nbits - 1, n)
+        tag = f"_w{W}"
+        d.tbl = ctx.fixed_base_table(g, d.bits, 8)
+        widths[W] = [(d, tag, 8)]
+        batch_cases(d, tag, n)
+        fb_case(d, f"mont_fb_exp8{tag}", d.tbl, d.e, d.e_int, n)
+        fb_case(d, f"mont_fb_exp8{tag}_b1", d.tbl, d.e, d.e_int, 1, at=3)
+        fb_case(d, f"mont_fb_exp4{tag}", ctx.fixed_base_table(g, 256, 4),
+                d.e256, d.e256_int, n)
+        ep_case(d, f"mont_expprod_positions{tag}", d.e256, d.e256_int, 256,
+                n)
+        rows = spread(n, PY_ELEMENTS)
+        ep_case(d, f"mont_expprod_positions{tag}_full", d.e, d.e_int,
+                d.bits, len(rows), rows=rows)
         ep_case(d, f"mont_expprod_positions{tag}_b1", d.e, d.e_int, d.bits,
                 1, at=3)
         combine_case(d, f"mont_expprod_combine{tag}")
@@ -777,32 +837,41 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
 
 
     results, tpis = {}, set()
-    for name, (cx, kern, held, plain, truth, count, bnd,
-               products) in cases.items():
-        got, _ = timed(kern)  # first launch: compare, then time warm
-        want, plain_ms = timed(plain)
-        err = max_abs_err(got if held is None else got[held], want)
-        if not truth(got):
-            raise AssertionError(f"{name}: kernel != Python pow")
-        ms = device_ms(kern)
-        r = {"N": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             **bnd}
-        if held is not None:
-            r["checked_rows"] = len(held)
-        kernel, W = kernel_of(name, K.KERNELS), cx.mod.W
-        if kernel in COOP_MONT:
-            r["tpi"] = K.threads_per_element(kernel, W, count)
-            tpis.add((kernel, W, r["tpi"]))
-        if products is not None:
-            # a chain of dependent products on one element: the bound that
-            # binds is one product's latency, not the card's throughput
-            r.update(products=products,
-                     us_per_product=1e3 * ms / products,
-                     bound_note="latency-bound: one element on one warp"
-                     if kernel != "mont_expprod_positions" else
-                     "latency-bound: four table levels and one product")
-        results[name] = r
-        kernel_line(name, r)
+    pool = ProcessPoolExecutor(
+        max_workers=os.cpu_count(),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        for name, (cx, kern, held, plain, truth, count, bnd,
+                   products) in cases.items():
+            got, first_ms = timed(kern)  # first launch: compare, then time
+            want, plain_ms = timed(plain)
+            err = max_abs_err(got if held is None else got[held], want)
+            if not truth(got):
+                raise AssertionError(f"{name}: kernel != Python pow")
+            # where the first launch took seconds (H2 at full width, W =
+            # 192 and 256), its own time: more runs would add seconds
+            ms = first_ms if first_ms > 1000 else device_ms(kern)
+            r = {"N": count, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, **bnd}
+            if held is not None:
+                r["checked_rows"] = len(held)
+            kernel, W = kernel_of(name, K.KERNELS), cx.mod.W
+            if kernel in COOP_MONT:
+                r["tpi"] = K.threads_per_element(kernel, W, count)
+                tpis.add((kernel, W, r["tpi"]))
+            if products is not None:
+                # a chain of dependent products on one element: the bound
+                # that binds is one product's latency, not the card's
+                # throughput
+                r.update(products=products,
+                         us_per_product=1e3 * ms / products,
+                         bound_note="latency-bound: one element on one warp"
+                         if kernel != "mont_expprod_positions" else
+                         "latency-bound: four table levels and one product")
+            results[name] = r
+            kernel_line(name, r)
+    finally:
+        pool.shutdown()
     # every TPI of every measured rule, and of the rule taken at each
     # width checked without one (coop_rule: W = 12 and 20 for H3, H4)
     rules = {*K.COOP_TPI, *((k, w) for k, w, _ in tpis)}
@@ -1315,23 +1384,24 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
     return session.nizkp, plain, mix_s, launches, sizes
 
 
-def vog_group(name: str) -> tuple:
-    """(p, q, g) of a fresh group of VOG_GROUPS."""
+def file_group(name: str) -> tuple:
+    """(p, q, g) of a group of FILE_GROUPS, from its group file: a fresh
+    one (its "seed") or an RFC 3526 one (its "source")."""
     f = json.loads((GOLDEN / f"group_{name}.json").read_text())
     return int(f["p"], 16), int(f["q"], 16), int(f["g"], 16)
 
 
 def _group(name: str):
-    """A group on the card: an NIST curve, a named ModP group or a fresh
-    one of VOG_GROUPS."""
+    """A group on the card: an NIST curve, a named ModP group or one of
+    FILE_GROUPS."""
     if name.startswith("P-"):
         from vmn_tpu_torch.arith.ec import ECqPGroup
 
         return ECqPGroup.named(name, device="cuda")
     from vmn_tpu_torch.arith.pgroup import ModPGroup
 
-    if name in VOG_GROUPS:
-        return ModPGroup(*vog_group(name), device="cuda")
+    if name in FILE_GROUPS:
+        return ModPGroup(*file_group(name), device="cuda")
     return ModPGroup.named(name, device="cuda")
 
 
@@ -1822,15 +1892,17 @@ def slice_phase(name: str, n: int, tmp: Path):
     if sorted(_points(group, plain)) != sorted(msgs):
         raise AssertionError("plaintext multiset not preserved")
     extra = {}
-    if name in VOG_GROUPS:
-        # every Montgomery launch of the mix at W = 32, converting at
-        # the odd limb count (the field and the scalar ring alike)
+    if name in FILE_GROUPS:
+        # every Montgomery launch of the mix at the group's width: W = 32
+        # for the fresh groups, converting at the odd limb count (the
+        # field and the scalar ring alike), W = 192 and 256 for RFC_GROUPS
         conv = group.ctx.L % 2 == 1
-        want = {(k, VOG_WORDS, conv) for k in K.KERNELS}
+        w = RFC_GROUPS.get(name, VOG_WORDS)
+        want = {(k, w, conv) for k in K.KERNELS}
         if set(by_width) != want:
             raise AssertionError(f"{name} mix launched at {sorted(by_width)}"
                                  f", expected {sorted(want)}")
-        extra = {"W": VOG_WORDS, "conv": conv, "L": group.ctx.L,
+        extra = {"W": w, "conv": conv, "L": group.ctx.L,
                  "launches_at_w": json.dumps(
                      {k: c for (k, _, _), c in sorted(by_width.items())},
                      separators=(",", ":"))}
@@ -1839,13 +1911,17 @@ def slice_phase(name: str, n: int, tmp: Path):
     if not ok:
         raise AssertionError("port verifier rejected the mix transcript")
     peak = torch.cuda.max_memory_allocated()
+    # the fixed-base tables the mix and the verify left in the field's
+    # cache (MontCtx._FB_CACHE_MAX of them at most)
+    tables = list(group.ctx._fb_tables.values())
     if not tampered_rejected(params, nizkp, tmp):
         raise AssertionError("tampered transcript accepted")
     phase("slice", group=name, k=1, N=n, multiset=True,
           verify_ok=True, tampered_rejected=True, **extra,
           mix_s=f"{mix_s:.3f}", verify_s=f"{verify_s:.3f}",
           mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
-          max_memory_allocated=peak,
+          max_memory_allocated=peak, fb_tables=len(tables),
+          fb_table_bytes=sum(t.numel() * t.element_size() for t in tables),
           phase_s=f"{time.perf_counter() - t0:.1f}")
     widths = multiexp_widths(group, {"mix": mix_calls,
                                      "verify": verify_calls})
@@ -2638,8 +2714,8 @@ def main(argv=None) -> int:
         return cli_party(argv[2:] if argv[1:2] == ["--"] else argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10000,
-                    help="ciphertexts in the modp2048, modp3072 and modp4096 "
-                         "mixes (default 10000)")
+                    help="ciphertexts in the modp2048, modp3072, modp4096, "
+                         "vog and modp6144/8192 mixes (default 10000)")
     ap.add_argument("--ec-n", type=int, default=1 << 17,
                     help="ciphertexts in the P-256, P-224, P-384 and P-521 "
                          "mixes (default 131072)")
@@ -2651,7 +2727,7 @@ def main(argv=None) -> int:
                          "(default 1000)")
     ap.add_argument("--profile", choices=["modp2048", *EC_PATH_CURVES,
                                           "modp2048-k3", "modp3072",
-                                          "modp4096", *VOG_GROUPS],
+                                          "modp4096", *FILE_GROUPS],
                     action="append", default=[],
                     help="after the phases, profile one more mix + verify "
                          "of this path (host spans, device time by kernel, "
@@ -2682,12 +2758,20 @@ def main(argv=None) -> int:
     for w, info in K.BUILD_INFO["widths"].items():
         lib = Path(info["path"]).name
         obj_s, link_s = compiled.get(lib, (0.0, 0.0))
+        lines = ptxas_summary(info["ptxas"])
+        # each instantiation's registers, and the width's spill bytes
+        regs = dict(re.match(r"(\S+) regs=(\d+)", x).groups() for x in lines)
+        spill = sum(int(b) for x in lines
+                    for b in re.findall(r"spill_(?:st|ld)=(\d+)B", x))
         phase("build", width=w, lib=lib, built=lib in compiled,
               compile_s=f"{obj_s:.1f}", linked_s=f"{link_s:.1f}",
               tpis=json.dumps({k: list(v) for k, v in
                                K.width_tpis(w).items()},
-                              separators=(",", ":")))
-        for line in ptxas_summary(info["ptxas"]):
+                              separators=(",", ":")),
+              regs=json.dumps({k: int(v) for k, v in regs.items()},
+                              separators=(",", ":")),
+              spill_bytes=spill)
+        for line in lines:
             print(f"  ptxas w{w} " + line)
 
     t0 = time.perf_counter()
@@ -2725,12 +2809,12 @@ def main(argv=None) -> int:
         golden_phase(tmp, "test256", maxciph=8, arrays_file=True)
         golden_k3_phase(tmp)
         golden_k3_phase(tmp, "P-224")
-        for group in (*WIDE_GROUPS, *VOG_GROUPS):
+        for group in (*WIDE_GROUPS, *FILE_GROUPS):
             golden_phase(tmp, group)
         modp, modp_sizes, modp_widths, modp_s = slice_phase(
             "modp2048", args.n, tmp)
         wide_mix = {group: slice_phase(group, args.n, tmp)
-                    for group in (*WIDE_GROUPS, *VOG_GROUPS)}
+                    for group in (*WIDE_GROUPS, *FILE_GROUPS)}
         # curve: (launches, by batch, H6's calls, mix seconds); P-224's
         # k=1 mix at P224_SLICE_N, its H6 at --ec-n in the k=3 mix below
         ec_paths = {curve: slice_phase(curve, min(args.ec_n, P224_SLICE_N)
@@ -2838,10 +2922,16 @@ def main(argv=None) -> int:
                 **{f"{g} mix": r[0][name] for g, r in wide_mix.items()},
                 **{f"{c} mix": ec_paths[c][0][name] for c in curve_w},
                 "P-224 k=3 mix": ec3[name]}
-            # the same kernel at W = 96 and 128: its checks there
+            # the same kernel at W = 96 and 128: its checks there; at
+            # W = 192 and 256 (RFC_GROUPS, built on demand) also its
+            # launches in those groups' mixes
             kernels[-1]["wide"] = {
                 g: checks_at(checks, name, f"_w{W}", K.KERNELS)
                 for g, W in WIDE_GROUPS.items()}
+            kernels[-1]["rfc"] = {
+                g: {"W": W, "launches": wide_mix[g][0][name],
+                    "checks": checks_at(checks, name, f"_w{W}", K.KERNELS)}
+                for g, W in RFC_GROUPS.items()}
             # at W = 32 (vog1000: W' = 32, converting): its launches in
             # the fresh groups' mixes and its checks there
             kernels[-1]["vog"] = {

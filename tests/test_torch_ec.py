@@ -503,10 +503,11 @@ def test_p224_on_the_card_raises_by_width():
     (R = 2^224, R' = 2^256).  Every Montgomery wrapper converts there
     (`CONVERTS`); on a tensor that is not on the CPU H7 alone, off every
     path, raises a ValueError naming that inner width, before any build
-    or launch and with no plain fallback.  A ModP group past the
-    kernels' cap of 128 words (8192 bits: L = 512) gets no modulus off
-    the CPU: `Modulus.of` raises naming the cap, before any build; a
-    1024-bit one (`vog -bitlen 1024`) maps to W = 32, built on demand.
+    or launch and with no plain fallback.  An 8192-bit ModP group (L =
+    512) maps to W = 256, built on demand; one past the kernels' cap of
+    256 words (8224 bits: L = 514) gets no modulus off the CPU:
+    `Modulus.of` raises naming the cap, before any build; a 1024-bit one
+    (`vog -bitlen 1024`) maps to W = 32, built on demand.
     P-521 maps to its inner width W' = 20 and P-384 to W = 12.  (A
     tensor on the "meta" device stands in for the card's: the wrappers
     take the plain versions for CPU tensors alone.)"""
@@ -530,9 +531,12 @@ def test_p224_on_the_card_raises_by_width():
                        r"L=14 at its inner width W=8"):
         E.ec_fb_exp(tbl, tbl, x, mod)
     m8192 = (1 << 8191) + 1155  # odd, 8192 bits
-    with pytest.raises(ValueError, match=r"no kernel for L=512 limbs: 256 "
-                       r"words pass the cap of 128 words \(4096 bits\)"):
-        E.K.Modulus.of(m8192, 512, meta)
+    wide = E.K.Modulus.of(m8192, 512, meta)
+    assert (wide.L, wide.W, wide.conv) == (512, 256, False)
+    m8224 = (1 << 8223) + 1155  # odd, 8224 bits
+    with pytest.raises(ValueError, match=r"no kernel for L=514 limbs: 288 "
+                       r"words pass the cap of 256 words \(8192 bits\)"):
+        E.K.Modulus.of(m8224, 514, meta)
     m1024 = (1 << 1023) + 1155
     wide = E.K.Modulus.of(m1024, 64, meta)
     assert (wide.L, wide.W, wide.conv) == (64, 32, False)

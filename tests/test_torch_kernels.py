@@ -518,7 +518,11 @@ def test_cuda_combine_matches_plain(group, nbits, cuda_device):
 def test_cuda_fb_exp_every_tpi(w, window, tpi, n, cuda_device, monkeypatch):
     """H3 at each (W, window, TPI) it is built for, the TPI forced through
     its rule: one element, and batches that are no multiple of a block;
-    exponents all ones and 0 among random ones."""
+    exponents all ones and 0 among random ones.  A width the main
+    library lacks (W = 32) has its library built before the rule is
+    forced, so that it holds every TPI of the rule."""
+    if w not in K._WIDTHS:
+        K.width_library(w)
     monkeypatch.setitem(K.COOP_TPI, ("mont_fb_exp", w), ((1, tpi),))
     tc = TCtx(modulus(WIDTH_GROUP[w]), cuda_device)
     nbits = tc.nbits - 1 if window == 8 else 256

@@ -18,7 +18,7 @@ makes them, against `vmn_tpu` on the CPU.
   a safe prime's limbs are the same in both.
 * `Modulus.of`, the one map from a limb count to the kernels' words:
   every earlier width kept, W = 32 at L = 64, W' = 32 converting at
-  L = 63, the cap of 128 words off the CPU; a failed on-demand build
+  L = 63, the cap of 256 words off the CPU; a failed on-demand build
   raises with nvcc's log, and an entry point the main library lacks
   goes to the width's library (stand-in libraries, no card).
 * The plain versions of H1-H4 and K7's combine at L = 64 and 63, and H3
@@ -40,18 +40,13 @@ import torch
 
 from torch_port_util import (  # noqa: F401 (cuda_device: fixture)
     TV_NAMES, as_np, assert_same_transcript, cuda_device, edge_values,
-    limbs_np, modulus, rand_ints,
+    group_file, group_pqg as vog_pqg, limbs_np, modulus, rand_ints,
 )
 from vmn_tpu_torch.arith.mont import MontCtx as TCtx, device_limbs
 from vmn_tpu_torch.ops import mont_kernels as K
 
 GOLDEN = Path(__file__).parent / "golden"
 VOG = {"vog1024": 1024, "vog1000": 1000}
-
-
-def vog_pqg(name: str) -> tuple:
-    f = json.loads((GOLDEN / f"group_{name}.json").read_text())
-    return int(f["p"], 16), int(f["q"], 16), int(f["g"], 16)
 
 
 def _port_group(name: str):
@@ -128,7 +123,7 @@ def test_group_file_holds_a_safe_prime(name):
     from vmn_tpu_torch.crypto.primes import miller_rabin
     from vmn_tpu_torch.crypto.randomsource import SeededSource
 
-    f = json.loads((GOLDEN / f"group_{name}.json").read_text())
+    f = group_file(name)
     p, q, g = vog_pqg(name)
     assert f["bits"] == VOG[name] == p.bit_length()
     assert f["seed"] == f"golden-group-{VOG[name]}"
@@ -265,15 +260,18 @@ def test_modulus_words(L, W, conv):
 
 
 def test_modulus_cap():
-    """Above 128 words (a 6144- or 8192-bit group) no kernel is built:
-    off the CPU the map raises naming the cap; the plain versions on the
-    CPU take any width."""
+    """A 6144- or 8192-bit group maps to W = 192 or 256; above 256 words
+    (8224 bits) no kernel is built: off the CPU the map raises naming
+    the cap; the plain versions on the CPU take any width."""
     m = (1 << 8191) + 1
-    with pytest.raises(ValueError, match="cap of 128 words"):
-        K.Modulus.of(m, 512, torch.device("meta"))
-    with pytest.raises(ValueError, match="cap of 128 words"):
-        K.kernel_words(384)
-    assert K.Modulus.of(m, 512, "cpu").W == 256
+    assert K.Modulus.of(m, 512, torch.device("meta")).W == 256
+    assert K.kernel_words(384) == 192
+    m = (1 << 8223) + 1
+    with pytest.raises(ValueError, match="cap of 256 words"):
+        K.Modulus.of(m, 514, torch.device("meta"))
+    with pytest.raises(ValueError, match="cap of 256 words"):
+        K.kernel_words(514)
+    assert K.Modulus.of(m, 514, "cpu").W == 257
 
 
 # -------------------------------------------------- the on-demand build

@@ -32,7 +32,8 @@ import pytest
 import torch
 
 from torch_port_util import (  # noqa: F401 (cuda_device: fixture)
-    TV_NAMES, as_np, cuda_device, edge_values, limbs_np, modulus, rand_ints,
+    TV_NAMES, as_np, cuda_device, edge_values, group_pqg, limbs_np, modulus,
+    rand_ints,
 )
 from vmn_tpu_torch import interop
 from vmn_tpu_torch.arith.mont import MontCtx as TCtx, device_limbs
@@ -210,15 +211,18 @@ def test_fb_stage_fits_a_block(w):
 # ------------------------------------------------------------- the slice
 
 
-def _params(name):
-    from vmn_tpu_torch.arith.pgroup import ModPGroup
+def _params(name, device="cpu"):
+    """The golden's parameters over a named RFC 3526 group or a group
+    file's (modp6144, modp8192: `group_file`)."""
+    from vmn_tpu_torch.arith.pgroup import _NAMED_GROUPS, ModPGroup
     from vmn_tpu_torch.protocol.context import ProtocolParams
 
-    return ProtocolParams(sid="Golden", k=1, threshold=1,
-                          pgroup=ModPGroup.named(name, device="cpu"))
+    group = (ModPGroup.named(name, device=device) if name in _NAMED_GROUPS
+             else ModPGroup(*group_pqg(name), device=device))
+    return ProtocolParams(sid="Golden", k=1, threshold=1, pgroup=group)
 
 
-def verify_wide_golden(name, tmp_path):
+def verify_wide_golden(name, tmp_path, device="cpu"):
     """The port's verifier on vmn_tpu's golden transcript of `name`:
     accepted, with vmn_tpu's test vectors; then rejected with one byte
     of the full public key's generator changed, g = 4 -> 9 (another
@@ -229,7 +233,8 @@ def verify_wide_golden(name, tmp_path):
     )
 
     golden = GOLDEN / f"nizkp_{name}_k1"
-    v = FiatShamirVerifier(_params(name), golden, test_vectors=TV_NAMES)
+    v = FiatShamirVerifier(_params(name, device), golden,
+                           test_vectors=TV_NAMES)
     res = v.verify(expected_type="mixing")
     assert res.ok and res.shuffle_ok and res.decrypt_ok
     want = json.loads((GOLDEN / f"test_vectors_{name}.json").read_text())
@@ -243,7 +248,8 @@ def verify_wide_golden(name, tmp_path):
     raw[at] = 0x09
     fpk.write_bytes(bytes(raw))
     with pytest.raises(VerificationError, match="standard generator"):
-        FiatShamirVerifier(_params(name), bad).verify(expected_type="mixing")
+        FiatShamirVerifier(_params(name, device), bad).verify(
+            expected_type="mixing")
 
 
 def test_port_verifier_accepts_vmn_tpu_modp3072_golden(tmp_path):
@@ -253,29 +259,25 @@ def test_port_verifier_accepts_vmn_tpu_modp3072_golden(tmp_path):
 # ---------------------------------------------- on the card (skipped here)
 
 
-def _wide_case(kernel, name, n, device):
-    """(kernel output, plain output) at a wide group on n elements:
-    256-bit exponents, H3 at window 8 on full-width ones."""
+def _wide_case(kernel, name, n, device, window=8):
+    """(kernel call, plain call) at a wide group on n elements: 256-bit
+    exponents, H3 at window 8 on full-width ones and at window 4 on
+    256-bit ones; the inputs are made first (encoding launches H1)."""
     tc = TCtx(modulus(name), device)
     rng = np.random.default_rng(n + tc.L)
     xs = (edge_values(tc.m)[1:] + rand_ints(rng, n, tc.m))[:n]
     base = tc.encode(xs)
-    bits = 256 if kernel != "mont_fb_exp" else tc.nbits - 1
+    bits = tc.nbits - 1 if (kernel, window) == ("mont_fb_exp", 8) else 256
     es = ([(1 << bits) - 1, 0] + rand_ints(rng, n, 1 << bits))[:n]
     e = device_limbs(limbs_np(es, -(-bits // 16)), device)
     if kernel == "mont_mul":
-        other = tc.encode(rand_ints(rng, n, tc.m))
-        return (K.mont_mul(base, other, tc.mod),
-                K.mont_mul_plain(base, other, tc.mod))
-    if kernel == "mont_exp":
-        return (K.mont_exp(base, e, tc.mod, bits),
-                K.mont_exp_plain(base, e, tc.mod, bits))
-    if kernel == "mont_fb_exp":
-        table = tc.fixed_base_table(5, bits, 8)
-        return (K.mont_fb_exp(table, e, tc.mod),
-                K.mont_fb_exp_plain(table, e, tc.mod))
-    return (K.mont_expprod_positions(base, e, tc.mod, bits),
-            K.mont_expprod_positions_plain(base, e, tc.mod, bits))
+        args = (base, tc.encode(rand_ints(rng, n, tc.m)), tc.mod)
+    elif kernel == "mont_fb_exp":
+        args = (tc.fixed_base_table(5, bits, window), e, tc.mod)
+    else:
+        args = (base, e, tc.mod, bits)
+    return (lambda: getattr(K, kernel)(*args),
+            lambda: getattr(K, kernel + "_plain")(*args))
 
 
 @pytest.mark.cuda
@@ -288,7 +290,11 @@ def test_cuda_wide_kernel_matches_plain(kernel, name, tpi, n, cuda_device,
     """Each kernel at W = 96 and 128 at each TPI of its rule (forced
     through the rule), against its plain version."""
     monkeypatch.setitem(K.COOP_TPI, (kernel, WIDE[name]), ((1, tpi),))
-    got, want = _wide_case(kernel, name, n, cuda_device)
+    run, plain = _wide_case(kernel, name, n, cuda_device)
+    K.reset_launches()
+    got = run()
+    assert K.LAUNCHES[kernel] == 1
+    want = plain()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 

@@ -29,10 +29,21 @@ test_vectors_vog{1024,1000}.json, and the group (p, q, g in hex, the
 seed and the bit length) to tests/golden/group_vog{1024,1000}.json.
 tests/test_torch_vog_groups.py holds the port to them.
 
+Two RFC 3526 groups past 4096 bits: "modp6144" (section 6, group 17) and
+"modp8192" (section 7, group 18), p from the RFC's formula
+p = 2^b - 2^(b-64) - 1 + 2^64 (floor(2^(b-130) pi) + c), q = (p - 1)/2
+and g = 4 as in vmn_tpu's named RFC 3526 groups, each with the k=1
+golden mix above (five messages) to tests/golden/nizkp_modp{6144,8192}_k1
+and test_vectors_modp{6144,8192}.json, and the group (p, q, g in hex, the
+RFC's section and the bit length) to tests/golden/group_modp{6144,8192}.json.
+tests/test_torch_wide_6144.py holds the port to the first on the CPU,
+tests/test_torch_wide_8192.py to the second on a CUDA device.
+
 Usage (from the repo root; minutes on one CPU core's worth of a
 recent x86 server: about 2 for the two ModP groups, 1 for P-224, 1.5
 for P-384, 2 for P-521, 1.5 for P-224-k3 and P-224-coins together, 1.5
-for vog1024 and vog1000 together, their safe-prime searches included):
+for vog1024 and vog1000 together, their safe-prime searches included,
+3 for modp6144 and 7 for modp8192):
     JAX_PLATFORMS=cpu python tests/torch_make_wide_golden.py [GROUP ...]
 """
 
@@ -45,10 +56,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
 GROUPS = ("modp3072", "modp4096", "P-224", "P-384", "P-521", "P-224-k3",
-          "P-224-coins", "vog1024", "vog1000")
+          "P-224-coins", "vog1024", "vog1000", "modp6144", "modp8192")
 # The fresh groups: name -> (bits, seed of vmn_tpu's random_group).
 VOG = {"vog1024": (1024, b"golden-group-1024"),
        "vog1000": (1000, b"golden-group-1000")}
+# The RFC 3526 groups past 4096 bits: name -> (b, c, the RFC's section);
+# the three of vmn_tpu (RFC3526_NAMED) check the formula.
+RFC3526 = {"modp6144": (6144, 929484, "RFC 3526 §6 (group 17)"),
+           "modp8192": (8192, 4743158, "RFC 3526 §7 (group 18)")}
+RFC3526_NAMED = {"modp2048": (2048, 124476), "modp3072": (3072, 1690314),
+                 "modp4096": (4096, 240904)}
 # The coin-flipping run of vmn_tpu's tests/test_mixnet_ec.py.
 COIN_SID, COIN_K, COIN_T, COIN_BYTES = "ECCoin", 3, 2, 8
 COINS_FILE = "coinflip_p224_k3.json"
@@ -83,6 +100,42 @@ def vog_group(name: str):
     (GOLDEN / group_file(name)).write_text(json.dumps(
         {"p": hex(grp.p), "q": hex(grp.q), "g": hex(grp.g_int),
          "seed": seed.decode(), "bits": bits}, indent=1) + "\n")
+    return grp
+
+
+def rfc3526_prime(b: int, c: int) -> int:
+    """RFC 3526's MODP prime of b bits:
+    2^b - 2^(b-64) - 1 + 2^64 (floor(2^(b-130) pi) + c)."""
+    import mpmath
+
+    with mpmath.workprec(b + 64):
+        frac = int(mpmath.floor(mpmath.ldexp(mpmath.pi, b - 130)))
+    return (1 << b) - (1 << (b - 64)) - 1 + (1 << 64) * (frac + c)
+
+
+def rfc_group(name: str):
+    """vmn_tpu's ModPGroup over the RFC 3526 group `name` (RFC3526),
+    registered under that name with vmn_tpu's ModPGroup.named; the
+    formula is first held to vmn_tpu's three named RFC 3526 primes and p
+    and q = (p - 1)/2 to Miller-Rabin.  Its p, q, g are written to
+    tests/golden/group_{name}.json."""
+    from vmn_tpu.arith.pgroup import _NAMED_GROUPS, ModPGroup
+    from vmn_tpu.crypto.primes import miller_rabin
+    from vmn_tpu.crypto.randomsource import SeededSource
+
+    for named, (b, c) in RFC3526_NAMED.items():
+        assert rfc3526_prime(b, c) == _NAMED_GROUPS[named][0], named
+    b, c, source = RFC3526[name]
+    p = rfc3526_prime(b, c)
+    q, g = (p - 1) // 2, 4
+    rs = SeededSource(f"rfc3526-{b}".encode())
+    assert p.bit_length() == b
+    assert miller_rabin(p, rs, 8) and miller_rabin(q, rs, 8), name
+    grp = ModPGroup(p, q, g)
+    ModPGroup._NAMED[name] = grp
+    (GOLDEN / group_file(name)).write_text(json.dumps(
+        {"p": hex(p), "q": hex(q), "g": hex(g), "source": source,
+         "bits": b}, indent=1) + "\n")
     return grp
 
 
@@ -124,6 +177,8 @@ def main(argv) -> int:
             continue
         if group in VOG:
             vog_group(group)
+        if group in RFC3526:
+            rfc_group(group)
         dirname, tvname = fixture_names(group)
         kw = {"k": 3, "threshold": 2} if group.endswith("-k3") else {}
         with tempfile.TemporaryDirectory() as tmp:

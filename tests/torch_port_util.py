@@ -6,6 +6,7 @@ port's limbs come back as uint32 numpy arrays so that a comparison with
 arithmetic, so every tolerance in these tests is exact equality.
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -154,17 +155,37 @@ def modp2048_p() -> int:
     return _RFC3526_2048
 
 
+def group_file(name: str) -> dict:
+    """The group of tests/golden/group_{name}.json, as
+    tests/torch_make_wide_golden.py writes it: a fresh one (vog1024,
+    vog1000: "seed") or an RFC 3526 one past 4096 bits (modp6144,
+    modp8192: "source"); p, q and g as ints, "bits" and the rest as
+    written."""
+    f = json.loads((GOLDEN / f"group_{name}.json").read_text())
+    return {**f, **{k: int(f[k], 16) for k in ("p", "q", "g")}}
+
+
+def group_pqg(name: str) -> tuple:
+    """(p, q, g) of a group file (`group_file`)."""
+    f = group_file(name)
+    return f["p"], f["q"], f["g"]
+
+
 def modulus(name: str) -> int:
-    """The modulus of test256 or of a named RFC 3526 group (modp2048,
-    modp3072, modp4096)."""
+    """The modulus of test256, of a named RFC 3526 group (modp2048,
+    modp3072, modp4096) or of a group file (`group_file`)."""
     from vmn_tpu_torch.arith.pgroup import _NAMED_GROUPS
 
-    return TEST256_P if name == "test256" else _NAMED_GROUPS[name][0]
+    if name == "test256":
+        return TEST256_P
+    if name in _NAMED_GROUPS:
+        return _NAMED_GROUPS[name][0]
+    return group_pqg(name)[0]
 
 
-# The named group of each width W = L/2 of the Montgomery kernels.
-WIDTH_GROUP = {8: "test256", 64: "modp2048", 96: "modp3072",
-               128: "modp4096"}
+# The group of each width W = L/2 of the Montgomery kernels.
+WIDTH_GROUP = {8: "test256", 32: "vog1024", 64: "modp2048", 96: "modp3072",
+               128: "modp4096", 192: "modp6144", 256: "modp8192"}
 
 
 def rand_ints(rng: np.random.Generator, n: int, bound: int) -> list:

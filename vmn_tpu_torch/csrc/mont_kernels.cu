@@ -61,7 +61,15 @@
 //   W = 32 (on demand): mont_mul TPI 8/16: 32/30; mont_exp 39/32;
 //           mont_fb_exp 36/26 (either window); mont_expprod TPI 8: 53;
 //           chain 26.
+//   W = 192 (on demand, modp6144): mont_mul TPI 16/32: 67/40; mont_exp
+//           TPI 32: 46 (TPI 16, swept and not built: 72); mont_fb_exp
+//           48 (either window); mont_expprod 62; chain 61.
+//   W = 256 (on demand, modp8192), all TPI 32: mont_mul 47; mont_exp 56
+//           (TPI 16, swept and not built: 84 / 93 for mont_mul /
+//           mont_exp); mont_fb_exp 59 / 55 (window 8 / 4); mont_expprod
+//           64; chain 64.
 //   The boundary passes (mont_rebase_table_kernel, _rows_kernel): 26-48.
+//   (W = 192 and 256: on an NVIDIA H100 80GB HBM3 at 700 W.)
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -112,7 +120,8 @@ __global__ void __launch_bounds__(kThreads)
 // `one` is then the kernel's own (R' mod m).
 // A block of 128 threads holds 128/TPI elements at 16·4·W bytes each
 // (4 KB at W = 64): 64 KB at TPI = 8, 16 KB at TPI = 32; above 48 KB the
-// launcher opts in to the larger dynamic shared memory.  The table is
+// launcher opts in to the larger dynamic shared memory (W = 256, TPI 32:
+// 4 elements of 16 KB, 64 KB a block, three blocks in 192 KB).  The table is
 // what bounds the elements resident on an SM (at most 56 at W = 64).
 template <int S>
 __device__ __forceinline__ void select_entry(uint32_t* out,
@@ -242,12 +251,14 @@ __global__ void __launch_bounds__(32)
 // entries are few beside the batch's products), and the kernel takes the
 // result back on store (c_out).  A piece is a digit's 2^WB
 // entries where two of them fit the 227 KB a block may use (every window
-// at W <= 96: 192 KB at window 8, W = 96), else half of them (window 8
-// at W = 128: two 64 KB halves, staged in turn, where two whole digits
-// would take 256 KB); the masked select runs over every entry of every
-// piece of the digit before its product.  At window 8 and W = 64 a
-// buffer is 64 KB, so a
-// block holds the SM's shared memory alone: the launch shape (fb_launch)
+// at W <= 96: 192 KB at window 8, W = 96), else the largest power-of-two
+// share of them of which two fit (fb_pieces): halves at window 8 and
+// W = 128 (two 64 KB halves, staged in turn, where two whole digits would
+// take 256 KB) and W = 192 (two 96 KB halves), quarters at W = 256 (two
+// 64 KB quarters, where two halves would take 256 KB); the masked select
+// runs over every entry of every piece of the digit before its product.
+// At window 8 and W = 64 a buffer is 64 KB, so a block holds the SM's
+// shared memory alone: the launch shape (fb_launch)
 // gives a block about N/132 elements, so that N = 10000 is one wave of
 // 132 blocks of 19 warps (TPI 8), where blocks of 128 threads would leave
 // 53 SMs idle.  TPI by the crossovers of COOP_TPI["mont_fb_exp", W].
@@ -258,10 +269,11 @@ __global__ void __launch_bounds__(32)
 // and about half of the kernel's time on the H100 (PERF.md §6).  ptxas
 // (sm_90a): 56 / 36 / 26 registers at W = 64, TPI 8 / 16 / 32 (either
 // window), 26 at W = 8, TPI 4; 32 / 36 at W = 96 / 128, TPI 32 (window
-// 8); no stack frame, no spill.  At W = 96 and 128 only TPI 32 is built:
-// TPI 16 measured slower on the paths' 10000 elements, and a block of
-// 1024 threads caps a thread at 64 registers, which TPI 8's 12 or 16
-// words a slice would pass.
+// 8), 48 / 59 at W = 192 / 256; no stack frame, no spill.  At W = 96 and
+// 128 only TPI 32 is built: TPI 16 measured slower on the paths' 10000
+// elements, and a block of 1024 threads caps a thread at 64 registers,
+// which TPI 8's 12 or 16 words a slice would pass; at W = 192 and 256
+// TPI 32 is the only TPI whose slice (6, 8 words) stays within them.
 __device__ __forceinline__ void cp_async16(uint32_t* dst,
                                            const uint32_t* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -286,11 +298,17 @@ __host__ __device__ constexpr int slice_vec() {
 
 constexpr int kFbShared = 232448;  // the 227 KB a block may opt in to
 
-// Pieces a digit of 2^WB entries of W words is staged in: 1 where two
-// digits fit kFbShared, else 2 (two half digits do).
-template <int W, int WB>
+// Pieces a digit of 2^WB entries of W words is staged in: the smallest
+// power of two P for which two buffers of 1/P of a digit fit kFbShared
+// (fb_pieces in ops/mont_kernels.py mirrors it).
+template <int W, int WB, int P = 1>
 __host__ __device__ constexpr int fb_pieces() {
-  return 2 * (4 << WB) * W <= kFbShared ? 1 : 2;
+  if constexpr (2 * (4 << WB) * W / P <= kFbShared) {
+    return P;
+  } else {
+    static_assert(P < (1 << WB), "a piece would hold no entry");
+    return fb_pieces<W, WB, 2 * P>();
+  }
 }
 
 // V consecutive words from shared memory (16-, 8- or 4-byte aligned).
@@ -429,7 +447,10 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
 // (COOP_TPI): 16 for a few elements, 8 from 1024 at W = 64; at every N
 // 32 lanes were slower, their groups too few for the positions.  At
 // W = 96 and 128, TPI 16 at every N (ptxas: 61 and 64 registers, no
-// spill), where TPI 8's slices would pass the 64 registers.
+// spill), where TPI 8's slices would pass the 64 registers; at W = 192
+// and 256 TPI 32 (62 and 64 registers): an element's table is 12 and
+// 16 KB, so a chunk holds 14 and 10 elements beside 48 and 64 KB of
+// accumulators.
 constexpr int kEpBlock = 1024;  // EP_BLOCK in ops/mont_kernels.py
 constexpr int kEpShared = kFbShared;
 // Words between two elements' tables: 16 entries and 4 words of padding,

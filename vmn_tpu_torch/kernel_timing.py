@@ -81,7 +81,10 @@ ep_shape` for that alone).  `--widths` limits the sweep to those widths
 P-384; `--widths 20`: the same at P-521's inner width).  `--widths 32`
 sweeps a width built on demand (Oakley's 1024-bit group, RFC 2409
 §6.2): H1-H4 at TPI 8, 16 and 32 from a width library built for the
-sweep, H3 at both windows; at W = 96 and 128 H3 also at window 4
+sweep, H3 at both windows; `--widths 192 256` the same at RFC 3526's
+modp6144 and modp8192 (`RFC_WIDE`) at the TPIs that leave a lane at
+most 8 words (32), 16 for H1 and H2 (16 and 32; `SWEEP_SLICE_WORDS`),
+over 3 runs a time; at W = 96 and 128 H3 also at window 4
 (256-bit exponents) from such a library at TPI 16 and 32 (`--widths 96
 128 --only mont_fb_exp` for that alone).  `--curve P-224`
 sweeps P-224's padded moduli in its place: H1 and H2 at the field and
@@ -145,6 +148,25 @@ SWEEP_FB_N[32] = SWEEP_FB_N[64]
 SWEEP_LIBS = {32: ("mont_mul", "mont_exp", "mont_fb_exp",
                    "mont_expprod_positions"),
               96: ("mont_fb_exp",), 128: ("mont_fb_exp",)}
+# RFC 3526's groups past 4096 bits, built on demand (W = 192, 256; p from
+# their group files, tests/golden/group_{name}.json): H1-H4 from a width
+# library of every candidate TPI, H3 at both windows, over N grids cut to
+# the path's shapes and timed over fewer runs (a full-width H2 of 10000
+# elements takes seconds there).
+RFC_WIDE = {192: "modp6144", 256: "modp8192"}
+GOLDEN = Path(__file__).resolve().parent.parent / "tests" / "golden"
+SWEEP_REPS = dict.fromkeys(RFC_WIDE, 3)  # runs a time (10 elsewhere)
+SWEEP_N.update(dict.fromkeys(RFC_WIDE, (1, 4, 16, 64, 256, 1024, 2048, 4096,
+                                        10000)))
+SWEEP_FB_N.update(dict.fromkeys(RFC_WIDE, (1, 16, 256, 1024, 2048, 4096,
+                                           10000)))
+SWEEP_FB_CASES.update(dict.fromkeys(RFC_WIDE, ((8, None), (4, 256))))
+SWEEP_LIBS.update(dict.fromkeys(RFC_WIDE, SWEEP_LIBS[32]))
+# The words a lane of a kernel may hold in a sweep's width library: H3
+# and H4 run blocks of up to 1024 threads (64 registers a thread), so 8
+# (kernel_words); H1 and H2 blocks of 128 (up to 255 and 168 registers),
+# so 16 there: W = 192 and 256 try TPI 16 beside 32.
+SWEEP_SLICE_WORDS = {"mont_mul": 16, "mont_exp": 16}
 # RFC 2409 §6.2, the Oakley 1024-bit MODP group's prime: W = 32.
 _OAKLEY_1024 = int(
     "FFFFFFFFFFFFFFFFC90FDAA22168C234C4C6628B80DC1CD129024E088A67CC74"
@@ -169,6 +191,7 @@ SWEEP_EP_N = {64: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
               32: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
               96: (1, 6, 16, 64, 256, 1024, 4096, 10000),
               128: (1, 6, 16, 64, 256, 1024, 4096, 10000)}
+SWEEP_EP_N.update(dict.fromkeys(RFC_WIDE, SWEEP_EP_N[128]))
 SWEEP_ADD_N = (1, 128, 1024, 4096, 16384, 131072)
 # H4's (elements, exponent bits) on the ModP paths (PERF.md §6): the
 # element count 10000 stands for --n, bits None for |q|.
@@ -248,10 +271,17 @@ def _limbs_of(x: int, dev) -> torch.Tensor:
                         dtype=torch.int32, device=dev)
 
 
+def _group_p(name: str) -> int:
+    """p of a group file (tests/golden/group_{name}.json)."""
+    return int(json.loads((GOLDEN / f"group_{name}.json").read_text())["p"],
+               16)
+
+
 def _moduli(dev, widths=(64, 8)):
     """{W: MontCtx} of modp2048 (64), the P-256 field (8), the P-384 field
     (12), the P-521 field (its inner width 20), Oakley's 1024-bit group
-    (32), modp3072 (96) and modp4096 (128), for the widths asked."""
+    (32), modp3072 (96), modp4096 (128), modp6144 (192) and modp8192
+    (256), for the widths asked."""
     from vmn_tpu_torch.arith.ec import _CURVES
     from vmn_tpu_torch.arith.mont import MontCtx
     from vmn_tpu_torch.arith.pgroup import (
@@ -261,7 +291,8 @@ def _moduli(dev, widths=(64, 8)):
     moduli = {64: _RFC3526_2048, 8: _CURVES["P-256"][0],
               12: _CURVES["P-384"][0], 20: _CURVES["P-521"][0],
               32: _OAKLEY_1024, 96: _RFC3526_3072, 128: _RFC3526_4096}
-    return {w: MontCtx(moduli[w], dev) for w in widths}
+    return {w: MontCtx(moduli[w] if w in moduli else _group_p(RFC_WIDE[w]),
+                       dev) for w in widths}
 
 
 def _tree_widths(K) -> list:
@@ -437,10 +468,12 @@ def _time_ec(E, dev, n: int, tag: str, w: int = 8, curve=None) -> dict:
     }
 
 
-def _sweep_tpis(w: int) -> tuple:
-    """The TPIs a width library for a sweep holds: 8, 16 and 32 where
-    they divide W and leave a lane at most 8 words (kernel_words)."""
-    return tuple(t for t in (8, 16, 32) if w % t == 0 and w // t <= 8)
+def _sweep_tpis(w: int, kernel: str) -> tuple:
+    """The TPIs of `kernel` a width library for a sweep holds: 8, 16 and
+    32 where they divide W and leave a lane at most SWEEP_SLICE_WORDS
+    (8 but for H1 and H2)."""
+    most = SWEEP_SLICE_WORDS.get(kernel, 8)
+    return tuple(t for t in (8, 16, 32) if w % t == 0 and w // t <= most)
 
 
 def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
@@ -467,7 +500,8 @@ def _sweep_kernel(K, kernel: str, w: int, ns, run, rows: list,
             times = {}
             for tpi in tpis:
                 K.COOP_TPI[kernel, w] = ((1, tpi),)
-                times[tpi] = device_ms(lambda: run(n), reps=10)
+                times[tpi] = device_ms(lambda: run(n),
+                                       reps=SWEEP_REPS.get(w, 10))
                 rows.append({"kernel": kernel + tag, "W": w, "N": n,
                              "tpi": tpi, "ms": times[tpi]})
             best.setdefault(f"{kernel}{tag} W={w}", {})[n] = min(
@@ -516,7 +550,7 @@ def sweep(only=(), widths=(), curve=None) -> dict:
                    if not widths or w in widths]
     for w, ctx in _moduli(dev, mont_widths).items():
         if w in on_demand:
-            K.width_library(w, {k: _sweep_tpis(w) for k in SWEEP_LIBS[w]
+            K.width_library(w, {k: _sweep_tpis(w, k) for k in SWEEP_LIBS[w]
                                 if not only or k in only})
         ebits = _full_bits(ctx) if w not in EC_CURVES else EC_CURVES[w][1]
         top = max(SWEEP_N[w])

@@ -29,11 +29,11 @@ padded with zero limbs, and convert at their boundary (`Modulus`);
 nothing outside the kernels changes.  `kernel_words` maps L to the
 kernels' words: a width of the main library (_WIDTHS) where L/2 is one,
 else ⌈L/2⌉ rounded up to 8 words (16 above 64), to at most MAX_WORDS =
-128 (4096 bits).  A width, or a kernel at a width, that the main
+256 (8192 bits).  A width, or a kernel at a width, that the main
 library lacks is built at its first use (`width_library`: one nvcc of
 csrc/mont_kernels.cu with -DVMN_W=w, the TPIs of `coop_rule`), so every
-ModP group up to 4096 bits runs on the card, as `vog -bitlen n` makes
-them.
+ModP group up to 8192 bits runs on the card, as `vog -bitlen n` makes
+them, RFC 3526's modp6144 (W = 192) and modp8192 (W = 256) among them.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
@@ -91,7 +91,9 @@ design does about it):
   block holds an SM's shared memory alone; `fb_launch` sizes the blocks
   so that N = 10000 fills the 132 SMs once.  At 4096 bits two digits
   (256 KB) pass the 227 KB a block may use: the digit is staged in two
-  halves, the select running over both before the product.  Bound by the products (one
+  halves (so at 6144 bits, two 96 KB halves), at 8192 bits in quarters
+  (`fb_pieces`), the select running over every piece before the
+  product.  Bound by the products (one
   a digit) and, at window 8, by the select, which costs about as much
   as the product it feeds.  The TPU's one-hot f32 MXU gather is not
   carried over.
@@ -201,29 +203,31 @@ INNER_WORDS = {14: 8, 33: 20}
 # modp2048, modp3072, modp4096.  Every other width a modulus asks for is
 # built on demand (`build_widths`).
 _WIDTHS = (8, 12, 20, 64, 96, 128)
-# The widest modulus the kernels take: 128 words, 4096 bits.  Wider (a
-# 6144- or 8192-bit group) would need H3's window-8 digit staged in
-# quarters; no kernel is built there.
-MAX_WORDS = 128
+# The widest modulus the kernels take: 256 words, 8192 bits (RFC 3526's
+# modp6144 at W = 192 and modp8192 at W = 256, built on demand).  Wider
+# raises: TPI 32 would leave a lane more than 8 words.
+MAX_WORDS = 256
 
 
 def kernel_words(L: int) -> int:
     """The words the kernels compute a modulus of L limbs at (Modulus.W):
     INNER_WORDS[L]; else L/2 where the main library is built at it; else
-    ⌈L/2⌉ rounded up to a multiple of 8 words (of 16 above 64), built on
-    demand, with the boundary conversion where that is not L/2.  The
-    rounding keeps a lane's slice within 8 words: the cooperative
-    product needs TPI | W (`CoopMontSum`), and H3's and H4's blocks of up
-    to 1024 threads (kFbBlock, kEpBlock) cap a thread at 64 registers,
-    which W/TPI = 8 words fill (W = 64, TPI 8: 56 and 64 registers, no
-    spill); W a multiple of 8 (16) has TPI 8 (16) among its divisors
-    (`coop_rule`).  Raises a ValueError above MAX_WORDS."""
+    ⌈L/2⌉ rounded up to a multiple of 8 words (of 16 above 64, of 32
+    above 128), built on demand, with the boundary conversion where that
+    is not L/2.  The rounding keeps a lane's slice within 8 words: the
+    cooperative product needs TPI | W (`CoopMontSum`), and H3's and H4's
+    blocks of up to 1024 threads (kFbBlock, kEpBlock) cap a thread at 64
+    registers, which W/TPI = 8 words fill (W = 64, TPI 8: 56 and 64
+    registers, no spill); W a multiple of 8 (16, 32) has TPI 8 (16, 32)
+    among its divisors (`coop_rule`): 6144 bits (L = 384) at W = 192,
+    8192 bits (L = 512) at W = 256, each at TPI 32.  Raises a ValueError
+    above MAX_WORDS."""
     if L in INNER_WORDS:
         return INNER_WORDS[L]
     if L % 2 == 0 and L // 2 in _WIDTHS:
         return L // 2
     w = -(-L // 2)
-    step = 8 if w <= 64 else 16
+    step = 8 if w <= 64 else 16 if w <= 128 else 32
     w = -(-w // step) * step
     if w > MAX_WORDS:
         raise ValueError(f"no kernel for L={L} limbs: {w} words pass the "
@@ -756,6 +760,17 @@ _BAD_SHAPE = -2
 # rule, TPI 32: it was the faster at N <= 256 and at the 10000 a path
 # gives (4.823 / 7.000 ms against 4.907 / 8.384 at TPI 16), TPI 16 from
 # 1024 to 8192 (by up to 24 %), an N no path sends at those widths.
+# At W = 192 and 256 (RFC 3526's modp6144 and modp8192, built on demand;
+# `kernel_timing.py --sweep --widths 192 256`, each N of 1 to 10000 and
+# full-width and 256-bit exponents, 3 runs a time; NVIDIA H100 80GB HBM3,
+# 700 W): H3 and H4 are built at TPI 32 alone (6 and 8 words a lane;
+# TPI 16's 12 and 16 would pass the 64 registers of their 1024-thread
+# blocks); H1 and H2 were swept at TPI 16 too (ptxas: 67 / 72 registers
+# at W = 192, 84 / 93 at 256, no spill).  H1 at W = 192 crosses to TPI 16
+# between 2048 and 4096 (0.1822 against 0.1888 ms at 10000), at W = 256
+# TPI 32 was faster at every N (0.3267 against 0.3312 at 10000); H2 at
+# TPI 32 at every N at both widths (1334.9 / 3082.2 ms against 1442.7 /
+# 3821.9 at 10000, 89.1 / 198.1 against 159.5 / 366.7 on one).
 # Every other width of `kernel_words` takes the nearest rule at or above
 # it (`coop_rule`).
 COOP_TPI = {
@@ -779,6 +794,14 @@ COOP_TPI = {
     ("mont_exp", 32): ((2048, 8), (1, 16)),
     ("mont_fb_exp", 32): ((4096, 8), (1, 16)),
     ("mont_expprod_positions", 32): ((1, 8),),
+    ("mont_mul", 192): ((4096, 16), (1, 32)),
+    ("mont_exp", 192): ((1, 32),),
+    ("mont_fb_exp", 192): ((1, 32),),
+    ("mont_expprod_positions", 192): ((1, 32),),
+    ("mont_mul", 256): ((1, 32),),
+    ("mont_exp", 256): ((1, 32),),
+    ("mont_fb_exp", 256): ((1, 32),),
+    ("mont_expprod_positions", 256): ((1, 32),),
     ("ec_scalar_mul", 8): ((16384, 2), (1, 4)),
     ("ec_multiexp_combine", 8): ((1, 8),),
     ("ec_point_add", 8): ((16384, 2), (4096, 4), (1, 8)),
@@ -845,9 +868,20 @@ def coop_launch(kernel: str, w: int, n: int):
 
 FB_BLOCK = 1024  # H3's threads a block at most (kFbBlock in mont_coop.cuh)
 # The 227 KB of shared memory a block may opt in to (kFbShared): H3 stages
-# a digit's entries twice within it, or half a digit's where two digits
-# do not fit (window 8 at W = 128).
+# a digit's entries twice within it, or a share of them where two digits
+# do not fit (`fb_pieces`).
 FB_SHARED = 232448
+
+
+def fb_pieces(w: int, window: int) -> int:
+    """The pieces H3 stages a digit of 2^window entries of W words in
+    (fb_pieces in csrc/mont_kernels.cu): the smallest power of two P for
+    which two buffers of 1/P of a digit fit FB_SHARED.  Window 8: 1 up to
+    W = 96, 2 at W = 128 and 192, 4 at W = 256."""
+    p = 1
+    while 2 * 4 * (1 << window) * w // p > FB_SHARED:
+        p *= 2
+    return p
 
 
 def fb_launch(w: int, n: int, sms: int):
