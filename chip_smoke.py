@@ -5,6 +5,9 @@ Usage:  python3 chip_smoke.py [--n N] [--ec-n N] [--k3-n N] [--k3i-n N]
         python3 chip_smoke.py --cli-party -- <vmn arguments>
           (one `vmn` of the port on the card, its launches and board
           figures on its last line: the party processes of phase 10)
+        python3 chip_smoke.py --shard-rank -- <workdir> <N> <EC N>
+          (one rank, by the VMN_DIST_* triplet, of the sharded mixes of
+          phase 7: a JSON line a mix)
 
 Phases (one line each; any failure raises and the exit code is not 0):
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -109,7 +112,19 @@ Phases (one line each; any failure raises and the exit code is not 0):
   7. the EC paths: the same at P-256, P-384 and P-521 with --ec-n
      ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6)
      and at P-224 with min(--ec-n, 65536) (P224_SLICE_N: its H6 and
-     combine at 2^17 are the P-224 k=3 mix's, phase 8);
+     combine at 2^17 are the P-224 k=3 mix's, phase 8); then the sharded
+     mixes (`[sharded]` lines): two rank processes (`--shard-rank`) on
+     this one card, joined over gloo (vmn_tpu_torch.parallel), each
+     holding one block of the ciphertext axis, mix the test256 golden
+     (n = 5: blocks of 3 and 2), modp2048 at N and P-256 at --ec-n with
+     the slice phase's seeds: both ranks' nizkp digests equal, each
+     rank's transcript equal byte for byte to the unsharded one
+     (tests/golden/nizkp_test256_k1, the slices' transcripts), the
+     port's verifier accepts rank 0's, and H1-H4 and K7's combine
+     (modp2048), H5 and H8 (P-256; H6 is off sharded operands, as in
+     vmn_tpu) must launch on each rank's own block; each rank's block,
+     launches and mix seconds beside the unsharded mix's, and the
+     phase's wall seconds, are on the lines;
   8. the multi-party path: modp2048, k=3 mix-servers, threshold 2, --k3-n
      ciphertexts (default 10000), Fiat–Shamir: the three parties (threads
      of this process on this one card) agree on the public key and on
@@ -181,7 +196,9 @@ and H8's launches in each mix by batch size (1, 2-127, >=128); the
 `kernels` line reports each kernel's launches in its own path's mix
 (also by path, `launches_by_path`, with the CLI's `vmn -mix` processes:
 "cli modp2048 k=1 mix", its precomputed "... online mix", "cli modp2048
-k=3 mix" summed over the three processes, "cli P-256 mix"), beside the
+k=3 mix" summed over the three processes, "cli P-256 mix", and each
+rank's of the sharded mixes: "sharded modp2048 mix (rank i)" for the
+Montgomery kernels, "sharded P-256 mix (rank i)" for the EC ones), beside the
 error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
@@ -1929,6 +1946,114 @@ def slice_phase(name: str, n: int, tmp: Path):
     return launches, sizes, widths, mix_s
 
 
+SHARD_RANKS = 2
+SHARD_TIMEOUT_S = 300
+# the sharded mixes, in order, with their ciphertexts (None: the phase's
+# N or EC N) and the kernels that must launch on each rank's block
+SHARD_MIXES = {"test256": (5, ()),
+               "modp2048": (None, ("mont_mul", "mont_exp", "mont_fb_exp",
+                                   "mont_expprod_positions",
+                                   "mont_expprod_combine")),
+               "P-256": (None, ("ec_scalar_mul", "ec_point_add"))}
+
+
+def shard_rank(argv) -> int:
+    """`chip_smoke.py --shard-rank -- WORKDIR N EC_N`: one rank (the
+    VMN_DIST_* triplet) of the sharded mixes: the test256 golden,
+    modp2048 at N and P-256 at EC_N with the slice phase's seeds, the
+    ciphertext axis split over the ranks
+    (`vmn_tpu_torch.parallel.dist_worker.mix`); after each a JSON line
+    with the rank's device, block, multiset, nizkp digest, mix seconds
+    and the launches of its `session.mix` alone."""
+    from vmn_tpu_torch.parallel import dist, dist_worker
+    from vmn_tpu_torch.parallel.mesh import ciph_mesh
+
+    work, n, ec_n = Path(argv[0]), int(argv[1]), int(argv[2])
+    if not dist.init_from_env():
+        raise SystemExit("--shard-rank needs the VMN_DIST_* triplet")
+    mesh = ciph_mesh()
+    for name, (count, _) in SHARD_MIXES.items():
+        count = count or (ec_n if name.startswith("P-") else n)
+        res = dist_worker.mix(
+            dist_worker.group_of(name, mesh.device), count,
+            work / f"{name}_rank{mesh.rank}", mesh,
+            golden=name == "test256", sid=f"Smoke{name.replace('-', '')}",
+            tag="smoke")
+        print(json.dumps({"mix": name, "N": count,
+                          "device": str(mesh.device), **res}), flush=True)
+    dist.shutdown()
+    return 0
+
+
+def sharded_phase(n: int, ec_n: int, tmp: Path, unsharded_s: dict) -> dict:
+    """The sharded mixes (`shard_rank`) in SHARD_RANKS processes on this
+    card; each must equal its unsharded transcript (the golden, the
+    slice phase's) byte for byte on every rank, with equal digests, the
+    port's verifier accepting rank 0's, and SHARD_MIXES' kernels
+    launched on every rank.  Returns {mix: [each rank's launches]}."""
+    t0 = time.perf_counter()
+    work = tmp / "sharded"
+    port, = free_ports(1)
+    with processes(work) as procs:
+        # the host's cores shared out: torch's spinning CPU threads in two
+        # processes would otherwise take them from each other
+        threads = str(max(1, (os.cpu_count() or 2) // SHARD_RANKS))
+        ranks = [procs.start([str(work), str(n), str(ec_n)], rank=True,
+                             env={"VMN_DIST_COORD": f"localhost:{port}",
+                                  "VMN_DIST_NPROC": str(SHARD_RANKS),
+                                  "VMN_DIST_PROCID": str(i),
+                                  "OMP_NUM_THREADS": threads})
+                 for i in range(SHARD_RANKS)]
+        outs = procs.wait(ranks, timeout=SHARD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    lines = [[json.loads(x) for x in text.splitlines()
+              if x.startswith('{"mix"')] for _, _, text in outs]
+    unsharded = {"test256": GOLDEN / "nizkp_test256_k1",
+                 "modp2048": tmp / "slice_modp2048" / "nizkp.smokemodp2048",
+                 "P-256": tmp / "slice_P-256" / "nizkp.smokep256"}
+    launches, verify_s = {}, 0.0
+    for i, (name, (_, need)) in enumerate(SHARD_MIXES.items()):
+        rs = [ln[i] for ln in lines]
+        if [r["mix"] for r in rs] != [name] * SHARD_RANKS:
+            raise AssertionError(f"sharded {name}: lines {lines}")
+        count = rs[0]["N"]
+        rows = [r["rows"] for r in rs]
+        if sum(rows) != count or not all(r["ok"] for r in rs):
+            raise AssertionError(f"sharded {name}: rows {rows}, multiset "
+                                 f"{[r['ok'] for r in rs]}")
+        if len({r["digest"] for r in rs}) != 1:
+            raise AssertionError(f"sharded {name}: the ranks' digests differ")
+        files = {same_transcript(Path(r["nizkp"]), unsharded[name])
+                 for r in rs}
+        missing = [(r["pid"], k) for r in rs for k in need
+                   if not r["launches"][k]]
+        if missing:
+            raise AssertionError(f"sharded {name}: not launched on the "
+                                 f"rank's block: {missing}")
+        params = _params("Golden" if name == "test256"
+                         else f"Smoke{name.replace('-', '')}", _group(name))
+        ok, s = verify(params, Path(rs[0]["nizkp"]))
+        if not ok:
+            raise AssertionError(f"sharded {name}: verifier rejected it")
+        verify_s += s
+        launches[name] = [r["launches"] for r in rs]
+        phase("sharded", mix=name, N=count, ranks=SHARD_RANKS,
+              devices=",".join(r["device"] for r in rs),
+              rows=",".join(map(str, rows)), byte_equal=True,
+              files=files.pop(), digests_equal=True, verify_ok=True,
+              verify_s=f"{s:.3f}",
+              mix_s=",".join(f"{r['mix_s']:.3f}" for r in rs),
+              **({"unsharded_mix_s": f"{unsharded_s[name]:.3f}"}
+                 if name in unsharded_s else {}),
+              **{f"launches_rank{r['pid']}": json.dumps(
+                  {k: v for k, v in r["launches"].items() if v},
+                  separators=(",", ":")) for r in rs})
+    phase("sharded", ranks=SHARD_RANKS, ranks_wall_s=f"{ranks_s:.1f}",
+          verify_s=f"{verify_s:.1f}",
+          phase_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def multiexp_lines(path: str, wrapper: str, widths: list) -> None:
     for r in widths:
         phase("multiexp", group=path, wrapper=wrapper,
@@ -2103,13 +2228,18 @@ class Procs:
             [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]),
             "PYTHONPYCACHEPREFIX": str(workdir.parent / "pycache")}
 
-    def start(self, args, cwd=None, party=False):
+    def start(self, args, cwd=None, party=False, rank=False, env=None):
+        """A process of `args`: a CLI tool, `--cli-party` (party) or
+        `--shard-rank` (rank) of this script, with `env` added."""
         self.n += 1
-        log = self.workdir / f"proc{self.n:02d}_{args[0].lstrip('-')}.log"
-        cmd = ([sys.executable, str(REPO / "chip_smoke.py"), "--cli-party",
-                "--", *args] if party else [*CLI, *args])
+        tag = "rank" if rank else args[0].lstrip("-")
+        log = self.workdir / f"proc{self.n:02d}_{tag}.log"
+        mode = "--cli-party" if party else "--shard-rank" if rank else None
+        cmd = ([sys.executable, str(REPO / "chip_smoke.py"), mode, "--",
+                *args] if mode else [*CLI, *args])
         with open(log, "w") as out:
-            p = subprocess.Popen(cmd, cwd=cwd or self.workdir, env=self.env,
+            p = subprocess.Popen(cmd, cwd=cwd or self.workdir,
+                                 env={**self.env, **(env or {})},
                                  stdout=out, stderr=subprocess.STDOUT)
         p.log, p.args, p.t0 = log, args, time.perf_counter()
         self.live.append(p)
@@ -2707,11 +2837,12 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["--cli-party"]:
+    if argv[:1] in (["--cli-party"], ["--shard-rank"]):
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
-        return cli_party(argv[2:] if argv[1:2] == ["--"] else argv[1:])
+        rest = argv[2:] if argv[1:2] == ["--"] else argv[1:]
+        return (cli_party if argv[0] == "--cli-party" else shard_rank)(rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10000,
                     help="ciphertexts in the modp2048, modp3072, modp4096, "
@@ -2822,6 +2953,8 @@ def main(argv=None) -> int:
                                        tmp)
                     for curve in EC_PATH_CURVES}
         ec, ec_sizes, ec_widths, ec_s = ec_paths["P-256"]
+        sharded = sharded_phase(args.n, args.ec_n, tmp,
+                                {"modp2048": modp_s, "P-256": ec_s})
         k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
         ec3, ec3_sizes, _, _ = multiparty_phase(args.ec_n, tmp,
                                                 name="P-224")
@@ -2921,7 +3054,9 @@ def main(argv=None) -> int:
                 **{path: launches[name] for path, launches in cli.items()},
                 **{f"{g} mix": r[0][name] for g, r in wide_mix.items()},
                 **{f"{c} mix": ec_paths[c][0][name] for c in curve_w},
-                "P-224 k=3 mix": ec3[name]}
+                "P-224 k=3 mix": ec3[name],
+                **{f"sharded modp2048 mix (rank {i})": r[name]
+                   for i, r in enumerate(sharded["modp2048"])}}
             # the same kernel at W = 96 and 128: its checks there; at
             # W = 192 and 256 (RFC_GROUPS, built on demand) also its
             # launches in those groups' mixes
@@ -2942,7 +3077,9 @@ def main(argv=None) -> int:
             kernels[-1]["launches_by_path"] = {
                 **{f"{c} mix": r[0][name] for c, r in ec_paths.items()},
                 "P-224 k=3 mix": ec3[name],
-                "cli P-256 mix": cli["cli P-256 mix"][name]}
+                "cli P-256 mix": cli["cli P-256 mix"][name],
+                **{f"sharded P-256 mix (rank {i})": r[name]
+                   for i, r in enumerate(sharded["P-256"])}}
     for name in ("mont_mul", "mont_exp"):
         kernels[K.KERNELS.index(name)].update(
             batch1=checks[f"{name}_b1"], w8=checks[f"{name}_w8"],

@@ -264,3 +264,59 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the H100, see README)")
     return torch.device("cuda", 0)
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn_ranks(argv: list, nranks: int, triplet: bool = True) -> list:
+    """`nranks` started processes of `python argv` (from the repository
+    root, one torch thread each), joined by the VMN_DIST_* triplet on a
+    free localhost port (without it where `triplet` is False); collect
+    them with `join_ranks`."""
+    import os
+    import subprocess
+    import sys
+
+    repo = Path(__file__).resolve().parent.parent
+    port = free_port()
+    procs = []
+    for i in range(nranks):
+        env = {**os.environ, "OMP_NUM_THREADS": "1",
+               "PYTHONPATH": os.pathsep.join(
+                   [str(repo), *filter(None, [os.environ.get("PYTHONPATH")])])}
+        if triplet:
+            env.update(VMN_DIST_COORD=f"localhost:{port}",
+                       VMN_DIST_NPROC=str(nranks), VMN_DIST_PROCID=str(i))
+        procs.append(subprocess.Popen(
+            [sys.executable, *argv], env=env, cwd=str(repo),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    return procs
+
+
+def join_ranks(procs: list, timeout: float = 240) -> list:
+    """[(exit code, output)] of `spawn_ranks`' processes; past `timeout`
+    seconds every one still running is killed and the call fails, so
+    that a rank that hangs in a collective fails its test."""
+    import subprocess
+    import time
+
+    end = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, end - time.monotonic()))
+            outs.append((p.returncode, out.decode()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"a rank did not end within {timeout} s")
+    return outs

@@ -17,8 +17,13 @@ batch of one.  Field arithmetic outside the point formulas (normalize,
 the on-curve test, point derivation) is `MontCtx`'s.
 
 `ECqPGroup` / `ECArray` mirror `ModPGroup` / `GArray`, so the protocol
-layer runs unchanged over EC groups.  Left out of the JAX version: the
-sharded (`shard_map`) routes (ROADMAP queue 1).
+layer runs unchanged over EC groups.  Coordinates split over ranks
+(`parallel.mesh.ShardedLimbs`) take `vmn_tpu`'s sharded routes through
+`parallel.mesh`: scalar multiples (H5) and additions (H8) on each rank's
+block, each block normalized with its own batched inversion (an inverse
+is exact, so no scan crosses blocks), `prod` a tree on each block and
+one of the gathered partials, and `exp_prod` without H6, as
+vmn_tpu/arith/ec.py:942 keeps it off sharded operands.
 
 Element byte-tree format: node(leaf(x), leaf(y)) with fixed-size
 unsigned big-endian coordinates of ``p.bit_length()//8 + 1`` bytes; the
@@ -45,12 +50,16 @@ from vmn_tpu_torch.arith.mont import (
     broadcast_shapes,
     device_limbs,
     host_limbs,
+    shard_info,
 )
 from vmn_tpu_torch.arith.pgroup import (
     _DEFER_TLS,
     PField,
     _bytelen,
+    _permute,
     _range_check_be,
+    _row,
+    _shift_push,
 )
 from vmn_tpu_torch.eio.bytetree import (
     ByteTree,
@@ -62,6 +71,8 @@ from vmn_tpu_torch.eio.bytetree import (
     string_leaf,
 )
 from vmn_tpu_torch.ops import ec_kernels as E
+from vmn_tpu_torch.parallel import dist
+from vmn_tpu_torch.parallel import mesh as pmesh
 
 # Points from which `exp_prod` takes the multi-exponentiation kernels
 # (H6): vmn_tpu's measured crossover against scalar multiples plus an
@@ -142,6 +153,8 @@ class _Curve:
         c = self.ctx
         if z.dim() == 1:
             return self.inv_single(z)
+        if not z.shape[0]:
+            return z
         pre = c.prods_scan(z)  # inclusive prefix products
         total_inv = self.inv_single(pre[-1])
         suf = c.prods_scan(torch.flip(z, dims=[0]))
@@ -169,6 +182,8 @@ def _scalar_mul(curve: _Curve, x, y, inf, e, nbits: int):
 
     x, y: (..., L) affine Montgomery coords; inf: (...,) bool;
     e: (..., Le) standard-form scalar limbs."""
+    if shard_info(x, e):
+        return pmesh.sharded_ec_smul(curve, x, y, inf, e, nbits)
     shape = broadcast_shapes(x.shape[:-1], e.shape[:-1])
     L = x.shape[-1]
     x2 = x.expand(shape + (L,)).reshape(-1, L)
@@ -178,6 +193,35 @@ def _scalar_mul(curve: _Curve, x, y, inf, e, nbits: int):
     X, Y, Z = E.ec_scalar_mul(x2, y2, i2, e2, curve.ctx.mod, nbits)
     xo, yo, io = curve.normalize(X, Y, Z)
     return xo.reshape(shape + (L,)), yo.reshape(shape + (L,)), io.reshape(shape)
+
+
+def _jac(curve: _Curve, x, y, inf):
+    """Affine (x, y, inf) -> Jacobian (X, Y, Z), Z = 0 at infinity."""
+    Z = _select(inf, torch.zeros_like(x), curve.one_m.expand(x.shape))
+    return x, y, Z
+
+
+def _add_points(curve: _Curve, p, q):
+    """P + Q of two affine (x, y, inf) point arrays, broadcast against
+    each other: one batch through H8, then normalize."""
+    coords = (*_jac(curve, *p), *_jac(curve, *q))
+    shape = broadcast_shapes(*(t.shape for t in coords))
+    return curve.normalize(*curve.point_add(*(t.expand(shape)
+                                              for t in coords)))
+
+
+def _tree(curve: _Curve, X, Y, Z):
+    """Sum of (n >= 1, L) Jacobian points: a halving tree of H8 batches
+    (an odd row carried up); the Jacobian (L,) result."""
+    while X.shape[0] > 1:
+        nel = X.shape[0]
+        h = nel // 2
+        out = curve.point_add(X[:h], Y[:h], Z[:h], X[h: 2 * h],
+                              Y[h: 2 * h], Z[h: 2 * h])
+        if nel % 2:
+            out = [torch.cat([o, t[2 * h:]]) for o, t in zip(out, (X, Y, Z))]
+        X, Y, Z = out
+    return X[0], Y[0], Z[0]
 
 
 def _ec_fb_table(curve: _Curve, X, Y, Z, ndig: int):
@@ -280,7 +324,7 @@ class ECqPGroup:
     def to_affine(self, arr: "ECArray") -> List[Optional[tuple]]:
         xs = self.ctx.decode(arr.x)
         ys = self.ctx.decode(arr.y)
-        infs = arr.inf.cpu().numpy().reshape(-1)
+        infs = dist.gather_to_host(arr.inf).reshape(-1)
         return [None if i else (x, y) for x, y, i in zip(xs, ys, infs)]
 
     def sqrt(self, v: int) -> Optional[int]:
@@ -359,22 +403,26 @@ class ECqPGroup:
                     consumed = int(idx[-1]) + 1
                     if consumed < k:
                         prg.unread(chunk[consumed * nbytes:])
-            return ECArray(
-                self, torch.cat(xs_parts), torch.cat(ys_parts),
-                torch.zeros((nelem,), dtype=torch.bool, device=self.device),
-            )
-        pts = []
-        while len(pts) < nelem:
-            t = int.from_bytes(prg.read_bytes(nbytes), "big")
-            if extra:
-                t >>= extra
-            x = t % self.p
-            y = self.curve_y(x)
-            if y is not None:
-                if y % 2 == 1:
-                    y = self.p - y
-                pts.append((x, y))
-        return self.from_affine(pts)
+            arr = ECArray(self, torch.cat(xs_parts), torch.cat(ys_parts),
+                          torch.zeros((nelem,), dtype=torch.bool,
+                                      device=self.device))
+        else:
+            pts = []
+            while len(pts) < nelem:
+                t = int.from_bytes(prg.read_bytes(nbytes), "big")
+                if extra:
+                    t >>= extra
+                x = t % self.p
+                y = self.curve_y(x)
+                if y is not None:
+                    if y % 2 == 1:
+                        y = self.p - y
+                    pts.append((x, y))
+            arr = self.from_affine(pts)
+        # every rank derives all the points (which candidates pass decides
+        # the stream position); inside a sharded session it keeps its rows
+        return ECArray(self, *(pmesh.take_rows(t, nelem, lambda r: r)
+                               for t in (arr.x, arr.y, arr.inf)))
 
     def _derive_candidates(self, raw: np.ndarray):
         """Batched candidate evaluation: x = cand mod p, rhs = x^3 + ax + b,
@@ -439,7 +487,7 @@ class ECqPGroup:
             return arr._bt
         xs = host_limbs(self.ctx.from_mont(arr.x))
         ys = host_limbs(self.ctx.from_mont(arr.y))
-        infs = arr.inf.cpu().numpy()
+        infs = dist.gather_to_host(arr.inf)
         scalar = xs.ndim == 1
         if scalar:
             xs, ys, infs = xs[None], ys[None], infs.reshape(1)
@@ -618,7 +666,8 @@ class ECArray:
         return self.size
 
     def get(self, i: int) -> "ECArray":
-        return ECArray(self.grp, self.x[i], self.y[i], self.inf[i])
+        return ECArray(self.grp, _row(self.x, i), _row(self.y, i),
+                       _row(self.inf, i))
 
     def copy_of_range(self, a: int, b: int) -> "ECArray":
         return ECArray(self.grp, self.x[a:b], self.y[a:b], self.inf[a:b])
@@ -649,18 +698,15 @@ class ECArray:
     # --------------------------------------------------------------- ops
 
     def _jac(self):
-        c = self.grp.curve
-        Z = _select(self.inf, torch.zeros_like(self.x),
-                    c.one_m.expand(self.x.shape))
-        return self.x, self.y, Z
+        return _jac(self.grp.curve, self.x, self.y, self.inf)
 
     def mul(self, other: "ECArray") -> "ECArray":
         c = self.grp.curve
-        coords = (*self._jac(), *other._jac())
-        shape = broadcast_shapes(*(t.shape for t in coords))
-        x, y, inf = c.normalize(*c.point_add(*(t.expand(shape)
-                                                for t in coords)))
-        return ECArray(self.grp, x, y, inf)
+        p = (self.x, self.y, self.inf)
+        q = (other.x, other.y, other.inf)
+        if shard_info(*p, *q):
+            return ECArray(self.grp, *pmesh.sharded_ec_add(c, p, q))
+        return ECArray(self.grp, *_add_points(c, p, q))
 
     def inv(self) -> "ECArray":
         return ECArray(self.grp, self.x, self.grp.ctx.neg(self.y), self.inf)
@@ -695,7 +741,8 @@ class ECArray:
         nbits = min(nbits, LIMB_BITS * e.limbs.shape[-1])
         c = self.grp.curve
         if (self.x.dim() == 2 and e.limbs.dim() == 2
-                and self.x.shape[0] >= MULTIEXP_MIN):
+                and self.x.shape[0] >= MULTIEXP_MIN
+                and shard_info(self.x, e.limbs) is None):
             X, Y, Z = E.ec_multiexp(self.x, self.y, self.inf, e.limbs,
                                     c.ctx.mod, nbits)
             x, y, inf = c.normalize(X, Y, Z)
@@ -707,20 +754,15 @@ class ECArray:
 
     def prod(self) -> "ECArray":
         c = self.grp.curve
-        X, Y, Z = self._jac()
-        while X.shape[0] > 1:
-            nel = X.shape[0]
-            h = nel // 2
-            out = c.point_add(X[:h], Y[:h], Z[:h], X[h : 2 * h],
-                              Y[h : 2 * h], Z[h : 2 * h])
-            if nel % 2:
-                out = [torch.cat([o, t[2 * h :]])
-                       for o, t in zip(out, (X, Y, Z))]
-            X, Y, Z = out
-        x, y, inf = c.normalize(X[0], Y[0], Z[0])
-        return ECArray(self.grp, x, y, inf)
+        if shard_info(self.x):
+            return ECArray(self.grp, *pmesh.sharded_ec_prod(
+                c, self.x, self.y, self.inf))
+        return ECArray(self.grp, *c.normalize(*_tree(c, *self._jac())))
 
     def permute(self, pi) -> "ECArray":
+        if shard_info(self.x):
+            return ECArray(self.grp, *(_permute(t, pi)
+                                       for t in (self.x, self.y, self.inf)))
         idx = pi.index(self.x.device)
         return ECArray(self.grp, self.x[idx], self.y[idx], self.inf[idx])
 
@@ -729,13 +771,9 @@ class ECArray:
         return ECArray(self.grp, self.x[idx], self.y[idx], self.inf[idx])
 
     def shift_push(self, first: "ECArray") -> "ECArray":
-        L = self.grp.L
-        return ECArray(
-            self.grp,
-            torch.cat([first.x.reshape(1, L), self.x[:-1]]),
-            torch.cat([first.y.reshape(1, L), self.y[:-1]]),
-            torch.cat([first.inf.reshape(1), self.inf[:-1]]),
-        )
+        return ECArray(self.grp, _shift_push(self.x, first.x),
+                       _shift_push(self.y, first.y),
+                       _shift_push(self.inf, first.inf))
 
     def concat(self, other: "ECArray") -> "ECArray":
         return ECArray(

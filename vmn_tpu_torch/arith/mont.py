@@ -12,10 +12,14 @@ PyTorch versions.
 
 The product trees and the Hillis–Steele scans (`prod`, `prods_scan`,
 `rec_lin`, `sum`) and the modular add/sub are torch code around those
-wrappers, as they were XLA code around the Pallas kernels.  Left out of
-the JAX version, because nothing on a GPU needs them: the exp launch
-chunking for the TPU watchdog, `backpressure`, u16 transfer narrowing,
-the `use_pallas` switches and the shard_map routing.
+wrappers, as they were XLA code around the Pallas kernels.  An operand
+whose batch axis is split over ranks (`parallel.mesh.ShardedLimbs`,
+`shard_info`) routes to `parallel.mesh`, which runs the same wrappers
+on each rank's block and combines the blocks' partials, where `vmn_tpu`
+routes to its `shard_map` ops.  Left out of the JAX version, because
+nothing on a GPU needs them: the exp launch chunking for the TPU
+watchdog, `backpressure`, u16 transfer narrowing and the `use_pallas`
+switches.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ from vmn_tpu_torch.arith.limbs import (
     num_limbs,
 )
 from vmn_tpu_torch.ops import mont_kernels as K
+from vmn_tpu_torch.parallel import dist
+from vmn_tpu_torch.parallel import mesh as pmesh
 
 
 def device_limbs(arr, device) -> torch.Tensor:
@@ -46,9 +52,20 @@ def device_limbs(arr, device) -> torch.Tensor:
     return torch.from_numpy(arr.astype(np.int32, copy=False)).to(device)
 
 
-def host_limbs(t: torch.Tensor) -> np.ndarray:
-    """Limb tensor -> host uint16 array (the byte codec's input)."""
-    return t.cpu().numpy().astype(np.uint16)
+def host_limbs(t) -> np.ndarray:
+    """Limb tensor -> host uint16 array (the byte codec's input); a
+    sharded one whole, on every rank."""
+    return dist.gather_to_host(t).astype(np.uint16)
+
+
+def shard_info(*arrays):
+    """(mesh, axis) when an operand's batch axis is split over more than
+    one rank (a `parallel.mesh.ShardedLimbs`): the signal to route
+    through `parallel.mesh` (port of vmn_tpu/arith/mont.py:631)."""
+    for a in arrays:
+        if isinstance(a, pmesh.ShardedLimbs):
+            return a.mesh, pmesh.CIPH_AXIS
+    return None
 
 
 def broadcast_shapes(*shapes) -> tuple:
@@ -131,16 +148,24 @@ class MontCtx:
     # --------------------------------------------------------- operations
 
     def mul(self, a, b):
+        if shard_info(a, b):
+            return pmesh.sharded_mul(self, a, b)
         shape, a2, b2 = _flatten_pair(a, b)
         return K.mont_mul(a2, b2, self.mod).reshape(shape + (self.L,))
 
     def add(self, a, b):
+        if shard_info(a, b):
+            return pmesh.blockwise(self.add, a, b)
         return K.add_mod(a, b, self.m_limbs)
 
     def sub(self, a, b):
+        if shard_info(a, b):
+            return pmesh.blockwise(self.sub, a, b)
         return K.sub_mod(a, b, self.m_limbs)
 
     def neg(self, a):
+        if shard_info(a):
+            return pmesh.blockwise(self.neg, a)
         return K.sub_mod(self.zero.expand(a.shape), a, self.m_limbs)
 
     def exp(self, base, e, nbits: Optional[int] = None):
@@ -149,12 +174,16 @@ class MontCtx:
         nbits = self.nbits if nbits is None else nbits
         if base.dim() == 1 and e.dim() > 1:
             return self.exp_fixed(self.known_int(base), e, nbits)
+        if shard_info(base, e):
+            return pmesh.sharded_exp(self, base, e, nbits)
         shape, b2, e2 = _flatten_pair(base, e)
         return K.mont_exp(b2, e2, self.mod, nbits).reshape(shape + (self.L,))
 
     def expprod(self, bases, e, nbits: Optional[int] = None):
         """prod_i bases_i^(e_i) over axis 0 of (N, L) x (N, Le)."""
         nbits = self.nbits if nbits is None else nbits
+        if shard_info(bases, e):
+            return pmesh.sharded_exp_prod(self, bases, e, nbits)
         if bases.dim() != 2 or e.dim() != 2:
             raise ValueError("expprod takes (N, L) bases and (N, Le) exponents")
         return K.mont_expprod(bases.contiguous(), e.contiguous(), self.mod,
@@ -162,6 +191,8 @@ class MontCtx:
 
     def prod(self, x, axis=0):
         """Log-depth product over `axis` (identity-padded tree)."""
+        if shard_info(x) and axis == 0:
+            return pmesh.sharded_prod(self, x)
         x = torch.movedim(x, axis, 0)
         n = x.shape[0]
         if n == 1:
@@ -178,6 +209,8 @@ class MontCtx:
     def prods_scan(self, x):
         """Inclusive cumulative product over axis 0 (Hillis–Steele, one
         batched product per round)."""
+        if shard_info(x):
+            return pmesh.sharded_prods_scan(self, x)
         n = x.shape[0]
         d = 1
         while d < n:
@@ -190,6 +223,8 @@ class MontCtx:
         """x_i = x_{i-1}·e_i + b_i over axis 0 (e_i in Montgomery form,
         b_i standard); composition of affine maps, Hillis–Steele.
         Returns standard-form x."""
+        if shard_info(mult_mont, add_std):
+            return pmesh.sharded_rec_lin(self, mult_mont, add_std)
         mm, aa = mult_mont, add_std
         n = mm.shape[0]
         d = 1
@@ -205,6 +240,8 @@ class MontCtx:
 
     def sum(self, x, axis=0):
         """Log-depth modular sum over `axis`."""
+        if shard_info(x) and axis == 0:
+            return pmesh.sharded_sum(self, x)
         x = torch.movedim(x, axis, 0)
         n = x.shape[0]
         if n == 1:
@@ -223,6 +260,8 @@ class MontCtx:
 
         Horner over L-limb chunks: acc = acc·R + chunk (mod m), with
         acc·R mod m = to_mont(acc) and chunk mod m = to_mont(from_mont(·))."""
+        if shard_info(wide):
+            return pmesh.blockwise(self.reduce_std, wide)
         L = self.L
         Lw = wide.shape[-1]
         nchunks = -(-Lw // L)
@@ -294,6 +333,8 @@ class MontCtx:
         (vmn_tpu/arith/mont.py:1055)."""
         nbits = self.nbits if nbits is None else nbits
         window = 8 if nbits >= 512 else 4
+        if shard_info(e):
+            return pmesh.sharded_fb_exp(self, base_int, e, nbits)
         table = self.fixed_base_table(base_int, nbits, window)
         shape = e.shape[:-1]
         e2 = e.reshape(-1, e.shape[-1]).contiguous()
@@ -304,4 +345,5 @@ class MontCtx:
         return f"MontCtx(bits={self.nbits}, L={self.L}, {self.device})"
 
 
-__all__ = ["MontCtx", "device_limbs", "host_limbs", "LIMB_DTYPE"]
+__all__ = ["MontCtx", "device_limbs", "host_limbs", "shard_info",
+           "LIMB_DTYPE"]

@@ -12,6 +12,13 @@ The device is explicit: `ModPGroup.named(name, device=...)` builds the
 group's Montgomery constants on that device — the card unless the caller
 asks for ``device="cpu"`` — and every array of the group lives there.  Byte-tree encodings follow `vmn_tpu` (fixed-size
 unsigned big-endian leaves of ``p.bit_length()//8 + 1`` bytes).
+
+An array's limbs may be a `parallel.mesh.ShardedLimbs`, this rank's
+block of its N rows: the Montgomery ops route through `MontCtx`, the row
+moves (`get`, `shift_push`, `permute`, `rec_lin`'s last row) through
+`parallel.mesh`, byte-tree export gathers, and within a session over
+sharded ciphertexts each N-row draw keeps this rank's rows
+(`mesh.take_rows`).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from vmn_tpu_torch.eio.bytetree import (
 )
 from vmn_tpu_torch.native.build import get_lib, jacobi_batch
 from vmn_tpu_torch.ops.mont_kernels import mont_expprod_positions
+from vmn_tpu_torch.parallel import mesh as pmesh
 
 
 def _bytelen(n: int) -> int:
@@ -94,6 +102,25 @@ def _range_check_be(raw: np.ndarray, p: int, bytelen: int,
     if allow_zero:
         return bool(lt.all())
     return bool((lt & raw.any(axis=1)).all())
+
+
+def _row(t, i: int):
+    """Row i of a limb tensor, sharded or not."""
+    return pmesh.row(t, i) if pmesh.is_sharded(t) else t[i]
+
+
+def _shift_push(t, first):
+    """[first, t_0, ..., t_{N-2}] of a limb tensor, sharded or not."""
+    if pmesh.is_sharded(t):
+        return pmesh.shift_push(t, first)
+    return torch.cat([first.reshape((1,) + tuple(t.shape[1:])), t[:-1]])
+
+
+def _permute(t, pi: "Permutation"):
+    """out[i] = t[pi.tbl[i]] of a limb tensor, sharded or not."""
+    if pmesh.is_sharded(t):
+        return pmesh.permute(t, pi.tbl)
+    return t[pi.index(t.device)]
 
 
 def _masked_raw(src, n: int, bits: int) -> np.ndarray:
@@ -204,16 +231,26 @@ class PField:
     def random(self, shape, randomsource, rbitlen: int) -> "FArray":
         """(nbits+rbitlen)-bit uniform integers reduced mod q
         (reference: PRing.randomElementArray semantics)."""
+        shape = tuple(shape)
         n = int(np.prod(shape)) if shape else 1
-        wide = self.random_bits_raw(n, self.nbits + rbitlen, randomsource)
+        wide = self.random_bits_raw(n, self.nbits + rbitlen, randomsource,
+                                    rows=len(shape) == 1)
         arr = self.ctx.reduce_std(wide)
-        return FArray(self, arr.reshape(tuple(shape) + (self.L,)))
+        if len(shape) != 1:
+            arr = arr.reshape(shape + (self.L,))
+        return FArray(self, arr)
 
-    def random_bits_raw(self, n: int, bits: int, randomsource):
-        """n uniform `bits`-bit integers as (n, Lw) standard limbs."""
+    def random_bits_raw(self, n: int, bits: int, randomsource,
+                        rows: bool = True):
+        """n uniform `bits`-bit integers as (n, Lw) standard limbs (an
+        array of n rows: this rank's block inside a sharded session)."""
         raw = _masked_raw(randomsource, n, bits)
         Lw = max(self.L, num_limbs(bits))
-        return self._limbs(bytes_be_to_limbs(raw, Lw))
+
+        def limbs(r):
+            return self._limbs(bytes_be_to_limbs(r, Lw))
+
+        return pmesh.take_rows(raw, n, limbs) if rows else limbs(raw)
 
     def random_bits(self, n: int, bits: int, randomsource) -> "FArray":
         """n uniform `bits`-bit integers as field elements, reduced mod q
@@ -227,12 +264,13 @@ class PField:
         """Batching vector: n integers of `ebitlen` bits from a PRG
         (reference: PoSBasicTW.setBatchVector)."""
         raw = _masked_raw(prg, n, ebitlen)
+        Lw = max(self.L, num_limbs(ebitlen)) if ebitlen >= self.nbits \
+            else self.L
+        limbs = pmesh.take_rows(
+            raw, n, lambda r: self._limbs(bytes_be_to_limbs(r, Lw)))
         if ebitlen >= self.nbits:
-            wide = self._limbs(
-                bytes_be_to_limbs(raw, max(self.L, num_limbs(ebitlen)))
-            )
-            return FArray(self, self.ctx.reduce_std(wide))
-        return FArray(self, self._limbs(bytes_be_to_limbs(raw, self.L)))
+            return FArray(self, self.ctx.reduce_std(limbs))
+        return FArray(self, limbs)
 
     # --------------------------------------------------------- serialize
 
@@ -300,7 +338,7 @@ class FArray:
         return self.size
 
     def get(self, i: int) -> "FArray":
-        return FArray(self.field, self.limbs[i])
+        return FArray(self.field, _row(self.limbs, i))
 
     def copy_of_range(self, a: int, b: int) -> "FArray":
         return FArray(self.field, self.limbs[a:b])
@@ -378,15 +416,14 @@ class FArray:
         (reference: PRingElementArray.recLin)."""
         c = self.field.ctx
         x = c.rec_lin(c.to_mont(e.limbs), self.limbs)
-        return FArray(self.field, x), FArray(self.field, x[-1])
+        return FArray(self.field, x), FArray(self.field, _row(x, -1))
 
     def shift_push(self, first: "FArray") -> "FArray":
         """[first, x_0, ..., x_{N-2}]."""
-        f = first.limbs.reshape(1, self.field.L)
-        return FArray(self.field, torch.cat([f, self.limbs[:-1]], dim=0))
+        return FArray(self.field, _shift_push(self.limbs, first.limbs))
 
     def permute(self, pi: Permutation) -> "FArray":
-        return FArray(self.field, self.limbs[pi.index(self.limbs.device)])
+        return FArray(self.field, _permute(self.limbs, pi))
 
     def concat(self, other: "FArray") -> "FArray":
         return FArray(self.field, torch.cat([self.limbs, other.limbs]))
@@ -475,7 +512,8 @@ class ModPGroup:
         bits = self.nbits + rbitlen
         raw = _masked_raw(prg, n, bits)
         Lw = max(self.L, num_limbs(bits))
-        wide = device_limbs(bytes_be_to_limbs(raw, Lw), self.device)
+        wide = pmesh.take_rows(raw, n, lambda r: device_limbs(
+            bytes_be_to_limbs(r, Lw), self.device))
         base = self.ctx.to_mont(self.ctx.reduce_std(wide))
         # the co-order's own limbs (vmn_tpu takes 64 bits, and raises for
         # a co-order above them: README, the port's deviations)
@@ -678,7 +716,7 @@ class GArray:
         return self.size
 
     def get(self, i: int) -> "GArray":
-        return GArray(self.grp, self.limbs[i])
+        return GArray(self.grp, _row(self.limbs, i))
 
     def copy_of_range(self, a: int, b: int) -> "GArray":
         return GArray(self.grp, self.limbs[a:b])
@@ -737,11 +775,10 @@ class GArray:
         return GArray(self.grp, self.grp.ctx.prod(self.limbs, axis=0))
 
     def permute(self, pi: Permutation) -> "GArray":
-        return GArray(self.grp, self.limbs[pi.index(self.limbs.device)])
+        return GArray(self.grp, _permute(self.limbs, pi))
 
     def shift_push(self, first: "GArray") -> "GArray":
-        f = first.limbs.reshape(1, self.grp.L)
-        return GArray(self.grp, torch.cat([f, self.limbs[:-1]], dim=0))
+        return GArray(self.grp, _shift_push(self.limbs, first.limbs))
 
     def concat(self, other: "GArray") -> "GArray":
         return GArray(self.grp, torch.cat([self.limbs, other.limbs]))

@@ -33,6 +33,12 @@ def main(argv=None, device="cuda") -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0
+    # Several processes of one party (the VMN_DIST_* triplet) join their
+    # process group before first device use, each rank on its own device
+    # (parallel/dist.py).
+    from vmn_tpu_torch.parallel import dist
+
+    dist.init_from_env(device=device)
     cmd = argv[0]
     if cmd not in _COMMANDS:
         print(f"unknown command: {cmd}; one of {', '.join(_COMMANDS)}",

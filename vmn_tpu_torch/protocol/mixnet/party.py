@@ -7,7 +7,10 @@ Ported: `MixNetParty` (`setup` with the plain-key exchange for k > 1,
 (Fiat–Shamir, or jointly flipped coins when the parameters say
 `noninteractive=False`): `shuffle` with the own output computed beside
 the previous party's verification (`_OptimisticOutput`), `decrypt` and
-`mix`.  `shuffle` takes one of two chains: the plain PoS chain
+`mix`.  Over ciphertexts split over ranks (`parallel.mesh`; k = 1),
+`shuffle` and `decrypt` run in the ciphertexts' `rows_scope`, so that
+each rank keeps its rows of every N-row draw.  `shuffle` takes one of
+two chains: the plain PoS chain
 (`_prove_pos`, `_verify_pos`), or, after `precomp` (PoSC proofs of the
 permutation commitments for up to `maxciph` ciphertexts, persisted in
 the session's state directory under the `.precomp` marker), the
@@ -40,6 +43,7 @@ Proof-directory layout (reference: MixNetElGamalSession.java:381-446):
 
 from __future__ import annotations
 
+import functools
 import threading
 from pathlib import Path
 from typing import List, Optional
@@ -54,6 +58,7 @@ from vmn_tpu_torch.crypto.randomsource import SeededSource
 from vmn_tpu_torch.eio.bytetree import (
     ByteTree, ByteTreeError, int_leaf, lazy_from_bytes, leaf, node,
 )
+from vmn_tpu_torch.parallel import mesh as pmesh
 from vmn_tpu_torch.protocol import elgamal
 from vmn_tpu_torch.protocol.com.board import BulletinBoard
 from vmn_tpu_torch.protocol.context import ProtocolContext, ProtocolParams
@@ -94,6 +99,25 @@ def _write(path: Path, data) -> None:
         path.write_text(data)
     else:
         path.write_bytes(data)
+
+
+def _rows_scope(method):
+    """Run a session step in the `parallel.mesh.rows_scope` of its
+    ciphertexts when they are split over ranks: one party's work spread
+    over the ranks, so k must be 1 (the collectives never cross
+    parties)."""
+
+    @functools.wraps(method)
+    def step(self, ciphertexts, *args, **kw):
+        scope = pmesh.array_mesh(ciphertexts)
+        if scope is None:
+            return method(self, ciphertexts, *args, **kw)
+        if self.party.k != 1:
+            raise ProtocolError("a mix over sharded ciphertexts needs k = 1")
+        with pmesh.rows_scope(*scope):
+            return method(self, ciphertexts, *args, **kw)
+
+    return step
 
 
 class MixNetParty:
@@ -777,6 +801,7 @@ class MixSession:
 
     # ----------------------------------------------------------- shuffle
 
+    @_rows_scope
     def shuffle(self, ciphertexts: PPArray, write_type: bool = True
                 ) -> PPArray:
         """The commitment-consistent chain when this session has a
@@ -964,6 +989,7 @@ class MixSession:
 
     # ----------------------------------------------------------- decrypt
 
+    @_rows_scope
     def decrypt(self, ciphertexts: PPArray, write_type: bool = True):
         """Distributed verifiable decryption
         (reference: DistrElGamalSession.decrypt:344-540)."""
