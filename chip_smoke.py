@@ -46,9 +46,13 @@ Phases (one line each; any failure raises and the exit code is not 0):
      256-bit exponents; then each of H1-H4 at the first
      N of any TPI of its
      rule that those miss, so that every TPI (lanes an element) the
-     wrappers choose is checked (it fails otherwise).  Each against its
-     plain PyTorch version on the card, exact equality of the whole
-     output, but H1-H3 at W=96 and 128, and H2 at W=12, P-224 and W'=20
+     wrappers choose is checked (it fails otherwise); then the ChaCha20
+     kernel of the device PRF (chacha20_limbs, csrc/prf_kernels.cu) at
+     the DeviceSource mixes' draws, N rows of 2147 bits (modp2048) and
+     --ec-n rows of 356 bits (P-256), whole and over a row range that
+     starts mid-block, and RFC 8439 §2.3.2's block on the card.  Each
+     against its plain PyTorch version on the card, exact equality of
+     the whole output, but H1-H3 at W=96 and 128, and H2 at W=12, P-224 and W'=20
      on --ec-n, on 256
      rows spread over the batch (a full-width plain power takes seconds
      whatever the rows); a few rows (H4: its positions combined, at W=96
@@ -108,7 +112,14 @@ Phases (one line each; any failure raises and the exit code is not 0):
      vog1024 and vog1000 (every Montgomery launch of their mixes at
      W = 32, converting at vog1000's 63 limbs: the `slice` line's
      `launches_at_w`), and at modp6144 and modp8192 (every launch at
-     W = 192 and 256);
+     W = 192 and 256); after the EC slices (phase 7), the modp2048 and
+     P-256 mixes again with the party's randomness from
+     DeviceSource(b"bench-party"), bench.py's seed (`[devicesource]`
+     lines): every prover draw of the mix expanded on the card by the
+     ChaCha20 kernel, whose launches must equal the mix's draws, H1-H4
+     and K7's combine (modp2048), H5, H6, the EC combine and H8 (P-256)
+     launched, checked as above, the mix and verify seconds beside the
+     SeededSource slice's;
   7. the EC paths: the same at P-256, P-384 and P-521 with --ec-n
      ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6)
      and at P-224 with min(--ec-n, 65536) (P224_SLICE_N: its H6 and
@@ -124,7 +135,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
      (modp2048), H5 and H8 (P-256; H6 is off sharded operands, as in
      vmn_tpu) must launch on each rank's own block; each rank's block,
      launches and mix seconds beside the unsharded mix's, and the
-     phase's wall seconds, are on the lines;
+     phase's wall seconds, are on the lines; then one DeviceSource draw
+     of N rows at modp2048, each rank expanding its own block (one
+     ChaCha20 launch a rank), equal to those rows of the unsharded draw,
+     and the test256 golden's inputs mixed with a DeviceSource party,
+     each rank's transcript byte-equal to the same mix unsharded;
   8. the multi-party path: modp2048, k=3 mix-servers, threshold 2, --k3-n
      ciphertexts (default 10000), Fiat–Shamir: the three parties (threads
      of this process on this one card) agree on the public key and on
@@ -198,7 +213,9 @@ and H8's launches in each mix by batch size (1, 2-127, >=128); the
 "cli modp2048 k=1 mix", its precomputed "... online mix", "cli modp2048
 k=3 mix" summed over the three processes, "cli P-256 mix", and each
 rank's of the sharded mixes: "sharded modp2048 mix (rank i)" for the
-Montgomery kernels, "sharded P-256 mix (rank i)" for the EC ones), beside the
+Montgomery kernels, "sharded P-256 mix (rank i)" for the EC ones;
+chacha20_limbs's in the modp2048 DeviceSource mix, by path also the
+P-256 one's and the sharded test256 DeviceSource mix's), beside the
 error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
@@ -291,6 +308,20 @@ TV_NAMES = [
 # 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 INT_MUL_PER_S = 132 * 64 * 1.98e9
+# The ChaCha20 kernel's operations are 32-bit integer adds, XORs and
+# funnel-shift rotations, also 64 a clock an SM at compute capability 9.0
+# (the same guide's table), over the same 132 SMs at 1.98 GHz; a 64-byte
+# block takes 20 rounds of 4 quarter rounds of 12 such operations and 16
+# final adds (the stores' index work left out).
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+CHACHA_BLOCK_OPS = 20 * 4 * 12 + 16
+# The file:line the ChaCha20 kernel stands in for: no Pallas kernel, but
+# vmn_tpu's XLA program that expands a DeviceSource draw (Threefry words
+# into 16-bit limbs).
+PRF_REPLACES = ("vmn_tpu/crypto/randomsource.py:141 (_prf_limbs, an XLA "
+                "program; no Pallas kernel)")
+# bench.py's DeviceSource seed, the party's of the [devicesource] mixes
+DEVICE_PARTY_SEED = b"bench-party"
 # Montgomery products per point operation at a = -3, Jacobian coordinates
 # (products and squarings alike):
 EC_ADD_PRODUCTS = 16    # general addition, 12 + 4
@@ -936,6 +967,84 @@ def kernel_line(name: str, r: dict) -> None:
           bound_by=r["bound_by"], **extra)
 
 
+def prf_bound(blocks: int, nbytes: int) -> dict:
+    """The least time of a ChaCha20 expansion: `blocks` blocks'
+    operations over the integer rate, or `nbytes` written over the
+    memory rate (nothing is read)."""
+    t_ops = blocks * CHACHA_BLOCK_OPS / INT_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def mid_block_rows(n: int, bits: int) -> tuple:
+    """A row range [a, b) of an n-row draw whose first row starts inside
+    a 64-byte block: from the first such row at n/3 or after, to 2n/3."""
+    nw = (-(-bits // 16) + 1) // 2
+    a = next(i for i in range(n // 3, n) if (i * nw) % 16)
+    return a, max(a + 1, 2 * n // 3)
+
+
+def check_prf_kernels(n: int, ec_n: int) -> dict:
+    """The ChaCha20 kernel (`chacha20_limbs`, csrc/prf_kernels.cu) against
+    its plain version on the card, exact equality of every limb, at the
+    draws of the DeviceSource mixes: modp2048's re-encryption exponents
+    (N rows of |q| + rbitlen = 2147 bits) and P-256's (--ec-n rows of
+    356 bits), each whole and over a row range that starts mid-block (a
+    rank's block of a sharded draw); then RFC 8439 §2.3.2's block on the
+    card.  Each timed on the device, beside its plain version's time and
+    its bound."""
+    import hashlib
+
+    from vmn_tpu_torch.crypto import randomsource as R
+    from vmn_tpu_torch.kernel_timing import device_ms
+    from vmn_tpu_torch.ops import prf_kernels as PK
+
+    dev = torch.device("cuda", 0)
+    key = hashlib.sha256(b"smoke-prf").digest()
+    shapes = {}
+    for tag, name, count in (("", "modp2048", n), ("_p256", "P-256", ec_n)):
+        group = _group(name)
+        shapes[tag] = (count, group.ring.nbits
+                       + _params("Smoke", group).rbitlen)
+    cases = {}
+    for tag, (count, bits) in shapes.items():
+        cases[f"chacha20_limbs{tag}"] = (count, bits, None)
+        cases[f"chacha20_limbs{tag}_range"] = (
+            count, bits, mid_block_rows(count, bits))
+    results = {}
+    for name, (count, bits, rows) in cases.items():
+        a, b, lt, nw, _ = PK.layout(count, bits, rows)
+
+        def run():
+            return PK.chacha20_limbs(key, 5, count, bits, rows, dev)
+
+        got = run()
+        want, plain_ms = timed(
+            lambda: PK.chacha20_limbs_plain(key, 5, count, bits, rows, dev))
+        blocks = -(-b * nw // 16) - a * nw // 16
+        r = {"N": b - a, "bits": bits, "rows": [a, b],
+             "max_abs_err": max_abs_err(got, want), "ms": device_ms(run),
+             "plain_ms": plain_ms, "tolerance": "exact",
+             **prf_bound(blocks, got.numel() * got.element_size())}
+        results[name] = r
+        phase("kernel", name=name, N=r["N"], bits=bits, rows=f"{a}:{b}",
+              tolerance="exact", equal=True, max_abs_err=r["max_abs_err"],
+              ms=f"{r['ms']:.4f}", plain_ms=f"{plain_ms:.3f}",
+              bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+              blocks=blocks)
+    rfc = PK.chacha20_limbs(R.RFC_KEY, R.RFC_DRAW, 1, 512, device=dev,
+                            counter=R.RFC_COUNTER, nonce0=R.RFC_NONCE0)
+    got = R.limbs_bytes(rfc)
+    if got != R.RFC_BLOCK:
+        raise AssertionError(f"ChaCha20 on the card: RFC 8439's block "
+                             f"{got.hex()} != {R.RFC_BLOCK.hex()}")
+    phase("kernel", name="chacha20_limbs_rfc8439", N=1, equal=True,
+          block=got[:8].hex(), tolerance="exact")
+    return results
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -1362,26 +1471,30 @@ def counted(fn):
     launches by batch size)."""
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
+    from vmn_tpu_torch.ops import prf_kernels as PK
 
     torch.cuda.synchronize()
     K.reset_launches()
     E.reset_launches()
+    PK.reset_launches()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **E.LAUNCHES}
+    launches = {**K.LAUNCHES, **E.LAUNCHES, **PK.LAUNCHES}
     sizes = {k: dict(v) for k, v in (*K.LAUNCH_SIZES.items(),
                                      *E.LAUNCH_SIZES.items())}
     return out, seconds, launches, sizes
 
 
 def run_mix(params, msgs, workdir: Path, party_seed: bytes,
-            ciph_seed: bytes, maxciph: int = 0):
+            ciph_seed: bytes, maxciph: int = 0, source=None):
     """keygen -> encrypt the message array `msgs` -> (precomputation for
-    `maxciph` ciphertexts, if not 0) -> mix; returns (nizkp dir,
+    `maxciph` ciphertexts, if not 0) -> mix, the party's randomness from
+    `source` (a class; SeededSource where None); returns (nizkp dir,
     plaintext array, mix seconds, kernel launches of the mix alone,
-    H1/H2/H3/H5/H8 launches of the mix by batch size)."""
+    H1/H2/H3/H5/H8 launches of the mix by batch size, the device draws
+    of the mix: 0 but with a DeviceSource)."""
     from vmn_tpu_torch.crypto.randomsource import SeededSource
     from vmn_tpu_torch.protocol import elgamal
     from vmn_tpu_torch.protocol.com.board import LocalBoardHub
@@ -1389,7 +1502,7 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
 
     group = params.pgroup
     party = MixNetParty(params, LocalBoardHub(1).board(1),
-                        SeededSource(party_seed), str(workdir))
+                        (source or SeededSource)(party_seed), str(workdir))
     pk = party.keygen()
     r = group.ring.random((msgs.size,), SeededSource(ciph_seed), 0)
     ciphs = elgamal.encrypt(pk, msgs, r)
@@ -1397,8 +1510,10 @@ def run_mix(params, msgs, workdir: Path, party_seed: bytes,
     session = party.session(params.sid.lower(), 1)
     if maxciph:
         session.precomp(maxciph)
+    drawn = getattr(session.rs, "draws", 0)
     plain, mix_s, launches, sizes = counted(lambda: session.mix(ciphs))
-    return session.nizkp, plain, mix_s, launches, sizes
+    draws = getattr(session.rs, "draws", 0) - drawn
+    return session.nizkp, plain, mix_s, launches, sizes, draws
 
 
 def file_group(name: str) -> tuple:
@@ -1532,7 +1647,7 @@ def golden_phase(tmp: Path, name: str, maxciph: int = 0,
         tv_file = "test_vectors_precomp.json"
     params = _params("Golden", group)
     msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
-    nizkp, plain, mix_s, launches, _ = run_mix(
+    nizkp, plain, mix_s, launches, _, _ = run_mix(
         params, make(msgs), tmp / f"golden_{name}_{maxciph}",
         b"golden-party", b"golden-ciphs", maxciph)
     files = same_transcript(nizkp, golden)
@@ -1879,10 +1994,20 @@ def multiexp_widths(group, calls: dict, check: bool = False) -> list:
     return out
 
 
-def slice_phase(name: str, n: int, tmp: Path):
+# Each slice's (mix s, verify s), its party's randomness a SeededSource
+SLICE_S: dict = {}
+
+
+def slice_phase(name: str, n: int, tmp: Path, source=None):
     """A mix path at N ciphertexts; returns each wrapper's launches in
     its mix, H1/H2/H3/H5/H8's by batch size, and the shapes at which the
-    mix and the verify called H4 (modp2048) or H6 (P-256), each timed."""
+    mix and the verify called H4 (modp2048) or H6 (P-256), each timed.
+    With `source` (DeviceSource) the `[devicesource]` run of the path:
+    the party's randomness from `source(DEVICE_PARTY_SEED)`, bench.py's
+    seed, so that every prover draw of the mix is expanded on the card
+    by the ChaCha20 kernel: its launches must equal the mix's draws, the
+    path's kernels must launch, and its seconds stand beside the
+    SeededSource slice's (run first)."""
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.ops import ec_kernels as E
@@ -1901,14 +2026,29 @@ def slice_phase(name: str, n: int, tmp: Path):
     torch.cuda.reset_peak_memory_stats()
     owner, wrapper = ((E, "ec_multiexp_positions") if name.startswith("P-")
                       else (K, "mont_expprod_positions"))
+    tag = "slice" if source is None else "devicesource"
     with calls_of(owner, wrapper, {}) as mix_calls:
-        nizkp, plain, mix_s, launches, sizes = run_mix(
-            params, m, tmp / f"slice_{name}", b"smoke-party",
-            b"smoke-ciphs")
+        nizkp, plain, mix_s, launches, sizes, draws = run_mix(
+            params, m, tmp / f"{tag}_{name}", b"smoke-party"
+            if source is None else DEVICE_PARTY_SEED, b"smoke-ciphs",
+            source=source)
     by_width = dict(K.LAUNCH_WIDTHS)  # the mix's, before the verify's
     if sorted(_points(group, plain)) != sorted(msgs):
         raise AssertionError("plaintext multiset not preserved")
     extra = {}
+    if source is not None:
+        need = EC_MIX_KERNELS if name.startswith("P-") else MIX_KERNELS
+        unlaunched = [k for k in need if not launches[k]]
+        if unlaunched or not draws or launches["chacha20_limbs"] != draws:
+            raise AssertionError(
+                f"{name} DeviceSource mix: {draws} draws, "
+                f"{launches['chacha20_limbs']} ChaCha20 launches, not "
+                f"launched: {unlaunched}")
+        extra = {"source": "DeviceSource", "party_seed": "bench-party",
+                 "draws": draws, "prf_launches": launches["chacha20_limbs"],
+                 "kernels_launched": ",".join(need),
+                 "seeded_mix_s": f"{SLICE_S[name][0]:.3f}",
+                 "seeded_verify_s": f"{SLICE_S[name][1]:.3f}"}
     if name in FILE_GROUPS:
         # every Montgomery launch of the mix at the group's width: W = 32
         # for the fresh groups, converting at the odd limb count (the
@@ -1933,7 +2073,9 @@ def slice_phase(name: str, n: int, tmp: Path):
     tables = list(group.ctx._fb_tables.values())
     if not tampered_rejected(params, nizkp, tmp):
         raise AssertionError("tampered transcript accepted")
-    phase("slice", group=name, k=1, N=n, multiset=True,
+    if source is None:
+        SLICE_S[name] = (mix_s, verify_s)
+    phase(tag, group=name, k=1, N=n, multiset=True,
           verify_ok=True, tampered_rejected=True, **extra,
           mix_s=f"{mix_s:.3f}", verify_s=f"{verify_s:.3f}",
           mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
@@ -1942,7 +2084,8 @@ def slice_phase(name: str, n: int, tmp: Path):
           phase_s=f"{time.perf_counter() - t0:.1f}")
     widths = multiexp_widths(group, {"mix": mix_calls,
                                      "verify": verify_calls})
-    multiexp_lines(name, wrapper, widths)
+    if source is None:
+        multiexp_lines(name, wrapper, widths)
     return launches, sizes, widths, mix_s
 
 
@@ -1955,6 +2098,30 @@ SHARD_MIXES = {"test256": (5, ()),
                                    "mont_expprod_positions",
                                    "mont_expprod_combine")),
                "P-256": (None, ("ec_scalar_mul", "ec_point_add"))}
+# Then the DeviceSource checks: one device draw of N rows at modp2048
+# (the re-encryption exponents' shape), each rank expanding its own
+# block, and the test256 golden's inputs mixed with a DeviceSource party
+# (its session's draws by row range), each against the same unsharded.
+SHARD_DRAW_SEED = b"smoke-shard-draw"
+SHARD_DEVICE_MIX = "test256-device"
+
+
+def shard_draw(group, n: int, device):
+    """The DeviceSource draw of the sharded phase: n re-encryption
+    exponents of `group`, this rank's rows inside a rows_scope."""
+    from vmn_tpu_torch.crypto.randomsource import DeviceSource
+    from vmn_tpu_torch.protocol.context import ProtocolParams
+
+    rbitlen = ProtocolParams(sid="x", k=1, threshold=1,
+                             pgroup=group).rbitlen
+    return group.ring.random((n,), DeviceSource(SHARD_DRAW_SEED), rbitlen)
+
+
+def limbs_digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(
+        t.cpu().numpy().astype("<u4").tobytes()).hexdigest()
 
 
 def shard_rank(argv) -> int:
@@ -1965,8 +2132,9 @@ def shard_rank(argv) -> int:
     (`vmn_tpu_torch.parallel.dist_worker.mix`); after each a JSON line
     with the rank's device, block, multiset, nizkp digest, mix seconds
     and the launches of its `session.mix` alone."""
+    from vmn_tpu_torch.ops import prf_kernels as PK
     from vmn_tpu_torch.parallel import dist, dist_worker
-    from vmn_tpu_torch.parallel.mesh import ciph_mesh
+    from vmn_tpu_torch.parallel.mesh import ciph_mesh, rows_scope
 
     work, n, ec_n = Path(argv[0]), int(argv[1]), int(argv[2])
     if not dist.init_from_env():
@@ -1981,6 +2149,24 @@ def shard_rank(argv) -> int:
             tag="smoke")
         print(json.dumps({"mix": name, "N": count,
                           "device": str(mesh.device), **res}), flush=True)
+    group = dist_worker.group_of("modp2048", mesh.device)
+    with rows_scope(mesh, n):
+        shard_draw(group, 1, mesh.device)  # the F2 check, outside the count
+        torch.cuda.synchronize()
+        PK.reset_launches()
+        block = shard_draw(group, n, mesh.device).limbs
+        torch.cuda.synchronize()
+    print(json.dumps({"draw": "modp2048", "N": n,
+                      "rows": [block.start, block.stop],
+                      "digest": limbs_digest(block.local),
+                      "launches": PK.LAUNCHES["chacha20_limbs"]}),
+          flush=True)
+    res = dist_worker.mix(
+        dist_worker.group_of("test256", mesh.device), 5,
+        work / f"{SHARD_DEVICE_MIX}_rank{mesh.rank}", mesh, golden=True,
+        source="device")
+    print(json.dumps({"mix": SHARD_DEVICE_MIX, "N": 5,
+                      "device": str(mesh.device), **res}), flush=True)
     dist.shutdown()
     return 0
 
@@ -1990,7 +2176,15 @@ def sharded_phase(n: int, ec_n: int, tmp: Path, unsharded_s: dict) -> dict:
     card; each must equal its unsharded transcript (the golden, the
     slice phase's) byte for byte on every rank, with equal digests, the
     port's verifier accepting rank 0's, and SHARD_MIXES' kernels
-    launched on every rank.  Returns {mix: [each rank's launches]}."""
+    launched on every rank.  Then the DeviceSource checks: each rank's
+    block of one device draw equal to those rows of the unsharded draw
+    (SHA-256 of the limbs; one ChaCha20 launch a rank), and the test256
+    mix with a DeviceSource party byte-equal to the same mix unsharded
+    in this process, the ChaCha20 kernel launched on every rank.
+    Returns {mix: [each rank's launches]}."""
+    from vmn_tpu_torch.parallel import dist_worker
+    from vmn_tpu_torch.parallel.mesh import Mesh
+
     t0 = time.perf_counter()
     work = tmp / "sharded"
     port, = free_ports(1)
@@ -2007,15 +2201,25 @@ def sharded_phase(n: int, ec_n: int, tmp: Path, unsharded_s: dict) -> dict:
         outs = procs.wait(ranks, timeout=SHARD_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
     lines = [[json.loads(x) for x in text.splitlines()
-              if x.startswith('{"mix"')] for _, _, text in outs]
+              if x.startswith(('{"mix"', '{"draw"'))] for _, _, text in outs]
+    by_name = [{ln["mix"] if "mix" in ln else f"draw {ln['draw']}": ln
+                for ln in rank} for rank in lines]
+    # the unsharded DeviceSource runs in this process (one-rank mesh)
+    dev = torch.device("cuda", 0)
+    device_mix = dist_worker.mix(
+        dist_worker.group_of("test256", dev), 5, tmp / SHARD_DEVICE_MIX,
+        Mesh(1, 0, dev), golden=True, source="device")
+    whole = shard_draw(_group("modp2048"), n, dev).limbs
     unsharded = {"test256": GOLDEN / "nizkp_test256_k1",
                  "modp2048": tmp / "slice_modp2048" / "nizkp.smokemodp2048",
-                 "P-256": tmp / "slice_P-256" / "nizkp.smokep256"}
+                 "P-256": tmp / "slice_P-256" / "nizkp.smokep256",
+                 SHARD_DEVICE_MIX: Path(device_mix["nizkp"])}
+    mixes = {**SHARD_MIXES, SHARD_DEVICE_MIX: (5, ("chacha20_limbs",))}
     launches, verify_s = {}, 0.0
-    for i, (name, (_, need)) in enumerate(SHARD_MIXES.items()):
-        rs = [ln[i] for ln in lines]
-        if [r["mix"] for r in rs] != [name] * SHARD_RANKS:
+    for name, (_, need) in mixes.items():
+        if any(name not in ln for ln in by_name):
             raise AssertionError(f"sharded {name}: lines {lines}")
+        rs = [ln[name] for ln in by_name]
         count = rs[0]["N"]
         rows = [r["rows"] for r in rs]
         if sum(rows) != count or not all(r["ok"] for r in rs):
@@ -2030,8 +2234,9 @@ def sharded_phase(n: int, ec_n: int, tmp: Path, unsharded_s: dict) -> dict:
         if missing:
             raise AssertionError(f"sharded {name}: not launched on the "
                                  f"rank's block: {missing}")
-        params = _params("Golden" if name == "test256"
-                         else f"Smoke{name.replace('-', '')}", _group(name))
+        params = _params("Golden" if name.startswith("test256")
+                         else f"Smoke{name.replace('-', '')}",
+                         _group(name.split("-device")[0]))
         ok, s = verify(params, Path(rs[0]["nizkp"]))
         if not ok:
             raise AssertionError(f"sharded {name}: verifier rejected it")
@@ -2048,6 +2253,19 @@ def sharded_phase(n: int, ec_n: int, tmp: Path, unsharded_s: dict) -> dict:
               **{f"launches_rank{r['pid']}": json.dumps(
                   {k: v for k, v in r["launches"].items() if v},
                   separators=(",", ":")) for r in rs})
+    draws = [ln["draw modp2048"] for ln in by_name]
+    blocks = [tuple(d["rows"]) for d in draws]
+    if blocks != [Mesh(SHARD_RANKS, i, dev).block(n)
+                  for i in range(SHARD_RANKS)]:
+        raise AssertionError(f"sharded draw: blocks {blocks}")
+    for d, (a, b) in zip(draws, blocks):
+        if d["digest"] != limbs_digest(whole[a:b]) or d["launches"] != 1:
+            raise AssertionError(f"sharded draw: rows {a}:{b} differ from "
+                                 f"the unsharded draw, or {d['launches']} "
+                                 "launches")
+    phase("sharded", draw="modp2048 DeviceSource", N=n,
+          rows=",".join(f"{a}:{b}" for a, b in blocks),
+          equal_to_unsharded=True, prf_launches_a_rank=1)
     phase("sharded", ranks=SHARD_RANKS, ranks_wall_s=f"{ranks_s:.1f}",
           verify_s=f"{verify_s:.1f}",
           phase_s=f"{time.perf_counter() - t0:.1f}")
@@ -2299,7 +2517,9 @@ def cli_info(procs: Procs, sid: str, group: str, k: int = 1,
              threshold: int = 1) -> dict:
     """vmni -prot, one vmni -party per party (its own directory, fixed
     signature keys and seed file; localhost HTTP and hint ports when
-    k > 1), vmni -merge: ({j: party directory}, {step: seconds})."""
+    k > 1), the parties' processes at once, as each server runs its own,
+    vmni -merge: ({j: party directory}, {step: seconds}, the parties'
+    step the wall seconds of their processes together)."""
     from vmn_tpu_torch.crypto.randomsource import SeededSource
     from vmn_tpu_torch.crypto.signature import SignatureKeyPair
 
@@ -2307,9 +2527,10 @@ def cli_info(procs: Procs, sid: str, group: str, k: int = 1,
     _, s = procs.run("vmni", "-prot", "-sid", sid, "-nopart", str(k),
                      "-thres", str(threshold), "-pgroup", f"named:{group}",
                      "-stub", "stub.xml")
-    steps = {"vmni_prot": s, "vmni_party": 0.0}
+    steps = {"vmni_prot": s}
     ports = free_ports(2 * k)
-    dirs = {}
+    dirs, started = {}, []
+    t0 = time.perf_counter()
     for j in range(1, k + 1):
         d = dirs[j] = w / f"Party{j:02d}"
         d.mkdir()
@@ -2317,12 +2538,13 @@ def cli_info(procs: Procs, sid: str, group: str, k: int = 1,
         kp = SignatureKeyPair.generate(SeededSource(f"{sid}-sig-{j}".encode()))
         net = (["-http", f"http://127.0.0.1:{ports[2 * j - 2]}",
                 "-hint", f"127.0.0.1:{ports[2 * j - 1]}"] if k > 1 else [])
-        _, s = procs.run("vmni", "-party", "-name", f"Party{j:02d}",
-                         "-stub", str(w / "stub.xml"), "-dir", str(d),
-                         "-seed", str(d / "seed"), "-pkey", kp.public.to_hex(),
-                         "-skey", kp.to_hex(), *net, "-out", "local.xml",
-                         cwd=d)
-        steps["vmni_party"] += s
+        started.append(procs.start(
+            ["vmni", "-party", "-name", f"Party{j:02d}",
+             "-stub", str(w / "stub.xml"), "-dir", str(d),
+             "-seed", str(d / "seed"), "-pkey", kp.public.to_hex(),
+             "-skey", kp.to_hex(), *net, "-out", "local.xml"], cwd=d))
+    procs.wait(started)
+    steps["vmni_party"] = time.perf_counter() - t0
     _, s = procs.run("vmni", "-merge",
                      *[str(dirs[j] / "local.xml") for j in dirs],
                      "-out", "protInfo.xml")
@@ -2784,7 +3006,7 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
                     around=lambda: record_function(K3_WINDOW))
                 nizkp = tmp / "prof_k3" / "P01" / "nizkp.prof"
             else:
-                nizkp, _, mix_s, _, _ = run_mix(
+                nizkp, _, mix_s, _, _, _ = run_mix(
                     params, m, tmp / f"prof_{name}", b"smoke-party",
                     b"smoke-ciphs")
             ok, verify_s = verify(params, nizkp)
@@ -2869,6 +3091,7 @@ def main(argv=None) -> int:
         return 1
     t_start = time.perf_counter()
 
+    from vmn_tpu_torch.crypto.randomsource import DeviceSource
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
 
@@ -2908,6 +3131,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     pc_ec_n = min(args.ec_n, PC_EC_N)
     checks = check_kernels(args.n, args.ec_n, headroom(args.n))
+    checks.update(check_prf_kernels(args.n, args.ec_n))
     # each curve whole at 4096 points, and at --ec-n (every curve but
     # P-256 on spread rows); P-256 also at 64-bit scalars (the
     # precomputation's)
@@ -2953,6 +3177,11 @@ def main(argv=None) -> int:
                                        tmp)
                     for curve in EC_PATH_CURVES}
         ec, ec_sizes, ec_widths, ec_s = ec_paths["P-256"]
+        # the same modp2048 and P-256 mixes with bench.py's DeviceSource
+        device_mix = {name: slice_phase(name, count, tmp,
+                                        source=DeviceSource)[0]
+                      for name, count in (("modp2048", args.n),
+                                          ("P-256", args.ec_n))}
         sharded = sharded_phase(args.n, args.ec_n, tmp,
                                 {"modp2048": modp_s, "P-256": ec_s})
         k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
@@ -3008,6 +3237,10 @@ def main(argv=None) -> int:
                 "ec_multiexp_positions", "ec_multiexp_combine")}}
         missing += [k if curve == "P-256" else f"{k} ({curve})"
                     for k in need if launches[k] == 0 and k != "ec_fb_exp"]
+    # the ChaCha20 kernel in both DeviceSource mixes
+    missing += [f"chacha20_limbs ({path} DeviceSource)"
+                for path, launches in device_mix.items()
+                if launches["chacha20_limbs"] == 0]
     if missing:
         raise AssertionError(f"not launched in their path's mix: {missing}")
     for path, (launches, *_) in ec_paths.items():
@@ -3126,6 +3359,26 @@ def main(argv=None) -> int:
                            if k.startswith("mont_fb_exp") and "_tpi" in k])
     kernels[ec_at["ec_fb_exp"]].update(
         note="off the mix path, as in vmn_tpu (arith/ec.py _exp_impl)")
+    # the device PRF: its launches in the DeviceSource modp2048 mix, its
+    # check at that mix's draw (N rows of 2147 bits), and the same at
+    # P-256's (--ec-n rows of 356 bits)
+    kernels.append({
+        "name": "chacha20_limbs", "route": "cuda",
+        "source": "vmn_tpu_torch/csrc/prf_kernels.cu",
+        "replaces": PRF_REPLACES,
+        "launches": device_mix["modp2048"]["chacha20_limbs"],
+        "path": "modp2048 DeviceSource mix",
+        **checks["chacha20_limbs"],
+        "p256": {"launches": device_mix["P-256"]["chacha20_limbs"],
+                 **checks["chacha20_limbs_p256"]},
+        "mid_block_range": checks["chacha20_limbs_range"],
+        "p256_mid_block_range": checks["chacha20_limbs_p256_range"],
+        "launches_by_path": {
+            **{f"{p} DeviceSource mix": r["chacha20_limbs"]
+               for p, r in device_mix.items()},
+            **{f"sharded {SHARD_DEVICE_MIX} mix (rank {i})":
+               r["chacha20_limbs"]
+               for i, r in enumerate(sharded[SHARD_DEVICE_MIX])}}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ permute) and the row moves and draws the sharded mix reaches; at P-256
 the scalar multiple, the point addition, the sum and exp_prod of N = 3
 points (blocks of 1, 1, 1 and 0).  Each result, gathered, must equal
 `vmn_tpu`'s on the same seeded inputs (its XLA path on the CPU), on
-every rank.  On a CUDA device only: two ranks on the card against the
-port's plain versions.
+every rank; the port's DeviceSource draws (ChaCha20, not `vmn_tpu`'s
+Threefry), each rank expanding its own rows, must equal the port's
+unsharded draws, at N = 16, 10 and 3 (an empty block).  On a CUDA
+device only: two ranks on the card against the port's plain versions.
 
 Tolerance: exact equality (integer arithmetic).
 """
@@ -29,6 +31,8 @@ RANKS = 4
 RANK_TIMEOUT_S = 240
 KEYS = ([f"{op}_{n}" for n in ops.SIZES for op in ops.MODP_OPS]
         + list(ops.EC_OPS))
+DEVICE_KEYS = [f"{op}_{n}" for n in ops.DEVICE_SIZES
+               for op in ops.DEVICE_OPS]
 
 
 def run_ranks(out, nranks: int, device: str) -> dict:
@@ -80,7 +84,8 @@ def parts(results: dict, key: str) -> dict:
 def test_n_row_results_stay_sharded(sharded):
     """Every result of N rows is a block on each rank (the ops ran on
     the blocks), every one-element result a replicated tensor."""
-    want = {k for k in KEYS if k.rsplit("_", 1)[0] not in ops.SCALAR_OPS
+    want = {k for k in KEYS + DEVICE_KEYS
+            if k.rsplit("_", 1)[0] not in ops.SCALAR_OPS
             and k not in ops.SCALAR_OPS}
     assert set(sharded["__sharded__"].tolist()) == want
 
@@ -93,6 +98,25 @@ def test_sharded_op_equals_vmn_tpu(sharded, reference, key):
     for k in want:
         assert got[k].shape == want[k].shape, k
         assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.fixture(scope="module")
+def port_draws():
+    """The port's DeviceSource draws of the same ops, unsharded."""
+    from vmn_tpu_torch.arith.pgroup import ModPGroup
+
+    res = ops.device_ops(ModPGroup.named("test256", device="cpu"),
+                         ops.port_pkg())
+    return ops.flat(res, lambda t: t.cpu().numpy())
+
+
+@pytest.mark.parametrize("key", DEVICE_KEYS)
+def test_sharded_device_draw_equals_unsharded(sharded, port_draws, key):
+    """Each rank's rows of a device draw, expanded alone, are those rows
+    of the unsharded draw (uneven and empty blocks included); a scalar
+    draw is whole and equal on every rank (`run_ranks`)."""
+    assert sharded[key].shape == port_draws[key].shape
+    assert np.array_equal(sharded[key], port_draws[key])
 
 
 def test_blocks_split_as_array_split():
@@ -129,8 +153,8 @@ def test_unknown_op_on_sharded_limbs_raises():
 
 @pytest.mark.cuda
 def test_sharded_ops_on_the_card_equal_plain(cuda_device, tmp_path):
-    """Two ranks on the card (H1-H5, H8 on each block) against the port's
-    plain versions, unsharded, on the CPU."""
+    """Two ranks on the card (H1-H5, H8 and the ChaCha20 kernel on each
+    block) against the port's plain versions, unsharded, on the CPU."""
     from vmn_tpu_torch.arith.ec import ECqPGroup
     from vmn_tpu_torch.arith.pgroup import ModPGroup
     from vmn_tpu_torch.ops import mont_kernels as K
@@ -139,6 +163,8 @@ def test_sharded_ops_on_the_card_equal_plain(cuda_device, tmp_path):
     got = run_ranks(tmp_path, 2, "cuda")
     res = ops.modp_ops(ModPGroup.named("test256", device="cpu"),
                        lambda a: a, ops.port_pkg())
+    res.update(ops.device_ops(ModPGroup.named("test256", device="cpu"),
+                              ops.port_pkg()))
     res.update(ops.ec_ops(ECqPGroup.named("P-256", device="cpu"),
                           lambda a: a))
     want = ops.flat(res, lambda t: t.cpu().numpy())

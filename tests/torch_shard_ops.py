@@ -6,7 +6,8 @@ rank's main.
       python tests/torch_shard_ops.py OUT [--device cpu|cuda]
 
 Each rank joins the process group, shards the inputs over the ranks
-(`vmn_tpu_torch.parallel.mesh`), runs every op, and writes the results
+(`vmn_tpu_torch.parallel.mesh`), runs every op (the port's DeviceSource
+draws among them), and writes the results
 as whole arrays (gathered) to OUT/rank{i}.npz.  Inputs are made from a
 seed with numpy; this module imports the port only, so that a rank never
 loads JAX.
@@ -25,11 +26,16 @@ MODP_OPS = ("random", "random_array", "random_bits_prg", "random_exp",
             "rec_lin_last", "sum", "inner_product", "permute",
             "permute_ring", "shift_push", "get_first", "get_last")
 EC_OPS = ("ec_exp", "ec_mul", "ec_prod", "ec_exp_prod")
+# The port's device draws (DeviceSource: ChaCha20, whose bits differ from
+# vmn_tpu's Threefry by design), held to the port's unsharded draws: N =
+# 16, 10 and 3 rows over 4 ranks (blocks of 4; 3, 3, 2, 2; 1, 1, 1, 0).
+DEVICE_SIZES = (16, 10, 3)
+DEVICE_OPS = ("device_random", "device_bits", "device_scalar")
 # The ops whose result is one element (replicated on every rank); every
 # other result has N rows and stays sharded.
 SCALAR_OPS = ("random_exp", "prod", "exp_prod", "exp_prod_128",
               "rec_lin_last", "sum", "inner_product", "get_first",
-              "get_last", "ec_prod", "ec_exp_prod")
+              "get_last", "ec_prod", "ec_exp_prod", "device_scalar")
 TEST256_P = int(
     "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff72ef", 16
 )
@@ -112,6 +118,28 @@ def modp_ops(group, sh, pkg) -> dict:
     return out
 
 
+def device_ops(group, pkg) -> dict:
+    """name -> each DeviceSource draw of the port at the DEVICE_SIZES:
+    the re-encryption exponents' draw (`random`, 306 bits: 20 limbs), a
+    batch draw of 100 bits (7 limbs, an odd count) and a scalar, which
+    stays whole on every rank; inside `pkg.scope(n)` each rank expands
+    its own rows alone."""
+    from vmn_tpu_torch.crypto.randomsource import DeviceSource
+
+    out = {}
+    ring = group.ring
+    for n in DEVICE_SIZES:
+        src = DeviceSource(b"shard-device-%d" % n)
+        with pkg.scope(n):
+            res = {"device_random": ring.random((n,), src, 50),
+                   "device_bits": ring.random_bits(n, 100, src),
+                   "device_scalar": ring.random((), src, 50)}
+        assert tuple(res) == DEVICE_OPS
+        for name, v in res.items():
+            out[f"{name}_{n}"] = v
+    return out
+
+
 def ec_ops(grp, sh) -> dict:
     """name -> result of each P-256 op: scalar multiples (H5), point
     additions (H8) and the sum (a tree on each block, one of the
@@ -182,6 +210,7 @@ def main(argv) -> int:
         return shard_array(a, mesh)
 
     res = modp_ops(group, sh, port_pkg(mesh))
+    res.update(device_ops(group, port_pkg(mesh)))
     res.update(ec_ops(ECqPGroup.named("P-256", device=mesh.device),
                       lambda a: shard_array(a, mesh)))
     sharded = [k for k, a in res.items()

@@ -18,7 +18,8 @@ block of its N rows: the Montgomery ops route through `MontCtx`, the row
 moves (`get`, `shift_push`, `permute`, `rec_lin`'s last row) through
 `parallel.mesh`, byte-tree export gathers, and within a session over
 sharded ciphertexts each N-row draw keeps this rank's rows
-(`mesh.take_rows`).
+(`mesh.take_rows`; a device draw expands those rows alone,
+`mesh.take_draw`).
 """
 
 from __future__ import annotations
@@ -243,9 +244,22 @@ class PField:
     def random_bits_raw(self, n: int, bits: int, randomsource,
                         rows: bool = True):
         """n uniform `bits`-bit integers as (n, Lw) standard limbs (an
-        array of n rows: this rank's block inside a sharded session)."""
-        raw = _masked_raw(randomsource, n, bits)
+        array of n rows: this rank's block inside a sharded session).
+        A source with a device PRF (DeviceSource) expands the draw on
+        this field's device, as `vmn_tpu` hands it over
+        (vmn_tpu/arith/pgroup.py:218): no host bytes, no upload; inside
+        a sharded session only this rank's rows are expanded."""
         Lw = max(self.L, num_limbs(bits))
+        device_draw = getattr(randomsource, "random_limbs", None)
+        if device_draw is not None:
+            def block(r):
+                t = device_draw(n, bits, self.device, rows=r)
+                if t.shape[1] == Lw:
+                    return t
+                return torch.constant_pad_nd(t, (0, Lw - t.shape[1]))
+
+            return pmesh.take_draw(n, block) if rows else block(None)
+        raw = _masked_raw(randomsource, n, bits)
 
         def limbs(r):
             return self._limbs(bytes_be_to_limbs(r, Lw))

@@ -57,7 +57,12 @@ inputs made on the card from fixed seeds:
   (the P-256 instantiations, converted at the kernels' boundary): H1 and
   H2 at the P-224 field and ring (224-bit exponents, `_p224` and
   `_p224_ring` keys), and H5, H6, H8 and the EC combine at P-224 on
-  --ec-n points (`_p224` keys, the combine over 64 positions; no H7).
+  --ec-n points (`_p224` keys, the combine over 64 positions; no H7);
+* where the tree has the device PRF (ops/prf_kernels.py): the ChaCha20
+  kernel `chacha20_limbs` at the draws of the DeviceSource mixes, N rows
+  of 2147 bits (modp2048's re-encryption exponents: |q| + 100) and
+  --ec-n rows of 356 bits (P-256's), each whole (`chacha20_limbs`,
+  `chacha20_limbs_p256` keys).
 
 Every tree of the port since the EC slice has these wrappers with these
 signatures, so a commit and its parent, unpacked side by side, are timed
@@ -104,6 +109,7 @@ Prints the card's name and power limit, then one JSON object.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -371,6 +377,22 @@ def time_tree(n: int, ec_n: int) -> dict:
             out[f"mont_exp{tag}"] = device_ms(
                 lambda: K.mont_exp(a, e, ctx.mod, P224[1]))
         out.update(_time_ec(E, dev, ec_n, "_p224", 8, P224))
+    if importlib.util.find_spec("vmn_tpu_torch.ops.prf_kernels"):
+        out.update(time_prf(dev, n, ec_n))
+    return out
+
+
+def time_prf(dev, n: int, ec_n: int) -> dict:
+    """{case: device ms} of `chacha20_limbs` at the DeviceSource mixes'
+    draws: N rows of modp2048's |q| + rbitlen = 2047 + 100 bits, --ec-n
+    rows of P-256's 256 + 100."""
+    from vmn_tpu_torch.ops import prf_kernels as PK
+
+    key = bytes(range(32))
+    out = {}
+    for tag, count, bits in (("", n, 2147), ("_p256", ec_n, 356)):
+        out[f"chacha20_limbs{tag}"] = device_ms(
+            lambda: PK.chacha20_limbs(key, 1, count, bits, device=dev))
     return out
 
 

@@ -64,17 +64,21 @@ def host_values(arr) -> list:
 
 
 def mix(group, n: int, workdir: Path, mesh, golden: bool = False,
-        sid: str = "Dist", tag: str = "dist") -> dict:
+        sid: str = "Dist", tag: str = "dist", source: str = "seeded"
+        ) -> dict:
     """keygen -> N messages -> encryption -> `session.mix` on ciphertexts
     split over `mesh` (the draws and the encryption too: each rank keeps
-    its rows of them); returns the rank's figures."""
+    its rows of them); returns the rank's figures.  The party's source is
+    a SeededSource, or with `source="device"` a DeviceSource (its session
+    then draws on the device, each rank expanding its own rows)."""
     import torch
 
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
-    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.crypto.randomsource import DeviceSource, SeededSource
     from vmn_tpu_torch.ops import ec_kernels as E
     from vmn_tpu_torch.ops import mont_kernels as K
+    from vmn_tpu_torch.ops import prf_kernels as PK
     from vmn_tpu_torch.parallel.dist import shard_array_global
     from vmn_tpu_torch.parallel.mesh import rows_scope
     from vmn_tpu_torch.protocol import elgamal
@@ -85,8 +89,9 @@ def mix(group, n: int, workdir: Path, mesh, golden: bool = False,
     if golden:
         sid, tag = "Golden", "golden"
     params = ProtocolParams(sid=sid, k=1, threshold=1, pgroup=group)
+    party_source = {"seeded": SeededSource, "device": DeviceSource}[source]
     party = MixNetParty(params, LocalBoardHub(1).board(1),
-                        SeededSource(f"{tag}-party".encode()), str(workdir))
+                        party_source(f"{tag}-party".encode()), str(workdir))
     pk = party.keygen()
     with rows_scope(mesh, n):
         if golden:
@@ -107,11 +112,12 @@ def mix(group, n: int, workdir: Path, mesh, golden: bool = False,
     sync()
     K.reset_launches()
     E.reset_launches()
+    PK.reset_launches()
     t0 = time.perf_counter()
     plain = session.mix(ciphs)
     sync()
     mix_s = time.perf_counter() - t0
-    launches = {**K.LAUNCHES, **E.LAUNCHES}
+    launches = {**K.LAUNCHES, **E.LAUNCHES, **PK.LAUNCHES}
     a, b = mesh.block(n)
     return {"pid": mesh.rank, "ranks": mesh.size, "rows": b - a,
             "ok": sorted(host_values(plain)) == sorted(host_values(m)),

@@ -37,7 +37,10 @@ inputs of a session shards its mix.  Inside a session over sharded
 ciphertexts (`rows_scope`), each draw of N rows from a host source
 (prover randomness, the generators, the batching vector) reads the
 whole stream and keeps this rank's rows, so that the next draw starts
-where the unsharded run's does.
+where the unsharded run's does (`take_rows`).  A draw of a device PRF
+(DeviceSource) is addressed by its draw index and row range, so each
+rank expands its own block alone (`take_draw`), byte-equal to those
+rows of the unsharded draw; an empty block launches nothing.
 """
 
 from __future__ import annotations
@@ -259,6 +262,19 @@ def take_rows(full, n: int, to_tensor):
     mesh = scope[0]
     a, b = mesh.block(n)
     return ShardedLimbs(to_tensor(full[a:b]), n, a, mesh)
+
+
+def take_draw(n: int, draw):
+    """draw(rows) of a device draw of n rows, `rows` a (first, end) range
+    or None for all: this rank's block, expanded alone, as a
+    ShardedLimbs inside a `rows_scope` of n rows; the whole draw
+    otherwise."""
+    scope = getattr(_SCOPE, "value", None)
+    if scope is None or scope[1] != n or scope[0].size == 1:
+        return draw(None)
+    mesh = scope[0]
+    a, b = mesh.block(n)
+    return ShardedLimbs(draw((a, b)), n, a, mesh)
 
 
 # ------------------------------------------------------------ elementwise

@@ -54,7 +54,7 @@ import torch
 from vmn_tpu_torch import VCR_COMPAT_VERSION
 from vmn_tpu_torch.arith import storage
 from vmn_tpu_torch.arith.pgroup import Permutation, PPArray, PPGroup
-from vmn_tpu_torch.crypto.randomsource import SeededSource
+from vmn_tpu_torch.crypto.randomsource import session_source
 from vmn_tpu_torch.eio.bytetree import (
     ByteTree, ByteTreeError, int_leaf, lazy_from_bytes, leaf, node,
 )
@@ -337,7 +337,9 @@ class MixSession:
         )
         # Session randomness comes from a source seeded by a persisted
         # secret, so a restarted party regenerates identical
-        # contributions (reference: PermutationCommitment.java:156-218).
+        # contributions (reference: PermutationCommitment.java:156-218);
+        # a DeviceSource party's session keeps its draws on the device
+        # (`session_source`; vmn_tpu's is always a SeededSource).
         if self.state is not None:
             seed_file = self.state.file("session_seed")
             if seed_file.exists():
@@ -347,7 +349,7 @@ class MixSession:
                 self.state.path.mkdir(parents=True, exist_ok=True)
                 seed_file.touch(mode=0o600)
                 seed_file.write_bytes(seed)
-            self.rs = SeededSource(seed)
+            self.rs = session_source(party.rs, seed)
         else:
             self.rs = party.rs
         if not party.par.noninteractive:
@@ -555,6 +557,12 @@ class MixSession:
         # from bytes the precomputation already used (ROADMAP queue 3,
         # F10; vmn_tpu has no such file)
         sd.write_int("SourcePosition", self.rs.position)
+        # and a device PRF's draw count: a later process resumes the draw
+        # indices there, where a fresh source would repeat the
+        # precomputation's indices and with them its secret exponents
+        draws = getattr(self.rs, "draws", None)
+        if draws is not None:
+            sd.write_int("SourceDraws", draws)
         sd.write_bytetree("Generators.bt", st.generators.to_bytetree())
         sd.write_bytetree(
             "RaisedGenerators.bt", st.raised_generators.to_bytetree()
@@ -589,6 +597,9 @@ class MixSession:
         used = sd.read_int("SourcePosition")
         if used is not None and self.rs.position < used:
             self.rs.read_bytes(used - self.rs.position)
+        draws = sd.read_int("SourceDraws")
+        if draws is not None and hasattr(self.rs, "draws"):
+            self.rs.draws = max(self.rs.draws, draws)
 
         def elems(bt):
             return ctx.pgroup.elem_from_bytetree(bt, maxciph, validate=False)
