@@ -100,7 +100,24 @@ Phases (one line each; any failure raises and the exit code is not 0):
      test_vectors_modp{6144,8192}.json, the groups in
      group_modp{6144,8192}.json, the same script), and the
      P-224, P-384 and P-521 goldens (nizkp_p{224,384,521}_k1,
-     test_vectors_p{224,384,521}.json, the same script);
+     test_vectors_p{224,384,521}.json, the same script), the modp2048
+     golden (nizkp_modp2048_k1, test_vectors_modp2048.json, the same
+     script), and four configurations of vmn_tpu's check matrix
+     (tests/test_matrix.py, the reference's demo/mixnet/check) with its
+     `_run_mix` inputs, the parties in threads: test256 with keywidth 2,
+     with keywidth 2 and width 2, with k = 7 and t = 4, and with the
+     provable primitives (PRGElGamal, the Pedersen random-oracle hash):
+     party 1's transcript equal to tests/golden/nizkp_test256_{kw2,
+     kw2w2,k7t4,prov} and its test vectors to test_vectors_test256_*.json
+     (the same script), the parties' agreement and the first leaf's
+     multiset; then the live adversaries of tests/test_adversarial.py at
+     test256, k=3, t=2 (`[adversary]` lines; tests/torch_port_util.py's
+     flows, the parties on the card): party 2's wrong decryption factors
+     isolated (CorrectIndices 1, 0, 1), party 3's mis-opened coin shares
+     recovered, party 2 killed after its shuffled ciphertexts and
+     restarted with a RandomDevice (its replay accepted, the transcript
+     verified), and the P-224 coin flipping of
+     tests/golden/coinflip_p224_k3.json (every party's coins vmn_tpu's);
   6. the ModP path: modp2048, k=1, N ciphertexts (default 10000): keygen,
      encryption, mix (shuffle + proof of shuffle + verifiable
      decryption), plaintext multiset check, the standalone verifier, and
@@ -119,7 +136,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
      ChaCha20 kernel, whose launches must equal the mix's draws, H1-H4
      and K7's combine (modp2048), H5, H6, the EC combine and H8 (P-256)
      launched, checked as above, the mix and verify seconds beside the
-     SeededSource slice's;
+     SeededSource slice's; after the modp2048 slice, modp2048 with
+     keywidth 2 and width 2 at N (`[slice] group=modp2048-kw2w2`: the
+     product groups at a deployment's batch): the first leaf's
+     multiset, the verifier, a flipped byte rejected, H1-H4 and K7's
+     combine launched;
   7. the EC paths: the same at P-256, P-384 and P-521 with --ec-n
      ciphertexts (default 131072 = 2^17, from where `exp_prod` takes H6)
      and at P-224 with min(--ec-n, 65536) (P224_SLICE_N: its H6 and
@@ -150,12 +171,17 @@ Phases (one line each; any failure raises and the exit code is not 0):
      with the launches of H2 and H3 made inside the coin flipping; then
      k=3, t=2, Fiat–Shamir over P-224 with --ec-n ciphertexts, checked
      as the modp2048 one (H1, H2, H5, H6, the EC combine and H8 must
-     launch);
+     launch); then modp3072 k=3, t=2, Fiat–Shamir at N, checked as the
+     modp2048 one, every Montgomery launch at W = 96 (`launches_at_w`)
+     and H4 held to its plain version at each (N, exponent bits) the mix
+     and the verify called it with (`multiexp` lines);
   9. the precomputation path (`[precomp]` lines): modp2048 with k=1 and
      with k=3, t=2 (Fiat–Shamir), precomputation (PoSC) for 1.25·N
      ciphertexts (N and --k3-n: 12500 by default), then the online mix
      (keep-list shrink, CCPoS, decryption) of N, then P-256, k=1,
-     1.25·min(--ec-n, 65536) (81920) -> 65536 (PC_EC_N): the plaintext
+     1.25·min(--ec-n, 65536) (81920) -> 65536 (PC_EC_N), then modp3072,
+     k=1, 1.25·N -> N (every launch at W = 96; a shape its k=3 mix
+     checked takes that check, `checked_in`): the plaintext
      multiset (and for k=3
      the parties' agreement), the port's verifier accepting party 1's transcript and
      rejecting it with one flipped byte in CCPoSReply01.bt and, apart,
@@ -184,9 +210,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
      signing and verifying seconds, nizkp bytes); P-256, k=1, --ec-n
      ciphertexts written here through the raw interface; then vdemo
      (k=3, t=2, 1000 messages, modp2048, over HTTP) and vdemo -protocol
-     all.  Each line gives every step's seconds, process start-up
-     included.  H1-H4 and the combine must launch in every modp2048
-     `vmn -mix` process, H5, H6, the EC combine and H8 in the P-256 one.
+     all.  The five runs go at once (a thread of this process each,
+     their own directories, ports and processes).  Each line gives every
+     step's seconds, process start-up included, beside the other runs.
+     H1-H4 and the combine must launch in every modp2048 `vmn -mix`
+     process, H5, H6, the EC combine and H8 in the P-256 one.
 
 --profile modp2048|P-256|P-224|P-384|P-521|modp2048-k3|modp3072|modp4096|
           vog1024|vog1000|modp6144|modp8192
@@ -199,8 +227,10 @@ Each mix zeroes the wrappers' launch counters just before `session.mix`
 parties) and reads them just after it; a precomputation path does the
 same around its precomputation, and then around its online mix.  H1-H4
 and the combine must have launched in the modp2048, modp3072,
-modp4096, vog1024, vog1000, modp6144 and modp8192 mixes, in the k=3 mix
-and in the modp2048 k=1 precomputation path, H2 and H3 in the
+modp4096, vog1024, vog1000, modp6144 and modp8192 mixes, in the k=3
+mixes (modp2048, modp3072), in the modp2048 and modp3072 k=1
+precomputation paths, in the modp2048-kw2w2 mix, in each check-matrix
+golden's mix and in each live adversary's flow, H2 and H3 in the
 interactive mix's coin flipping, H5, H6, the EC combine (once per H6
 call) and H8 in the P-256 mix, and the same with H1 and H2 at W=12 in
 the P-224 mix (W'=8; its H6 and combine in the P-224 k=3 mix), the
@@ -215,7 +245,10 @@ k=3 mix" summed over the three processes, "cli P-256 mix", and each
 rank's of the sharded mixes: "sharded modp2048 mix (rank i)" for the
 Montgomery kernels, "sharded P-256 mix (rank i)" for the EC ones;
 chacha20_limbs's in the modp2048 DeviceSource mix, by path also the
-P-256 one's and the sharded test256 DeviceSource mix's), beside the
+P-256 one's and the sharded test256 DeviceSource mix's; the new runs'
+too: "modp3072 k=3 mix", "modp3072 precomp" and its online mix,
+"modp2048-kw2w2 mix", each check-matrix golden's mix and each live
+adversary's flow), beside the
 error, time, plain version's
 time and bound (the least time the card could take for the same work)
 of its check at that path's batch; the EC kernels' check at 4096 points
@@ -233,6 +266,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import multiprocessing
 import os
@@ -241,8 +275,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -352,9 +387,15 @@ def bound_words(nbits: int) -> int:
     return -(-nbits // 32)
 
 
+# Held by phase() and by the CLI phase's in-process runs while they
+# redirect stdout: the CLI runs are threads of this process (cli_phase)
+OUT_LOCK = threading.RLock()
+
+
 def phase(tag: str, **fields) -> None:
-    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    with OUT_LOCK:
+        print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+              flush=True)
 
 
 def card_line() -> str:
@@ -368,7 +409,8 @@ def card_line() -> str:
 
 def ptxas_summary(text: str):
     """One line per kernel instantiation from nvcc's -Xptxas -v report:
-    name<widths>, registers, stack frame and spill bytes."""
+    name<widths>, registers, stack frame and spill bytes, and the static
+    shared memory where it has any."""
     name = None
     out = []
     for line in text.splitlines():
@@ -386,7 +428,9 @@ def ptxas_summary(text: str):
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append(f"{name} regs={m.group(1)} {frame}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name} regs={m.group(1)} {frame}"
+                       + (f" smem={smem.group(1)}B" if smem else ""))
             name = None
     return out
 
@@ -1666,6 +1710,143 @@ def golden_phase(tmp: Path, name: str, maxciph: int = 0,
           phase_s=f"{time.perf_counter() - t0:.1f}")
 
 
+def port_util():
+    """tests/torch_port_util.py: the port's copies of vmn_tpu's check-matrix
+    and live-adversary runs, which the CPU tests hold to vmn_tpu (it
+    imports no JAX; its import sets torch's host threads for the test
+    workers, this process keeps its own count)."""
+    threads = torch.get_num_threads()
+    if str(REPO / "tests") not in sys.path:
+        sys.path.insert(0, str(REPO / "tests"))
+    import torch_port_util
+
+    torch.set_num_threads(threads)
+    return torch_port_util
+
+
+def golden_matrix_phase(tmp: Path, name: str) -> dict:
+    """A check-matrix golden on the card (tests/torch_make_wide_golden.py's
+    MATRIX: test256 with keywidth 2, keywidth 2 and width 2, k = 7 and
+    t = 4, or the provable primitives), with tests/test_matrix.py's
+    `_run_mix` inputs (SeededSource(f"party{j}"), SeededSource(
+    b"ciphertexts"), 5 messages, auxsid "mx"), the k parties in threads:
+    party 1's transcript and the verifier's test vectors as vmn_tpu froze
+    them, the parties' agreement, the first leaf's multiset, H1-H4 and
+    K7's combine launched in the mix.  Returns the mix's launches."""
+    U = port_util()
+    import torch_make_wide_golden as W
+
+    t0 = time.perf_counter()
+    params, width = U.matrix_params(name, device="cuda")
+    group = params.pgroup
+    work = tmp / f"golden_{name}"
+    parties, keygen_s = keygen_k(params, lambda j: f"party{j}".encode(),
+                                 work)
+    msgs, ciphs = U.matrix_ciphertexts(params, parties[1], width)
+    outs, mix_s, launches, _ = run_mix_k(parties, ciphs, "mx", width)
+    dirname, tv_file = W.fixture_names(name)
+    files = same_transcript(work / "P01" / "nizkp.mx", GOLDEN / dirname)
+    if not all(outs[j].equals(outs[1]) for j in range(2, params.k + 1)):
+        raise AssertionError(f"golden {name}: the plaintexts differ")
+    if sorted(U.first_leaf(outs[1]).to_ints()) != sorted(msgs):
+        raise AssertionError(f"golden {name}: multiset differs")
+    ok, _, tv = verify(params, work / "P01" / "nizkp.mx", TV_NAMES)
+    if not ok:
+        raise AssertionError(f"port verifier rejected the golden {name}")
+    tvs = same_test_vectors(tv, tv_file)
+    missing = missing_launches(launches, MIX_KERNELS)
+    if missing:
+        raise AssertionError(f"golden {name}: not launched: {missing}")
+    phase("golden", group=name, k=params.k, threshold=params.threshold,
+          keywidth=params.keywidth, width=width, files=files,
+          byte_equal=True, verify_ok=True, test_vectors=tvs,
+          multiset=True, parties_agree=True,
+          keygen_s=f"{keygen_s:.3f}", mix_s=f"{mix_s:.3f}",
+          launches=json.dumps({k: v for k, v in launches.items() if v},
+                              separators=(",", ":")),
+          phase_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def adversary_phase(tmp: Path) -> dict:
+    """tests/test_adversarial.py's live adversaries at test256 (k = 3,
+    t = 2, 5 messages), the three parties threads of this process on the
+    card (tests/torch_port_util.py's flows, which the CPU tests hold to
+    vmn_tpu's assertions): wrong decryption factors of party 2 isolated
+    by CorrectIndices (bits 1, 0, 1), coin shares of party 3 mis-opened
+    and the coins recovered (interactive), party 2 killed after its
+    shuffled ciphertexts and restarted with a RandomDevice, its replay
+    accepted and the transcript verified; then the P-224 coin flipping
+    of tests/golden/coinflip_p224_k3.json, every party's coins equal to
+    vmn_tpu's.  Each flow's launches are counted around it (keygen and
+    mix); H1-H4 and K7's combine must launch in each mix, H1, H2, H5
+    and H8 in the coin flipping.  Returns each flow's launches."""
+    import torch_make_wide_golden as W
+
+    U = port_util()
+    compact = {"separators": (",", ":")}
+    out = {}
+
+    def flow(name, fn, need, **fields):
+        t0 = time.perf_counter()
+        res, seconds, launches, _ = counted(fn)
+        missing = missing_launches(launches, need)
+        if missing:
+            raise AssertionError(f"adversary {name}: not launched: "
+                                 f"{missing}")
+        out[name] = launches
+        return res, {**fields, "seconds": f"{seconds:.3f}",
+                     "launches": json.dumps(
+                         {k: v for k, v in launches.items() if v},
+                         **compact),
+                     "phase_s": f"{time.perf_counter() - t0:.1f}"}
+
+    (msgs, outs, bits), line = flow(
+        "garbage decryption factors", lambda: U.adversary_garbage_factors(
+            tmp / "adv_garbage", "cuda"), MIX_KERNELS)
+    if (sorted(outs[1].to_ints()) != sorted(msgs)
+            or not outs[3].equals(outs[1]) or bits[1:] != [1, 0, 1]):
+        raise AssertionError(f"garbage factors: CorrectIndices {bits}")
+    phase("adversary", flow="garbage-decryption-factors", k=3, threshold=2,
+          N=U.ADV_N, excluded=2, correct_indices="1,0,1", multiset=True,
+          parties_agree="1,3", party2=f"'{outs[2]}'", **line)
+
+    (msgs, outs), line = flow(
+        "coin mis-open", lambda: U.adversary_coin_misopen(
+            tmp / "adv_coins", "cuda"), MIX_KERNELS)
+    if (sorted(outs[1].to_ints()) != sorted(msgs)
+            or not all(outs[j].equals(outs[1]) for j in (2, 3))):
+        raise AssertionError("coin mis-open: the mix did not complete")
+    phase("adversary", flow="coin-misopen", k=3, threshold=2, N=U.ADV_N,
+          interactive=True, coins_recovered=True, multiset=True,
+          parties_agree="1,2,3", **line)
+
+    (msgs, outs, params, nizkp, restarted), line = flow(
+        "kill and restart", lambda: U.adversary_restart(
+            tmp / "adv_restart", "cuda"), MIX_KERNELS)
+    if (not restarted or sorted(outs[1].to_ints()) != sorted(msgs)
+            or not all(outs[j].equals(outs[1]) for j in (2, 3))):
+        raise AssertionError("kill and restart: the replay failed")
+    ok, verify_s = verify(params, nizkp)
+    if not ok:
+        raise AssertionError("kill and restart: transcript rejected")
+    phase("adversary", flow="kill-and-restart", k=3, threshold=2,
+          N=U.ADV_N, restarted=2, replay_accepted=True, multiset=True,
+          parties_agree="1,2,3", verify_ok=True,
+          verify_s=f"{verify_s:.3f}", **line)
+
+    coins, line = flow("P-224 coin flipping", lambda: U.p224_coins("cuda"),
+                       ("mont_mul", "mont_exp", "ec_scalar_mul",
+                        "ec_point_add"))
+    want = json.loads((GOLDEN / W.COINS_FILE).read_text())["coins"]
+    if coins != [want] * W.COIN_K:
+        raise AssertionError(f"P-224 coins {coins} != vmn_tpu's {want}")
+    phase("adversary", flow="p224-coinflip", k=W.COIN_K,
+          threshold=W.COIN_T, session=W.COIN_SID, coin_bytes=W.COIN_BYTES,
+          coins=want, coins_equal=True, **line)
+    return out
+
+
 # ------------------------------------------------------------ phase 8
 
 
@@ -1841,8 +2022,16 @@ def golden_k3_phase(tmp: Path, name: str = "test256") -> dict:
     return launches
 
 
+# the check-matrix goldens the card rewrites (tests/torch_make_wide_golden.py
+# MATRIX) and the configuration it mixes at a deployment's batch
+MATRIX_GOLDENS = ("test256-kw2", "test256-kw2w2", "test256-k7t4",
+                  "test256-prov")
+MATRIX_SLICE = "modp2048-kw2w2"
+
 # the kernels a k=3 mix must launch, by group
 K3_KERNELS = {"modp2048": ("mont_mul", "mont_exp", "mont_fb_exp",
+                           "mont_expprod_positions", "mont_expprod_combine"),
+              "modp3072": ("mont_mul", "mont_exp", "mont_fb_exp",
                            "mont_expprod_positions", "mont_expprod_combine"),
               "P-224": ("mont_mul", "mont_exp", "ec_scalar_mul",
                         "ec_multiexp_positions", "ec_multiexp_combine",
@@ -1850,17 +2039,21 @@ K3_KERNELS = {"modp2048": ("mont_mul", "mont_exp", "mont_fb_exp",
 
 
 def multiparty_phase(n: int, tmp: Path, interactive: bool = False,
-                     name: str = "modp2048"):
+                     name: str = "modp2048", multiexp_checked=None):
     """k=3 mix-servers, threshold 2, N ciphertexts over modp2048 or
     P-224: keygen, encryption, the mix of the three parties in threads,
     agreement on the key and the plaintexts, the plaintext multiset;
     Fiat–Shamir: the verifier on party 1's transcript, and a flipped byte
     rejected; interactive: the launches made inside the coin flipping.
-    Returns (launches in the mix, by batch size, inside the coin
-    flipping, mix seconds)."""
+    At a wide group (WIDE_GROUPS) also every launch at its width and H4
+    held to its plain version at each shape the mix and the verify
+    called it with, each check kept in `multiexp_checked` (a dict) for a
+    later path of the group.  Returns (launches in the mix, by batch
+    size, inside the coin flipping, mix seconds)."""
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.ops import mont_kernels as K
     from vmn_tpu_torch.protocol import elgamal
 
     t0 = time.perf_counter()
@@ -1885,12 +2078,14 @@ def multiparty_phase(n: int, tmp: Path, interactive: bool = False,
         raise AssertionError(f"{tag}: the parties' public keys differ")
     r = group.ring.random((n,), SeededSource(b"smoke-ciphs"), 0)
     ciphs = elgamal.encrypt(parties[1].full_public_key(), m, r)
-    coins = {}
-    with seconds_in(PlainKeysCipher, ("encrypt", "decrypt"), ny_mix):
+    coins, mix_calls, verify_calls = {}, {}, {}
+    with seconds_in(PlainKeysCipher, ("encrypt", "decrypt"), ny_mix), \
+            calls_of(K, "mont_expprod_positions", mix_calls):
         outs, mix_s, launches, sizes = run_mix_k(
             parties, ciphs, tag, around=(
                 (lambda: launches_inside("protocol/coinflip.py", coins))
                 if interactive else None))
+    by_width = dict(K.LAUNCH_WIDTHS)  # the mix's, before the verify's
     if not all(outs[j].equals(outs[1]) for j in (2, 3)):
         raise AssertionError(f"{tag}: the parties' plaintexts differ")
     if sorted(_points(group, outs[1])) != sorted(msgs):
@@ -1902,7 +2097,8 @@ def multiparty_phase(n: int, tmp: Path, interactive: bool = False,
         checks["coinflip_launches"] = json.dumps(coins, separators=(",", ":"))
     else:
         nizkp = tmp / f"{tag}_{name}" / "P01" / f"nizkp.{tag}"
-        ok, verify_s = verify(params, nizkp)
+        with calls_of(K, "mont_expprod_positions", verify_calls):
+            ok, verify_s = verify(params, nizkp)
         if not ok:
             raise AssertionError("port verifier rejected the k=3 transcript")
         if not tampered_rejected(params, nizkp, tmp):
@@ -1911,6 +2107,9 @@ def multiparty_phase(n: int, tmp: Path, interactive: bool = False,
         checks.update(verify_ok=True, tampered_rejected=True,
                       verify_s=f"{verify_s:.3f}",
                       verify_cps=f"{n / verify_s:.1f}")
+    if name in WIDE_GROUPS:
+        checks.update(W=WIDE_GROUPS[name], launches_at_w=launches_at_width(
+            f"{name} k=3 mix", by_width, WIDE_GROUPS[name]))
     if missing:
         raise AssertionError(f"{tag}: not launched: {missing}")
     phase(tag, group=name, k=3, threshold=2, N=n,
@@ -1924,7 +2123,30 @@ def multiparty_phase(n: int, tmp: Path, interactive: bool = False,
           launches=json.dumps({k: v for k, v in launches.items() if v},
                               separators=(",", ":")),
           phase_s=f"{time.perf_counter() - t0:.1f}")
+    if name in WIDE_GROUPS:  # H4 held to its plain version at each shape
+        multiexp_lines(f"{name}-k3", "mont_expprod_positions",
+                       multiexp_widths(group, {"mix": mix_calls,
+                                               "verify": verify_calls},
+                                       check=True,
+                                       checked=multiexp_checked,
+                                       path=f"{name}-k3"))
     return launches, sizes, coins, mix_s
+
+
+def launches_at_width(run: str, by_width: dict, w: int,
+                      conv: bool = False) -> str:
+    """Raises unless every Montgomery launch of a run (its launches by
+    (wrapper, W, conv), K.LAUNCH_WIDTHS) was at width w with conversion
+    `conv` and each of H1-H4 and K7's combine launched there; the
+    launches by wrapper, for the run's line."""
+    from vmn_tpu_torch.ops import mont_kernels as K
+
+    want = {(k, w, conv) for k in K.KERNELS}
+    if set(by_width) != want:
+        raise AssertionError(f"{run} launched at {sorted(by_width)}, "
+                             f"expected {sorted(want)}")
+    return json.dumps({k: c for (k, _, _), c in sorted(by_width.items())},
+                      separators=(",", ":"))
 
 
 @contextlib.contextmanager
@@ -1950,12 +2172,16 @@ def calls_of(module, name: str, log: dict):
             setattr(m, name, fn)
 
 
-def multiexp_widths(group, calls: dict, check: bool = False) -> list:
+def multiexp_widths(group, calls: dict, check: bool = False,
+                    checked: dict = None, path: str = "") -> list:
     """The (N, exponent bits) at which the path called its
     multi-exponentiation's positions (H4 or H6), `calls` holding the
     counts of each part by its name ("mix", "verify", ...); with `check`,
     each also run on the card on random inputs of that shape (points from
-    a seeded PRG), held equal to its plain version's (exact) and timed.
+    a seeded PRG), held equal to its plain version's (exact) and timed;
+    with `checked` (a dict that several paths of one group share), once
+    at each shape: a shape an earlier path checked takes that check's
+    result and names the path (`checked_in`), and `path` names this one.
     (Without a check there is nothing to time here:
     vmn_tpu_torch/kernel_timing.py times H4 and H6 at the paths' widths.)"""
     from vmn_tpu_torch.crypto.hash import SHA256
@@ -1975,6 +2201,9 @@ def multiexp_widths(group, calls: dict, check: bool = False) -> list:
         out.append(r)
         if not check:
             continue
+        if checked is not None and (N, bits) in checked:
+            r.update(checked[N, bits])
+            continue
         e = _exponents(gen, N, bits, "cuda")
         if hasattr(group, "curve"):
             prg = PRGHeuristic(SHA256)
@@ -1991,6 +2220,10 @@ def multiexp_widths(group, calls: dict, check: bool = False) -> list:
         want, plain_ms = timed(plain)
         r.update(tolerance="exact", max_abs_err=max_abs_err(got, want),
                  plain_ms=plain_ms, ms=device_ms(run))
+        if checked is not None:
+            checked[N, bits] = {
+                **{k: r[k] for k in ("tolerance", "max_abs_err", "plain_ms",
+                                     "ms")}, "checked_in": path}
     return out
 
 
@@ -2055,14 +2288,9 @@ def slice_phase(name: str, n: int, tmp: Path, source=None):
         # field and the scalar ring alike), W = 192 and 256 for RFC_GROUPS
         conv = group.ctx.L % 2 == 1
         w = RFC_GROUPS.get(name, VOG_WORDS)
-        want = {(k, w, conv) for k in K.KERNELS}
-        if set(by_width) != want:
-            raise AssertionError(f"{name} mix launched at {sorted(by_width)}"
-                                 f", expected {sorted(want)}")
         extra = {"W": w, "conv": conv, "L": group.ctx.L,
-                 "launches_at_w": json.dumps(
-                     {k: c for (k, _, _), c in sorted(by_width.items())},
-                     separators=(",", ":"))}
+                 "launches_at_w": launches_at_width(
+                     f"{name} mix", by_width, w, conv)}
     with calls_of(owner, wrapper, {}) as verify_calls:
         ok, verify_s = verify(params, nizkp)
     if not ok:
@@ -2087,6 +2315,59 @@ def slice_phase(name: str, n: int, tmp: Path, source=None):
     if source is None:
         multiexp_lines(name, wrapper, widths)
     return launches, sizes, widths, mix_s
+
+
+def matrix_slice_phase(name: str, n: int, tmp: Path):
+    """modp2048, k=1 at N ciphertexts in a configuration of the check
+    matrix (tests/torch_make_wide_golden.py's MATRIX; "modp2048-kw2w2":
+    keywidth 2 and width 2, the product groups' paths at a deployment's
+    batch): messages from a seeded PRG in each component, the first
+    leaf's multiset, the verifier, one flipped byte rejected, H1-H4 and
+    K7's combine launched.  Returns the mix's launches."""
+    from vmn_tpu_torch.crypto.hash import SHA256
+    from vmn_tpu_torch.crypto.prg import PRGHeuristic
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol.context import ProtocolParams
+
+    U = port_util()
+    import torch_make_wide_golden as W
+
+    t0 = time.perf_counter()
+    group_name, config = name.split("-", 1)
+    kw, width = W.MATRIX[f"test256-{config}"]
+    group = _group(group_name)
+    params = ProtocolParams(pgroup=group, **{**kw, "sid": f"Smoke{config}"})
+    prg = PRGHeuristic(SHA256)
+    prg.set_seed(SHA256.hash(b"smoke-msgs"))
+    m = group.random_array(n, prg, params.rbitlen)
+    msgs = _points(group, m)
+    torch.cuda.reset_peak_memory_stats()
+    parties, keygen_s = keygen_k(params, lambda j: b"smoke-party",
+                                 tmp / f"slice_{name}")
+    ciphs = U.widened_ciphertexts(params, parties[1], m, width,
+                                  SeededSource(b"smoke-ciphs"))
+    outs, mix_s, launches, _ = run_mix_k(parties, ciphs, config, width)
+    if sorted(_points(group, U.first_leaf(outs[1]))) != sorted(msgs):
+        raise AssertionError(f"{name}: plaintext multiset not preserved")
+    nizkp = tmp / f"slice_{name}" / "P01" / f"nizkp.{config}"
+    ok, verify_s = verify(params, nizkp)
+    if not ok:
+        raise AssertionError(f"port verifier rejected the {name} transcript")
+    if not tampered_rejected(params, nizkp, tmp):
+        raise AssertionError(f"{name}: tampered transcript accepted")
+    missing = missing_launches(launches, MIX_KERNELS)
+    if missing:
+        raise AssertionError(f"{name}: not launched: {missing}")
+    phase("slice", group=name, k=1, keywidth=params.keywidth, width=width,
+          N=n, multiset="first leaf", verify_ok=True,
+          tampered_rejected=True, keygen_s=f"{keygen_s:.3f}",
+          mix_s=f"{mix_s:.3f}", verify_s=f"{verify_s:.3f}",
+          mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          launches=json.dumps({k: v for k, v in launches.items() if v},
+                              separators=(",", ":")),
+          phase_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
 
 
 SHARD_RANKS = 2
@@ -2295,7 +2576,8 @@ def headroom(n: int) -> int:
     return n * 5 // 4
 
 
-def precomp_phase(name: str, k: int, n: int, tmp: Path, plain_mix_s: float):
+def precomp_phase(name: str, k: int, n: int, tmp: Path, plain_mix_s: float,
+                  multiexp_checked=None):
     """The precomputation path: `name` group, k parties (threshold 2
     when k = 3, Fiat–Shamir, threads of this process), a precomputation
     for headroom(n) ciphertexts, then the online mix of n: the plaintext
@@ -2304,8 +2586,10 @@ def precomp_phase(name: str, k: int, n: int, tmp: Path, plain_mix_s: float):
     its CCPoS reply and, apart, in its PoSC reply.  Prints the
     precomputation's, the online mix's and the verify's seconds beside
     `plain_mix_s` (the plain mix of the same configuration in this
-    run).  Returns (launches of the precomputation, of the online mix,
-    the multi-exponentiation's shapes)."""
+    run).  At a wide group also every launch at its width; a shape in
+    `multiexp_checked` (an earlier path's H4 checks) takes that check.
+    Returns (launches of the precomputation, of the online mix, the
+    multi-exponentiation's shapes)."""
     from vmn_tpu_torch.crypto.hash import SHA256
     from vmn_tpu_torch.crypto.prg import PRGHeuristic
     from vmn_tpu_torch.crypto.randomsource import SeededSource
@@ -2338,9 +2622,12 @@ def precomp_phase(name: str, k: int, n: int, tmp: Path, plain_mix_s: float):
     with calls_of(owner, wrapper, {}) as pre_calls:
         _, precomp_s, pre, _ = counted(lambda: run_parties(
             k, lambda j: sessions[j].precomp(maxciph)))
+    by_width = dict(K.LAUNCH_WIDTHS)
     with calls_of(owner, wrapper, {}) as mix_calls:
         outs, mix_s, mix, _ = counted(lambda: run_parties(
             k, lambda j: sessions[j].mix(ciphs)))
+    for key, count in K.LAUNCH_WIDTHS.items():
+        by_width[key] = by_width.get(key, 0) + count
     peak = torch.cuda.max_memory_allocated()
     if not all(outs[j].equals(outs[1]) for j in range(2, k + 1)):
         raise AssertionError(f"{tag}: the parties' plaintexts differ")
@@ -2356,10 +2643,15 @@ def precomp_phase(name: str, k: int, n: int, tmp: Path, plain_mix_s: float):
     for reply in ("CCPoSReply01.bt", "PoSCReply01.bt"):
         if not tampered_rejected(params, nizkp, tmp, reply):
             raise AssertionError(f"{tag}: flipped byte in {reply} accepted")
+    # at a wide group every launch of both parts at its width
+    extra = ({"W": WIDE_GROUPS[name], "launches_at_w": launches_at_width(
+        f"{tag} path", by_width, WIDE_GROUPS[name])}
+        if name in WIDE_GROUPS else {})
     compact = {"separators": (",", ":")}
     phase("precomp", group=name, k=k, threshold=params.threshold, N=n,
           maxciph=maxciph, multiset=True, parties_agree=True,
           verify_ok=True, tampered_rejected="CCPoSReply01,PoSCReply01",
+          **extra,
           keygen_s=f"{keygen_s:.3f}", precomp_s=f"{precomp_s:.3f}",
           mix_s=f"{mix_s:.3f}", verify_s=f"{verify_s:.3f}",
           plain_mix_s=f"{plain_mix_s:.3f}",
@@ -2372,7 +2664,8 @@ def precomp_phase(name: str, k: int, n: int, tmp: Path, plain_mix_s: float):
           phase_s=f"{time.perf_counter() - t0:.1f}")
     widths = multiexp_widths(
         group, {"precomp": pre_calls, "mix": mix_calls,
-                "verify": verify_calls}, check=True)
+                "verify": verify_calls}, check=True,
+        checked=multiexp_checked, path=f"{name}-precomp-k{k}")
     multiexp_lines(f"{name}-precomp-k{k}", wrapper, widths)
     return pre, mix, widths
 
@@ -2598,7 +2891,7 @@ def cli_tampered(procs: Procs, nizkp: Path, name: str, *extra) -> float:
     reply.write_bytes(bytes(raw))
     out = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with OUT_LOCK, contextlib.redirect_stdout(out):
         try:
             rc = vmnv.main([str(procs.workdir / "protInfo.xml"), str(bad),
                             "-mix", *extra])
@@ -2669,6 +2962,7 @@ def cli_test256_phase(tmp: Path) -> None:
     cwd = Path.cwd()
     out = io.StringIO()
     t0 = time.perf_counter()
+    OUT_LOCK.acquire()  # this thread's stdout and working directory
     try:
         os.chdir(cpu)
         with contextlib.redirect_stdout(io.StringIO()):
@@ -2686,6 +2980,7 @@ def cli_test256_phase(tmp: Path) -> None:
                             "-t", ",".join(TV_NAMES)], device="cpu")
     finally:
         os.chdir(cwd)
+        OUT_LOCK.release()
     steps["cpu_in_process"] = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError("CPU vmnv rejected the CPU transcript")
@@ -2917,14 +3212,28 @@ def cli_vdemo_phase(n: int, tmp: Path) -> None:
 
 
 def cli_phase(n: int, k3_n: int, ec_n: int, vdemo_n: int, tmp: Path):
-    """Phase 10: the operator tools, each as its own process."""
+    """Phase 10: the operator tools, each as its own process.  The five
+    runs share nothing (each its own directory, free ports and
+    processes), so they run at once, a thread of this process each: their
+    steps' seconds are taken beside the other runs' processes."""
     t0 = time.perf_counter()
-    cli_test256_phase(tmp)
-    modp, modp_pc = cli_modp_phase(n, tmp)
-    k3 = cli_k3_phase(k3_n, tmp)
-    ec = cli_ec_phase(ec_n, tmp)
-    cli_vdemo_phase(vdemo_n, tmp)
-    phase("cli", run="all", phase_s=f"{time.perf_counter() - t0:.1f}")
+    # the runs' processes share the card with this one: give back the
+    # blocks this process's earlier phases left cached (a full run held
+    # enough of them for a vmnv process of the runs to fail out of memory)
+    gc.collect()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(5) as pool:
+        runs = [pool.submit(cli_test256_phase, tmp),
+                pool.submit(cli_modp_phase, n, tmp),
+                pool.submit(cli_k3_phase, k3_n, tmp),
+                pool.submit(cli_ec_phase, ec_n, tmp),
+                pool.submit(cli_vdemo_phase, vdemo_n, tmp)]
+        _, (modp, modp_pc), k3, ec, _ = [r.result() for r in runs]
+    phase("cli", run="all", concurrent=len(runs),
+          reserved_bytes_before=reserved,
+          reserved_bytes_after=torch.cuda.memory_reserved(),
+          phase_s=f"{time.perf_counter() - t0:.1f}")
     return {"cli modp2048 k=1 mix": modp,
             "cli modp2048 k=1 precomp online mix": modp_pc,
             "cli modp2048 k=3 mix": k3, "cli P-256 mix": ec}
@@ -3164,10 +3473,14 @@ def main(argv=None) -> int:
         golden_phase(tmp, "test256", maxciph=8, arrays_file=True)
         golden_k3_phase(tmp)
         golden_k3_phase(tmp, "P-224")
-        for group in (*WIDE_GROUPS, *FILE_GROUPS):
+        for group in ("modp2048", *WIDE_GROUPS, *FILE_GROUPS):
             golden_phase(tmp, group)
+        matrix = {name: golden_matrix_phase(tmp, name)
+                  for name in MATRIX_GOLDENS}
+        adversaries = adversary_phase(tmp)
         modp, modp_sizes, modp_widths, modp_s = slice_phase(
             "modp2048", args.n, tmp)
+        kw2w2 = matrix_slice_phase(MATRIX_SLICE, args.n, tmp)
         wide_mix = {group: slice_phase(group, args.n, tmp)
                     for group in (*WIDE_GROUPS, *FILE_GROUPS)}
         # curve: (launches, by batch, H6's calls, mix seconds); P-224's
@@ -3187,6 +3500,11 @@ def main(argv=None) -> int:
         k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
         ec3, ec3_sizes, _, _ = multiparty_phase(args.ec_n, tmp,
                                                 name="P-224")
+        # H4's checks at W = 96, shared by modp3072's k=3 mix and its
+        # precomputation path: (N, exponent bits) -> the check
+        checked_3072 = {}
+        k3_3072, _, _, _ = multiparty_phase(args.n, tmp, name="modp3072",
+                                            multiexp_checked=checked_3072)
         k3i, _, coins, _ = multiparty_phase(args.k3i_n, tmp,
                                             interactive=True)
         pc, pc_mix, pc_widths = precomp_phase(
@@ -3194,6 +3512,9 @@ def main(argv=None) -> int:
         pc3, pc3_mix, pc3_widths = precomp_phase(
             "modp2048", 3, args.k3_n, tmp, k3_s)
         _, _, pc_ec_widths = precomp_phase("P-256", 1, pc_ec_n, tmp, ec_s)
+        pc_3072, pc_3072_mix, pc_3072_widths = precomp_phase(
+            "modp3072", 1, args.n, tmp, wide_mix["modp3072"][3],
+            multiexp_checked=checked_3072)
         cli = cli_phase(args.n, args.k3_n, args.ec_n, VDEMO_N, tmp)
         for path in args.profile:
             profile_phase(path, args.ec_n if path in EC_PATH_CURVES else
@@ -3249,6 +3570,11 @@ def main(argv=None) -> int:
             # below EP_SUPER points H6 counts one launch a
             # multi-exponentiation
             raise AssertionError(f"{path} mix: not one combine per H6 call")
+    # the port ran alone: no module of JAX or of the JAX package loaded
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "vmn_tpu"))
+    if loaded:
+        raise AssertionError(f"modules of JAX or vmn_tpu loaded: {loaded}")
     phase("done", elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     torch.cuda.synchronize()
@@ -3289,7 +3615,14 @@ def main(argv=None) -> int:
                 **{f"{c} mix": ec_paths[c][0][name] for c in curve_w},
                 "P-224 k=3 mix": ec3[name],
                 **{f"sharded modp2048 mix (rank {i})": r[name]
-                   for i, r in enumerate(sharded["modp2048"])}}
+                   for i, r in enumerate(sharded["modp2048"])},
+                "modp3072 k=3 mix": k3_3072[name],
+                "modp3072 precomp": pc_3072[name],
+                "modp3072 precomp online mix": pc_3072_mix[name],
+                f"{MATRIX_SLICE} mix": kw2w2[name],
+                **{f"golden {g} mix": r[name] for g, r in matrix.items()},
+                **{f"adversary {f}": r[name]
+                   for f, r in adversaries.items()}}
             # the same kernel at W = 96 and 128: its checks there; at
             # W = 192 and 256 (RFC_GROUPS, built on demand) also its
             # launches in those groups' mixes
@@ -3332,6 +3665,7 @@ def main(argv=None) -> int:
     kernels[K.KERNELS.index("mont_expprod_positions")].update(
         path_calls=modp_widths, precomp_path_calls=pc_widths,
         wide_path_calls={g: r[2] for g, r in wide_mix.items()},
+        modp3072_precomp_path_calls=pc_3072_widths,
         k3_precomp_path_calls=pc3_widths,
         batch1=checks["mont_expprod_positions_b1"],
         w8=checks["mont_expprod_positions_w8"],

@@ -129,6 +129,78 @@ def test_random_limbs_layout_and_row_ranges(bits):
         keystream(src.key, 0, 1, 0, len(stream)), n, bits))
 
 
+KERNEL_THREADS, STAGED_ROW = 256, 17  # csrc/prf_kernels.cu's kThreads
+
+
+def kernel_store_walk(key: bytes, draw: int, n: int, bits: int,
+                      rows=None) -> np.ndarray:
+    """Rows [a, b) of a draw as `chacha_limbs_kernel`
+    (csrc/prf_kernels.cu) stores them, its integer steps repeated in
+    Python: the launch's blocks of KERNEL_THREADS ChaCha20 blocks, each
+    block's keystream words staged in rows of STAGED_ROW words, then
+    thread i of a block storing limbs o0 + i, o0 + i + KERNEL_THREADS,
+    ... of its words' limbs [o0, o1), stepping (row, limb) as it does.
+    Every limb must be stored exactly once."""
+    a, b, lt, nw, top = P.layout(n, bits, rows)
+    word0, word1 = a * nw, b * nw
+    blk0 = word0 // 16
+    nblk = (word1 + 15) // 16 - blk0
+    top_mask = (1 << top) - 1
+    out = np.full((b - a) * lt, -1, dtype=np.int64)
+    if b == a:
+        return out.reshape(b - a, lt)
+    q, r = KERNEL_THREADS // lt, KERNEL_THREADS % lt
+    for bx in range(-(-nblk // KERNEL_THREADS)):
+        first_blk = blk0 + bx * KERNEL_THREADS
+        nb = min(KERNEL_THREADS, nblk - bx * KERNEL_THREADS)
+        words = P.chacha20_blocks_plain(
+            key, (0, draw & 0xFFFFFFFF, draw >> 32),
+            torch.arange(first_blk, first_blk + nb)).numpy()
+        staged = np.zeros(KERNEL_THREADS * STAGED_ROW, dtype=np.int64)
+        for t in range(nb):
+            staged[t * STAGED_ROW:t * STAGED_ROW + 16] = words[t]
+        base = first_blk * 16
+        w0, w1 = max(base, word0), min(base + nb * 16, word1)
+        if w0 >= w1:
+            continue
+        r0, r1 = (w0 - word0) // nw, (w1 - word0) // nw
+        o0 = r0 * lt + 2 * (w0 - word0 - r0 * nw)
+        o1 = r1 * lt + 2 * (w1 - word0 - r1 * nw)
+        for t in range(KERNEL_THREADS):
+            o = o0 + t
+            row, c = o // lt, o % lt
+            while o < o1:
+                g = word0 + row * nw + (c >> 1) - base
+                assert 0 <= g < nb * 16
+                w = int(staged[(g >> 4) * STAGED_ROW + (g & 15)])
+                mask = top_mask if c == lt - 1 else 0xFFFF
+                assert out[o] == -1, o
+                out[o] = ((w >> 16) if c & 1 else (w & 0xFFFF)) & mask
+                o += KERNEL_THREADS
+                c, row = c + r, row + q
+                if c >= lt:
+                    c, row = c - lt, row + 1
+    return out.reshape(b - a, lt)
+
+
+@pytest.mark.parametrize("n, bits, rows", [
+    (70, 2147, None),       # modp2048's rows: two blocks of the launch
+    (70, 2147, (3, 61)),    # a range from mid-block
+    (300, 356, (7, 299)),   # P-256's rows, odd Lt
+    (20, 4200, (1, 19)),    # Lt = 263 > the block's threads
+    (40, 16, None),         # one limb a row, whole top limb
+    (33, 17, (5, 32)),      # two limbs, a 1-bit top limb
+])
+def test_kernel_store_walk_equals_plain(n, bits, rows):
+    """The kernel's store loop, walked on the CPU, stores every limb of
+    rows [a, b) once, equal to the plain version's (the kernel itself is
+    held to it on the card)."""
+    key = SHA256.hash(b"walk")
+    got = kernel_store_walk(key, 5, n, bits, rows)
+    want = P.chacha20_limbs_plain(key, 5, n, bits, rows, CPU).numpy()
+    assert np.array_equal(got, want)
+
+
 def test_draw_past_the_block_counter_raises():
     with pytest.raises(ValueError, match="2\\^32"):
         P.layout(1 << 32, 512, None, counter=1)

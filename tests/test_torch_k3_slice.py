@@ -21,7 +21,7 @@ from pathlib import Path
 import pytest
 
 import torch_port_util  # noqa: F401 (torch thread count)
-from torch_port_util import TV_NAMES, golden_files, run_parties
+from torch_port_util import TV_NAMES, TamperBoard, golden_files, run_parties
 from vmn_tpu_torch.arith.pgroup import ModPGroup, PPArray
 from vmn_tpu_torch.crypto.randomsource import SeededSource
 from vmn_tpu_torch.protocol import elgamal
@@ -130,29 +130,6 @@ def test_vmn_tpu_loads_port_k3_key_directories(k3_mix):
         assert jp.dkg.secret_share.to_int() == p.dkg.secret_share.to_int()
         assert jp.dkg.public_key_of(j).to_ints() == \
             p.dkg.public_key_of(j).to_ints()
-
-
-class TamperBoard:
-    """Board proxy that mutates matching labels at publish time, so every
-    OTHER party receives the corrupted message while the misbehaving
-    party's local state keeps the original."""
-
-    def __init__(self, inner, match, mutate):
-        self._inner = inner
-        self._match = match
-        self._mutate = mutate
-
-    def publish(self, label, data):
-        if self._match(label):
-            data = self._mutate(data)
-        return self._inner.publish(label, data)
-
-    def scope(self, sid):
-        return TamperBoard(self._inner.scope(sid), self._match,
-                           self._mutate)
-
-    def __getattr__(self, name):
-        return getattr(self._inner, name)
 
 
 def test_live_tampered_pos_abort_then_deactivate(tmp_path):

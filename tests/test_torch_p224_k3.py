@@ -24,8 +24,8 @@ import pytest
 
 import torch_make_wide_golden as W
 from torch_port_util import (  # noqa: F401 (cuda_device: fixture)
-    GOLDEN, TV_NAMES, assert_same_transcript, cuda_device, record_calls,
-    run_parties,
+    GOLDEN, TV_NAMES, assert_same_transcript, cuda_device, p224_coins,
+    record_calls, run_parties,
 )
 from vmn_tpu_torch.ops import mont_kernels as K
 
@@ -113,25 +113,8 @@ def test_p224_coinflip_matches_vmn_tpu():
     """The jointly flipped coins of three parties over P-224 (the generic
     dealing of `_prepare_coins_generic`, ECArray commitments) equal the
     coins `vmn_tpu` flipped with the same setup."""
-    from vmn_tpu_torch.arith.ec import ECqPGroup
-    from vmn_tpu_torch.crypto.randomsource import SeededSource
-    from vmn_tpu_torch.protocol.coinflip import CoinFlipPRingSource
-    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
-    from vmn_tpu_torch.protocol.context import ProtocolContext, ProtocolParams
-
-    params = ProtocolParams(sid=W.COIN_SID, k=W.COIN_K, threshold=W.COIN_T,
-                            noninteractive=False,
-                            pgroup=ECqPGroup.named("P-224", device="cpu"))
-    hub = LocalBoardHub(W.COIN_K)
-
-    def flip(j):
-        src = CoinFlipPRingSource(ProtocolContext(params), hub.board(j),
-                                  SeededSource(f"ec{j}".encode()))
-        return src.coin_bytes(W.COIN_BYTES)
-
-    coins = run_parties(W.COIN_K, flip)[1:]
     want = json.loads((GOLDEN / W.COINS_FILE).read_text())["coins"]
-    assert [c.hex() for c in coins] == [want] * W.COIN_K
+    assert p224_coins() == [want] * W.COIN_K
 
 
 @pytest.mark.cuda

@@ -39,11 +39,29 @@ RFC's section and the bit length) to tests/golden/group_modp{6144,8192}.json.
 tests/test_torch_wide_6144.py holds the port to the first on the CPU,
 tests/test_torch_wide_8192.py to the second on a CUDA device.
 
+Five configurations of vmn_tpu's check matrix (tests/test_matrix.py,
+which mirrors the reference's demo/mixnet/check), each run with
+test_matrix.py's `_run_mix` and its inputs (SeededSource(f"party{j}"),
+SeededSource(b"ciphertexts"), five messages, auxsid "mx"):
+"test256-kw2" (keywidth 2, session id "KW2"), "test256-kw2w2" (keywidth
+2 and width 2, "KW32"), "test256-k7t4" (seven mix-servers, threshold 4,
+"K7": party 1's transcript) and "test256-prov" (the provable
+primitives: PRGElGamal "elgamal:test256:4:64" and the Pedersen random
+oracle hash "pedersen:test256", "Prov"), each to
+tests/golden/nizkp_test256_{kw2,kw2w2,k7t4,prov} and
+test_vectors_test256_{kw2,kw2w2,k7t4,prov}.json; and "modp2048", the
+k=1 golden mix above over RFC 3526's 2048-bit group, to
+tests/golden/nizkp_modp2048_k1 and test_vectors_modp2048.json.
+tests/test_torch_matrix.py and tests/test_torch_k7.py hold the port to
+them on the CPU, and chip_smoke.py's golden phase rewrites them byte
+for byte on the card.
+
 Usage (from the repo root; minutes on one CPU core's worth of a
 recent x86 server: about 2 for the two ModP groups, 1 for P-224, 1.5
 for P-384, 2 for P-521, 1.5 for P-224-k3 and P-224-coins together, 1.5
 for vog1024 and vog1000 together, their safe-prime searches included,
-3 for modp6144 and 7 for modp8192):
+3 for modp6144, 7 for modp8192, 1 for the three test256 k=1 matrix
+goldens together, 1 for test256-k7t4 and 1 for modp2048):
     JAX_PLATFORMS=cpu python tests/torch_make_wide_golden.py [GROUP ...]
 """
 
@@ -55,8 +73,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "golden"
+# The check-matrix goldens: name -> (ProtocolParams' keywords, width),
+# as tests/test_matrix.py runs them.
+MATRIX = {
+    "test256-kw2": (dict(sid="KW2", k=1, threshold=1, keywidth=2), 1),
+    "test256-kw2w2": (dict(sid="KW32", k=1, threshold=1, keywidth=2), 2),
+    "test256-k7t4": (dict(sid="K7", k=7, threshold=4), 1),
+    "test256-prov": (dict(sid="Prov", k=1, threshold=1,
+                          prg_name="elgamal:test256:4:64",
+                          rohash_name="pedersen:test256"), 1),
+}
 GROUPS = ("modp3072", "modp4096", "P-224", "P-384", "P-521", "P-224-k3",
-          "P-224-coins", "vog1024", "vog1000", "modp6144", "modp8192")
+          "P-224-coins", "vog1024", "vog1000", "modp6144", "modp8192",
+          *MATRIX, "modp2048")
 # The fresh groups: name -> (bits, seed of vmn_tpu's random_group).
 VOG = {"vog1024": (1024, b"golden-group-1024"),
        "vog1000": (1000, b"golden-group-1000")}
@@ -73,7 +102,11 @@ COINS_FILE = "coinflip_p224_k3.json"
 
 def fixture_names(group: str):
     """(transcript directory, test-vector file) of a golden: "P-224-k3"
-    is the k=3, t=2 mix over P-224, every other name a k=1 mix."""
+    is the k=3, t=2 mix over P-224, a MATRIX name its configuration's
+    mix, every other name a k=1 mix."""
+    if group in MATRIX:
+        tag = group.replace("-", "_")
+        return f"nizkp_{tag}", f"test_vectors_{tag}.json"
     if group.endswith("-k3"):
         tag = group[:-3].replace("-", "").lower()
         return f"nizkp_{tag}_k3", f"test_vectors_{tag}_k3.json"
@@ -163,6 +196,24 @@ def write_coins(path: Path) -> None:
     path.write_text(json.dumps({"coins": coins[0].hex()}, indent=1) + "\n")
 
 
+def matrix_golden(name: str, tmp: Path):
+    """vmn_tpu's mix of the check-matrix configuration `name` (MATRIX)
+    with tests/test_matrix.py's `_run_mix`: (party 1's transcript, the
+    verifier's test vectors on it)."""
+    from test_matrix import _run_mix
+    from tools.make_golden import TV_NAMES
+    from vmn_tpu.arith.pgroup import ModPGroup
+    from vmn_tpu.protocol.context import ProtocolParams
+    from vmn_tpu.protocol.mixnet.verifier import FiatShamirVerifier
+
+    kw, width = MATRIX[name]
+    params = ProtocolParams(pgroup=ModPGroup.named("test256"), **kw)
+    _, _, nizkp = _run_mix(tmp, params, width)
+    v = FiatShamirVerifier(params, nizkp, test_vectors=TV_NAMES)
+    assert v.verify(expected_type="mixing").ok
+    return nizkp, v.tv
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
@@ -182,7 +233,11 @@ def main(argv) -> int:
         dirname, tvname = fixture_names(group)
         kw = {"k": 3, "threshold": 2} if group.endswith("-k3") else {}
         with tempfile.TemporaryDirectory() as tmp:
-            nizkp, tv = generate(Path(tmp), group.removesuffix("-k3"), **kw)
+            if group in MATRIX:
+                nizkp, tv = matrix_golden(group, Path(tmp))
+            else:
+                nizkp, tv = generate(Path(tmp), group.removesuffix("-k3"),
+                                     **kw)
             dest = GOLDEN / dirname
             if dest.exists():
                 shutil.rmtree(dest)

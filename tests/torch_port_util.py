@@ -75,7 +75,7 @@ def curve_golden_mix(curve: str, device, out, n: int = 3):
     party = MixNetParty(params, LocalBoardHub(1).board(1),
                         SeededSource(b"golden-party"), str(out))
     pk = party.keygen()
-    msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
+    msgs = messages(group, n)
     r = group.ring.random((n,), SeededSource(b"golden-ciphs"), 0)
     ciphs = elgamal.encrypt(pk, group.from_affine(msgs), r)
     party.board = LocalBoardHub(1).board(1)
@@ -320,3 +320,304 @@ def join_ranks(procs: list, timeout: float = 240) -> list:
             p.wait()
         raise AssertionError(f"a rank did not end within {timeout} s")
     return outs
+
+
+# ------------------------------------------------ boards that misbehave
+
+
+class TamperBoard:
+    """Board proxy that mutates matching labels at publish time, so every
+    OTHER party receives the corrupted message while the misbehaving
+    party's local state keeps the original."""
+
+    def __init__(self, inner, match, mutate):
+        self._inner = inner
+        self._match = match
+        self._mutate = mutate
+
+    def publish(self, label, data):
+        if self._match(label):
+            data = self._mutate(data)
+        return self._inner.publish(label, data)
+
+    def scope(self, sid):
+        return TamperBoard(self._inner.scope(sid), self._match,
+                           self._mutate)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class CrashBoard:
+    """Board proxy that simulates a crash: forwards the matching
+    publish, then raises — the party dies right after its message
+    reaches the board."""
+
+    class Crash(Exception):
+        pass
+
+    def __init__(self, inner, label):
+        self._inner = inner
+        self._label = label
+
+    def publish(self, label, data):
+        self._inner.publish(label, data)
+        if label == self._label:
+            raise CrashBoard.Crash(label)
+
+    def scope(self, sid):
+        return CrashBoard(self._inner.scope(sid), self._label)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+# ------------------------------------- the check matrix and adversaries
+#
+# The port's copies of the runs of tests/test_matrix.py (`_run_mix`) and
+# tests/test_adversarial.py, on any device: the tests hold them to
+# `vmn_tpu` on the CPU, chip_smoke.py runs them on the card.
+
+ADV_K, ADV_T, ADV_N = 3, 2, 5  # tests/test_adversarial.py's k, t and N
+
+
+def matrix_params(name: str, device="cpu"):
+    """(the port's ProtocolParams, width) of a check-matrix golden
+    (tests/torch_make_wide_golden.py's MATRIX) over test256."""
+    from torch_make_wide_golden import MATRIX
+    from vmn_tpu_torch.arith.pgroup import ModPGroup
+    from vmn_tpu_torch.protocol.context import ProtocolParams
+
+    kw, width = MATRIX[name]
+    return ProtocolParams(pgroup=ModPGroup.named("test256", device=device),
+                          **kw), width
+
+
+def messages(group, n: int) -> list:
+    """The encoded messages f"{i:08d}" of the golden and matrix runs."""
+    return [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
+
+
+def matrix_ciphertexts(params, party, width: int, n: int = 5):
+    """tests/test_matrix.py's `_run_mix` ciphertexts under `party`'s
+    joint key: messages f"{i:08d}" in each of the key width's components
+    and each of the `width` plaintext components, randomness from
+    SeededSource(b"ciphertexts").  (messages, ciphertexts)."""
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+
+    msgs = messages(params.pgroup, n)
+    return msgs, widened_ciphertexts(params, party, params.pgroup.from_ints(
+        msgs), width, SeededSource(b"ciphertexts"))
+
+
+def widened_ciphertexts(params, party, enc, width: int, source):
+    """The group elements `enc` in each of the key width's components and
+    each of the `width` plaintext components, encrypted under `party`'s
+    joint key with randomness from `source` (tests/test_matrix.py's
+    `_run_mix`)."""
+    from vmn_tpu_torch.arith.pgroup import PPArray
+    from vmn_tpu_torch.protocol import elgamal
+
+    key_grp = party.ctx.key_group()
+    m = enc if params.keywidth == 1 else key_grp.product(
+        *[enc] * params.keywidth)
+    if width > 1:
+        m = PPArray(elgamal.plain_group(key_grp, width), (m,) * width)
+    r = elgamal.plain_group(key_grp, width).ring.random(
+        (enc.size,), source, 0)
+    return elgamal.encrypt(party.full_public_key().widen(width), m, r)
+
+
+def first_leaf(out):
+    """The first component of a (nested) product-group array."""
+    while hasattr(out, "project") and hasattr(out, "components"):
+        out = out.project(0)
+    return out
+
+
+def matrix_mix(root: Path, params, width: int, auxsid: str = "mx"):
+    """tests/test_matrix.py's `_run_mix` by the port: keygen of the k
+    parties (SeededSource(f"party{j}"), directories root/Party{j:02d}),
+    then their mix of `matrix_ciphertexts` in threads.  (messages, the
+    parties' outputs, party 1's nizkp directory)."""
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+    from vmn_tpu_torch.protocol.mixnet.party import MixNetParty
+
+    k = params.k
+    hub = LocalBoardHub(k)
+
+    def keygen(j):
+        party = MixNetParty(params, hub.board(j),
+                            SeededSource(f"party{j}".encode()),
+                            str(root / f"Party{j:02d}"))
+        party.keygen()
+        return party
+
+    parties = run_parties(k, keygen)
+    msgs, ciphs = matrix_ciphertexts(params, parties[1], width)
+    hub = LocalBoardHub(k)
+
+    def mix(j):
+        parties[j].board = hub.board(j)
+        return parties[j].session(auxsid, width).mix(ciphs)
+
+    return msgs, run_parties(k, mix), root / "Party01" / f"nizkp.{auxsid}"
+
+
+def adversary_params(sid: str, device="cpu", noninteractive=True):
+    from vmn_tpu_torch.arith.pgroup import ModPGroup
+    from vmn_tpu_torch.protocol.context import ProtocolParams
+
+    return ProtocolParams(sid=sid, k=ADV_K, threshold=ADV_T,
+                          noninteractive=noninteractive,
+                          pgroup=ModPGroup.named("test256", device=device))
+
+
+def adversary_ciphertexts(group, pk):
+    """tests/test_adversarial.py's ciphertexts: the messages under pk with
+    randomness from SeededSource(b"encr").  (messages, ciphertexts)."""
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol import elgamal
+
+    msgs = messages(group, ADV_N)
+    r = group.ring.random((ADV_N,), SeededSource(b"encr"), 0)
+    return msgs, elgamal.encrypt(pk, group.from_ints(msgs), r)
+
+
+def adversary_run(root: Path, params, boards, auxsid: str = "adv",
+                  allow=()):
+    """tests/test_adversarial.py's `_run_parties` by the port: each party
+    j over boards[j] keygens (SeededSource(f"party{j}")), waits for the
+    others and mixes the adversary ciphertexts under its own view of the
+    joint key.  (messages, the parties' outputs); a party's exception
+    fails the call, but a ProtocolError of a party in `allow` (the
+    cheater) is its output."""
+    import threading
+
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol.mixnet.party import MixNetParty, ProtocolError
+
+    barrier = threading.Barrier(params.k)
+
+    def run(j):
+        party = MixNetParty(params, boards[j],
+                            SeededSource(f"party{j}".encode()),
+                            str(root / f"Party{j:02d}"))
+        pk = party.keygen()
+        barrier.wait()
+        try:
+            return party.session(auxsid, 1).mix(
+                adversary_ciphertexts(params.pgroup, pk)[1])
+        except ProtocolError as e:
+            if j in allow:
+                return e
+            raise
+
+    outs = run_parties(params.k, run)
+    return messages(params.pgroup, ADV_N), outs
+
+
+def adversary_garbage_factors(root: Path, device="cpu"):
+    """Party 2 publishes well-formed but wrong decryption factors (all
+    ones); the others isolate it (tests/test_adversarial.py:179).
+    (messages, outputs, party 1's CorrectIndices bits)."""
+    from vmn_tpu_torch.eio.bytetree import ByteTree
+    from vmn_tpu_torch.protocol import elgamal
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+
+    params = adversary_params("AdvDec", device)
+    ones = elgamal.plain_group(params.pgroup, 1).one(
+        (ADV_N,)).to_bytetree().to_bytes()
+    hub = LocalBoardHub(ADV_K)
+    boards = [None] + [hub.board(j) for j in range(1, ADV_K + 1)]
+    boards[2] = TamperBoard(boards[2],
+                            lambda lab: lab == "DecryptionFactors2",
+                            lambda data: ones)
+    msgs, outs = adversary_run(root, params, boards, allow=(2,))
+    ci = ByteTree.from_bytes((root / "Party01" / "nizkp.adv" / "proofs"
+                              / "CorrectIndices.bt").read_bytes())
+    return msgs, outs, list(ci.data)  # (k + 1) slots, [0] unused
+
+
+def adversary_coin_misopen(root: Path, device="cpu"):
+    """Interactive: party 3 mis-opens every coin share; the coins are
+    recovered from the threshold (tests/test_adversarial.py:215).
+    (messages, outputs)."""
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+
+    params = adversary_params("AdvCoin", device, noninteractive=False)
+    hub = LocalBoardHub(ADV_K)
+    boards = [None] + [hub.board(j) for j in range(1, ADV_K + 1)]
+    boards[3] = TamperBoard(boards[3], lambda lab: lab == "Shares",
+                            lambda data: b"\x00" * 4)
+    return adversary_run(root, params, boards)
+
+
+def adversary_restart(root: Path, device="cpu"):
+    """Party 2 crashes right after publishing its shuffled ciphertexts
+    and restarts with a fresh RandomDevice; its persisted state replays
+    byte-identical messages (tests/test_adversarial.py:265).  (messages,
+    outputs, params, party 1's nizkp directory, whether party 2
+    restarted)."""
+    import threading
+
+    from vmn_tpu_torch.crypto.randomsource import RandomDevice, SeededSource
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+    from vmn_tpu_torch.protocol.mixnet.party import MixNetParty
+
+    params = adversary_params("Crash", device)
+    hub = LocalBoardHub(ADV_K)
+    barrier = threading.Barrier(ADV_K)
+    restarted = []
+
+    def run(j):
+        board = hub.board(j)
+        if j == 2:
+            board = CrashBoard(board, "Ciphertext2")
+        party = MixNetParty(params, board,
+                            SeededSource(f"party{j}".encode()),
+                            str(root / f"Party{j:02d}"))
+        pk = party.keygen()
+        barrier.wait()
+        try:
+            return party.session("crash", 1).mix(
+                adversary_ciphertexts(params.pgroup, pk)[1])
+        except CrashBoard.Crash:
+            # a different (device) random source and a clean board
+            # connection: the persisted state carries the randomness
+            again = MixNetParty(params, hub.board(j), RandomDevice(),
+                                str(root / f"Party{j:02d}"))
+            again.load_keys()
+            restarted.append(j)
+            return again.session("crash", 1).mix(adversary_ciphertexts(
+                params.pgroup, again.full_public_key())[1])
+
+    outs = run_parties(ADV_K, run)
+    return (messages(params.pgroup, ADV_N), outs, params,
+            root / "Party01" / "nizkp.crash", restarted == [2])
+
+
+def p224_coins(device="cpu") -> list:
+    """The coins of vmn_tpu's EC coin-flipping run
+    (tests/test_mixnet_ec.py: three parties over P-224, session "ECCoin",
+    interactive, seeds b"ec{j}", eight coin bytes) flipped by the port on
+    `device`: each party's bytes, as hex."""
+    import torch_make_wide_golden as W
+    from vmn_tpu_torch.arith.ec import ECqPGroup
+    from vmn_tpu_torch.crypto.randomsource import SeededSource
+    from vmn_tpu_torch.protocol.coinflip import CoinFlipPRingSource
+    from vmn_tpu_torch.protocol.com.board import LocalBoardHub
+    from vmn_tpu_torch.protocol.context import ProtocolContext, ProtocolParams
+
+    params = ProtocolParams(sid=W.COIN_SID, k=W.COIN_K, threshold=W.COIN_T,
+                            noninteractive=False,
+                            pgroup=ECqPGroup.named("P-224", device=device))
+    hub = LocalBoardHub(W.COIN_K)
+
+    def flip(j):
+        src = CoinFlipPRingSource(ProtocolContext(params), hub.board(j),
+                                  SeededSource(f"ec{j}".encode()))
+        return src.coin_bytes(W.COIN_BYTES).hex()
+
+    return run_parties(W.COIN_K, flip)[1:]

@@ -27,10 +27,18 @@
 // block of a draw and computes no other block.
 //
 // One thread computes one 64-byte block: the 16-word state in registers,
-// 20 rounds of quarter rounds whose rotations are `__funnelshift_l`, then
-// the block's words stored into the limbs of the rows they fall in.  A
-// block's words may cross a row boundary (nw is not a multiple of 16), so
-// each word carries its (row, word) position, stepped, not divided.
+// 20 rounds of quarter rounds whose rotations are `__funnelshift_l`.  The
+// stores go through shared memory, so that a warp stores consecutive
+// int32s: each thread stages its block's 16 keystream words (after the
+// final addition) in shared memory, a row of 17 words a thread (the
+// padding word keeps the 32 lanes' stores on 32 banks); after one barrier
+// the block's threads walk the output limbs of the block's words in
+// order, thread i taking limbs i, i + 256, ..., each reading its word from
+// shared memory.  A block's words may cross a row boundary (nw is not a
+// multiple of 16), so a limb's (row, limb of the row) is stepped, not
+// divided, and the limb dropped at odd lt is simply never an output limb.
+// (Storing each word's limbs from registers, at row·lt + 2·col, put a
+// warp's stores 128 bytes apart.)
 //
 // What bounds it on an H100: about 980 32-bit integer operations a block
 // (20 rounds × 4 quarter rounds × 12 add/xor/rotate, the 16 final adds
@@ -51,6 +59,8 @@ namespace {
 constexpr int kBadShape = -2;
 constexpr int kRounds = 20;
 constexpr int kThreads = 256;
+// A thread's staged block: 16 words and a padding word.
+constexpr int kStagedRow = 17;
 
 struct ChachaArgs {
   uint32_t key[8];
@@ -82,55 +92,69 @@ __device__ __forceinline__ void quarter(uint32_t& a, uint32_t& b, uint32_t& c,
 template <int ROUNDS>
 __global__ void __launch_bounds__(kThreads)
     chacha_limbs_kernel(const ChachaArgs p, int32_t* __restrict__ out) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= p.nblk) return;
-  const int64_t blk = p.blk0 + t;
-  uint32_t s[16] = {0x61707865u, 0x3320646eu, 0x79622d32u, 0x6b206574u,
-                    p.key[0], p.key[1], p.key[2], p.key[3],
-                    p.key[4], p.key[5], p.key[6], p.key[7],
-                    p.counter0 + (uint32_t)blk, p.nonce0, p.nonce1, p.nonce2};
-  uint32_t x[16];
+  __shared__ uint32_t staged[kThreads * kStagedRow];
+  const int64_t first_blk = p.blk0 + (int64_t)blockIdx.x * kThreads;
+  const int64_t t = first_blk - p.blk0 + threadIdx.x;
+  if (t < p.nblk) {
+    const int64_t blk = first_blk + threadIdx.x;
+    uint32_t s[16] = {0x61707865u, 0x3320646eu, 0x79622d32u, 0x6b206574u,
+                      p.key[0], p.key[1], p.key[2], p.key[3],
+                      p.key[4], p.key[5], p.key[6], p.key[7],
+                      p.counter0 + (uint32_t)blk, p.nonce0, p.nonce1,
+                      p.nonce2};
+    uint32_t x[16];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) x[j] = s[j];
+    for (int j = 0; j < 16; ++j) x[j] = s[j];
 #pragma unroll
-  for (int r = 0; r < ROUNDS; r += 2) {
-    quarter(x[0], x[4], x[8], x[12]);
-    quarter(x[1], x[5], x[9], x[13]);
-    quarter(x[2], x[6], x[10], x[14]);
-    quarter(x[3], x[7], x[11], x[15]);
-    quarter(x[0], x[5], x[10], x[15]);
-    quarter(x[1], x[6], x[11], x[12]);
-    quarter(x[2], x[7], x[8], x[13]);
-    quarter(x[3], x[4], x[9], x[14]);
+    for (int r = 0; r < ROUNDS; r += 2) {
+      quarter(x[0], x[4], x[8], x[12]);
+      quarter(x[1], x[5], x[9], x[13]);
+      quarter(x[2], x[6], x[10], x[14]);
+      quarter(x[3], x[7], x[11], x[15]);
+      quarter(x[0], x[5], x[10], x[15]);
+      quarter(x[1], x[6], x[11], x[12]);
+      quarter(x[2], x[7], x[8], x[13]);
+      quarter(x[3], x[4], x[9], x[14]);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      staged[threadIdx.x * kStagedRow + j] = x[j] + s[j];
+    }
   }
-  // The block's first word as (row, word of the row) from row0 on; the
-  // words before word0 (the first block of a range that starts mid-block)
-  // are skipped, and the loop stops at word1.
-  const int64_t first = blk * 16;
-  int64_t rel = first - p.word0;
-  int64_t row = rel >= 0 ? rel / p.nw : -1;
-  int col = rel >= 0 ? (int)(rel - row * p.nw) : 0;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int64_t g = first + j;
-    if (g >= p.word0 && g < p.word1) {
-      if (row < 0) {  // the range's first word, inside this block
-        row = 0;
-        col = 0;
-      }
-      const uint32_t w = x[j] + s[j];
-      int32_t* dst = out + row * p.lt + 2 * col;
-      const int limb = 2 * col;
-      dst[0] = (int32_t)((w & 0xffffu) & (limb == p.lt - 1 ? p.top_mask
-                                                           : 0xffffu));
-      if (limb + 1 < p.lt) {
-        dst[1] = (int32_t)((w >> 16) & (limb + 1 == p.lt - 1 ? p.top_mask
-                                                             : 0xffffu));
-      }
-      if (++col == p.nw) {
-        col = 0;
-        ++row;
-      }
+  __syncthreads();
+  // The block's keystream words [w0, w1), clipped to the launch's
+  // [word0, word1): the first block of a range that starts mid-block
+  // skips the words before word0, the last stops at word1.
+  const int64_t left = p.nblk - (t - threadIdx.x);
+  const int64_t nblk = left < kThreads ? left : kThreads;
+  const int64_t base = first_blk * 16;
+  const int64_t w0 = base > p.word0 ? base : p.word0;
+  const int64_t w1 = base + nblk * 16 < p.word1 ? base + nblk * 16 : p.word1;
+  if (w0 >= w1) return;
+  // Their limbs are the output's [o0, o1): word g of the range is row
+  // (g - word0) / nw, limbs 2·col and 2·col + 1 of it; at odd lt the
+  // second half of a row's last word has no limb.
+  const int64_t r0 = (w0 - p.word0) / p.nw;
+  const int64_t r1 = (w1 - p.word0) / p.nw;
+  const int64_t o0 = r0 * p.lt + 2 * (w0 - p.word0 - r0 * p.nw);
+  const int64_t o1 = r1 * p.lt + 2 * (w1 - p.word0 - r1 * p.nw);
+  // This thread's first limb o0 + threadIdx.x as (row, limb of the row),
+  // then steps of kThreads limbs: q rows and r limbs.
+  int64_t o = o0 + threadIdx.x;
+  int64_t row = o / p.lt;
+  int c = (int)(o - row * p.lt);
+  const int q = kThreads / p.lt;
+  const int r = kThreads - q * p.lt;
+  for (; o < o1; o += kThreads) {
+    const int64_t g = p.word0 + row * p.nw + (c >> 1) - base;  // 0..4095
+    const uint32_t w = staged[(g >> 4) * kStagedRow + (g & 15)];
+    const uint32_t mask = c == p.lt - 1 ? p.top_mask : 0xffffu;
+    out[o] = (int32_t)(((c & 1) ? w >> 16 : w & 0xffffu) & mask);
+    c += r;
+    row += q;
+    if (c >= p.lt) {
+      c -= p.lt;
+      ++row;
     }
   }
 }

@@ -5,6 +5,9 @@ Usage (from any directory, on a machine with a card):
     python3 vmn_tpu_torch/kernel_timing.py [--tree DIR] [--n N] [--ec-n N]
     python3 vmn_tpu_torch/kernel_timing.py --sweep [--only WRAPPER ...]
                                            [--widths W ...] [--curve P-224]
+    python3 vmn_tpu_torch/kernel_timing.py --prf [--tree DIR]
+      (the ChaCha20 kernel of DIR alone: its `chacha20_limbs` keys; an
+      A/B of two trees runs them in turns, each a process)
 
 Without --sweep it times, with `device_ms`, the wrappers of the
 `vmn_tpu_torch` package under DIR (default: the tree this file is in) on
@@ -785,6 +788,10 @@ def main(argv=None) -> int:
     ap.add_argument("--startup", action="store_true",
                     help="split a card process's start-up into its steps "
                          "instead")
+    ap.add_argument("--prf", action="store_true",
+                    help="time the tree's ChaCha20 kernel alone instead, at "
+                         "the DeviceSource mixes' draws (--n rows of 2147 "
+                         "bits, --ec-n of 356)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_timing: no CUDA device", file=sys.stderr)
@@ -802,6 +809,9 @@ def main(argv=None) -> int:
         res = startup(args.tree.resolve())
     elif args.sweep:
         res = sweep(frozenset(args.only), frozenset(args.widths), args.curve)
+    elif args.prf:
+        res = {"tree": str(args.tree),
+               "ms": time_prf(torch.device("cuda", 0), args.n, args.ec_n)}
     else:
         res = {"tree": str(args.tree), "ms": time_tree(args.n, args.ec_n)}
     print(card)

@@ -414,7 +414,11 @@ def _toeplitz(v: torch.Tensor, cols: int) -> torch.Tensor:
 # conditional subtraction), the same modular sums and differences, so
 # the same limbs as the torch ops, at a few microseconds a step in place
 # of a torch call's hundreds.  CUDA tensors always take the torch ops.
-HOST_ROWS = 32
+# (A plain product on 256 rows on the CPU, two torch threads: test256
+# 1.9 ms by the torch ops against 0.7 ms here, modp2048 47.7 against
+# 6.7, modp3072 115.3 against 8.3; a fixed-base table of modp2048, 256
+# rows a product, is the largest batch of the CPU tests' small mixes.)
+HOST_ROWS = 256
 
 
 def host_route(t: torch.Tensor, rows: int) -> bool:

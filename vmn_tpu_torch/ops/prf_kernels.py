@@ -19,9 +19,10 @@ significant first (``Lt = num_limbs(bits)``, `arith/limbs.py`):
 
 The wrapper takes the plain version for a CPU device only; for a CUDA
 device it launches `csrc/prf_kernels.cu` (one thread a 64-byte block,
-rows [a, b) alone: a rank of a sharded mix expands its own block) or
-raises — there is no fallback.  `LAUNCHES["chacha20_limbs"]` counts its
-launches (an empty range launches nothing).
+its keystream staged in shared memory so that a warp stores consecutive
+limbs; rows [a, b) alone: a rank of a sharded mix expands its own
+block) or raises — there is no fallback.  `LAUNCHES["chacha20_limbs"]`
+counts its launches (an empty range launches nothing).
 
 The kernel replaces no Pallas kernel, only `vmn_tpu`'s XLA program
 `_prf_limbs`; its algorithm differs because `vmn_tpu`'s squeezes the seed
