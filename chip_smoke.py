@@ -8,6 +8,10 @@ Usage:  python3 chip_smoke.py [--n N] [--ec-n N] [--k3-n N] [--k3i-n N]
         python3 chip_smoke.py --shard-rank -- <workdir> <N> <EC N>
           (one rank, by the VMN_DIST_* triplet, of the sharded mixes of
           phase 7: a JSON line a mix)
+        python3 chip_smoke.py --alone -- golden|slice <group> <workdir>
+          (one golden of phase 5 or slice of phase 6 alone: the ffc15360
+          golden, run beside the CLI runs of phase 10, and its slice, run
+          beside the k=3 and precomputation phases 8 and 9)
 
 Phases (one line each; any failure raises and the exit code is not 0):
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -16,7 +20,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
      Montgomery libraries of the widths this run builds on demand
      (ON_DEMAND_WIDTHS: W = 32 for the fresh groups, W = 12 and W' = 20
      for H3, H4 and the chain, W = 192 and 256 for RFC 3526's modp6144
-     and modp8192; one nvcc each, started with the rest),
+     and modp8192, W = 480 and 512 past 8192 bits and W = 288 between;
+     one nvcc each, started with the rest),
      each with its seconds, TPIs, registers and spill bytes on its
      `[build] width=` line, and its ptxas lines;
   3. check H1 mont_mul, H2 mont_exp, H3 mont_fb_exp, H4
@@ -43,7 +48,22 @@ Phases (one line each; any failure raises and the exit code is not 0):
      q); at modp6144 (W = 192) and modp8192 (W = 256) as at the wide
      groups, but H4 at full width on 16 elements spread over the batch in
      a launch of their own (PY_ELEMENTS), with H3 at window 4 on N at
-     256-bit exponents; then each of H1-H4 at the first
+     256-bit exponents; at W = 480 (the 15360-bit group ffc15360) and
+     W = 512 (a 16384-bit odd modulus, `wide_modulus`), checked first,
+     on the ffc15360 slice's 1000 elements (FFC_N): H1, and H2, H3 at
+     both windows and H4 at 256-bit exponents, H1-H3 held on HELD_ROWS
+     spread rows; H2 and H3 at window 8 also at full width, held to
+     their plain versions (on host copies) and to Python pow on the five
+     edge and spread rows of py_rows, H4 at full width on 16 elements
+     spread over the batch in a launch of their own; on one element at
+     full width H1, H2 (a^(m-2)), H3 at window 8 and H4, with K7's
+     combine over a full-width exponent's positions (3840, 4096), their
+     Python checks in the host pool while the other checks run; at
+     W = 288 (MID_WIDTH), between 256 and 480 words, at a 9216-bit odd
+     modulus and at an 8224-bit one (W' = 288, converting), H1, and H2,
+     H3 at both windows and H4 at 256-bit exponents on FFC_N elements,
+     H1 and H2 (a^(m-2)) on one, and K7's combine over 64 positions;
+     then each of H1-H4 at the first
      N of any TPI of its
      rule that those miss, so that every TPI (lanes an element) the
      wrappers choose is checked (it fails otherwise); then the ChaCha20
@@ -98,7 +118,12 @@ Phases (one line each; any failure raises and the exit code is not 0):
      groups in group_vog{1024,1000}.json, the same script), the modp6144
      and modp8192 goldens (nizkp_modp{6144,8192}_k1,
      test_vectors_modp{6144,8192}.json, the groups in
-     group_modp{6144,8192}.json, the same script), and the
+     group_modp{6144,8192}.json, the same script), the ffc15360 golden
+     (nizkp_ffc15360_k1, test_vectors_ffc15360.json, the group in
+     group_ffc15360.json, the same script; its five messages from
+     `random_array`, as the script makes them; run in a process of its
+     own beside the CLI runs of phase 10, its powers latency-bound), and
+     the
      P-224, P-384 and P-521 goldens (nizkp_p{224,384,521}_k1,
      test_vectors_p{224,384,521}.json, the same script), the modp2048
      golden (nizkp_modp2048_k1, test_vectors_modp2048.json, the same
@@ -128,8 +153,14 @@ Phases (one line each; any failure raises and the exit code is not 0):
      modp4096 with N ciphertexts, the same --n, and at the fresh groups
      vog1024 and vog1000 (every Montgomery launch of their mixes at
      W = 32, converting at vog1000's 63 limbs: the `slice` line's
-     `launches_at_w`), and at modp6144 and modp8192 (every launch at
-     W = 192 and 256); after the EC slices (phase 7), the modp2048 and
+     `launches_at_w`), at modp6144 and modp8192 (every launch at
+     W = 192 and 256), and at ffc15360 with FFC_N = 1000 ciphertexts
+     (every launch at W = 480, the scalar ring's products at W' = 480
+     converting; the mix and verify under torch.profiler, the device's
+     idle share from the mix's start to the verifier's return on the
+     line; in a process of its own beside phases 8 and 9, whose work is
+     on the host, so its seconds and idle share are taken on a card that
+     those phases share); after the EC slices (phase 7), the modp2048 and
      P-256 mixes again with the party's randomness from
      DeviceSource(b"bench-party"), bench.py's seed (`[devicesource]`
      lines): every prover draw of the mix expanded on the card by the
@@ -217,7 +248,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
      process, H5, H6, the EC combine and H8 in the P-256 one.
 
 --profile modp2048|P-256|P-224|P-384|P-521|modp2048-k3|modp3072|modp4096|
-          vog1024|vog1000|modp6144|modp8192
+          vog1024|vog1000|modp6144|modp8192|ffc15360
 profiles one more
 mix + verify of that path after the phases (host spans, device time by
 kernel, the device's idle share); it may be given more than once.
@@ -227,7 +258,8 @@ Each mix zeroes the wrappers' launch counters just before `session.mix`
 parties) and reads them just after it; a precomputation path does the
 same around its precomputation, and then around its online mix.  H1-H4
 and the combine must have launched in the modp2048, modp3072,
-modp4096, vog1024, vog1000, modp6144 and modp8192 mixes, in the k=3
+modp4096, vog1024, vog1000, modp6144, modp8192 and ffc15360 mixes, in
+the k=3
 mixes (modp2048, modp3072), in the modp2048 and modp3072 k=1
 precomputation paths, in the modp2048-kw2w2 mix, in each check-matrix
 golden's mix and in each live adversary's flow, H2 and H3 in the
@@ -257,7 +289,8 @@ its check at W=12 under `p384`, in the P-224 and P-521 mixes with their
 checks at W'=8 and 20 under `p224` and `p521`, each Montgomery kernel's
 launches in the fresh groups' mixes with its checks there under `vog`,
 in the modp6144 and modp8192 mixes with its checks at W = 192 and 256
-under `rfc`.  The last three lines are
+under `rfc`, in the ffc15360 mix with its checks at W = 480 and its
+checks at W = 512 and 288 under `ffc`.  The last three lines are
 that JSON object, the card's name and power limit, and a JSON status
 object.
 """
@@ -266,6 +299,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import multiprocessing
@@ -503,13 +537,36 @@ VOG_WORDS = 32
 # each built on demand: modp6144 (§6, group 17) at W = 192, modp8192
 # (§7, group 18) at W = 256.
 RFC_GROUPS = {"modp6144": 192, "modp8192": 256}
+# Past 8192 bits (tests/golden/group_ffc15360.json: NIST SP 800-57's
+# 15360-bit finite field, p = c·q + 1 from a seeded search, by
+# tests/torch_make_wide_golden.py) at W = 480, and the width above it
+# that no group of the repo has, W = 512, checked at a 16384-bit odd
+# modulus (kernel_timing.wide_modulus, FFC_WIDE); each built on demand.
+FFC_GROUPS = {"ffc15360": 480}
+FFC_WIDTHS = (480, 512)
+# Ciphertexts of the ffc15360 slice, and elements of the kernels' checks
+# at FFC_WIDTHS and MID_WIDTH: about one wave of the card at TPI 32 (a
+# full-width power of one element is over a second there).
+FFC_N = 1000
+# Between 256 and 480 words no group of the repo has a width, but the cap
+# of 512 words opens every multiple of 32 there: W = 288, the width of
+# the first group past 8192 bits, is checked at odd moduli of 9216 bits
+# (W = 288) and 8224 bits (L = 514 limbs at W' = 288, converting),
+# kernel_timing.wide_modulus.
+MID_WIDTH = 288
+MID_BITS = (9216, 8224)
+# This process's share of the card's memory while an FFC_GROUPS slice runs
+# beside it (`Aside`; that slice held 16.8 GB at its peak).
+ASIDE_MEMORY = 0.7
 # The groups read from a group file (`file_group`).
-FILE_GROUPS = (*VOG_GROUPS, *RFC_GROUPS)
+FILE_GROUPS = (*VOG_GROUPS, *RFC_GROUPS, *FFC_GROUPS)
 # The widths built on demand in the build phase beside the main library
 # (ops/mont_kernels.py build_widths): W = 32 for the fresh groups, W = 12
 # and W' = 20 for H3, H4 (and K7's combine at 20), which the P-384 and
-# P-521 fields' checks run, and W = 192 and 256 for RFC_GROUPS.
-ON_DEMAND_WIDTHS = (VOG_WORDS, 12, 20, *RFC_GROUPS.values())
+# P-521 fields' checks run, W = 192 and 256 for RFC_GROUPS, FFC_WIDTHS
+# and MID_WIDTH.
+ON_DEMAND_WIDTHS = (VOG_WORDS, 12, 20, *RFC_GROUPS.values(), *FFC_WIDTHS,
+                    MID_WIDTH)
 # Elements of the one small shape at which a kernel that no path
 # launches at a width is held to its plain version (H3 at window 4 at
 # W = 32, H3 and H4 at W = 12 and at the padded moduli).
@@ -579,7 +636,7 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     from vmn_tpu_torch.arith.limbs import int_to_limbs, ints_to_limbs
     from vmn_tpu_torch.arith.mont import MontCtx, device_limbs
     from vmn_tpu_torch.arith.pgroup import _NAMED_GROUPS
-    from vmn_tpu_torch.kernel_timing import device_ms
+    from vmn_tpu_torch.kernel_timing import _moduli, device_ms, wide_modulus
     from vmn_tpu_torch.ops import mont_kernels as K
 
     dev = torch.device("cuda", 0)
@@ -622,11 +679,18 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     pool = None  # the host processes of the Python checks (below)
 
     def pows(pairs, m):
-        """pow(b, e, m) of each (b, e) pair, in a pool of host processes:
-        a full-width Python pow takes about a second at 8192 bits, and a
-        check holds up to PY_ELEMENTS of them."""
-        bs, es = zip(*pairs)
-        return list(pool.map(pow, bs, es, [m] * len(bs)))
+        """pow(b, e, m) of each (b, e) pair, in a pool of host processes
+        (a full-width Python pow takes about a second at 8192 bits, nine
+        at 15360, and a check holds up to PY_ELEMENTS of them): a
+        function that waits for them, so that the next checks run on the
+        card meanwhile."""
+        futs = [pool.submit(pow, b, e, m) for b, e in pairs]
+        return lambda: [f.result() for f in futs]
+
+    def later(have, want):
+        """A check's Python comparison, made once `want` (a function that
+        waits for the pool) has its values."""
+        return lambda: have == want()
 
     def exp_products(count, e, ndig):
         # the table's 14 products, 4 squarings a digit below the top and,
@@ -636,15 +700,22 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         return count * (14 + 4 * (ndig - 1)) + nz
 
     def elementwise(name, d, fn, pre, rows_in, post, py, count, bnd,
-                    products=None, whole=False):
+                    products=None, whole=False, few=False):
         """K.fn(*pre, *rows_in, *post), whose output row i depends on row
         i of rows_in alone: held to K.fn_plain on HELD_ROWS rows at the
-        wide widths (and H2 where d.held), else on all; py(i) is row i's
-        (base, exponent), its Python value pow(base, exponent, m)."""
+        wide widths (and H2 where d.held), else on all; with `few`, on
+        the rows of py_rows alone, the plain version on host copies of
+        them in the pool (past 256 words a full-width plain power takes
+        about two minutes on the card whatever the rows, ten seconds a
+        row on the host); py(i) is row i's (base, exponent), its Python
+        value pow(base, exponent, m)."""
         kern, plain = getattr(K, fn), getattr(K, fn + "_plain")
         rows = py_rows(count)
         held, held_in = None, rows_in
-        if ((d.wide or (d.held and fn == "mont_exp")) and count > HELD_ROWS
+        if few:
+            held = torch.tensor(rows, device=dev)
+            held_in = tuple(t[held] for t in rows_in)
+        elif ((d.wide or (d.held and fn == "mont_exp")) and count > HELD_ROWS
                 and not whole):
             held = torch.tensor(sorted(set(spread(count, HELD_ROWS))
                                        | set(rows)), device=dev)
@@ -652,9 +723,10 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         plain_args = (*pre, *held_in, *post)
         cases[name] = (
             d.ctx, lambda: kern(*pre, *rows_in, *post), held,
-            (lambda: plain_on_host(plain, *plain_args)) if count == 1
+            HostPlain(plain, plain_args) if count == 1 or few
             else (lambda: plain(*plain_args)),
-            lambda got: d.ctx.decode(got[rows]) == pows(map(py, rows), d.m),
+            lambda got: later(d.ctx.decode(got[rows]),
+                              pows(map(py, rows), d.m)),
             count, bnd, products)
 
     def mul_case(d, name, count, at=0):
@@ -665,22 +737,22 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
                     1 if count == 1 else None)
 
     def exp_case(d, name, x, x_int, e, e_int, bits, products=None,
-                 whole=False):
+                 whole=False, few=False):
         count = x.shape[0]
         elementwise(name, d, "mont_exp", (), (x, e), (d.mod, bits),
                     lambda i: (x_int[i], e_int[i]), count,
                     bound(exp_products(count, e, -(-bits // 4)), d.BW,
                           2 * 4 * count * d.L + 4 * e.numel()), products,
-                    whole)
+                    whole, few)
 
-    def fb_case(d, name, tbl, e, e_int, count, at=0):
+    def fb_case(d, name, tbl, e, e_int, count, at=0, few=False):
         window = tbl.shape[1].bit_length() - 1
         e = e[at : at + count].contiguous()
         elementwise(name, d, "mont_fb_exp", (tbl,), (e,), (d.mod,),
                     lambda i: (g, e_int[at + i]), count,
                     bound(nonzero_digits(e, tbl.shape[0], window), d.W,
                           4 * tbl.numel() + 4 * e.numel() + 4 * count * d.L),
-                    tbl.shape[0] if count == 1 else None)
+                    tbl.shape[0] if count == 1 else None, few=few)
 
     def ep_case(d, name, e, e_int, bits, count, at=0, rows=None):
         """H4 on elements at .. at + count, or on the batch's `rows` in a
@@ -704,18 +776,23 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
             py_out = lambda got: launch(t)  # noqa: E731
 
         def truth(got):
-            want = 1
-            for v in pows((at_int[i] for i in ix), d.m):
-                want = want * v % d.m
-            return d.ctx.decode(
-                K.mont_expprod_combine(py_out(got), d.mod)[None]) == [want]
+            vals = pows((at_int[i] for i in ix), d.m)
+
+            def want():
+                acc = 1
+                for v in vals():
+                    acc = acc * v % d.m
+                return [acc]
+
+            return later(d.ctx.decode(
+                K.mont_expprod_combine(py_out(got), d.mod)[None]), want)
 
         ndig = -(-bits // 4)
         # each base's table, then per position one product per digit that
         # is not 0, less the first; a batch of one runs the table's four
         # levels and one fold product back to back
-        plain = ((lambda: plain_on_host(K.mont_expprod_positions_plain, x, e,
-                                        d.mod, bits)) if count == 1 else
+        plain = (HostPlain(K.mont_expprod_positions_plain,
+                           (x, e, d.mod, bits)) if count == 1 else
                  (lambda: K.mont_expprod_positions_plain(x, e, d.mod, bits)))
         cases[name] = (
             d.ctx, lambda: K.mont_expprod_positions(x, e, d.mod, bits), None,
@@ -731,16 +808,14 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         P = d.ctx.encode(P_int)
 
         def truth(got):
-            acc = 1
-            for x in reversed(P_int):
-                acc = pow(acc, 16, d.m) * x % d.m
-            return d.ctx.decode(got) == [acc]
+            acc = pool.submit(horner16, P_int, d.m)
+            return later(d.ctx.decode(got), lambda: [acc.result()])
 
         # 4 squarings and one product per position below the top
         cases[name] = (
             d.ctx, lambda: K.mont_expprod_combine(P, d.mod)[None], None,
-            lambda: plain_on_host(K.mont_expprod_combine_plain, P,
-                                  d.mod)[None], truth, J,
+            HostPlain(K.mont_expprod_combine_plain, (P, d.mod), lead=True),
+            truth, J,
             bound(5 * (J - 1), d.W, 4 * J * d.L + 4 * d.L), 5 * (J - 1))
 
     def small_cases(d, tag):
@@ -760,6 +835,11 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         mul_case(d, f"mont_mul{tag}", count)
         exp_case(d, f"mont_exp{tag}", d.a[:count], d.a_int, d.e[:count],
                  d.e_int, d.bits)
+        inv_cases(d, tag)
+
+    def inv_cases(d, tag):
+        """H1 and H2 on one element (row 3), the power as MontCtx.inv
+        raises a^(m-2)."""
         mul_case(d, f"mont_mul{tag}_b1", 1, at=3)
         inv_bits = (d.m - 2).bit_length()
         e_inv = device_limbs(int_to_limbs(d.m - 2, -(-inv_bits // 16)),
@@ -791,6 +871,59 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
     # per width: its inputs, its tag, the H3 table and exponents of its
     # path, and its ModP-path cases
     widths = {}  # W: [(inputs, tag, H3's window)], a modulus each
+    # past 256 words (W = 480: ffc15360; W = 512: a 16384-bit odd
+    # modulus), first, so that their full-width Python checks (about nine
+    # seconds a pow) run in the pool while the rest run on the card: on
+    # FFC_N elements H1, and H2, H3 at both windows and H4 at 256-bit
+    # exponents (H1-H3 held on HELD_ROWS spread rows); H2 (as membership
+    # by x^q raises every parsed array) and H3 at window 8 (the path's
+    # fixed-base powers) at full width on FFC_N, held on the rows of
+    # py_rows; H4 at full width on PY_ELEMENTS elements spread over the
+    # batch in a launch of their own, as at RFC_GROUPS; on one element at
+    # full width H1, H2 (a^(m-2), as MontCtx.inv), H3 at window 8 (the
+    # path's table) and H4; K7's combine over a full-width exponent's
+    # positions
+    for W, ctx in _moduli(dev, FFC_WIDTHS).items():
+        d = width(ctx, ctx.nbits - 1, FFC_N)
+        tag = f"_w{W}"
+        d.tbl = ctx.fixed_base_table(g, 256, 8)
+        tbl_full = ctx.fixed_base_table(g, d.bits, 8)
+        widths[W] = [(d, tag, 8)]
+        mul_case(d, f"mont_mul{tag}", FFC_N)
+        exp_case(d, f"mont_exp{tag}", d.a, d.a_int, d.e256, d.e256_int, 256)
+        exp_case(d, f"mont_exp{tag}_full", d.a, d.a_int, d.e, d.e_int,
+                 d.bits, few=True)
+        fb_case(d, f"mont_fb_exp8{tag}", d.tbl, d.e256, d.e256_int, FFC_N)
+        fb_case(d, f"mont_fb_exp8{tag}_full", tbl_full, d.e, d.e_int, FFC_N,
+                few=True)
+        fb_case(d, f"mont_fb_exp4{tag}", ctx.fixed_base_table(g, 256, 4),
+                d.e256, d.e256_int, FFC_N)
+        ep_case(d, f"mont_expprod_positions{tag}", d.e256, d.e256_int, 256,
+                FFC_N)
+        rows = spread(FFC_N, PY_ELEMENTS)
+        ep_case(d, f"mont_expprod_positions{tag}_full", d.e, d.e_int,
+                d.bits, len(rows), rows=rows)
+        inv_cases(d, tag)
+        fb_case(d, f"mont_fb_exp8{tag}_b1", tbl_full, d.e, d.e_int, 1, at=3)
+        ep_case(d, f"mont_expprod_positions{tag}_b1", d.e, d.e_int, d.bits,
+                1, at=3)
+        combine_case(d, f"mont_expprod_combine{tag}")
+    # W = 288 (MID_WIDTH), on no path, at both its moduli: H1, and H2, H3
+    # at both windows and H4 at 256-bit exponents on FFC_N elements (H1-H3
+    # held on HELD_ROWS spread rows), H1 and H2 (a^(m-2)) on one, K7's
+    # combine over a 256-bit exponent's 64 positions
+    for nbits in MID_BITS:
+        ctx = MontCtx(wide_modulus(nbits), dev)
+        d = width(ctx, 256, FFC_N)
+        tag = f"_w{MID_WIDTH}_{nbits}"
+        d.tbl = ctx.fixed_base_table(g, 256, 8)
+        widths.setdefault(ctx.mod.W, []).append((d, tag, 8))
+        batch_cases(d, tag, FFC_N)
+        fb_case(d, f"mont_fb_exp8{tag}", d.tbl, d.e, d.e_int, FFC_N)
+        fb_case(d, f"mont_fb_exp4{tag}", ctx.fixed_base_table(g, 256, 4),
+                d.e, d.e_int, FFC_N)
+        ep_case(d, f"mont_expprod_positions{tag}", d.e, d.e_int, 256, FFC_N)
+        combine_case(d, f"mont_expprod_combine{tag}")
     for group, W in (("modp2048", 64), *WIDE_GROUPS.items()):
         ctx = MontCtx(_NAMED_GROUPS[group][0], dev)
         d = width(ctx, ctx.nbits - 1, n)  # |q|: full-width exponents
@@ -928,18 +1061,23 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
                        reached.get((kernel, W, id(d.ctx)), set()))
 
 
-    results, tpis = {}, set()
+    results, tpis, pending, deferred = {}, set(), [], []
+    # one core left to this process, which drives the card
     pool = ProcessPoolExecutor(
-        max_workers=os.cpu_count(),
+        max_workers=max(1, (os.cpu_count() or 2) - 1),
         mp_context=multiprocessing.get_context("spawn"))
     try:
         for name, (cx, kern, held, plain, truth, count, bnd,
                    products) in cases.items():
             got, first_ms = timed(kern)  # first launch: compare, then time
-            want, plain_ms = timed(plain)
-            err = max_abs_err(got if held is None else got[held], want)
-            if not truth(got):
-                raise AssertionError(f"{name}: kernel != Python pow")
+            if isinstance(plain, HostPlain):  # compared below
+                deferred.append((name, (got if held is None else got[held])
+                                 .cpu(), plain.submit(pool)))
+                err = plain_ms = None
+            else:
+                want, plain_ms = timed(plain)
+                err = max_abs_err(got if held is None else got[held], want)
+            pending.append((name, truth(got)))  # waited for below
             # where the first launch took seconds (H2 at full width, W =
             # 192 and 256), its own time: more runs would add seconds
             ms = first_ms if first_ms > 1000 else device_ms(kern)
@@ -961,9 +1099,18 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
                          if kernel != "mont_expprod_positions" else
                          "latency-bound: four table levels and one product")
             results[name] = r
-            kernel_line(name, r)
+            if err is not None:
+                kernel_line(name, r)
+        for name, got, fut in deferred:
+            want, plain_ms = fut.result()
+            results[name].update(max_abs_err=max_abs_err(got, want),
+                                 plain_ms=plain_ms)
+            kernel_line(name, results[name])
+        for name, check in pending:
+            if not check():
+                raise AssertionError(f"{name}: kernel != Python pow")
     finally:
-        pool.shutdown()
+        pool.shutdown(cancel_futures=True)
     # every TPI of every measured rule, and of the rule taken at each
     # width checked without one (coop_rule: W = 12 and 20 for H3, H4)
     rules = {*K.COOP_TPI, *((k, w) for k, w, _ in tpis)}
@@ -973,6 +1120,39 @@ def check_kernels(n: int, ec_n: int, pc_maxciph: int) -> dict:
         raise AssertionError(f"H1-H4 instantiations not checked: "
                              f"{sorted(built - tpis)}")
     return results
+
+
+@dataclasses.dataclass
+class HostPlain:
+    """A one-row plain check of check_kernels, run on host copies of its
+    inputs (`host_args`: its integer route, as plain_on_host runs it) in
+    a process of the check's pool, while the next checks run on the card;
+    `lead`: its result gets a leading axis, as the kernel's call does."""
+
+    fn: object
+    args: tuple
+    lead: bool = False
+
+    def submit(self, pool):
+        """The future of (result, milliseconds) (`host_plain`)."""
+        return pool.submit(host_plain, self.fn, host_args(*self.args),
+                           self.lead)
+
+
+def host_plain(fn, args, lead: bool):
+    """(fn(*args), its milliseconds), in a host process of the pool."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out[None] if lead else out, 1e3 * (time.perf_counter() - t0)
+
+
+def horner16(xs: list, m: int) -> int:
+    """prod_j xs[j]^(16^j) mod m, Horner from the top: K7's combine on
+    Python integers (a host process of check_kernels' pool)."""
+    acc = 1
+    for x in reversed(xs):
+        acc = pow(acc, 16, m) * x % m
+    return acc
 
 
 def max_abs_err(got, want) -> int:
@@ -1690,9 +1870,22 @@ def golden_phase(tmp: Path, name: str, maxciph: int = 0,
         golden = golden.with_name(golden.name + "_precomp")
         tv_file = "test_vectors_precomp.json"
     params = _params("Golden", group)
-    msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
+    if name in FFC_GROUPS:
+        # p = c·q + 1 with c > 2: elements from `random_array`, as
+        # tests/torch_make_wide_golden.py makes them (encode_message is
+        # the safe-prime encoding)
+        from vmn_tpu_torch.crypto.hash import SHA256
+        from vmn_tpu_torch.crypto.prg import PRGHeuristic
+
+        prg = PRGHeuristic(SHA256)
+        prg.set_seed(SHA256.hash(b"golden-msgs"))
+        m = group.random_array(n, prg, params.rbitlen)
+        msgs = m.to_ints()
+    else:
+        msgs = [group.encode_message(f"{i:08d}".encode()) for i in range(n)]
+        m = make(msgs)
     nizkp, plain, mix_s, launches, _, _ = run_mix(
-        params, make(msgs), tmp / f"golden_{name}_{maxciph}",
+        params, m, tmp / f"golden_{name}_{maxciph}",
         b"golden-party", b"golden-ciphs", maxciph)
     files = same_transcript(nizkp, golden)
     if sorted(_points(group, plain)) != sorted(msgs):
@@ -2133,19 +2326,32 @@ def multiparty_phase(n: int, tmp: Path, interactive: bool = False,
     return launches, sizes, coins, mix_s
 
 
-def launches_at_width(run: str, by_width: dict, w: int,
-                      conv: bool = False) -> str:
-    """Raises unless every Montgomery launch of a run (its launches by
-    (wrapper, W, conv), K.LAUNCH_WIDTHS) was at width w with conversion
-    `conv` and each of H1-H4 and K7's combine launched there; the
-    launches by wrapper, for the run's line."""
+# The Montgomery kernels a k=1 path launches over the scalar ring Z_q
+# (the products of exponents), beside H1-H4 and K7's combine over the
+# field.
+RING_KERNELS = ("mont_mul",)
+
+
+def launches_at_width(run: str, by_width: dict, w: int, conv: bool = False,
+                      ring_conv: bool | None = None) -> str:
+    """Raises unless the Montgomery launches of a run (its launches by
+    (wrapper, W, conv), K.LAUNCH_WIDTHS) were exactly each of H1-H4 and
+    K7's combine at width w with conversion `conv` (the field's) and,
+    with `ring_conv` (the scalar ring's conversion at w), RING_KERNELS
+    with that conversion (ffc15360's q of 958 limbs converts at W' = 480
+    where its field of 960 does not; at every other group the ring's
+    launches are the field's); the launches by wrapper, those with the
+    other conversion apart, for the run's line."""
     from vmn_tpu_torch.ops import mont_kernels as K
 
     want = {(k, w, conv) for k in K.KERNELS}
+    if ring_conv is not None:
+        want |= {(k, w, ring_conv) for k in RING_KERNELS}
     if set(by_width) != want:
         raise AssertionError(f"{run} launched at {sorted(by_width)}, "
                              f"expected {sorted(want)}")
-    return json.dumps({k: c for (k, _, _), c in sorted(by_width.items())},
+    return json.dumps({k if c == conv else f"{k} conv={c}": n
+                       for (k, _, c), n in sorted(by_width.items())},
                       separators=(",", ":"))
 
 
@@ -2260,6 +2466,11 @@ def slice_phase(name: str, n: int, tmp: Path, source=None):
     owner, wrapper = ((E, "ec_multiexp_positions") if name.startswith("P-")
                       else (K, "mont_expprod_positions"))
     tag = "slice" if source is None else "devicesource"
+    # at ffc15360 the mix and the verify under torch.profiler: the
+    # device's idle share over them goes on the line
+    window, profiled = {}, contextlib.ExitStack()
+    if name in FFC_GROUPS:
+        profiled.enter_context(idle_window(window))
     with calls_of(owner, wrapper, {}) as mix_calls:
         nizkp, plain, mix_s, launches, sizes, draws = run_mix(
             params, m, tmp / f"{tag}_{name}", b"smoke-party"
@@ -2284,15 +2495,19 @@ def slice_phase(name: str, n: int, tmp: Path, source=None):
                  "seeded_verify_s": f"{SLICE_S[name][1]:.3f}"}
     if name in FILE_GROUPS:
         # every Montgomery launch of the mix at the group's width: W = 32
-        # for the fresh groups, converting at the odd limb count (the
-        # field and the scalar ring alike), W = 192 and 256 for RFC_GROUPS
-        conv = group.ctx.L % 2 == 1
-        w = RFC_GROUPS.get(name, VOG_WORDS)
+        # for the fresh groups, W = 192 and 256 for RFC_GROUPS, 480 for
+        # FFC_GROUPS; the field and the scalar ring each converting where
+        # its limbs are not 2W
+        w = {**RFC_GROUPS, **FFC_GROUPS}.get(name, VOG_WORDS)
+        conv = group.ctx.L != 2 * w
         extra = {"W": w, "conv": conv, "L": group.ctx.L,
+                 "ring_L": group.ring.L,
                  "launches_at_w": launches_at_width(
-                     f"{name} mix", by_width, w, conv)}
+                     f"{name} mix", by_width, w, conv,
+                     group.ring.L != 2 * w)}
     with calls_of(owner, wrapper, {}) as verify_calls:
         ok, verify_s = verify(params, nizkp)
+    profiled.close()
     if not ok:
         raise AssertionError("port verifier rejected the mix transcript")
     peak = torch.cuda.max_memory_allocated()
@@ -2304,7 +2519,7 @@ def slice_phase(name: str, n: int, tmp: Path, source=None):
     if source is None:
         SLICE_S[name] = (mix_s, verify_s)
     phase(tag, group=name, k=1, N=n, multiset=True,
-          verify_ok=True, tampered_rejected=True, **extra,
+          verify_ok=True, tampered_rejected=True, **extra, **window,
           mix_s=f"{mix_s:.3f}", verify_s=f"{verify_s:.3f}",
           mix_cps=f"{n / mix_s:.1f}", verify_cps=f"{n / verify_s:.1f}",
           max_memory_allocated=peak, fb_tables=len(tables),
@@ -2676,6 +2891,64 @@ CLI = [sys.executable, "-m", "vmn_tpu_torch.cli.main"]
 VDEMO_N = 1000  # vdemo's modp2048 k=3 run
 
 
+def alone(argv) -> int:
+    """`chip_smoke.py --alone -- golden|slice <group> <workdir>`: one phase
+    of a group in this process (the FFC_GROUPS' golden and slice, run
+    beside phases that leave the card mostly idle: `Aside`): golden_phase,
+    or slice_phase at FFC_N with its launches, launches by batch size,
+    H4's shapes and mix seconds as the last line's JSON object."""
+    kind, name, workdir = argv
+    if kind == "golden":
+        golden_phase(Path(workdir), name)
+        return 0
+    launches, sizes, widths, mix_s = slice_phase(name, FFC_N, Path(workdir))
+    print(json.dumps({"launches": launches, "sizes": sizes,
+                      "widths": widths, "mix_s": mix_s}))
+    return 0
+
+
+class Aside:
+    """A phase of `alone` in a process of its own, started beside phases
+    of this process that are host-bound: its work is device-bound (the
+    ffc15360 powers at W = 480, over a second a full-width power of one
+    element), so the card, time-shared between the two processes, runs
+    both where one after the other would leave it idle.  `join` waits for
+    it (raising on a failure), prints its phase lines here and returns the
+    slice's JSON object; leaving its `with` kills it if it still runs (a
+    phase beside it raised)."""
+
+    def __init__(self, kind: str, name: str, tmp: Path):
+        self.kind, self.name = kind, name
+        work = tmp / f"aside_{kind}_{name}"
+        work.mkdir(parents=True, exist_ok=True)
+        self.procs = Procs(work)
+        self.proc = self.procs.start([kind, name, str(work)], alone=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.procs.close()
+
+    def join(self):
+        try:
+            (_, _, text), = self.procs.wait([self.proc])
+        finally:
+            self.procs.close()
+        lines = text.splitlines()
+        shown = [x for x in lines if x.startswith("[")]
+        if not any(x.startswith(f"[{self.kind}] group={self.name} ")
+                   for x in shown):
+            raise AssertionError(f"{self.name} {self.kind}: no line:\n"
+                                 + text[-3000:])
+        with OUT_LOCK:
+            for x in shown:
+                print(x, flush=True)
+        return (json.loads(next(x for x in reversed(lines)
+                                if x.startswith('{"launches"')))
+                if self.kind == "slice" else None)
+
+
 def cli_party(argv) -> int:
     """`chip_smoke.py --cli-party -- <vmn args>`: `vmn` of the port in
     this process, on the card, with the launch counters zeroed just
@@ -2739,13 +3012,16 @@ class Procs:
             [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]),
             "PYTHONPYCACHEPREFIX": str(workdir.parent / "pycache")}
 
-    def start(self, args, cwd=None, party=False, rank=False, env=None):
-        """A process of `args`: a CLI tool, `--cli-party` (party) or
-        `--shard-rank` (rank) of this script, with `env` added."""
+    def start(self, args, cwd=None, party=False, rank=False, env=None,
+              alone=False):
+        """A process of `args`: a CLI tool, `--cli-party` (party),
+        `--shard-rank` (rank) or `--alone` (alone) of this script, with
+        `env` added."""
         self.n += 1
         tag = "rank" if rank else args[0].lstrip("-")
         log = self.workdir / f"proc{self.n:02d}_{tag}.log"
-        mode = "--cli-party" if party else "--shard-rank" if rank else None
+        mode = ("--cli-party" if party else "--shard-rank" if rank else
+                "--alone" if alone else None)
         cmd = ([sys.executable, str(REPO / "chip_smoke.py"), mode, "--",
                 *args] if mode else [*CLI, *args])
         with open(log, "w") as out:
@@ -3215,7 +3491,8 @@ def cli_phase(n: int, k3_n: int, ec_n: int, vdemo_n: int, tmp: Path):
     """Phase 10: the operator tools, each as its own process.  The five
     runs share nothing (each its own directory, free ports and
     processes), so they run at once, a thread of this process each: their
-    steps' seconds are taken beside the other runs' processes."""
+    steps' seconds are taken beside the other runs' processes, and beside
+    the ffc15360 golden's (`Aside`)."""
     t0 = time.perf_counter()
     # the runs' processes share the card with this one: give back the
     # blocks this process's earlier phases left cached (a full run held
@@ -3223,13 +3500,17 @@ def cli_phase(n: int, k3_n: int, ec_n: int, vdemo_n: int, tmp: Path):
     gc.collect()
     reserved = torch.cuda.memory_reserved()
     torch.cuda.empty_cache()
-    with ThreadPoolExecutor(5) as pool:
-        runs = [pool.submit(cli_test256_phase, tmp),
-                pool.submit(cli_modp_phase, n, tmp),
-                pool.submit(cli_k3_phase, k3_n, tmp),
-                pool.submit(cli_ec_phase, ec_n, tmp),
-                pool.submit(cli_vdemo_phase, vdemo_n, tmp)]
-        _, (modp, modp_pc), k3, ec, _ = [r.result() for r in runs]
+    with contextlib.ExitStack() as stack:
+        asides = [stack.enter_context(Aside("golden", g, tmp))
+                  for g in FFC_GROUPS]
+        with ThreadPoolExecutor(5) as pool:
+            runs = [pool.submit(cli_test256_phase, tmp),
+                    pool.submit(cli_modp_phase, n, tmp),
+                    pool.submit(cli_k3_phase, k3_n, tmp),
+                    pool.submit(cli_ec_phase, ec_n, tmp),
+                    pool.submit(cli_vdemo_phase, vdemo_n, tmp)]
+            _, (modp, modp_pc), k3, ec, _ = [r.result() for r in runs]
+        [a.join() for a in asides]
     phase("cli", run="all", concurrent=len(runs),
           reserved_bytes_before=reserved,
           reserved_bytes_after=torch.cuda.memory_reserved(),
@@ -3259,17 +3540,38 @@ SPANS = (  # (module, class, method) timed as host spans by --profile
 K3_WINDOW = "mix of the k=3 parties"  # --profile modp2048-k3's window
 
 
-def profile_phase(name: str, n: int, tmp: Path) -> None:
-    """One more mix + verify of a path under torch.profiler: host spans
-    (synchronised at entry and exit), device time by kernel and the
-    device idle share over the mix + verify window.  modp2048-k3: the
-    three parties' mix in threads (keygen and encryption before the
-    profiler starts), the window from this thread's span around it."""
+def busy_in(events, lo: float, hi: float, skip=frozenset()):
+    """(busy µs, {kernel: [µs, launches]}, device events) of a profiler's
+    device events within [lo, hi]: busy is the union of their intervals;
+    events named in `skip` (annotation ranges) are left out."""
+    from torch.autograd import DeviceType
+
+    kernels, ivals = {}, []
+    for e in events:
+        s, t = e.time_range.start, e.time_range.end
+        if (e.device_type == DeviceType.CUDA and e.name not in skip
+                and t > lo and s < hi):
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += t - s
+            k[1] += 1
+            ivals.append((max(s, lo), min(t, hi)))
+    busy, end = 0.0, -1.0
+    for s, t in sorted(ivals):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return busy, kernels, len(ivals)
+
+
+@contextlib.contextmanager
+def spans_on(spans=SPANS):
+    """Each (module, class, method) of `spans` timed as a host span named
+    class.method (torch.profiler's record_function, synchronised at entry
+    and exit) for the work inside."""
     import functools
     import importlib
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     def spanned(fn, label):
         @functools.wraps(fn)
@@ -3282,11 +3584,54 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
         return run
 
     saved = []
-    for modname, cls, meth in SPANS:
+    for modname, cls, meth in spans:
         owner = getattr(importlib.import_module(modname), cls)
         saved.append((owner, meth, getattr(owner, meth)))
         setattr(owner, meth, spanned(getattr(owner, meth), f"{cls}.{meth}"))
     try:
+        yield
+    finally:
+        for owner, meth, fn in saved:
+            setattr(owner, meth, fn)
+
+
+@contextlib.contextmanager
+def idle_window(out: dict):
+    """torch.profiler over the work inside, with MixSession.mix and
+    FiatShamirVerifier.verify as host spans; after it, `out` holds the
+    device's busy seconds and its idle share from the mix's start to the
+    verifier's return (profile_phase's window) and the device events
+    there, the `profiled` mark beside them (the profiler's host cost is
+    inside the window's seconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {f"{c}.{m}" for _, c, m in SPANS[:2]}
+    with spans_on(SPANS[:2]), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield out
+    events = list(prof.events())
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in events
+              if e.device_type != DeviceType.CUDA and e.name in names}
+    lo = ranges["MixSession.mix"][0]
+    hi = ranges["FiatShamirVerifier.verify"][1]
+    busy, _, count = busy_in(events, lo, hi, names)
+    out.update(profiled=True, device_busy_s=f"{busy / 1e6:.3f}",
+               idle_share=f"{1 - busy / (hi - lo):.3f}",
+               device_events=count)
+
+
+def profile_phase(name: str, n: int, tmp: Path) -> None:
+    """One more mix + verify of a path under torch.profiler: host spans
+    (synchronised at entry and exit), device time by kernel and the
+    device idle share over the mix + verify window.  modp2048-k3: the
+    three parties' mix in threads (keygen and encryption before the
+    profiler starts), the window from this thread's span around it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with spans_on():
         from vmn_tpu_torch.crypto.hash import SHA256
         from vmn_tpu_torch.crypto.prg import PRGHeuristic
 
@@ -3319,41 +3664,26 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
                     params, m, tmp / f"prof_{name}", b"smoke-party",
                     b"smoke-ciphs")
             ok, verify_s = verify(params, nizkp)
-    finally:
-        for owner, meth, fn in saved:
-            setattr(owner, meth, fn)
     if not ok:
         raise AssertionError("profiled transcript rejected")
     names = {f"{c}.{m}" for _, c, m in SPANS} | {K3_WINDOW}
-    spans, ranges, kernels, ivals = {}, {}, {}, []
+    spans, ranges = {}, {}
     events = list(prof.events())
     for e in events:
         if e.device_type != DeviceType.CUDA and e.name in names:
             spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us()
             ranges[e.name] = (e.time_range.start, e.time_range.end)
     # the window: from the start of session.mix (of the parties' threads,
-    # for k=3) to the verifier's return
+    # for k=3) to the verifier's return; the spans' own annotation ranges
+    # are not device work
     lo = ranges[K3_WINDOW if k3 else "MixSession.mix"][0]
     hi = ranges["FiatShamirVerifier.verify"][1]
-    for e in events:
-        s, t = e.time_range.start, e.time_range.end
-        # device events, less the spans' own annotation ranges
-        if (e.device_type == DeviceType.CUDA and e.name not in names
-                and t > lo and s < hi):
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += t - s
-            k[1] += 1
-            ivals.append((max(s, lo), min(t, hi)))
-    busy, end = 0.0, -1.0
-    for s, t in sorted(ivals):
-        if t > end:
-            busy += t - max(s, end)
-            end = t
+    busy, kernels, count = busy_in(events, lo, hi, names)
     window_us = hi - lo
     phase("profile", group=name, N=n, mix_s=f"{mix_s:.3f}",
           verify_s=f"{verify_s:.3f}", device_busy_s=f"{busy / 1e6:.3f}",
           idle_share=f"{1 - busy / window_us:.3f}",
-          device_events=len(ivals))
+          device_events=count)
     for name, us in sorted(spans.items(), key=lambda kv: -kv[1]):
         print(f"  span {name} s={us / 1e6:.3f}")
     # the 12 longest, and below them every kernel of the port (the
@@ -3368,12 +3698,14 @@ def profile_phase(name: str, n: int, tmp: Path) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] in (["--cli-party"], ["--shard-rank"]):
+    modes = {"--cli-party": cli_party, "--shard-rank": shard_rank,
+             "--alone": alone}
+    if argv[:1] and argv[0] in modes:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
         rest = argv[2:] if argv[1:2] == ["--"] else argv[1:]
-        return (cli_party if argv[0] == "--cli-party" else shard_rank)(rest)
+        return modes[argv[0]](rest)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=10000,
                     help="ciphertexts in the modp2048, modp3072, modp4096, "
@@ -3473,16 +3805,21 @@ def main(argv=None) -> int:
         golden_phase(tmp, "test256", maxciph=8, arrays_file=True)
         golden_k3_phase(tmp)
         golden_k3_phase(tmp, "P-224")
+        # (the FFC_GROUPS' goldens run beside the CLI runs, phase 10)
         for group in ("modp2048", *WIDE_GROUPS, *FILE_GROUPS):
-            golden_phase(tmp, group)
+            if group not in FFC_GROUPS:
+                golden_phase(tmp, group)
         matrix = {name: golden_matrix_phase(tmp, name)
                   for name in MATRIX_GOLDENS}
         adversaries = adversary_phase(tmp)
         modp, modp_sizes, modp_widths, modp_s = slice_phase(
             "modp2048", args.n, tmp)
         kw2w2 = matrix_slice_phase(MATRIX_SLICE, args.n, tmp)
-        wide_mix = {group: slice_phase(group, args.n, tmp)
-                    for group in (*WIDE_GROUPS, *FILE_GROUPS)}
+        # (the FFC_GROUPS' slices run beside the k=3 and precomputation
+        # phases, below)
+        wide_mix = {g: slice_phase(g, args.n, tmp)
+                    for g in (*WIDE_GROUPS, *FILE_GROUPS)
+                    if g not in FFC_GROUPS}
         # curve: (launches, by batch, H6's calls, mix seconds); P-224's
         # k=1 mix at P224_SLICE_N, its H6 at --ec-n in the k=3 mix below
         ec_paths = {curve: slice_phase(curve, min(args.ec_n, P224_SLICE_N)
@@ -3497,28 +3834,46 @@ def main(argv=None) -> int:
                                           ("P-256", args.ec_n))}
         sharded = sharded_phase(args.n, args.ec_n, tmp,
                                 {"modp2048": modp_s, "P-256": ec_s})
-        k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
-        ec3, ec3_sizes, _, _ = multiparty_phase(args.ec_n, tmp,
-                                                name="P-224")
-        # H4's checks at W = 96, shared by modp3072's k=3 mix and its
-        # precomputation path: (N, exponent bits) -> the check
-        checked_3072 = {}
-        k3_3072, _, _, _ = multiparty_phase(args.n, tmp, name="modp3072",
-                                            multiexp_checked=checked_3072)
-        k3i, _, coins, _ = multiparty_phase(args.k3i_n, tmp,
-                                            interactive=True)
-        pc, pc_mix, pc_widths = precomp_phase(
-            "modp2048", 1, args.n, tmp, modp_s)
-        pc3, pc3_mix, pc3_widths = precomp_phase(
-            "modp2048", 3, args.k3_n, tmp, k3_s)
-        _, _, pc_ec_widths = precomp_phase("P-256", 1, pc_ec_n, tmp, ec_s)
-        pc_3072, pc_3072_mix, pc_3072_widths = precomp_phase(
-            "modp3072", 1, args.n, tmp, wide_mix["modp3072"][3],
-            multiexp_checked=checked_3072)
+        # the FFC_GROUPS' slices (device-bound: full-width powers at
+        # W = 480) in processes of their own beside the k=3 and
+        # precomputation phases (host-bound: Naor-Yung, the parties'
+        # threads), this process held to ASIDE_MEMORY of the card meanwhile
+        gc.collect()
+        torch.cuda.empty_cache()
+        with contextlib.ExitStack() as stack:
+            stack.callback(torch.cuda.set_per_process_memory_fraction, 1.0)
+            torch.cuda.set_per_process_memory_fraction(ASIDE_MEMORY)
+            ffc_slices = {g: stack.enter_context(Aside("slice", g, tmp))
+                          for g in FFC_GROUPS}
+            k3, k3_sizes, _, k3_s = multiparty_phase(args.k3_n, tmp)
+            ec3, ec3_sizes, _, _ = multiparty_phase(args.ec_n, tmp,
+                                                    name="P-224")
+            # H4's checks at W = 96, shared by modp3072's k=3 mix and its
+            # precomputation path: (N, exponent bits) -> the check
+            checked_3072 = {}
+            k3_3072, _, _, _ = multiparty_phase(
+                args.n, tmp, name="modp3072", multiexp_checked=checked_3072)
+            k3i, _, coins, _ = multiparty_phase(args.k3i_n, tmp,
+                                                interactive=True)
+            pc, pc_mix, pc_widths = precomp_phase(
+                "modp2048", 1, args.n, tmp, modp_s)
+            pc3, pc3_mix, pc3_widths = precomp_phase(
+                "modp2048", 3, args.k3_n, tmp, k3_s)
+            _, _, pc_ec_widths = precomp_phase("P-256", 1, pc_ec_n, tmp,
+                                               ec_s)
+            pc_3072, pc_3072_mix, pc_3072_widths = precomp_phase(
+                "modp3072", 1, args.n, tmp, wide_mix["modp3072"][3],
+                multiexp_checked=checked_3072)
+            for g, aside in ffc_slices.items():
+                r = aside.join()
+                wide_mix[g] = (r["launches"], r["sizes"], r["widths"],
+                               r["mix_s"])
         cli = cli_phase(args.n, args.k3_n, args.ec_n, VDEMO_N, tmp)
         for path in args.profile:
             profile_phase(path, args.ec_n if path in EC_PATH_CURVES else
-                          {"modp2048-k3": args.k3_n}.get(path, args.n), tmp)
+                          {"modp2048-k3": args.k3_n,
+                           **dict.fromkeys(FFC_GROUPS, FFC_N)}.get(
+                               path, args.n), tmp)
     compact = {"separators": (",", ":")}
     phase("launches", modp2048_mix=json.dumps(modp, **compact),
           p256_mix=json.dumps(ec, **compact),
@@ -3633,6 +3988,17 @@ def main(argv=None) -> int:
                 g: {"W": W, "launches": wide_mix[g][0][name],
                     "checks": checks_at(checks, name, f"_w{W}", K.KERNELS)}
                 for g, W in RFC_GROUPS.items()}
+            # past 8192 bits: at W = 480 its launches in the ffc15360 mix
+            # and its checks there, at W = 512 and 288 its checks
+            kernels[-1]["ffc"] = {
+                **{g: {"W": W, "launches": wide_mix[g][0][name],
+                       "checks": checks_at(checks, name, f"_w{W}",
+                                           K.KERNELS)}
+                   for g, W in FFC_GROUPS.items()},
+                **{f"w{W}": {"W": W, "checks": checks_at(
+                    checks, name, f"_w{W}", K.KERNELS)}
+                   for W in (*FFC_WIDTHS, MID_WIDTH)
+                   if W not in FFC_GROUPS.values()}}
             # at W = 32 (vog1000: W' = 32, converting): its launches in
             # the fresh groups' mixes and its checks there
             kernels[-1]["vog"] = {

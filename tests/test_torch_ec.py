@@ -504,9 +504,10 @@ def test_p224_on_the_card_raises_by_width():
     (`CONVERTS`); on a tensor that is not on the CPU H7 alone, off every
     path, raises a ValueError naming that inner width, before any build
     or launch and with no plain fallback.  An 8192-bit ModP group (L =
-    512) maps to W = 256, built on demand; one past the kernels' cap of
-    256 words (8224 bits: L = 514) gets no modulus off the CPU:
-    `Modulus.of` raises naming the cap, before any build; a 1024-bit one
+    512) maps to W = 256, built on demand, an 8224-bit one (L = 514) to
+    W' = 288, converting; one past the kernels' cap of 512 words (16416
+    bits: L = 1026) gets no modulus off the CPU: `Modulus.of` raises
+    naming the cap, before any build; a 1024-bit one
     (`vog -bitlen 1024`) maps to W = 32, built on demand.
     P-521 maps to its inner width W' = 20 and P-384 to W = 12.  (A
     tensor on the "meta" device stands in for the card's: the wrappers
@@ -534,9 +535,12 @@ def test_p224_on_the_card_raises_by_width():
     wide = E.K.Modulus.of(m8192, 512, meta)
     assert (wide.L, wide.W, wide.conv) == (512, 256, False)
     m8224 = (1 << 8223) + 1155  # odd, 8224 bits
-    with pytest.raises(ValueError, match=r"no kernel for L=514 limbs: 288 "
-                       r"words pass the cap of 256 words \(8192 bits\)"):
-        E.K.Modulus.of(m8224, 514, meta)
+    wide = E.K.Modulus.of(m8224, 514, meta)
+    assert (wide.L, wide.W, wide.conv) == (514, 288, True)
+    m16416 = (1 << 16415) + 1155  # odd, 16416 bits
+    with pytest.raises(ValueError, match=r"no kernel for L=1026 limbs: 544 "
+                       r"words pass the cap of 512 words \(16384 bits\)"):
+        E.K.Modulus.of(m16416, 1026, meta)
     m1024 = (1 << 1023) + 1155
     wide = E.K.Modulus.of(m1024, 64, meta)
     assert (wide.L, wide.W, wide.conv) == (64, 32, False)

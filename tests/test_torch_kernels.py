@@ -150,7 +150,7 @@ def test_coop_launch_covers_every_element(w):
     """The TPI the wrappers pick divides W, is built, and is reached by
     some N; the launch's threads cover every element's lanes in whole
     warps, with no block left idle (H4's launch, `ep_launch`, takes the
-    TPI of its rule and whole warps of at most EP_BLOCK threads).  At
+    TPI of its rule and whole warps of at most `block_cap(w)` threads).  At
     W = 12 (P-384) and W' = 20 (P-521) H4 has no measured rule: it takes
     that of the nearest width at or above with one (`coop_rule`), its
     TPIs taken down to those dividing W."""
@@ -169,7 +169,7 @@ def test_coop_launch_covers_every_element(w):
             if kernel == "mont_expprod_positions":
                 sh = K.ep_launch(w, n, 64, 132)
                 tpi, threads = sh.tpi, sh.threads
-                assert 0 < threads <= K.EP_BLOCK
+                assert 0 < threads <= K.block_cap(w)
             else:
                 tpi, threads, blocks = K.coop_launch(kernel, w, n)
                 assert 0 < threads <= K.COOP_BLOCK
@@ -293,7 +293,7 @@ def _ep_visits(w, n, npos, sh):
 @pytest.mark.parametrize("w,tpi", [(8, None), (64, None), (96, 16),
                                    (128, 16)])
 def test_ep_launch_covers_every_pair(w, tpi):
-    """H4's launch shape at each width: whole warps of at most EP_BLOCK
+    """H4's launch shape at each width: whole warps of at most `block_cap(w)`
     threads, position blocks that tile the positions, the chunk's tables
     and the accumulators within the shared memory a block may use, at
     most EP_ACC_BYTES of accumulators; every (element, position) pair
@@ -308,7 +308,7 @@ def test_ep_launch_covers_every_pair(w, tpi):
         sh = K.ep_launch(w, n, npos, 132)
         assert tpi is None or sh.tpi == tpi
         assert w % sh.tpi == 0 and sh.threads % 32 == 0
-        assert 0 < sh.threads <= K.EP_BLOCK and sh.threads % sh.tpi == 0
+        assert 0 < sh.threads <= K.block_cap(w) and sh.threads % sh.tpi == 0
         assert sh.jb % K.EP_JB == 0 and sh.jb * sh.pblocks == npos
         assert sh.pblocks <= 65535 and sh.chunk >= 1
         assert 4 * w * sh.jb * sh.subs <= K.EP_ACC_BYTES

@@ -260,18 +260,22 @@ def test_modulus_words(L, W, conv):
 
 
 def test_modulus_cap():
-    """A 6144- or 8192-bit group maps to W = 192 or 256; above 256 words
-    (8224 bits) no kernel is built: off the CPU the map raises naming
-    the cap; the plain versions on the CPU take any width."""
+    """A 6144- or 8192-bit group maps to W = 192 or 256, an 8224-bit one
+    to W' = 288 with the boundary conversion; above 512 words (16416
+    bits) no kernel is built: off the CPU the map raises naming the cap;
+    the plain versions on the CPU take any width."""
     m = (1 << 8191) + 1
     assert K.Modulus.of(m, 512, torch.device("meta")).W == 256
     assert K.kernel_words(384) == 192
     m = (1 << 8223) + 1
-    with pytest.raises(ValueError, match="cap of 256 words"):
-        K.Modulus.of(m, 514, torch.device("meta"))
-    with pytest.raises(ValueError, match="cap of 256 words"):
-        K.kernel_words(514)
-    assert K.Modulus.of(m, 514, "cpu").W == 257
+    mod = K.Modulus.of(m, 514, torch.device("meta"))
+    assert (mod.W, mod.conv) == (288, True)
+    m = (1 << 16415) + 1
+    with pytest.raises(ValueError, match="cap of 512 words"):
+        K.Modulus.of(m, 1026, torch.device("meta"))
+    with pytest.raises(ValueError, match="cap of 512 words"):
+        K.kernel_words(1026)
+    assert K.Modulus.of(m, 1026, "cpu").W == 513
 
 
 # -------------------------------------------------- the on-demand build

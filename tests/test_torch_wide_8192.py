@@ -10,7 +10,8 @@ On the CPU, against `vmn_tpu` and Python integers:
   `mont_fb_exp` at window 8 (eight digits), H4 `mont_expprod_positions`
   with K7's combine through `MontCtx.expprod` (seven elements);
 * `kernel_words` / `Modulus.of` at 6144, 8192 and 8224 bits (the last
-  passes the cap of 256 words and raises, naming it);
+  maps to W' = 288, converting; 16416 bits pass the cap of 512 words
+  and raise, naming it);
 * the launch rules: each `COOP_TPI` rule at W = 192 and 256 and the TPI
   masks its width library is built with (csrc/mont_kernels.cu, VMN_W);
   H3's pieces (`fb_pieces`, quarters of a window-8 digit at W = 256) and
@@ -152,18 +153,24 @@ def test_modulus_at_rfc_widths(name):
 
 
 def test_modulus_cap_of_256_words():
-    """Above 256 words no kernel is built: 8224 bits (L = 514) raise off
-    the CPU, naming the cap; the plain versions on the CPU take it; the
-    widths between 128 and 256 words round to 32 (TPI 32, 8 words a lane
-    at most)."""
+    """The cap moved from 256 to 512 words: 8224 bits (L = 514), past the
+    old cap, map to W' = 288 with the boundary conversion; above 512
+    words no kernel is built: 16416 bits (L = 1026) raise off the CPU,
+    naming the cap, and the plain versions on the CPU take them; the
+    widths above 128 words round to 32 (TPI 32, 16 words a lane at
+    most)."""
     m = (1 << 8223) + 1
-    with pytest.raises(ValueError, match="cap of 256 words"):
-        K.Modulus.of(m, 514, torch.device("meta"))
-    with pytest.raises(ValueError, match="cap of 256 words"):
-        K.kernel_words(514)
-    assert K.Modulus.of(m, 514, "cpu").W == 257
-    assert [K.kernel_words(L) for L in (258, 320, 322, 450, 512)] == [
-        160, 160, 192, 256, 256]
+    mod = K.Modulus.of(m, 514, torch.device("meta"))
+    assert (mod.W, mod.conv) == (288, True)
+    m = (1 << 16415) + 1
+    with pytest.raises(ValueError, match="cap of 512 words"):
+        K.Modulus.of(m, 1026, torch.device("meta"))
+    with pytest.raises(ValueError, match="cap of 512 words"):
+        K.kernel_words(1026)
+    assert K.Modulus.of(m, 1026, "cpu").W == 513
+    assert [K.kernel_words(L) for L in (258, 320, 322, 450, 512, 514, 960,
+                                        1024)] == [
+        160, 160, 192, 256, 256, 288, 480, 512]
 
 
 # ------------------------------------------------------- the launch rules
@@ -246,7 +253,7 @@ def test_ep_launch_at_rfc_widths(w):
     """H4's launch at W = 192 and 256 over N in {1, 16, 10000} at the
     paths' position counts (exponents of 100, 256, 400, 612 bits and |q|):
     at least one element a chunk, the tables and accumulators within a
-    block's shared memory, whole warps of at most EP_BLOCK threads; every
+    block's shared memory, whole warps of at most `block_cap(w)` threads; every
     (element, position) pair folded once where the walk is small."""
     full = 32 * w - 1
     for n in (1, 16, 10000):
@@ -256,7 +263,7 @@ def test_ep_launch_at_rfc_widths(w):
             assert sh.chunk >= 1
             assert sh.shared_bytes(w) <= K.EP_SHARED
             assert 4 * w * sh.jb * sh.subs <= K.EP_ACC_BYTES
-            assert sh.threads % 32 == 0 and 0 < sh.threads <= K.EP_BLOCK
+            assert sh.threads % 32 == 0 and 0 < sh.threads <= K.block_cap(w)
             assert sh.jb * sh.pblocks == npos and sh.jb % K.EP_JB == 0
             assert (sh.eblocks - 1) * sh.per_block < n <= (
                 sh.eblocks * sh.per_block)

@@ -37,10 +37,21 @@ namespace vmn {
 constexpr unsigned kWarpAll = 0xffffffffu;
 
 // Threads a block of a cooperative launch at most (COOP_BLOCK in
-// ops/mont_kernels.py), and of H3's (FB_BLOCK), whose block holds the
-// SM's shared memory alone.
+// ops/mont_kernels.py), and of H3's and H4's (FB_BLOCK, WIDE_BLOCK), whose
+// block holds the SM's shared memory alone.
 constexpr int kCoopBlock = 128;
 constexpr int kFbBlock = 1024;
+constexpr int kWideBlock = 512;
+
+// H3's and H4's threads a block at most at W words, the bound of their
+// __launch_bounds__ and of their launch shape (block_cap in
+// ops/mont_kernels.py): 1024 up to 256 words, where a thread may then hold
+// 64 registers and TPI 32 leaves a lane 8 words at most; 512 above (128
+// registers), where a lane holds 15 or 16 words (W = 480, 512).
+template <int W>
+__host__ __device__ constexpr int block_cap() {
+  return W <= 256 ? kFbBlock : kWideBlock;
+}
 
 template <int TPI>
 __device__ __forceinline__ int group_lane() {

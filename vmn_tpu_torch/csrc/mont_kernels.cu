@@ -82,6 +82,19 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnsupportedWidth = -1;
+
+// The bounds of the kernels whose blocks are small (H1, the boundary
+// passes; the chain's one warp).  In a width's own library past 256 words
+// (15 or 16 words a lane), with the blocks at least one a multiprocessor
+// as well: given only a block size, ptxas trades a few bytes of spill for
+// one more resident block (72 registers and 4 bytes at H1 <480, 32>, 80
+// and 28 at the rows pass <512, 32>); given both, it may use registers up
+// to what one block allows.  Every other width keeps the block size alone.
+#if defined(VMN_W) && VMN_W > 256
+#define VMN_BOUNDS(threads) __launch_bounds__(threads, 1)
+#else
+#define VMN_BOUNDS(threads) __launch_bounds__(threads)
+#endif
 constexpr int kBadShape = -2;
 constexpr int kExpEntries = 16;  // H2's 4-bit windows
 
@@ -90,7 +103,7 @@ constexpr int kExpEntries = 16;  // H2's 4-bit windows
 // product's serial chain is then W/32 words a lane), fewer lanes from the
 // batch size where they measured faster (COOP_TPI, ops/mont_kernels.py).
 template <int W, int TPI>
-__global__ void __launch_bounds__(kThreads)
+__global__ void VMN_BOUNDS(kThreads)
     mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                     int32_t* __restrict__ out, const int32_t* __restrict__ m,
                     uint32_t mp, const int32_t* __restrict__ c_in, int64_t n) {
@@ -200,7 +213,7 @@ __global__ void __launch_bounds__(kThreads, 3)
 // latency hides behind the squaring's), the result back on store; two
 // products' latency in all.
 template <int W, int TPI>
-__global__ void __launch_bounds__(32)
+__global__ void VMN_BOUNDS(32)
     mont_chain_kernel(const int32_t* __restrict__ P, int32_t* __restrict__ out,
                       const int32_t* __restrict__ m, uint32_t mp,
                       const int32_t* __restrict__ c_in,
@@ -255,8 +268,10 @@ __global__ void __launch_bounds__(32)
 // share of them of which two fit (fb_pieces): halves at window 8 and
 // W = 128 (two 64 KB halves, staged in turn, where two whole digits would
 // take 256 KB) and W = 192 (two 96 KB halves), quarters at W = 256 (two
-// 64 KB quarters, where two halves would take 256 KB); the masked select
-// runs over every entry of every piece of the digit before its product.
+// 64 KB quarters, where two halves would take 256 KB), eighths at W = 480
+// and 512 (two 60 and 64 KB eighths, where two quarters would take 240
+// and 256 KB); the masked select runs over every entry of every piece of
+// the digit before its product.
 // At window 8 and W = 64 a buffer is 64 KB, so a block holds the SM's
 // shared memory alone: the launch shape (fb_launch)
 // gives a block about N/132 elements, so that N = 10000 is one wave of
@@ -273,7 +288,9 @@ __global__ void __launch_bounds__(32)
 // 128 only TPI 32 is built: TPI 16 measured slower on the paths' 10000
 // elements, and a block of 1024 threads caps a thread at 64 registers,
 // which TPI 8's 12 or 16 words a slice would pass; at W = 192 and 256
-// TPI 32 is the only TPI whose slice (6, 8 words) stays within them.
+// TPI 32 is the only TPI whose slice (6, 8 words) stays within them.  At
+// W = 480 and 512, TPI 32 (15 and 16 words a lane) in blocks of at most
+// 512 threads (block_cap), which leave a thread 128 registers.
 __device__ __forceinline__ void cp_async16(uint32_t* dst,
                                            const uint32_t* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -326,7 +343,7 @@ __device__ __forceinline__ void load_vec(uint32_t* w, const uint32_t* p) {
 }
 
 template <int W, int WB, int TPI>
-__global__ void __launch_bounds__(vmn::kFbBlock, 1)
+__global__ void __launch_bounds__(vmn::block_cap<W>(), 1)
     mont_fb_exp_kernel(const uint32_t* __restrict__ table,
                        const int32_t* __restrict__ e, int32_t* __restrict__ out,
                        const int32_t* __restrict__ m,
@@ -436,9 +453,11 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
 // What bounds it: the products, one a (element, position) and 14 an
 // element for each block of positions; the select reads 16 entries a
 // product from shared memory, 32·S loads and masks a lane against the
-// product's 4·W·S multiply-adds (an eighth at W = 64).  One block of up to 1024 threads an SM (the table fills
+// product's 4·W·S multiply-adds (an eighth at W = 64).  One block of up
+// to 1024 threads an SM (512 above 256 words: block_cap; the table fills
 // the shared memory), registers held at 64 by __launch_bounds__ (used in
-// full at W = 64, TPI 8, with no stack frame and no spill).  A padded
+// full at W = 64, TPI 8, with no stack frame and no spill; 128 above 256
+// words).  A padded
 // modulus: the entry point takes the bases to the kernel's radix before
 // the launch and the partials back after it (mont_rebase_rows_kernel, one
 // product a row each: a conversion inside the kernel, as each block
@@ -450,8 +469,9 @@ __global__ void __launch_bounds__(vmn::kFbBlock, 1)
 // spill), where TPI 8's slices would pass the 64 registers; at W = 192
 // and 256 TPI 32 (62 and 64 registers): an element's table is 12 and
 // 16 KB, so a chunk holds 14 and 10 elements beside 48 and 64 KB of
-// accumulators.
-constexpr int kEpBlock = 1024;  // EP_BLOCK in ops/mont_kernels.py
+// accumulators; at W = 480 and 512 TPI 32 in blocks of at most 512
+// threads (block_cap: 15 and 16 words a lane), an element's table 30 and
+// 32 KB, a chunk 5 elements beside up to 64 KB of accumulators.
 constexpr int kEpShared = kFbShared;
 // Words between two elements' tables: 16 entries and 4 words of padding,
 // so that groups reading the same entry of neighbouring elements (the
@@ -512,7 +532,7 @@ __device__ __forceinline__ void select_slice(uint32_t* fac,
 }
 
 template <int W, int TPI>
-__global__ void __launch_bounds__(kEpBlock, 1)
+__global__ void __launch_bounds__(vmn::block_cap<W>(), 1)
     mont_expprod_kernel(const int32_t* __restrict__ bases,
                         const int32_t* __restrict__ e,
                         int32_t* __restrict__ out,
@@ -593,7 +613,7 @@ __global__ void __launch_bounds__(kEpBlock, 1)
 // of W words in fb_pack's layout (a group of TPI lanes an entry, the lanes'
 // slices where H3 reads them), at the kernel's radix R = 2^(32·W).
 template <int W, int TPI>
-__global__ void __launch_bounds__(kThreads)
+__global__ void VMN_BOUNDS(kThreads)
     mont_rebase_table_kernel(const uint32_t* __restrict__ in,
                              uint32_t* __restrict__ out,
                              const int32_t* __restrict__ m, uint32_t mp,
@@ -613,7 +633,7 @@ __global__ void __launch_bounds__(kThreads)
 // of 2W 16-bit limbs (a group of TPI lanes a row), in place where out is
 // in.
 template <int W, int TPI>
-__global__ void __launch_bounds__(kThreads)
+__global__ void VMN_BOUNDS(kThreads)
     mont_rebase_rows_kernel(const int32_t* in, int32_t* out,
                             const int32_t* __restrict__ m, uint32_t mp,
                             const int32_t* __restrict__ c, int64_t n) {
@@ -642,7 +662,8 @@ int launch_fb(const uint32_t* table, uint32_t* conv, const int32_t* e,
               int32_t* out, const int32_t* m, const int32_t* one, uint32_t mp,
               const int32_t* c_in, const int32_t* c_out, int64_t n, int le,
               int ndig, int threads, int64_t blocks, cudaStream_t s) {
-  if (!vmn::coop_shape_ok<TPI>(threads, blocks, vmn::kFbBlock) || le < 1 ||
+  if (!vmn::coop_shape_ok<TPI>(threads, blocks, vmn::block_cap<W>()) ||
+      le < 1 ||
       ndig < 1 || (c_in != nullptr && conv == nullptr)) {
     return kBadShape;
   }
@@ -707,7 +728,8 @@ int launch_ep(const int32_t* bases, int32_t* conv, const int32_t* e,
               int eblocks, int pblocks, cudaStream_t s) {
   const size_t smem = sizeof(uint32_t) * ((size_t)chunk * ep_stride<W>() +
                                           (size_t)jb * subs * W);
-  if (!vmn::coop_shape_ok<TPI>(threads, eblocks, kEpBlock) || n < 1 ||
+  if (!vmn::coop_shape_ok<TPI>(threads, eblocks, vmn::block_cap<W>()) ||
+      n < 1 ||
       le < 1 || jb < 1 || subs < 1 || chunk < 1 || per_block < 1 ||
       pblocks < 1 || pblocks > 65535 || smem > (size_t)kEpShared ||
       (c_in != nullptr && (conv == nullptr || c_out == nullptr))) {

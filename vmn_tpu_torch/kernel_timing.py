@@ -92,7 +92,9 @@ sweeps a width built on demand (Oakley's 1024-bit group, RFC 2409
 sweep, H3 at both windows; `--widths 192 256` the same at RFC 3526's
 modp6144 and modp8192 (`RFC_WIDE`) at the TPIs that leave a lane at
 most 8 words (32), 16 for H1 and H2 (16 and 32; `SWEEP_SLICE_WORDS`),
-over 3 runs a time; at W = 96 and 128 H3 also at window 4
+over 3 runs a time; `--widths 480 512` at the 15360-bit group ffc15360
+and a 16384-bit modulus (`FFC_WIDE`) at TPI 32 alone (16 words a lane
+at most, every kernel), over the N of the ffc15360 path; at W = 96 and 128 H3 also at window 4
 (256-bit exponents) from such a library at TPI 16 and 32 (`--widths 96
 128 --only mont_fb_exp` for that alone).  `--curve P-224`
 sweeps P-224's padded moduli in its place: H1 and H2 at the field and
@@ -171,11 +173,25 @@ SWEEP_FB_N.update(dict.fromkeys(RFC_WIDE, (1, 16, 256, 1024, 2048, 4096,
                                            10000)))
 SWEEP_FB_CASES.update(dict.fromkeys(RFC_WIDE, ((8, None), (4, 256))))
 SWEEP_LIBS.update(dict.fromkeys(RFC_WIDE, SWEEP_LIBS[32]))
+# The widths past 256 words, built on demand: W = 480 at the 15360-bit
+# group of tests/golden/group_ffc15360.json, W = 512 at
+# `wide_modulus(16384)` (no group of the repo has it); over the N of the
+# ffc15360 path (its slice's 1000 and batches of one), 3 runs a time.
+FFC_WIDE = {480: "ffc15360", 512: None}
+FFC_SWEEP_N = (1, 16, 256, 1000)
+SWEEP_REPS.update(dict.fromkeys(FFC_WIDE, 3))
+for _grid in (SWEEP_N, SWEEP_FB_N):
+    _grid.update(dict.fromkeys(FFC_WIDE, FFC_SWEEP_N))
+SWEEP_FB_CASES.update(dict.fromkeys(FFC_WIDE, ((8, None), (4, 256))))
+SWEEP_LIBS.update(dict.fromkeys(FFC_WIDE, SWEEP_LIBS[32]))
 # The words a lane of a kernel may hold in a sweep's width library: H3
 # and H4 run blocks of up to 1024 threads (64 registers a thread), so 8
 # (kernel_words); H1 and H2 blocks of 128 (up to 255 and 168 registers),
-# so 16 there: W = 192 and 256 try TPI 16 beside 32.
+# so 16 there: W = 192 and 256 try TPI 16 beside 32.  Above 256 words
+# every kernel 16 (H3's and H4's blocks of 512 threads, `block_cap`): TPI
+# 32 alone at W = 480 and 512.
 SWEEP_SLICE_WORDS = {"mont_mul": 16, "mont_exp": 16}
+WIDE_SLICE_WORDS = 16
 # RFC 2409 §6.2, the Oakley 1024-bit MODP group's prime: W = 32.
 _OAKLEY_1024 = int(
     "FFFFFFFFFFFFFFFFC90FDAA22168C234C4C6628B80DC1CD129024E088A67CC74"
@@ -201,6 +217,7 @@ SWEEP_EP_N = {64: (1, 6, 16, 64, 256, 1024, 2048, 4096, 10000),
               96: (1, 6, 16, 64, 256, 1024, 4096, 10000),
               128: (1, 6, 16, 64, 256, 1024, 4096, 10000)}
 SWEEP_EP_N.update(dict.fromkeys(RFC_WIDE, SWEEP_EP_N[128]))
+SWEEP_EP_N.update(dict.fromkeys(FFC_WIDE, FFC_SWEEP_N))
 SWEEP_ADD_N = (1, 128, 1024, 4096, 16384, 131072)
 # H4's (elements, exponent bits) on the ModP paths (PERF.md §6): the
 # element count 10000 stands for --n, bits None for |q|.
@@ -286,11 +303,26 @@ def _group_p(name: str) -> int:
                16)
 
 
+def wide_modulus(bits: int) -> int:
+    """An odd modulus of exactly `bits` bits, SHA-256 in counter mode over
+    b"modulus-{bits}": where no group of the repo has a width (W = 512),
+    the kernels are checked and timed at it (a Montgomery product needs
+    only an odd modulus)."""
+    import hashlib
+
+    seed = f"modulus-{bits}".encode()
+    raw = b"".join(hashlib.sha256(seed + i.to_bytes(8, "big")).digest()
+                   for i in range(-(-bits // 256)))
+    x = int.from_bytes(raw, "big") >> (8 * len(raw) - bits)
+    return x | 1 << (bits - 1) | 1
+
+
 def _moduli(dev, widths=(64, 8)):
     """{W: MontCtx} of modp2048 (64), the P-256 field (8), the P-384 field
     (12), the P-521 field (its inner width 20), Oakley's 1024-bit group
-    (32), modp3072 (96), modp4096 (128), modp6144 (192) and modp8192
-    (256), for the widths asked."""
+    (32), modp3072 (96), modp4096 (128), modp6144 (192), modp8192 (256),
+    ffc15360 (480) and `wide_modulus(16384)` (512), for the widths
+    asked."""
     from vmn_tpu_torch.arith.ec import _CURVES
     from vmn_tpu_torch.arith.mont import MontCtx
     from vmn_tpu_torch.arith.pgroup import (
@@ -300,8 +332,10 @@ def _moduli(dev, widths=(64, 8)):
     moduli = {64: _RFC3526_2048, 8: _CURVES["P-256"][0],
               12: _CURVES["P-384"][0], 20: _CURVES["P-521"][0],
               32: _OAKLEY_1024, 96: _RFC3526_3072, 128: _RFC3526_4096}
-    return {w: MontCtx(moduli[w] if w in moduli else _group_p(RFC_WIDE[w]),
-                       dev) for w in widths}
+    named = {**RFC_WIDE, **FFC_WIDE}
+    return {w: MontCtx(moduli[w] if w in moduli else
+                       _group_p(named[w]) if named[w] else
+                       wide_modulus(32 * w), dev) for w in widths}
 
 
 def _tree_widths(K) -> list:
@@ -496,8 +530,9 @@ def _time_ec(E, dev, n: int, tag: str, w: int = 8, curve=None) -> dict:
 def _sweep_tpis(w: int, kernel: str) -> tuple:
     """The TPIs of `kernel` a width library for a sweep holds: 8, 16 and
     32 where they divide W and leave a lane at most SWEEP_SLICE_WORDS
-    (8 but for H1 and H2)."""
-    most = SWEEP_SLICE_WORDS.get(kernel, 8)
+    (8 but for H1 and H2; 16 for every kernel past 256 words)."""
+    most = (WIDE_SLICE_WORDS if w > 256 else
+            SWEEP_SLICE_WORDS.get(kernel, 8))
     return tuple(t for t in (8, 16, 32) if w % t == 0 and w // t <= most)
 
 

@@ -28,12 +28,14 @@ compute at an inner width of W' words, R' = 2^(32·W') > R, on operands
 padded with zero limbs, and convert at their boundary (`Modulus`);
 nothing outside the kernels changes.  `kernel_words` maps L to the
 kernels' words: a width of the main library (_WIDTHS) where L/2 is one,
-else ⌈L/2⌉ rounded up to 8 words (16 above 64), to at most MAX_WORDS =
-256 (8192 bits).  A width, or a kernel at a width, that the main
-library lacks is built at its first use (`width_library`: one nvcc of
-csrc/mont_kernels.cu with -DVMN_W=w, the TPIs of `coop_rule`), so every
-ModP group up to 8192 bits runs on the card, as `vog -bitlen n` makes
-them, RFC 3526's modp6144 (W = 192) and modp8192 (W = 256) among them.
+else ⌈L/2⌉ rounded up to 8 words (16 above 64, 32 above 128), to at
+most MAX_WORDS = 512 (16384 bits).  A width, or a kernel at a width,
+that the main library lacks is built at its first use (`width_library`:
+one nvcc of csrc/mont_kernels.cu with -DVMN_W=w, the TPIs of
+`coop_rule`), so every ModP group up to 16384 bits runs on the card, as
+`vog -bitlen n` makes them, RFC 3526's modp6144 (W = 192) and modp8192
+(W = 256) and NIST SP 800-57's 15360-bit strength (W = 480) among
+them.
 
 Kernel notes (what each replaces, what bounds it on an H100, what the
 design does about it):
@@ -91,9 +93,9 @@ design does about it):
   block holds an SM's shared memory alone; `fb_launch` sizes the blocks
   so that N = 10000 fills the 132 SMs once.  At 4096 bits two digits
   (256 KB) pass the 227 KB a block may use: the digit is staged in two
-  halves (so at 6144 bits, two 96 KB halves), at 8192 bits in quarters
-  (`fb_pieces`), the select running over every piece before the
-  product.  Bound by the products (one
+  halves (so at 6144 bits, two 96 KB halves), at 8192 bits in quarters,
+  at 15360 and 16384 bits in eighths (`fb_pieces`), the select running
+  over every piece before the product.  Bound by the products (one
   a digit) and, at window 8, by the select, which costs about as much
   as the product it feeds.  The TPU's one-hot f32 MXU gather is not
   carried over.
@@ -203,10 +205,11 @@ INNER_WORDS = {14: 8, 33: 20}
 # modp2048, modp3072, modp4096.  Every other width a modulus asks for is
 # built on demand (`build_widths`).
 _WIDTHS = (8, 12, 20, 64, 96, 128)
-# The widest modulus the kernels take: 256 words, 8192 bits (RFC 3526's
-# modp6144 at W = 192 and modp8192 at W = 256, built on demand).  Wider
-# raises: TPI 32 would leave a lane more than 8 words.
-MAX_WORDS = 256
+# The widest modulus the kernels take: 512 words, 16384 bits (RFC 3526's
+# modp6144 at W = 192 and modp8192 at W = 256, a 15360-bit group at
+# W = 480, built on demand).  Wider raises: TPI 32, one warp, would leave
+# a lane more than 16 words (a group of more than one warp is not built).
+MAX_WORDS = 512
 
 
 def kernel_words(L: int) -> int:
@@ -214,14 +217,15 @@ def kernel_words(L: int) -> int:
     INNER_WORDS[L]; else L/2 where the main library is built at it; else
     ⌈L/2⌉ rounded up to a multiple of 8 words (of 16 above 64, of 32
     above 128), built on demand, with the boundary conversion where that
-    is not L/2.  The rounding keeps a lane's slice within 8 words: the
-    cooperative product needs TPI | W (`CoopMontSum`), and H3's and H4's
-    blocks of up to 1024 threads (kFbBlock, kEpBlock) cap a thread at 64
-    registers, which W/TPI = 8 words fill (W = 64, TPI 8: 56 and 64
-    registers, no spill); W a multiple of 8 (16, 32) has TPI 8 (16, 32)
-    among its divisors (`coop_rule`): 6144 bits (L = 384) at W = 192,
-    8192 bits (L = 512) at W = 256, each at TPI 32.  Raises a ValueError
-    above MAX_WORDS."""
+    is not L/2.  The rounding keeps a lane's slice within 8 words up to
+    256 words, 16 above: the cooperative product needs TPI | W
+    (`CoopMontSum`), and H3's and H4's blocks of up to 1024 threads
+    (`block_cap`) cap a thread at 64 registers, which W/TPI = 8 words
+    fill (W = 64, TPI 8: 56 and 64 registers, no spill), their blocks of
+    up to 512 above 256 words at 128; W a multiple of 8 (16, 32) has TPI
+    8 (16, 32) among its divisors (`coop_rule`): 6144 bits (L = 384) at
+    W = 192, 8192 bits (L = 512) at W = 256, 15360 bits (L = 960) at
+    W = 480, each at TPI 32.  Raises a ValueError above MAX_WORDS."""
     if L in INNER_WORDS:
         return INNER_WORDS[L]
     if L % 2 == 0 and L // 2 in _WIDTHS:
@@ -806,6 +810,14 @@ COOP_TPI = {
     ("mont_exp", 256): ((1, 32),),
     ("mont_fb_exp", 256): ((1, 32),),
     ("mont_expprod_positions", 256): ((1, 32),),
+    ("mont_mul", 480): ((1, 32),),
+    ("mont_exp", 480): ((1, 32),),
+    ("mont_fb_exp", 480): ((1, 32),),
+    ("mont_expprod_positions", 480): ((1, 32),),
+    ("mont_mul", 512): ((1, 32),),
+    ("mont_exp", 512): ((1, 32),),
+    ("mont_fb_exp", 512): ((1, 32),),
+    ("mont_expprod_positions", 512): ((1, 32),),
     ("ec_scalar_mul", 8): ((16384, 2), (1, 4)),
     ("ec_multiexp_combine", 8): ((1, 8),),
     ("ec_point_add", 8): ((16384, 2), (4096, 4), (1, 8)),
@@ -870,7 +882,8 @@ def coop_launch(kernel: str, w: int, n: int):
     return tpi, threads, -(-need // threads)
 
 
-FB_BLOCK = 1024  # H3's threads a block at most (kFbBlock in mont_coop.cuh)
+FB_BLOCK = 1024  # H3's threads a block at most to 256 words (kFbBlock)
+WIDE_BLOCK = 512  # H3's and H4's above 256 words (kWideBlock)
 # The 227 KB of shared memory a block may opt in to (kFbShared): H3 stages
 # a digit's entries twice within it, or a share of them where two digits
 # do not fit (`fb_pieces`).
@@ -881,27 +894,34 @@ def fb_pieces(w: int, window: int) -> int:
     """The pieces H3 stages a digit of 2^window entries of W words in
     (fb_pieces in csrc/mont_kernels.cu): the smallest power of two P for
     which two buffers of 1/P of a digit fit FB_SHARED.  Window 8: 1 up to
-    W = 96, 2 at W = 128 and 192, 4 at W = 256."""
+    W = 96, 2 at W = 128 and 192, 4 at W = 256, 8 at W = 480 and 512."""
     p = 1
     while 2 * 4 * (1 << window) * w // p > FB_SHARED:
         p *= 2
     return p
 
 
+def block_cap(w: int) -> int:
+    """H3's and H4's threads a block at most at W words (block_cap in
+    csrc/mont_coop.cuh, which bounds their __launch_bounds__ too):
+    FB_BLOCK up to 256 words, WIDE_BLOCK above, so that a thread may hold
+    128 registers where TPI 32 leaves a lane 15 or 16 words."""
+    return FB_BLOCK if w <= 256 else WIDE_BLOCK
+
+
 def fb_launch(w: int, n: int, sms: int):
     """(TPI, threads a block, blocks) of H3 over n >= 1 elements of W
     words on a card of `sms` SMs.  H3's block holds one digit's staged
     entries twice (128 KB at window 8, W = 64), so one block fills an SM:
-    a block takes about n/sms elements (whole warps, at most FB_BLOCK
-    threads), so that the blocks fill every SM once, as far as FB_BLOCK
-    allows, and no last wave is thin."""
+    a block takes about n/sms elements (whole warps, at most
+    `block_cap(w)` threads), so that the blocks fill every SM once, as far
+    as that cap allows, and no last wave is thin."""
     tpi = threads_per_element("mont_fb_exp", w, n)
     per_block = -(-n // sms)
-    threads = min(FB_BLOCK, -(-per_block * tpi // 32) * 32)
+    threads = min(block_cap(w), -(-per_block * tpi // 32) * 32)
     return tpi, threads, -(-n * tpi // threads)
 
 
-EP_BLOCK = 1024  # H4's threads a block at most (kEpBlock)
 EP_SHARED = FB_SHARED  # the shared memory an H4 block may use
 EP_ACC_BYTES = 64 * 1024  # of which the accumulators take at most this
 # Elements an H4 block, or a share of one, takes at least where N allows.
@@ -947,9 +967,10 @@ def ep_launch(w: int, n: int, npos: int, sms: int) -> EpLaunch:
     EP_MIN_ELEMENTS elements.  While that leaves SMs without a block (a
     few elements with many positions), jb takes the next such size down.
     Within a block, the groups hold jb·subs items (subs shares of at
-    least EP_MIN_ELEMENTS elements), at most EP_BLOCK / tpi a round."""
+    least EP_MIN_ELEMENTS elements), at most `block_cap(w)` / tpi a
+    round."""
     tpi = threads_per_element("mont_expprod_positions", w, n)
-    gmax = EP_BLOCK // tpi
+    gmax = block_cap(w) // tpi
     cap = EP_ACC_BYTES // (4 * w)  # accumulators a block may hold
     for jb in range(min(npos, cap) // EP_JB * EP_JB, 0, -EP_JB):
         if npos % jb:
